@@ -1,0 +1,178 @@
+"""Transformer building blocks. Port of ``ray_tpu/models/layers.py``.
+
+Parameters are plain nested dicts of tensors with the JAX package's keys,
+shapes and dtypes; layers are functions over them. Compute is bf16 by
+default with f32 params and accumulators. The memory-lean custom VJPs
+(``layer_norm``, the MLP) are ``torch.autograd.Function``s that save the
+same residuals as the JAX rules. The routed MoE layer comes in a later
+slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.parallel.ring_attention import reference_attention
+
+Params = Dict[str, Any]
+
+
+def _init_dense(generator: torch.Generator, shape, device, scale=0.02,
+                dtype=torch.float32):
+    x = torch.randn(shape, generator=generator, device=generator.device)
+    return (x * scale).to(device=device, dtype=dtype)
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (2-D) with an f32 result accumulated in f32 from operands in
+    their own dtype: ``preferred_element_type=float32``. On the card a
+    bf16 product takes ``torch.mm``'s ``out_dtype`` overload; that
+    overload has no CPU kernel, so on the CPU the operands, already
+    rounded to their dtype, are upcast (the same products, exactly)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+# --------------------------------------------------------------- layer norm
+class _LayerNorm(torch.autograd.Function):
+    """Saves (x, mu, rstd, scale) and recomputes x-hat in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        x32 = x.float()
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, correction=0)
+        rstd = torch.rsqrt(var + eps)
+        y = (x32 - mu) * rstd
+        ctx.save_for_backward(x, mu, rstd, scale)
+        return (y * scale + bias).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mu, rstd, scale = ctx.saved_tensors
+        dy32 = dy.float()
+        xhat = (x.float() - mu) * rstd
+        reduce_dims = tuple(range(x.dim() - 1))
+        dscale = (dy32 * xhat).sum(dim=reduce_dims)
+        dbias = dy32.sum(dim=reduce_dims)
+        t = dy32 * scale
+        dx = rstd * (t - t.mean(dim=-1, keepdim=True)
+                     - xhat * (t * xhat).mean(dim=-1, keepdim=True))
+        return (dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype),
+                None)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm in f32 (population variance) returning x's dtype."""
+    return _LayerNorm.apply(x, scale, bias, eps)
+
+
+# ---------------------------------------------------------------- attention
+def init_attention(generator, d_model, n_head, dtype=torch.float32, *,
+                   device: DeviceLike = None, lead: Tuple[int, ...] = ()):
+    """``lead`` prepends dims to every leaf (``(n_layer,)`` for a stack)."""
+    dev = resolve_device(device)
+    head_dim = d_model // n_head
+    qkv = (*lead, d_model, n_head, head_dim)
+    return {
+        "wq": _init_dense(generator, qkv, dev, dtype=dtype),
+        "wk": _init_dense(generator, qkv, dev, dtype=dtype),
+        "wv": _init_dense(generator, qkv, dev, dtype=dtype),
+        "wo": _init_dense(generator, (*lead, n_head, head_dim, d_model), dev,
+                          dtype=dtype),
+    }
+
+
+def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
+                    impl: str = "reference",
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D]. impl: "reference" (plain PyTorch) or
+    "flash" (the Hopper kernels on CUDA tensors). The q/k/v/o projections
+    are plain matmuls in the compute dtype."""
+    cd = compute_dtype
+    B, S, D = x.shape
+    _, H, K = params["wq"].shape
+    xc = x.to(cd)
+
+    def project(w):
+        return (xc @ w.to(cd).reshape(D, H * K)).view(B, S, H, K)
+
+    q, k, v = project(params["wq"]), project(params["wk"]), project(params["wv"])
+    if impl == "flash":
+        o = flash_attention(q, k, v, causal=causal)
+    elif impl == "reference":
+        o = reference_attention(q, k, v, causal=causal)
+    else:
+        raise ValueError(f"attention impl {impl!r} is not ported; "
+                         f"use 'flash' or 'reference'")
+    out = o.to(cd).reshape(B, S, H * K) @ params["wo"].to(cd).reshape(H * K, D)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- dense MLP
+def init_mlp(generator, d_model, d_ff, dtype=torch.float32, *,
+             device: DeviceLike = None, lead: Tuple[int, ...] = ()):
+    dev = resolve_device(device)
+    return {
+        "w1": _init_dense(generator, (*lead, d_model, d_ff), dev, dtype=dtype),
+        "b1": torch.zeros((*lead, d_ff), dtype=dtype, device=dev),
+        "w2": _init_dense(generator, (*lead, d_ff, d_model), dev, dtype=dtype),
+        "b2": torch.zeros((*lead, d_model), dtype=dtype, device=dev),
+    }
+
+
+def _gelu(u):
+    return F.gelu(u, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _mlp_compute(x, w1, b1, w2, b2, cd):
+    """Matmul outputs and bias adds stay in the compute dtype."""
+    u = x.to(cd) @ w1.to(cd) + b1.to(cd)
+    o = _gelu(u) @ w2.to(cd) + b2.to(cd)
+    return o, u
+
+
+class _LeanMLP(torch.autograd.Function):
+    """2-layer GELU MLP that saves only (x, w1, w2, u), u the
+    pre-activation, and recomputes gelu and its derivative in the
+    backward. dw1 and dw2 accumulate in f32; the bias grads sum in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, cd):
+        o, u = _mlp_compute(x, w1, b1, w2, b2, cd)
+        ctx.save_for_backward(x, w1, w2, u)
+        ctx.cd = cd
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        x, w1, w2, u = ctx.saved_tensors
+        cd = ctx.cd
+        do = do.to(cd)
+        g = _gelu(u)
+        x2 = x.reshape(-1, x.shape[-1])
+        do2 = do.reshape(-1, do.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        dg = do @ w2.to(cd).t()
+        dw2 = mm_f32(g2.t(), do2)
+        du = torch.ops.aten.gelu_backward(dg, u, approximate="tanh")
+        du2 = du.reshape(-1, du.shape[-1])
+        dw1 = mm_f32(x2.to(cd).t(), du2)
+        dx = du @ w1.to(cd).t()
+        db1 = du2.float().sum(dim=0)
+        db2 = do2.float().sum(dim=0)
+        return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(w1.dtype),
+                dw2.to(w2.dtype), db2.to(w2.dtype), None)
+
+
+def apply_mlp(params: Params, x, compute_dtype=torch.bfloat16):
+    out = _LeanMLP.apply(x, params["w1"], params["b1"], params["w2"],
+                         params["b2"], compute_dtype)
+    return out.to(x.dtype)

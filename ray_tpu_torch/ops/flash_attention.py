@@ -1,0 +1,244 @@
+"""Flash attention, forward and backward, over hand-written Hopper kernels.
+
+Port of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
+there become three CUDA kernels in ``csrc/flash_attention.cu``: a forward
+with online softmax that writes ``o`` and the row logsumexp, a dq kernel
+and a dk/dv kernel, each recomputing the probabilities from the saved
+logsumexp so that no S x S tensor reaches device memory.
+
+Each kernel has a wrapper and a plain PyTorch version of the same
+function with the same cast points (``flash_fwd_plain``,
+``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``). A wrapper given CPU
+tensors computes the plain version; given CUDA tensors it launches its
+kernel or raises. ``LAUNCHES`` counts kernel launches, one per launch.
+
+Internal layout is [B*H, S, D]; the TPU's [BH, 8, S] logsumexp layout
+existed only for its (8, 128) tiling and is dropped.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ray_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+# The kernels tile both sequence axes by 64 rows and take a head dim of 64
+# (every GPT-2 preset has d_model / n_head == 64).
+BLOCK = 64
+HEAD_DIM = 64
+
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------ plain versions
+def _masked_scores(q, k, *, scale, causal):
+    """s = q.k^T * scale in f32, with the causal mask at NEG_INF."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        S = q.shape[1]
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def flash_fwd_plain(q, k, v, *, scale, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v [BH, S, D] -> (o [BH, S, D] in q's dtype, lse [BH, S] f32).
+    p is cast to v's dtype before p.v, as in the kernel."""
+    s = _masked_scores(q, k, scale=scale, causal=causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    o = (acc / l).to(q.dtype)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return o, lse
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, *, scale, causal):
+    s = _masked_scores(q, k, scale=scale, causal=causal)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale, causal) -> torch.Tensor:
+    """dq = ds.k with ds cast to k's dtype, accumulated in f32."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, scale=scale, causal=causal)
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale, causal
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk = ds^T.q (ds cast to q's dtype), dv = p^T.do (p cast to do's
+    dtype), both accumulated in f32."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, scale=scale, causal=causal)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------- kernel wrappers
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+}
+
+
+def _kernel(name: str):
+    lib = _build.load("flash_attention")
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_cpu(*tensors) -> bool:
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return True
+    if devices != {"cuda"}:
+        raise ValueError(f"flash attention takes cpu or cuda tensors on one "
+                         f"device type, got {sorted(devices)}")
+    return False
+
+
+def _check_cuda(bf16_tensors, f32_tensors=()):
+    q = bf16_tensors[0]
+    if q.dim() != 3:
+        raise ValueError(f"expected [BH, S, D] tensors, got shape {tuple(q.shape)}")
+    BH, S, D = q.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take head dim {HEAD_DIM}, got {D}")
+    if not 0 < BH <= 65535 or S <= 0:
+        raise ValueError(f"unsupported B*H={BH}, S={S}")
+    for t in bf16_tensors:
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (BH, S, D):
+            raise ValueError(f"expected bf16 [{BH}, {S}, {D}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in f32_tensors:
+        if t.dtype != torch.float32 or tuple(t.shape) != (BH, S):
+            raise ValueError(f"expected f32 [{BH}, {S}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in (*bf16_tensors, *f32_tensors):
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+        if t.device != q.device:
+            raise ValueError("all tensors must be on one device")
+    return BH, S
+
+
+def _launch(name: str, counter: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+    LAUNCHES[counter] += 1
+
+
+def flash_fwd(q, k, v, *, scale: float, causal: bool):
+    """(o, lse) of q, k, v [BH, S, D]: the plain version on CPU tensors,
+    the forward kernel on CUDA tensors."""
+    if _on_cpu(q, k, v):
+        return flash_fwd_plain(q, k, v, scale=scale, causal=causal)
+    BH, S = _check_cuda((q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
+    _launch("flash_fwd_bf16", "flash_fwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), BH, S, float(scale), int(causal))
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
+    """dq: the plain version on CPU tensors, the dq kernel on CUDA."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
+                                  causal=causal)
+    BH, S = _check_cuda((q, k, v, do), (lse, delta))
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq_bf16", "flash_bwd_dq", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            BH, S, float(scale), int(causal))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
+    """(dk, dv): the plain version on CPU tensors, the dk/dv kernel on CUDA."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
+                                   causal=causal)
+    BH, S = _check_cuda((q, k, v, do), (lse, delta))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_bwd_dkv_bf16", "flash_bwd_dkv", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            BH, S, float(scale), int(causal))
+    return dk, dv
+
+
+# --------------------------------------------------------------- autograd
+class _FlashAttention(torch.autograd.Function):
+    """custom_vjp twin: saves (q, k, v, o, lse); the backward computes
+    delta = sum(do * o) in f32 outside the kernels, then dq and dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o, lse = flash_fwd(q, k, v, scale=scale, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        kw = dict(scale=ctx.scale, causal=ctx.causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    block_q: int = BLOCK,
+    block_k: int = BLOCK,
+) -> torch.Tensor:
+    """Flash attention over [B, S, H, D] (the heads layout of
+    models/layers.apply_attention). Differentiable. ``block_q`` and
+    ``block_k`` are the kernels' tile sizes; the kernels are built for 64."""
+    if block_q != BLOCK or block_k != BLOCK:
+        raise ValueError(f"the kernels tile by {BLOCK}, got block_q={block_q}, "
+                         f"block_k={block_k}")
+    B, S, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+
+    def to_bh(x):
+        return x.transpose(1, 2).reshape(B * H, S, D)
+
+    o = _FlashAttention.apply(to_bh(q), to_bh(k), to_bh(v), float(scale),
+                              bool(causal))
+    return o.reshape(B, H, S, D).transpose(1, 2)

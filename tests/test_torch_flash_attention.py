@@ -1,0 +1,132 @@
+"""The port's flash attention (ray_tpu_torch.ops.flash_attention) against
+the JAX package's Pallas kernels, run here in Pallas interpret mode.
+
+On CPU tensors the port computes each kernel's plain PyTorch version, so
+these tests hold the plain versions — and the autograd wiring around them
+— to the TPU kernels. Inputs are made with numpy from a seed and fed to
+both packages in f32.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import flash_attention as jfa
+from ray_tpu_torch.ops import flash_attention as tfa
+
+B, H, D = 2, 2, 32
+CASES = [(256, True), (256, False), (192, True)]  # 192: S not a block multiple
+JAX_BLOCK = 128
+# The JAX package's own bounds for its Pallas kernels against full
+# attention (tests/test_parallel.py): f32 sums in another order.
+O_ATOL = 2e-5
+GRAD_ATOL = 1e-4
+
+
+def _inputs(S, seed=0):
+    rng = np.random.default_rng(seed + S)
+    return [rng.standard_normal((B, S, H, D), dtype=np.float32) for _ in range(4)]
+
+
+def _to_bh(x):
+    S = x.shape[1]
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(B * H, S, D))
+
+
+@pytest.fixture(scope="module")
+def pallas_launchers():
+    """_flash_fwd and _flash_bwd of the JAX package per case, with the
+    cotangent of sum(o * cos(o)) as do."""
+    out = {}
+    for S, causal in CASES:
+        q, k, v, _ = (_to_bh(x) for x in _inputs(S))
+        kw = dict(scale=1.0 / D ** 0.5, causal=causal, block_q=JAX_BLOCK,
+                  block_k=JAX_BLOCK, interpret=True)
+        o, lse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+        do = jnp.cos(o) - o * jnp.sin(o)
+        dq, dk, dv = jfa._flash_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    o, lse, do, **kw)
+        out[(S, causal)] = {name: np.asarray(x) for name, x in dict(
+            q=q, k=k, v=v, o=o, lse=lse, do=do, dq=dq, dk=dk, dv=dv).items()}
+    return out
+
+
+@pytest.mark.parametrize("S,causal", CASES)
+def test_flash_attention_matches_pallas(S, causal):
+    """Forward and all three grads through the public flash_attention."""
+    q, k, v, _ = _inputs(S)
+
+    def loss_jax(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=causal, block_q=JAX_BLOCK,
+                                block_k=JAX_BLOCK, interpret=True)
+        return jnp.sum(o * jnp.cos(o)), o
+
+    (_, o_j), grads_j = jax.value_and_grad(loss_jax, argnums=(0, 1, 2),
+                                           has_aux=True)(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o_t = tfa.flash_attention(qt, kt, vt, causal=causal)
+    grads_t = torch.autograd.grad(torch.sum(o_t * torch.cos(o_t)), (qt, kt, vt))
+    np.testing.assert_allclose(o_t.detach().numpy(), np.asarray(o_j), atol=O_ATOL)
+    for gt, gj, name in zip(grads_t, grads_j, "qkv"):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=GRAD_ATOL,
+                                   err_msg=f"d{name} (S={S}, causal={causal})")
+
+
+@pytest.mark.parametrize("S,causal", CASES)
+def test_fwd_plain_matches_pallas_fwd(S, causal, pallas_launchers):
+    r = pallas_launchers[(S, causal)]
+    o, lse = tfa.flash_fwd_plain(*(torch.tensor(r[n]) for n in "qkv"),
+                                 scale=1.0 / D ** 0.5, causal=causal)
+    np.testing.assert_allclose(o.numpy(), r["o"], atol=O_ATOL)
+    # lse ~ log(S) ~ 5-6 in f32: 2e-5 is a few ulps there
+    np.testing.assert_allclose(lse.numpy(), r["lse"], atol=2e-5)
+
+
+def _bwd_inputs(r):
+    q, k, v, o, lse, do = (torch.tensor(r[n]) for n in
+                           ("q", "k", "v", "o", "lse", "do"))
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("S,causal", CASES)
+def test_bwd_dq_plain_matches_pallas_dq(S, causal, pallas_launchers):
+    r = pallas_launchers[(S, causal)]
+    dq = tfa.flash_bwd_dq_plain(*_bwd_inputs(r), scale=1.0 / D ** 0.5,
+                                causal=causal)
+    np.testing.assert_allclose(dq.numpy(), r["dq"], atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("S,causal", CASES)
+def test_bwd_dkv_plain_matches_pallas_dkv(S, causal, pallas_launchers):
+    r = pallas_launchers[(S, causal)]
+    dk, dv = tfa.flash_bwd_dkv_plain(*_bwd_inputs(r), scale=1.0 / D ** 0.5,
+                                     causal=causal)
+    np.testing.assert_allclose(dk.numpy(), r["dk"], atol=GRAD_ATOL)
+    np.testing.assert_allclose(dv.numpy(), r["dv"], atol=GRAD_ATOL)
+
+
+def test_cpu_tensors_launch_no_kernel():
+    tfa.reset_launch_counts()
+    q, k, v, _ = (torch.from_numpy(x).requires_grad_(True) for x in _inputs(64))
+    o = tfa.flash_attention(q, k, v, causal=True)
+    o.sum().backward()
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    bf = torch.zeros(4, 128, 64, dtype=torch.bfloat16)
+    assert tfa._check_cuda((bf, bf, bf)) == (4, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._check_cuda((torch.zeros(4, 128, 32, dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError, match="bf16"):
+        tfa._check_cuda((bf, bf.float(), bf))
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(128, 4, 64, dtype=torch.bfloat16).transpose(0, 1)
+        tfa._check_cuda((t, t, t))
+    with pytest.raises(ValueError, match="f32"):
+        tfa._check_cuda((bf,) * 4, (torch.zeros(4, 128),
+                                    torch.zeros(4, 128, dtype=torch.float64)))
+    with pytest.raises(ValueError, match="tile"):
+        tfa.flash_attention(*(torch.zeros(1, 64, 1, 64),) * 3, block_q=128)
