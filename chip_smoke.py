@@ -15,7 +15,9 @@ Phases, each of which exits non-zero on failure:
    (2 warm-up and 5 timed steps, weights from a seeded generator), with
    every launch counter set to 0 just before and read just after, and the
    first step's loss and grad norm held against the same step with
-   reference attention.
+   reference attention (whose step is timed too); then one more step
+   under ``torch.profiler``: device time by kernel category and by
+   operator, and the device's busy time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -283,7 +285,7 @@ def train(torch, fa):
           f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} (989 TFLOP/s peak), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    profile_step(torch, step, state, batch)
+    profile_step(torch, step, state, batch, step_ms)
     return launches
 
 
@@ -300,14 +302,17 @@ def category(kernel: str) -> str:
     return "elementwise and other"
 
 
-def profile_step(torch, step, state, batch):
+def profile_step(torch, step, state, batch, step_ms):
     """One more main-path step under torch.profiler: device time by kernel
-    category and the device's idle share of the step's wall time."""
+    category and by operator. The profiler's own host cost stretches the
+    profiled step's wall time, so the device's idle share is taken against
+    the unprofiled step time ``step_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
@@ -319,16 +324,24 @@ def profile_step(torch, step, state, batch):
     if busy_us == 0:
         print("profile: the profiler saw no device time (not measured)")
         return
-    print(f"profile: one step, wall {wall_us / 1e3:.1f} ms (profiler on), "
-          f"device busy {busy_us / 1e3:.1f} ms, idle share "
-          f"{1 - busy_us / wall_us:.3f}, {sum(c for _, c, _ in rows)} kernels")
+    print(f"profile: one step, device busy {busy_us / 1e3:.1f} ms in "
+          f"{sum(c for _, c, _ in rows)} kernels; idle share "
+          f"{1 - busy_us / (step_ms * 1e3):.3f} of the unprofiled "
+          f"{step_ms:.1f} ms step (wall {wall_us / 1e3:.1f} ms with the "
+          f"profiler on)")
     shares = {}
     for key, _, t in rows:
         shares[category(key)] = shares.get(category(key), 0.0) + t
     for cat, t in sorted(shares.items(), key=lambda kv: -kv[1]):
         print(f"profile: {cat}: {t / 1e3:.2f} ms ({t / busy_us:.3f})")
-    for key, count, t in sorted(rows, key=lambda r: -r[2])[:12]:
-        print(f"profile:   {t / 1e3:8.2f} ms  x{count:<4d} {key[:110]}")
+    for key, count, t in sorted(rows, key=lambda r: -r[2])[:8]:
+        print(f"profile:   {t / 1e3:8.2f} ms  x{count:<4d} {key[:100]}")
+    # the operators that launched them, by input shapes
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms  "
+              f"x{e.count:<4d} {e.key} {str(e.input_shapes)[:90]}")
 
 
 def main() -> int:

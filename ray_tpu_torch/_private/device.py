@@ -6,7 +6,7 @@ when no GPU is found.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -22,14 +22,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "pass device='cpu' to run on the CPU")
     return dev
 
-
-def device_of(tree) -> Optional[torch.device]:
-    """The device of the first tensor found in a nested dict of tensors."""
-    if isinstance(tree, torch.Tensor):
-        return tree.device
-    if isinstance(tree, dict):
-        for value in tree.values():
-            found = device_of(value)
-            if found is not None:
-                return found
-    return None

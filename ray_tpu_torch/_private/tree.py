@@ -15,11 +15,10 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
-def tree_map(fn: Callable, tree, *rest):
+def tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
-        return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
-                for key in sorted(tree)}
-    return fn(tree, *rest)
+        return {key: tree_map(fn, tree[key]) for key in sorted(tree)}
+    return fn(tree)
 
 
 def tree_unflatten(like, leaves):

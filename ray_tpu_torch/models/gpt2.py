@@ -158,8 +158,12 @@ def forward(params, tokens, cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor
     """tokens [B, S] -> (logits [B, S, V] f32, aux loss scalar (0: no MoE))."""
     impl = _resolve_attention(cfg, tokens.device)
     x = embed(params, tokens, cfg)
+    # One unbind per stacked leaf: its backward stacks the layers' grads in
+    # one pass, where indexing leaf[i] per layer would zero-fill and add a
+    # full [n_layer, ...] gradient for every layer.
+    layers = tree_map(lambda leaf: leaf.unbind(0), params["blocks"])
     for i in range(cfg.n_layer):
-        block = tree_map(lambda leaf: leaf[i], params["blocks"])
+        block = tree_map(lambda per_layer: per_layer[i], layers)
         if cfg.remat:
             x = checkpoint(_block_apply, block, x, cfg, impl,
                            use_reentrant=False)

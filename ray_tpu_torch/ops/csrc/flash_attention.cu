@@ -160,7 +160,10 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// One block per (Q tile, b*h). Online softmax over the KV tiles.
+// Replaces _fwd_kernel (ray_tpu/ops/flash_attention.py:29). Bound at the
+// main shape: ~30 us by bytes (q, k, v read, o and lse written once).
+// One block per (Q tile, b*h); the Q fragments stay in registers for the
+// whole KV loop, with the online softmax (m, l, acc) in f32 registers.
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -257,7 +260,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// One block per (Q tile, b*h): dq = sum over KV tiles of ds.k.
+// Replaces _bwd_dq_kernel (flash_attention.py:160). Bound at the main
+// shape: ~39 us by tensor-core operations (three products per tile pair).
+// One block per (Q tile, b*h): the Q and dO fragments and the row lse and
+// delta stay in registers; each KV tile recomputes p from lse, and
+// dq = sum over KV tiles of ds.k accumulates in f32 registers.
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -323,9 +330,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(dq + base, acc, q0 + w0, S, g, t);
 }
 
+// Replaces _bwd_dkv_kernel (flash_attention.py:212). Bound at the main
+// shape: ~52 us by tensor-core operations (four products per tile pair).
 // One block per (KV tile, b*h): dv = sum over Q tiles of p^T.do and
-// dk = sum of ds^T.q. Each warp owns 16 KV rows; scores are held
-// transposed (KV rows x Q columns), so lse and delta are per column.
+// dk = sum of ds^T.q, both in f32 registers. Each warp owns 16 KV rows;
+// scores are held transposed (KV rows x Q columns), so lse and delta are
+// staged per column in shared memory. The K and V fragments are re-read
+// from shared memory per Q tile to leave registers for the two
+// accumulators (162 registers, no spills).
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,

@@ -37,22 +37,18 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
-                                 warmup_steps: int, decay_steps: int,
-                                 end_value: float = 0.0) -> Callable[[int], float]:
-    """optax.warmup_cosine_decay_schedule: linear from init to peak over
-    ``warmup_steps``, then cosine from peak to ``end_value`` at
-    ``decay_steps``."""
-    alpha = 0.0 if peak_value == 0 else end_value / peak_value
+def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
+                                 decay_steps: int) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, peak_value, warmup_steps,
+    decay_steps): linear from 0 to the peak over ``warmup_steps``, then
+    cosine down to 0 at ``decay_steps``."""
     cos_steps = decay_steps - warmup_steps
 
     def schedule(count: int) -> float:
         if count < warmup_steps:
-            frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
-            return (init_value - peak_value) * frac + peak_value
+            return peak_value * max(count, 0) / warmup_steps
         t = min(count - warmup_steps, cos_steps)
-        cosine = 0.5 * (1 + math.cos(math.pi * t / cos_steps))
-        return peak_value * ((1 - alpha) * cosine + alpha)
+        return peak_value * 0.5 * (1 + math.cos(math.pi * t / cos_steps))
 
     return schedule
 
@@ -62,8 +58,9 @@ class ClipAdamW:
 
     * clip: ``g`` if ``norm < max_norm`` else ``g / norm * max_norm``
       (not ``clip_grad_norm_``'s ``max_norm / (norm + 1e-6)``);
-    * adam: ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``, bias
-      corrected at count+1, ``u = mu_hat / (sqrt(nu_hat + eps_root) + eps)``;
+    * adam (b1 0.9, eps 1e-8, eps_root 0): ``mu = (1-b1) g + b1 mu``,
+      ``nu = (1-b2) g^2 + b2 nu``, bias corrected at count+1,
+      ``u = mu_hat / (sqrt(nu_hat) + eps)``;
     * decoupled weight decay on every leaf, no mask: ``u + wd * p``;
     * ``p += -lr(count) * u``.
 
@@ -71,12 +68,14 @@ class ClipAdamW:
     to ``params`` and to the moments in place and returns the new state.
     """
 
+    b1 = 0.9
+    eps = 1e-8
+
     def __init__(self, schedule: Callable[[int], float], *, max_norm: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 eps_root: float = 0.0, weight_decay: float = 1e-4):
+                 b2: float, weight_decay: float):
         self.schedule = schedule
         self.max_norm = max_norm
-        self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
+        self.b2 = b2
         self.weight_decay = weight_decay
 
     def init(self, params):
@@ -101,7 +100,7 @@ class ClipAdamW:
             g = torch.where(clip, g, g / g_norm * self.max_norm)
             mu.mul_(b1).add_(g * (1 - b1))
             nu.mul_(b2).add_(g * g * (1 - b2))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2 + self.eps_root) + self.eps)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             u = u + self.weight_decay * p
             p.add_(step * u)
         return {"count": count, "mu": opt_state["mu"], "nu": opt_state["nu"]}
@@ -117,7 +116,7 @@ def default_optimizer(
     grad_clip: float = 1.0,
 ) -> ClipAdamW:
     sched = warmup_cosine_decay_schedule(
-        0.0, learning_rate, warmup_steps, max(total_steps, warmup_steps + 1))
+        learning_rate, warmup_steps, max(total_steps, warmup_steps + 1))
     return ClipAdamW(sched, max_norm=grad_clip, b2=b2,
                      weight_decay=weight_decay)
 

@@ -19,9 +19,9 @@ from ray_tpu_torch.parallel import train_step as TT
 B, S = 2, 64
 
 
-def _cfgs(dtype="float32", attention="flash"):
+def _cfgs(dtype="float32", attention="flash", remat=False):
     common = dict(vocab_size=256, max_seq=S, n_layer=2, n_head=4, d_model=64,
-                  remat=False, attention=attention)
+                  remat=remat, attention=attention)
     return (JG.GPT2Config(dtype=jnp.dtype(dtype), **common),
             TG.GPT2Config(dtype=getattr(torch, dtype), **common))
 
@@ -36,10 +36,12 @@ def jax_params():
     return jax.tree.map(np.asarray, JG.init(jax.random.PRNGKey(0), jcfg))
 
 
-def test_forward_loss_and_grads_match_jax(jax_params):
+@pytest.mark.parametrize("remat", [False, True])
+def test_forward_loss_and_grads_match_jax(jax_params, remat):
     """f32 compute, flash attention on both sides (Pallas in interpret mode
-    against the port's plain kernel versions): the algorithm."""
-    jcfg, tcfg = _cfgs()
+    against the port's plain kernel versions): the algorithm. remat is
+    jax.checkpoint on one side and torch.utils.checkpoint on the other."""
+    jcfg, tcfg = _cfgs(remat=remat)
     tok = _tokens(1)
     logits_j, _ = JG.forward(jax_params, jnp.asarray(tok[:, :-1]), jcfg)
     (loss_j, _), grads_j = jax.value_and_grad(
@@ -51,13 +53,14 @@ def test_forward_loss_and_grads_match_jax(jax_params):
     logits_t, aux = TG.forward(params, torch.from_numpy(tok[:, :-1]), tcfg)
     loss_t, metrics = TG.loss_fn(params, {"tokens": torch.from_numpy(tok)}, tcfg)
     grads_t = torch.autograd.grad(loss_t, leaves)
+    loss_t = loss_t.detach()
 
     assert logits_t.shape == (B, S, 256) and logits_t.dtype == torch.float32
     assert float(aux) == 0.0 and float(metrics["aux_loss"]) == 0.0
     # f32 through two blocks and the tied projection, other sum orders
     np.testing.assert_allclose(logits_t.detach().numpy(), np.asarray(logits_j),
                                atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-6)
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-6)
     flat_j = jax.tree_util.tree_leaves(grads_j)
     assert len(flat_j) == len(grads_t)
     for gt, gj in zip(grads_t, flat_j):
@@ -129,12 +132,26 @@ def test_eval_step_matches_loss(jax_params):
 def test_schedule_matches_optax():
     import optax
 
-    ours = TT.warmup_cosine_decay_schedule(0.0, 1e-3, 2, 10)
+    ours = TT.warmup_cosine_decay_schedule(1e-3, 2, 10)
     ref = optax.warmup_cosine_decay_schedule(0.0, 1e-3, 2, 10)
     assert ours(0) == 0.0 and ours(1) == pytest.approx(5e-4)
     # optax evaluates in f32, ours in f64: a few f32 ulps apart
     for count in range(14):
         assert ours(count) == pytest.approx(float(ref(count)), rel=1e-5, abs=1e-12)
+
+
+def test_convert_carries_bf16_bits():
+    import ml_dtypes
+
+    a = np.random.default_rng(4).standard_normal((3, 5)).astype(ml_dtypes.bfloat16)
+    tree = {"w": a, "inner": {"b": np.arange(4, dtype=np.float32)}}
+    t = params_from_jax(tree, "cpu")
+    assert t["w"].dtype == torch.bfloat16 and t["inner"]["b"].dtype == torch.float32
+    assert (t["w"].view(torch.int16).numpy().view(np.uint16)
+            == a.view(np.uint16)).all()
+    back = params_to_numpy(t)
+    np.testing.assert_array_equal(back["w"], a.astype(np.float32))
+    np.testing.assert_array_equal(back["inner"]["b"], tree["inner"]["b"])
 
 
 def test_init_shapes_dtypes_and_scales(jax_params):
