@@ -13,11 +13,12 @@ Phases, each of which exits non-zero on failure:
 3. the main path: GPT-2-small at full width (12 layers, 12 heads, d 768,
    vocab 50304, seq 1024) training at batch 16 through ``make_train_step``
    (2 warm-up and 5 timed steps, weights from a seeded generator), with
-   every launch counter set to 0 just before and read just after, and the
-   first step's loss and grad norm held against the same step with
-   reference attention (whose step is timed too); then one more step
-   under ``torch.profiler``: device time by kernel category and by
-   operator, and the device's busy time.
+   every launch counter set to 0 just before and read just after; the
+   gradients of the attention leaves from the same weights, and the first
+   step's loss and grad norm, held against reference attention (whose
+   step is timed too); then one more step under ``torch.profiler``:
+   device time by kernel category and by operator, and the device's busy
+   time, from which PERF.md's "Where the time goes" is written.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
@@ -38,18 +39,34 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 HEAD_DIM = 64
 SCALE = 1.0 / math.sqrt(HEAD_DIM)
-# Kernel vs plain version, both in bf16 with f32 accumulation. They round
-# at the same points but sum in other orders (and the forward's online
-# softmax rescales p per tile), so a bf16 output may differ by a few ulps
-# of its largest value: 2^-6 * max(1, max|ref|) is 4 ulps there. lse is
-# f32 throughout.
-BF16_REL_TOL = 2.0 ** -6
-LSE_ABS_TOL = 1e-3
-# First training step, flash vs reference attention on the card, both bf16:
-# the attention outputs round differently, which moves a mean loss of ~11
-# by far less than 1% and the gradient norm by a few percent at most.
-LOSS_RTOL = 1e-2
-GRAD_NORM_RTOL = 5e-2
+# Kernel vs plain version, both in bf16 with f32 accumulation, element by
+# element: |kernel - plain| <= BF16_RTOL * |plain| + ATOL_RMS * rms(plain)
+# + ABS_FLOOR. The two round at the same points but sum in other orders,
+# so (a) an output may round to the neighbouring bf16 value, at most one
+# ulp, which is at most half of BF16_RTOL; and (b) now and then one term's
+# bf16 rounding (p before p.v and dv, ds before dq and dk) falls the other
+# way, which moves that sum by up to an ulp of its largest term, ~2^-8 of
+# it: up to 7.8e-3 in dk at the main shape, where the tensor's rms is
+# 0.11. With these limits the worst element of each check reads at most
+# 0.32 of its bound, and a forward that skips one KV tile in the last 64
+# rows only reads 6 to 29 times it (PERF.md, PR 1). ABS_FLOOR is f32
+# noise where the exact result is 0 (at S = 1, dq = 0 since o = v).
+BF16_RTOL = 2.0 ** -6
+ATOL_RMS = 2.0 ** -3
+ABS_FLOOR = 1e-5
+# lse is f32 throughout; it is at most ~8 here, where an f32 ulp is 9.5e-7.
+LSE_ABS_TOL = 2e-5
+# GPT-2-small's first step, flash vs reference attention on the card, both
+# bf16 (flash rounds p to bf16 before p.v, reference keeps it f32). At
+# init the loss is ~ln(V) whatever attention computes, so the gate that
+# sees the kernels is the gradient of the attention leaves: wq and wk get
+# theirs only through dq and dk, wv through dv, wo through o. Readings
+# (PERF.md, PR 1): loss 2.5e-6 and grad norm 1.8e-4 relative; attention
+# leaves 1.0e-2 to 1.4e-2, against 4.6e-2 for wq when dq skips one KV tile
+# in the last 64 rows only. ATTN_GRAD_RTOL sits between the two.
+LOSS_RTOL = 1e-4
+GRAD_NORM_RTOL = 2e-3
+ATTN_GRAD_RTOL = 2.5e-2  # ||g_flash - g_ref|| / ||g_ref|| per attention leaf
 
 KERNELS = [
     {"name": "flash_fwd", "replaces": "ray_tpu/ops/flash_attention.py:29"},
@@ -133,13 +150,21 @@ def check_kernels(torch, F, fa):
         return torch.randn(BH, S, HEAD_DIM, generator=gen,
                            device="cuda").to(torch.bfloat16)
 
-    def tol(ref):
-        return BF16_REL_TOL * max(1.0, ref.float().abs().max().item())
+    def bf16_check(a, b):
+        """(max |a - b|, rms(b), worst |a - b| over its element's bound)."""
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        rms = b.square().mean().sqrt().item()
+        share = diff / (BF16_RTOL * b.abs() + ATOL_RMS * rms + ABS_FLOOR)
+        at = share.argmax()
+        return (diff.max().item(), rms, share.view(-1)[at].item(),
+                b.view(-1)[at].item())
 
-    def err(a, b):
-        return (a.float() - b.float()).abs().max().item()
+    def lse_check(a, b):
+        e = (a - b).abs().max().item()
+        return e, b.square().mean().sqrt().item(), e / LSE_ABS_TOL, None
 
-    results = {}
+    results, failures = {}, []
     cases = [("main", 192, 1024, True), ("ragged", 24, 1000, True),
              ("noncausal", 24, 1024, False)]
     for label, BH, S, causal in cases:
@@ -154,20 +179,22 @@ def check_kernels(torch, F, fa):
         dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
         torch.cuda.synchronize()
         checks = {
-            "flash_fwd": [("o", err(o, o_ref), tol(o_ref)),
-                          ("lse", err(lse, lse_ref), LSE_ABS_TOL)],
-            "flash_bwd_dq": [("dq", err(dq, dq_ref), tol(dq_ref))],
-            "flash_bwd_dkv": [("dk", err(dk, dk_ref), tol(dk_ref)),
-                              ("dv", err(dv, dv_ref), tol(dv_ref))],
+            "flash_fwd": [("o", *bf16_check(o, o_ref)),
+                          ("lse", *lse_check(lse, lse_ref))],
+            "flash_bwd_dq": [("dq", *bf16_check(dq, dq_ref))],
+            "flash_bwd_dkv": [("dk", *bf16_check(dk, dk_ref)),
+                              ("dv", *bf16_check(dv, dv_ref))],
         }
         for name, rows in checks.items():
-            for what, e, t in rows:
-                ok = math.isfinite(e) and e <= t
+            for what, e, rms, worst, at in rows:
+                ok = math.isfinite(worst) and worst <= 1.0
+                where = "" if at is None else f" (plain value {at:.3e})"
                 print(f"check {label:9s} BH={BH} S={S} causal={causal} "
-                      f"{name}.{what}: max_abs_err {e:.3e} tol {t:.3e} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                      f"{name}.{what}: max_abs_err {e:.3e} rms {rms:.3e} "
+                      f"err/rms {e / rms:.2e}; worst element {worst:.3f} of "
+                      f"its bound{where} {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
-                    fail(f"{name} disagrees with its plain version ({label}, {what})")
+                    failures.append(f"{name}.{what} ({label})")
         if label != "main":
             continue
 
@@ -199,7 +226,7 @@ def check_kernels(torch, F, fa):
             ms = time_ms(torch, kernel_fn, warmup=3, reps=20)
             plain_ms = time_ms(torch, plain_fn, warmup=1, reps=5)
             results[name] = {
-                "max_abs_err": max(e for _, e, _ in checks[name]),
+                "max_abs_err": max(row[1] for row in checks[name]),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library[name],
             }
@@ -208,6 +235,8 @@ def check_kernels(torch, F, fa):
                   f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
                   f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
         del q4, k4, v4, out4
+    if failures:
+        fail(f"kernels disagree with their plain versions: {', '.join(failures)}")
     return results
 
 
@@ -253,6 +282,7 @@ def train(torch, fa):
     torch.cuda.empty_cache()
 
     state, step = run(cfg)
+    check_attention_grads(torch, gpt2, state.params, batch, ref_cfg, cfg)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     state, metrics, _ = steps(state, step, warmup)
@@ -270,11 +300,15 @@ def train(torch, fa):
         if n != expected:
             fail(f"{name} launched {n} times on the main path, expected {expected}")
     gn = float(metrics[0]["grad_norm"])
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    gn_rel = abs(gn - ref_gn) / abs(ref_gn)
     print(f"train: first step flash loss {losses[0]:.6f} grad_norm {gn:.6f}; "
-          f"reference loss {ref_loss:.6f} grad_norm {ref_gn:.6f}", flush=True)
-    if abs(losses[0] - ref_loss) > LOSS_RTOL * abs(ref_loss):
+          f"reference loss {ref_loss:.6f} grad_norm {ref_gn:.6f}; relative "
+          f"differences {loss_rel:.2e} (limit {LOSS_RTOL:.0e}) and "
+          f"{gn_rel:.2e} (limit {GRAD_NORM_RTOL:.0e})", flush=True)
+    if not loss_rel <= LOSS_RTOL:
         fail("first-step loss disagrees with reference attention")
-    if abs(gn - ref_gn) > GRAD_NORM_RTOL * abs(ref_gn):
+    if not gn_rel <= GRAD_NORM_RTOL:
         fail("first-step grad norm disagrees with reference attention")
 
     step_ms = dt / timed * 1e3
@@ -287,6 +321,31 @@ def train(torch, fa):
           flush=True)
     profile_step(torch, step, state, batch, step_ms)
     return launches
+
+
+def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg):
+    """The gradients of the attention leaves (wq, wk, wv, wo, each stacked
+    over the 12 layers) from one loss_fn call on the same weights, with
+    reference and with flash attention."""
+    attn = params["blocks"]["attn"]
+    names = sorted(attn)
+    grads, bad = [], []
+    for run_cfg in (ref_cfg, cfg):
+        loss, _ = gpt2.loss_fn(params, batch, run_cfg)
+        grads.append(torch.autograd.grad(loss, [attn[n] for n in names]))
+    for name, g_ref, g in zip(names, *grads):
+        rel = ((g - g_ref).norm() / g_ref.norm()).item()
+        ok = rel <= ATTN_GRAD_RTOL
+        print(f"train: grad of {name}: norm {g.norm().item():.6e} flash, "
+              f"{g_ref.norm().item():.6e} reference; ||flash - reference|| / "
+              f"||reference|| {rel:.3e} (limit {ATTN_GRAD_RTOL:.0e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(name)
+    del grads
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"attention gradients disagree with reference attention: {bad}")
 
 
 def category(kernel: str) -> str:
@@ -346,14 +405,15 @@ def profile_step(torch, step, state, batch, step_ms):
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ray_tpu_torch.ops import flash_attention as fa
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import torch.nn.functional as F
-    from ray_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -5,9 +5,8 @@ shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds, not minutes). Libraries go to
 ``build/ray_tpu_torch/<hash>/`` under the repository root, keyed by a
 hash of every source and the flags, so an edited source builds anew and
-an unchanged one is reused. All sources build in parallel, one ``nvcc``
-each. A missing ``nvcc`` or a failed build raises: nothing falls back to
-the plain PyTorch versions.
+an unchanged one is reused. A missing ``nvcc`` or a failed build raises:
+nothing falls back to the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -60,32 +59,27 @@ def build_dir() -> Path:
 
 
 def build_all() -> Dict[str, str]:
-    """Compiles every source whose library is missing, all at once.
-    Returns {name: ptxas report} for the sources built by this call."""
+    """Compiles every source whose library is missing. Returns {name:
+    ptxas report} for the sources built by this call."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    reports = {}
     for src in sources():
         lib = out_dir / f"lib{src.stem}.so"
         if lib.exists():
             continue
         tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, lib)
-    reports, failed = {}, []
-    for name, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        if res.returncode != 0:
             tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, lib)
-    if failed:
-        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+            raise KernelBuildError(
+                f"kernel build failed: {src.name}: nvcc exited "
+                f"{res.returncode}\n{res.stdout}")
+        os.replace(tmp, lib)
+        reports[src.stem] = res.stdout
     return reports
 
 

@@ -86,10 +86,11 @@ class ClipAdamW:
                 "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(self, grads, opt_state, params):
+    def update(self, grads, opt_state, params, g_norm):
+        """``g_norm`` is ``global_norm(grads)``, which the step reports too."""
         b1, b2 = self.b1, self.b2
-        g_norm = global_norm(grads)
-        clip = g_norm < self.max_norm
+        # optax's where(norm < max, g, g / norm * max) as one factor
+        clip = torch.clamp(self.max_norm / g_norm, max=1.0)
         count = opt_state["count"] + 1
         bc1 = 1 - b1 ** count
         bc2 = 1 - b2 ** count
@@ -97,9 +98,9 @@ class ClipAdamW:
         for g, mu, nu, p in zip(tree_leaves(grads), tree_leaves(opt_state["mu"]),
                                 tree_leaves(opt_state["nu"]),
                                 tree_leaves(params)):
-            g = torch.where(clip, g, g / g_norm * self.max_norm)
-            mu.mul_(b1).add_(g * (1 - b1))
-            nu.mul_(b2).add_(g * g * (1 - b2))
+            g = g * clip
+            mu.mul_(b1).add_(g, alpha=1 - b1)
+            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             u = u + self.weight_decay * p
             p.add_(step * u)
@@ -148,7 +149,8 @@ def make_train_step(loss_fn: Callable[[Any, Any], tuple], optimizer: ClipAdamW):
         grads = tree_unflatten(state.params, torch.autograd.grad(loss, leaves))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
-        opt_state = optimizer.update(grads, state.opt_state, state.params)
+        opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                     metrics["grad_norm"])
         return (TrainState(step=state.step + 1, params=state.params,
                            opt_state=opt_state), metrics)
 

@@ -18,9 +18,11 @@ from ray_tpu_torch.parallel import train_step as ts
 
 pytestmark = pytest.mark.cuda
 D = 64
-# bf16 outputs of kernel and plain version round at the same points but
-# sum in other orders: 4 ulps of the largest value (chip_smoke.py's bound).
-BF16_REL_TOL = 2.0 ** -6
+# chip_smoke.py's bound, element by element (see the reasons there).
+BF16_RTOL = 2.0 ** -6
+ATOL_RMS = 2.0 ** -3
+ABS_FLOOR = 1e-5
+LSE_ABS_TOL = 2e-5
 
 
 @pytest.fixture
@@ -33,8 +35,10 @@ def cuda():
 
 
 def _assert_close(a, b, what):
-    err = (a.float() - b.float()).abs().max().item()
-    assert err <= BF16_REL_TOL * max(1.0, b.float().abs().max().item()), (what, err)
+    a, b = a.float(), b.float()
+    bound = BF16_RTOL * b.abs() + ATOL_RMS * b.square().mean().sqrt() + ABS_FLOOR
+    worst = ((a - b).abs() / bound).max().item()
+    assert worst <= 1.0, (what, worst, (a - b).abs().max().item())
 
 
 @pytest.mark.parametrize("BH,S,causal", [
@@ -53,7 +57,7 @@ def test_kernels_match_plain(cuda, BH, S, causal):
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
     torch.cuda.synchronize()
     _assert_close(o, o_ref, "o")
-    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
     _assert_close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, **kw), "dq")
     dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
     _assert_close(dk, dk_ref, "dk")
@@ -89,21 +93,32 @@ def test_flash_attention_autograd_matches_cpu(cuda):
 
 def test_gpt2_step_runs_the_kernels(cuda):
     """One bf16 step with head dim 64: flash attention launches each
-    kernel once per layer, and matches reference attention's loss."""
+    kernel once per layer, and its loss, grad norm and attention-leaf
+    gradients match reference attention's within chip_smoke.py's limits."""
     cfg = gpt2.GPT2Config(vocab_size=512, max_seq=128, n_layer=2, n_head=2,
                           d_model=128, remat=False)
     tokens = torch.randint(0, 512, (4, 129), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(1))
-    losses = {}
+    metrics, attn_grads = {}, {}
     for attention in ("reference", "flash"):
         run_cfg = dataclasses.replace(cfg, attention=attention)
         opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
         state = ts.make_train_state(
             lambda g: gpt2.init(g, run_cfg),
             torch.Generator(device=cuda).manual_seed(0), opt)
+        attn = state.params["blocks"]["attn"]
+        loss, _ = gpt2.loss_fn(state.params, {"tokens": tokens}, run_cfg)
+        attn_grads[attention] = torch.autograd.grad(
+            loss, [attn[n] for n in sorted(attn)])
         step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, run_cfg), opt)
         fa.reset_launch_counts()
-        state, metrics = step(state, {"tokens": tokens})
-        losses[attention] = float(metrics["loss"])
+        state, m = step(state, {"tokens": tokens})
+        metrics[attention] = {k: float(m[k]) for k in ("loss", "grad_norm")}
     assert fa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
-    assert abs(losses["flash"] - losses["reference"]) <= 1e-2 * losses["reference"]
+    # chip_smoke.py's first-step limits: at init the loss is ~ln(V) whatever
+    # attention computes, so the attention leaves' gradients carry the test.
+    ref, flash = metrics["reference"], metrics["flash"]
+    assert abs(flash["loss"] - ref["loss"]) <= 1e-4 * ref["loss"]
+    assert abs(flash["grad_norm"] - ref["grad_norm"]) <= 2e-3 * ref["grad_norm"]
+    for g, g_ref in zip(attn_grads["flash"], attn_grads["reference"]):
+        assert ((g - g_ref).norm() / g_ref.norm()).item() <= 2.5e-2

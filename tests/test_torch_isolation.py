@@ -116,19 +116,25 @@ def test_entry_points_refuse_without_a_gpu(monkeypatch):
 
 
 def _run_chip_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           capture_output=True, text=True, timeout=120,
-                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+                          env={**env, "CUDA_VISIBLE_DEVICES": ""})
 
 
 def test_chip_smoke_fails_without_a_gpu():
     res = _run_chip_smoke(REPO)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+    assert "CUDA is not available" in res.stderr
 
 
 def test_chip_smoke_fails_alone(tmp_path):
+    """Without the package beside it, the script stops at the import of
+    ray_tpu_torch, before it looks for a GPU."""
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     res = _run_chip_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+    assert "No module named 'ray_tpu_torch'" in res.stderr
+    assert "CUDA is not available" not in res.stderr
