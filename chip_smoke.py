@@ -338,7 +338,7 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg):
         ok = rel <= ATTN_GRAD_RTOL
         print(f"train: grad of {name}: norm {g.norm().item():.6e} flash, "
               f"{g_ref.norm().item():.6e} reference; ||flash - reference|| / "
-              f"||reference|| {rel:.3e} (limit {ATTN_GRAD_RTOL:.0e}) "
+              f"||reference|| {rel:.3e} (limit {ATTN_GRAD_RTOL:.1e}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             bad.append(name)
