@@ -12,24 +12,45 @@
 //
 // What bounds them on an H100: at GPT-2-small's shape (BH 192, S 1024,
 // D 64, causal) the forward moves ~0.10 GB and does ~26 GFLOP, so the
-// least time is ~30 us from HBM and ~26 us from the bf16 tensor cores:
-// the two bounds are close, and the kernels must both stream q/k/v once
-// and keep the S x S scores out of device memory. The design:
-//   * one 128-thread block per (b*h, 64-row tile); each warp owns 16 rows;
-//   * the tile loop over the other sequence axis runs inside the block,
-//     with 64x64 K/V (or Q/dO) tiles staged in shared memory by 16-byte
-//     loads, rows padded by 8 elements so fragment loads hit 32 banks;
-//   * the products run on the tensor cores as mma.sync m16n8k16 (bf16 in,
-//     f32 accumulate); scores, probabilities and accumulators live in
-//     registers, and the score fragment is reused directly as the A
-//     operand of the next product (p.v, ds.k, p^T.do, ds^T.q);
-//   * under causal masking, tiles wholly in the future are skipped, and
-//     the forward and dq grids start with the longest rows so the tail of
-//     the grid is short.
-// Not yet done (later work): wgmma, TMA, a cp.async pipeline across tiles,
-// and warp specialisation. Each entry point returns cudaGetLastError()
-// right after its launch.
+// least time is ~30 us from HBM and ~26 us from the bf16 tensor cores;
+// dk/dv does twice the products and is bound by the tensor cores
+// (~52 us). The kernels must stream q/k/v once, keep the S x S scores out
+// of device memory, and keep the tensor cores fed. The design:
+//
+// Forward and dk/dv (256 threads, two warpgroups):
+//   * one block per (128-row tile, b*h): Q rows for the forward, KV rows
+//     for dk/dv; each warpgroup owns 64 rows, the M of one wgmma;
+//   * the block's own tile (Q, or K and V) is loaded once by TMA; the
+//     64-row tiles of the other sequence axis (K and V, or Q and dO with
+//     the matching lse and delta) stream through a ring of shared-memory
+//     stages guarded by mbarriers (full: the TMA bytes have landed;
+//     empty: all eight warps are done with the stage). The first warp
+//     also issues each tile's loads two tiles before the tile is needed,
+//     so loads overlap the tensor cores without a producer warp: a ninth
+//     warp would cost registers, since the SM spreads a block's warps over
+//     four register files of 16K registers each;
+//   * TMA writes every tile in the 128-byte swizzle (one row of D = 64
+//     bf16 is exactly 128 bytes) through a 3-D tensor map [BH, S, 64],
+//     whose bounds zero-fill rows past S without reading the next head;
+//   * every product is a wgmma: scores (s = q.k^T; s^T = k.q^T and
+//     dp^T = v.do^T) with both operands in shared memory, K-major; the
+//     accumulating products (o += p.v; dv += p^T.do, dk += ds^T.q) with
+//     the probabilities packed from the f32 score fragment to bf16 as the
+//     register A operand and B read MN-major from the same swizzled tile;
+//   * the softmax runs on exp2 of scores scaled by scale * log2(e) in one
+//     FFMA; the mask is applied only on diagonal and ragged tiles, and a
+//     tile wholly masked for a warpgroup is skipped.
+// dq (128 threads): one block per (64-row Q tile, b*h), with its 64-row
+// K/V tiles staged in padded shared memory by 16-byte loads, and mma.sync
+// m16n8k16 with the score fragment reused as the next A operand.
+//
+// Under causal masking the grids start with the longest rows of each
+// head. The host entry points encode the tensor maps
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so no
+// -lcuda) and return cudaGetLastError() right after the launch, or -1 if
+// the driver has no cuTensorMapEncodeTiled, -2 if it refuses a tensor map.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,10 +58,21 @@
 namespace {
 
 constexpr int kD = 64;         // head dim
-constexpr int kTile = 64;      // rows per tile, on both sequence axes
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kLd = kD + 8;    // shared-memory row stride in elements
+constexpr int kTile = 64;      // dq: rows per tile, on both sequence axes
+constexpr int kThreads = 128;  // dq: 4 warps x 16 rows
+constexpr int kLd = kD + 8;    // dq: shared-memory row stride in elements
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Forward and dk/dv: two warpgroups, one of whose threads also issues the
+// TMA loads.
+constexpr int kWgThreads = 256;
+constexpr int kRowBytes = kD * 2;  // one tile row: one 128-byte swizzle row
+constexpr int kBlockM = 128;       // rows of the block's own tile
+constexpr int kFwdBlockN = 64;     // forward: K/V rows per stage
+constexpr int kFwdStages = 4;
+constexpr int kDkvBlockN = 64;     // dk/dv: Q/dO rows per stage
+constexpr int kDkvStages = 4;
 
 typedef __nv_bfloat16 bf16;
 
@@ -160,103 +192,455 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// ------------------------------------------------ Hopper building blocks
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1024 bytes, the period of the
+// 128-byte swizzle, so that TMA and wgmma agree on where each row's
+// 16-byte chunks sit.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the barrier has completed the phase of the given parity.
+// A wait that never ends (a fault in the pipeline) traps after 2^26
+// failed polls, seconds at least, so that it fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One [rows x 64] box of a [BH, S, 64] tensor map at (row, bh) into shared
+// memory; the box's bytes complete a transaction on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// pending; groups complete in the order they were committed.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving register reads or writes of an
+// accumulator across the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// wgmma shared-memory descriptor of a tile written by TMA in the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (stride byte offset), 14-bit
+// start address in 16-byte units, layout type 1 = 128-byte swizzle. The
+// leading byte offset is unused here: a K-major operand's K (64) and an
+// MN-major operand's N (64) each fit one 128-byte swizzle row. A k-step
+// of 16 advances a K-major operand by 32 bytes (+2) and an MN-major one
+// by 16 rows, 2048 bytes (+128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+constexpr uint64_t kDescK16 = 32 >> 4;                // K-major k-step
+constexpr uint64_t kDescMN16 = (16 * kRowBytes) >> 4;  // MN-major k-step
+
+// ------------------------------------------------ wgmma wrappers
+
+// d[64 x 64] (+)= A . B, A and B both read K-major from shared memory
+// through descriptors; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] += A . B, A bf16 fragments in registers (the layout of
+// mma.sync's m16n8k16 A, one 16-row slab per warp), B read MN-major
+// from shared memory through a descriptor.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// 2^x on the special-function unit, denormals flushed (p and the rescale
+// factors are either 0 or far above the denormal range).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The bf16 A fragment of k-step kk (columns 16kk..16kk+15) of a 64-row
+// f32 accumulator: wgmma's A register layout per warp is mma.sync's
+// m16n8k16 A layout, and the accumulator's is its C layout, so the score
+// fragment becomes the next product's A operand without any shuffle.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[N],
+                                       int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+template <int N>
+__device__ __forceinline__ void pack_all(uint32_t (&a)[N / 8][4],
+                                         const float (&d)[N]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) pack_a(a[kk], d, kk);
+}
+
+// Stores a 64 x 64 f32 accumulator fragment as bf16: this thread's rows
+// row and row + 8, columns 8j + 2t; rows at or past S are skipped.
+__device__ __forceinline__ void store_frag(bf16* out, const float (&d)[32],
+                                           int row, int S, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row + 8 * half;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * kD + 8 * j +
+                                         2 * t) =
+          __floats2bfloat162_rn(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+  }
+}
+
+__device__ __forceinline__ void scale_rows(float (&acc)[32],
+                                           const float (&f)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[4 * j + 0] *= f[0];
+    acc[4 * j + 1] *= f[0];
+    acc[4 * j + 2] *= f[1];
+    acc[4 * j + 3] *= f[1];
+  }
+}
+
+// One KV tile of the online softmax for this thread's rows row and
+// row + 8. sc holds the raw scores q.k^T; masked (when the tile crosses
+// the diagonal or S) they become NEG_INF. m is the running raw max, l this
+// thread's share of the row sums; corr is the factor by which the output
+// accumulated so far must be rescaled. On return sc holds
+// p = exp2(s * scale * log2(e) - m * scale * log2(e)) in f32.
+template <int kN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kN / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool masked,
+                                             int k0, int row, int t, int S,
+                                             int causal, float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + 8 * j + 2 * t + (i & 1);
+        if ((causal && col > row + 8 * (i >> 1)) || col >= S)
+          sc[4 * j + i] = kNegInf;
+      }
+  }
+  // row maxima as a tree (rows row: i = 0, 1; row + 8: i = 2, 3)
+  float r[2][kN / 8];
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    r[0][j] = fmaxf(sc[4 * j], sc[4 * j + 1]);
+    r[1][j] = fmaxf(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+#pragma unroll
+  for (int w = kN / 16; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+      r[0][j] = fmaxf(r[0][j], r[0][j + w]);
+      r[1][j] = fmaxf(r[1][j], r[1][j + w]);
+    }
+  float ms[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mnew = quad_max(fmaxf(m[h], r[h][0]));
+    corr[h] = exp2_ftz((m[h] - mnew) * scale_log2);
+    m[h] = mnew;
+    ms[h] = mnew * scale_log2;
+  }
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sc[4 * j + i] = exp2_ftz(fmaf(sc[4 * j + i], scale_log2, -ms[i >> 1]));
+  }
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    r[0][j] = sc[4 * j] + sc[4 * j + 1];
+    r[1][j] = sc[4 * j + 2] + sc[4 * j + 3];
+  }
+#pragma unroll
+  for (int w = kN / 16; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+      r[0][j] += r[0][j + w];
+      r[1][j] += r[1][j + w];
+    }
+  l[0] = fmaf(l[0], corr[0], r[0][0]);
+  l[1] = fmaf(l[1], corr[1], r[1][0]);
+}
+
+__device__ __forceinline__ void issue_qk(float (&sc)[32], uint64_t desc_q,
+                                         uint64_t desc_k) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss_n64(sc, desc_q + kk * kDescK16, desc_k + kk * kDescK16, kk);
+}
+
+__device__ __forceinline__ void issue_pv(float (&acc)[32],
+                                         const uint32_t (&pa)[4][4],
+                                         uint64_t desc_v) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n64(acc, pa[kk], desc_v + kk * kDescMN16, 1);
+}
+
+constexpr int fwd_smem_bytes() {
+  return 1024 + kBlockM * kRowBytes + 2 * kFwdStages * kFwdBlockN * kRowBytes +
+         (1 + 2 * kFwdStages) * 8;
+}
+
 // Replaces _fwd_kernel (ray_tpu/ops/flash_attention.py:29). Bound at the
 // main shape: ~30 us by bytes (q, k, v read, o and lse written once).
-// One block per (Q tile, b*h); the Q fragments stay in registers for the
-// whole KV loop, with the online softmax (m, l, acc) in f32 registers.
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int S, float scale, int causal) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLd];
-  __shared__ __align__(16) bf16 sK[kTile * kLd];
-  __shared__ __align__(16) bf16 sV[kTile * kLd];
-  const int nt_seq = (S + kTile - 1) / kTile;
-  const int qt = nt_seq - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;
-  const size_t base = (size_t)bh * S * kD;
-  const int q0 = qt * kTile;
+// One block per (128-row Q tile, b*h); the Q tile stays in shared memory
+// and 64-row K and V tiles stream through kStages stages. Each warpgroup
+// keeps the online softmax (m, l, o) of its 64 rows in f32 registers.
+// o += p.v of tile j - 1 runs on the tensor cores while the softmax of
+// tile j runs on the other units (FlashAttention-3's
+// intra-warpgroup pipelining); p is packed to bf16 only after that product
+// is done, so no register that an in-flight wgmma reads is redefined
+// (ptxas would serialise the wgmmas otherwise). At most 128 registers a
+// thread, so that two blocks share an SM.
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 bf16* __restrict__ o, float* __restrict__ lse, int S,
+                 float scale, int causal) {
+  constexpr int kN = kFwdBlockN;
+  constexpr int kStages = kFwdStages;
+  constexpr int kAhead = kStages - 2;  // tiles in flight beyond the two in use
+  constexpr int kQBytes = kBlockM * kRowBytes;
+  constexpr int kKVBytes = kN * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t sQ = smem_addr(sm);
+  const uint32_t sK = sQ + kQBytes;
+  const uint32_t sV = sK + kStages * kKVBytes;
+  const uint32_t bar_q = sV + kStages * kKVBytes;
+  const uint32_t bar_full = bar_q + 8;                // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
+
+  const int q0 = ((S + kBlockM - 1) / kBlockM - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;  // a head's tiles run together, longest first
+  const int n_kv = ((causal ? min(q0 + kBlockM, S) : S) + kN - 1) / kN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = warp * 16;
-  const int row[2] = {q0 + w0 + g, q0 + w0 + g + 8};
 
-  load_tile(sQ, q + base, q0, S);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qa[4][4];
-  load_a(qa, sQ, w0, g, t);
 
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
+  // Thread 0 is also the producer: K/V tile j goes into its stage once all
+  // eight warps have released tile j - kStages. It is issued kAhead tiles
+  // before it is needed, when that release is two tiles old.
+  auto issue_kv = [&](int j) {
+    const int s = j % kStages;
+    mbar_expect_tx(bar_full + 8 * s, 2 * kKVBytes);
+    tma_load(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, j * kN, bh);
+    tma_load(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, j * kN, bh);
+  };
+  auto produce = [&](int j) {
+    if (threadIdx.x == 0 && j < n_kv) {
+      mbar_wait(bar_empty + 8 * (j % kStages), ((j / kStages) & 1) ^ 1);
+      issue_kv(j);
+    }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, kQBytes);
+    tma_load(sQ, &tm_q, bar_q, q0, bh);
+  }
+  for (int j = 0; j < kAhead; ++j) produce(j);
 
-  const int n_kv = causal ? qt + 1 : nt_seq;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile(sK, k + base, k0, S);
-    load_tile(sV, v + base, k0, S);
-    __syncthreads();
+  // warpgroup wg owns rows q0 + 64 wg .. + 63 and uses the first n_w KV
+  // tiles (under causal masking the block's last tile may lie wholly in
+  // warpgroup 0's future)
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  const int row = wg_row0 + (warp & 3) * 16 + g;  // and row + 8
+  const int n_w = causal ? (min(wg_row0 + 64, S) + kN - 1) / kN : n_kv;
+  const float scale_log2 = scale * kLog2e;
+  auto masked = [&](int it) {
+    const int k0 = it * kN;
+    return (causal && k0 + kN - 1 > wg_row0) || k0 + kN > S;
+  };
+  auto wait_full = [&](int it) {
+    mbar_wait(bar_full + 8 * (it % kStages), (it / kStages) & 1);
+  };
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (it % kStages));
+  };
+  auto desc_k = [&](int it) {
+    return sw128_desc(sK + (it % kStages) * kKVBytes);
+  };
+  auto desc_v = [&](int it) {
+    return sw128_desc(sV + (it % kStages) * kKVBytes);
+  };
 
-    float s[8][4];
-    mm_abt(s, qa, sK, g, t);
-    float mcur[2] = {kNegInf, kNegInf};
+  float acc[32];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nt * 8 + t * 2 + (i & 1);
-        float x = s[nt][i] * scale;
-        if ((causal && col > row[i >> 1]) || col >= S) x = kNegInf;
-        s[nt][i] = x;
-        mcur[i >> 1] = fmaxf(mcur[i >> 1], x);
-      }
-    }
-    float mnew[2], corr[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mnew[r] = fmaxf(m[r], quad_max(mcur[r]));
-      corr[r] = expf(m[r] - mnew[r]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(s[nt][i] - mnew[i >> 1]);
-        s[nt][i] = p;
-        rsum[i >> 1] += p;
-      }
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * corr[r] + quad_sum(rsum[r]);
-      m[r] = mnew[r];
-    }
-    mm_pt(acc, s, sV, g, t);
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float corr[2];
+  float sc[kN / 2];
+  uint32_t pa[kN / 16][4];
+
+  mbar_wait(bar_q, 0);
+  const uint64_t desc_q = sw128_desc(sQ + wg * 64 * kRowBytes);
+  produce(kAhead);
+  wait_full(0);
+  wgmma_fence();
+  issue_qk(sc, desc_q, desc_k(0));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax_tile<kN>(sc, m, l, corr, masked(0), 0, row, t, S, causal,
+                   scale_log2);
+  pack_all(pa, sc);
+  for (int it = 1; it < n_w; ++it) {
+    produce(it + kAhead);
+    wait_full(it);
+    wgmma_fence();
+    issue_qk(sc, desc_q, desc_k(it));
+    wgmma_commit();
+    issue_pv(acc, pa, desc_v(it - 1));
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores of tile it
+    fence_regs(sc);
+    softmax_tile<kN>(sc, m, l, corr, masked(it), it * kN, row, t, S, causal,
+                     scale_log2);
+    wgmma_wait<0>();  // p.v of tile it - 1
+    fence_regs(acc);
+    fence_regs(pa);
+    release(it - 1);
+    scale_rows(acc, corr);
+    pack_all(pa, sc);
+  }
+  wgmma_fence();
+  issue_pv(acc, pa, desc_v(n_w - 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(n_w - 1);
+  for (int it = n_w; it < n_kv; ++it) {  // tiles this warpgroup skips
+    produce(it + kAhead);
+    wait_full(it);
+    release(it);
   }
 
   float lc[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) lc[r] = fmaxf(l[r], 1e-30f);
+  for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(l[r]), 1e-30f);
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] /= lc[0];
-    acc[nt][1] /= lc[0];
-    acc[nt][2] /= lc[1];
-    acc[nt][3] /= lc[1];
+  for (int j = 0; j < 8; ++j) {
+    acc[4 * j + 0] /= lc[0];
+    acc[4 * j + 1] /= lc[0];
+    acc[4 * j + 2] /= lc[1];
+    acc[4 * j + 3] /= lc[1];
   }
-  store_rows(o + base, acc, q0 + w0, S, g, t);
+  store_frag(o + (size_t)bh * S * kD, acc, row, S, t);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (row[r] < S) lse[(size_t)bh * S + row[r]] = m[r] + logf(lc[r]);
+      if (row + 8 * r < S)
+        lse[(size_t)bh * S + row + 8 * r] = m[r] * scale + logf(lc[r]);
   }
 }
 
@@ -330,85 +714,281 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(dq + base, acc, q0 + w0, S, g, t);
 }
 
+constexpr int dkv_smem_bytes() {
+  return 1024 + 2 * kBlockM * kRowBytes +
+         2 * kDkvStages * kDkvBlockN * kRowBytes +
+         2 * kDkvStages * kDkvBlockN * 4 + (1 + 2 * kDkvStages) * 8;
+}
+
+// p^T and ds^T of one Q tile, in place of the transposed scores s^T (KV
+// rows krow, krow + 8 x this thread's Q columns) and dp^T. L holds the
+// tile's lse in log2 units, Dl its delta.
+__device__ __forceinline__ void dkv_tile(float (&st)[32], float (&dpt)[32],
+                                         const float* L, const float* Dl,
+                                         bool masked, int q0, int krow, int t,
+                                         int S, int causal, float scale,
+                                         float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = 8 * j + 2 * t + (i & 1);
+      float p = exp2_ftz(fmaf(st[4 * j + i], scale_log2, -L[c]));
+      if (masked) {
+        const int kr = krow + 8 * (i >> 1);
+        if ((causal && q0 + c < kr) || kr >= S || q0 + c >= S) p = 0.f;
+      }
+      st[4 * j + i] = p;
+      dpt[4 * j + i] = p * (dpt[4 * j + i] - Dl[c]) * scale;  // ds^T
+    }
+  }
+}
+
 // Replaces _bwd_dkv_kernel (flash_attention.py:212). Bound at the main
 // shape: ~52 us by tensor-core operations (four products per tile pair).
-// One block per (KV tile, b*h): dv = sum over Q tiles of p^T.do and
-// dk = sum of ds^T.q, both in f32 registers. Each warp owns 16 KV rows;
-// scores are held transposed (KV rows x Q columns), so lse and delta are
-// staged per column in shared memory. The K and V fragments are re-read
-// from shared memory per Q tile to leave registers for the two
-// accumulators (162 registers, no spills).
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// One block per (128-row KV tile, b*h): K and V stay in shared memory for
+// the whole loop, and Q, dO (64 rows) and the matching lse (in log2
+// units) and delta stream through kStages stages. Each warpgroup holds
+// its 64 KV rows' dk and dv in f32 registers; scores are held transposed
+// (KV rows x Q columns). Warp 0 is also the producer: its lanes stage lse
+// and delta with plain loads and arrive on the stage's barrier, and lane 0
+// adds the TMA bytes of Q and dO. Per Q tile, the two score products run,
+// then p^T and ds^T, then the two accumulating products: the scores are
+// not overlapped with the previous tile's gradients as the forward does,
+// since holding both sets of fragments takes ~220 registers a thread for
+// no gain, and a block of 256 threads already has the SM to itself.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int S, float scale, int causal) {
-  __shared__ __align__(16) bf16 sK[kTile * kLd];
-  __shared__ __align__(16) bf16 sV[kTile * kLd];
-  __shared__ __align__(16) bf16 sQ[kTile * kLd];
-  __shared__ __align__(16) bf16 sdO[kTile * kLd];
-  __shared__ float sL[kTile];
-  __shared__ float sDelta[kTile];
-  const int nt_seq = (S + kTile - 1) / kTile;
-  const int kt = blockIdx.x;  // KV tile 0 has the most Q tiles under causal
+  constexpr int kN = kDkvBlockN;
+  constexpr int kStages = kDkvStages;
+  constexpr int kAhead = kStages - 2;  // tiles in flight beyond the two in use
+  constexpr int kKVBytes = kBlockM * kRowBytes;
+  constexpr int kQBytes = kN * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t sK = smem_addr(sm);
+  const uint32_t sV = sK + kKVBytes;
+  const uint32_t sQ = sV + kKVBytes;            // + stage * kQBytes
+  const uint32_t sdO = sQ + kStages * kQBytes;  // + stage * kQBytes
+  float* sL = reinterpret_cast<float*>(sm + 2 * kKVBytes +
+                                       2 * kStages * kQBytes);  // [stage][kN]
+  float* sDelta = sL + kStages * kN;                            // [stage][kN]
+  const uint32_t bar_kv = smem_addr(sDelta + kStages * kN);
+  const uint32_t bar_full = bar_kv + 8;               // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
+
+  const int k0 = blockIdx.x * kBlockM;  // KV tile 0 has the most Q tiles
   const int bh = blockIdx.y;
-  const size_t base = (size_t)bh * S * kD;
-  const int k0 = kt * kTile;
+  const int qt0 = causal ? k0 / kN : 0;
+  const int n_it = (S + kN - 1) / kN - qt0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);
+      mbar_init(bar_empty + 8 * s, kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Q/dO tile j (with its lse and delta) goes into its stage once all eight
+  // warps have released tile j - kStages, kAhead tiles before it is needed.
+  auto produce = [&](int j) {
+    if (warp != 0 || j >= n_it) return;
+    const int s = j % kStages;
+    const int q0 = (qt0 + j) * kN;
+    mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+    for (int c = lane; c < kN; c += 32) {
+      const int r = q0 + c;
+      sL[s * kN + c] = r < S ? lse[(size_t)bh * S + r] * kLog2e : 0.f;
+      sDelta[s * kN + c] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+    }
+    if (lane == 0) {
+      mbar_expect_tx(bar_full + 8 * s, 2 * kQBytes);
+      tma_load(sQ + s * kQBytes, &tm_q, bar_full + 8 * s, q0, bh);
+      tma_load(sdO + s * kQBytes, &tm_do, bar_full + 8 * s, q0, bh);
+    } else {
+      mbar_arrive(bar_full + 8 * s);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_kv, 2 * kKVBytes);
+    tma_load(sK, &tm_k, bar_kv, k0, bh);
+    tma_load(sV, &tm_v, bar_kv, k0, bh);
+  }
+  for (int j = 0; j < kAhead; ++j) produce(j);
+
+  // warpgroup wg owns KV rows k0 + 64 wg .. + 63. It uses the Q tiles from
+  // it_w on: under causal masking the block's first Q tile lies wholly
+  // before warpgroup 1's rows; KV rows wholly past S use none. Warpgroup 0
+  // (the producer's) always uses every tile.
+  const int wg = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
-  const int w0 = warp * 16;
-  const int krow[2] = {k0 + w0 + g, k0 + w0 + g + 8};
+  const int wg_row0 = k0 + wg * 64;
+  const int krow = wg_row0 + (warp & 3) * 16 + g;  // and krow + 8
+  const int it_w = wg_row0 >= S ? n_it : (causal ? wg_row0 / kN - qt0 : 0);
+  const float scale_log2 = scale * kLog2e;
+  auto wait_full = [&](int it) {
+    mbar_wait(bar_full + 8 * (it % kStages), (it / kStages) & 1);
+  };
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (it % kStages));
+  };
 
-  load_tile(sK, k + base, k0, S);
-  load_tile(sV, v + base, k0, S);
-
-  float dk_acc[8][4], dv_acc[8][4];
+  float dk_acc[32], dv_acc[32];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    dk_acc[nt][0] = dk_acc[nt][1] = dk_acc[nt][2] = dk_acc[nt][3] = 0.f;
-    dv_acc[nt][0] = dv_acc[nt][1] = dv_acc[nt][2] = dv_acc[nt][3] = 0.f;
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < it_w; ++it) {  // Q tiles this warpgroup skips
+    wait_full(it);
+    release(it);
   }
-
-  for (int qt = causal ? kt : 0; qt < nt_seq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile(sQ, q + base, q0, S);
-    load_tile(sdO, dout + base, q0, S);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      sL[threadIdx.x] = r < S ? lse[(size_t)bh * S + r] : 0.f;
-      sDelta[threadIdx.x] = r < S ? delta[(size_t)bh * S + r] : 0.f;
-    }
-    __syncthreads();
-
-    float p[8][4], dp[8][4];
-    {
-      uint32_t a[4][4];
-      load_a(a, sK, w0, g, t);
-      mm_abt(p, a, sQ, g, t);  // s^T = k.q^T
-      load_a(a, sV, w0, g, t);
-      mm_abt(dp, a, sdO, g, t);  // dp^T = v.do^T
-    }
+  if (it_w < n_it) {
+    mbar_wait(bar_kv, 0);
+    const uint64_t desc_k = sw128_desc(sK + wg * 64 * kRowBytes);
+    const uint64_t desc_v = sw128_desc(sV + wg * 64 * kRowBytes);
+    float st[32], dpt[32];
+    uint32_t pa[4][4], da[4][4];
+    auto issue_scores = [&](int it) {  // s^T = k.q^T, dp^T = v.do^T
+      const int s = it % kStages;
+      const uint64_t dq = sw128_desc(sQ + s * kQBytes);
+      const uint64_t ddo = sw128_desc(sdO + s * kQBytes);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n64(st, desc_k + kk * kDescK16, dq + kk * kDescK16, kk);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = nt * 8 + t * 2 + (i & 1);
-        const int qcol = q0 + c;
-        float x = p[nt][i] * scale;
-        if ((causal && qcol < krow[i >> 1]) || krow[i >> 1] >= S || qcol >= S)
-          x = kNegInf;
-        const float pv = expf(x - sL[c]);
-        p[nt][i] = pv;
-        dp[nt][i] = pv * (dp[nt][i] - sDelta[c]) * scale;  // ds^T
-      }
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n64(dpt, desc_v + kk * kDescK16, ddo + kk * kDescK16, kk);
+    };
+    auto issue_grads = [&](int it) {  // dv += p^T.do, dk += ds^T.q
+      const int s = it % kStages;
+      const uint64_t dq = sw128_desc(sQ + s * kQBytes);
+      const uint64_t ddo = sw128_desc(sdO + s * kQBytes);
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)
+        wgmma_rs_n64(dv_acc, pa[kk], ddo + kk * kDescMN16, 1);
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk)
+        wgmma_rs_n64(dk_acc, da[kk], dq + kk * kDescMN16, 1);
+    };
+    auto elementwise = [&](int it) {
+      const int s = it % kStages;
+      const int q0 = (qt0 + it) * kN;
+      const bool masked = (causal && q0 < wg_row0 + 63) || q0 + kN > S ||
+                          wg_row0 + 64 > S;
+      dkv_tile(st, dpt, sL + s * kN, sDelta + s * kN, masked, q0, krow, t, S,
+               causal, scale, scale_log2);
+    };
+
+    for (int it = it_w; it < n_it; ++it) {
+      produce(it + kAhead);
+      wait_full(it);
+      wgmma_fence();
+      issue_scores(it);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      elementwise(it);
+      pack_all(pa, st);
+      pack_all(da, dpt);
+      wgmma_fence();
+      issue_grads(it);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      release(it);
     }
-    mm_pt(dv_acc, p, sdO, g, t);
-    mm_pt(dk_acc, dp, sQ, g, t);
   }
-  store_rows(dk + base, dk_acc, k0 + w0, S, g, t);
-  store_rows(dv + base, dv_acc, k0 + w0, S, g, t);
+  store_frag(dk + (size_t)bh * S * kD, dk_acc, krow, S, t);
+  store_frag(dv + (size_t)bh * S * kD, dv_acc, krow, S, t);
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A [BH, S, 64] bf16 tensor as a 3-D tensor map with [box_rows x 64]
+// boxes in the 128-byte swizzle; rows past S read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
+             int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)kRowBytes,
+                                 (cuuint64_t)seq * kRowBytes};
+  const cuuint32_t box[3] = {(cuuint32_t)kD, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int bh, int seq, float scale, int causal,
+               void* stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, bh, seq, kBlockM);
+  if (err == 0) err = make_map(&tk, k, bh, seq, kFwdBlockN);
+  if (err == 0) err = make_map(&tv, v, bh, seq, kFwdBlockN);
+  if (err != 0) return err;
+  constexpr int smem = fwd_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
+  flash_fwd_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)o, (float*)lse, seq, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int bh,
+               int seq, float scale, int causal, void* stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, q, bh, seq, kDkvBlockN);
+  if (err == 0) err = make_map(&tk, k, bh, seq, kBlockM);
+  if (err == 0) err = make_map(&tv, v, bh, seq, kBlockM);
+  if (err == 0) err = make_map(&tdo, dout, bh, seq, kDkvBlockN);
+  if (err != 0) return err;
+  constexpr int smem = dkv_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
+  flash_bwd_dkv_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, seq, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -418,11 +998,12 @@ extern "C" {
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int seq, float scale, int causal,
                    void* stream) {
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  flash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-      seq, scale, causal);
-  return (int)cudaGetLastError();
+  return launch_fwd(q, k, v, o, lse, bh, seq, scale, causal, stream);
+}
+
+// The dynamic shared memory of one block of the forward (0) or dk/dv (1).
+int flash_dynamic_smem_bytes(int kernel) {
+  return kernel == 0 ? fwd_smem_bytes() : dkv_smem_bytes();
 }
 
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
@@ -440,12 +1021,8 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int seq, float scale,
                        int causal, void* stream) {
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  flash_bwd_dkv_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, seq,
-      scale, causal);
-  return (int)cudaGetLastError();
+  return launch_dkv(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal,
+                    stream);
 }
 
 }  // extern "C"

@@ -25,10 +25,15 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# The kernels tile both sequence axes by 64 rows and take a head dim of 64
-# (every GPT-2 preset has d_model / n_head == 64).
-BLOCK = 64
+# What each kernel tiles by, in rows of the [BH, S, 64] tensors (every
+# GPT-2 preset has d_model / n_head == 64). The forward takes 128 Q rows
+# per block and streams K/V in 64-row tiles; dq is 64 Q rows by 64 KV
+# rows; dk/dv takes 128 KV rows per block and streams Q/dO in 64-row
+# tiles. They are fixed in csrc/flash_attention.cu.
 HEAD_DIM = 64
+FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
+DQ_BLOCK_Q, DQ_BLOCK_K = 64, 64
+DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
@@ -94,6 +99,7 @@ _SIGNATURES = {
     "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "flash_dynamic_smem_bytes": [_I],
 }
 
 
@@ -104,6 +110,13 @@ def _kernel(name: str):
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def dynamic_smem_bytes(kernel: str) -> int:
+    """Dynamic shared memory of one block of ``flash_fwd`` or
+    ``flash_bwd_dkv`` (builds the kernels if needed)."""
+    return _kernel("flash_dynamic_smem_bytes")(
+        {"flash_fwd": 0, "flash_bwd_dkv": 1}[kernel])
 
 
 def _on_cpu(*tensors) -> bool:
@@ -138,6 +151,10 @@ def _check_cuda(bf16_tensors, f32_tensors=()):
             raise ValueError("the CUDA kernels take contiguous tensors")
         if t.device != q.device:
             raise ValueError("all tensors must be on one device")
+    for t in bf16_tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA kernels take 16-byte aligned bf16 "
+                             "tensors (TMA reads them)")
     return BH, S
 
 
@@ -146,7 +163,9 @@ def _launch(name: str, counter: str, device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _kernel(name)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+        why = {-1: "the driver has no cuTensorMapEncodeTiled",
+               -2: "the driver refused a tensor map"}.get(err, f"cudaError {err}")
+        raise RuntimeError(f"{name} launch failed: {why}")
     LAUNCHES[counter] += 1
 
 
@@ -223,15 +242,20 @@ def flash_attention(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
-    block_q: int = BLOCK,
-    block_k: int = BLOCK,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention over [B, S, H, D] (the heads layout of
     models/layers.apply_attention). Differentiable. ``block_q`` and
-    ``block_k`` are the kernels' tile sizes; the kernels are built for 64."""
-    if block_q != BLOCK or block_k != BLOCK:
-        raise ValueError(f"the kernels tile by {BLOCK}, got block_q={block_q}, "
-                         f"block_k={block_k}")
+    ``block_k`` stand for parity with ``ray_tpu``'s signature: each kernel
+    tiles by its own fixed sizes (``FWD_BLOCK_*``, ``DQ_BLOCK_*``,
+    ``DKV_BLOCK_*``), so only None is taken."""
+    if block_q is not None or block_k is not None:
+        raise ValueError(
+            f"the kernels tile by their own sizes (forward {FWD_BLOCK_Q}x"
+            f"{FWD_BLOCK_K}, dq {DQ_BLOCK_Q}x{DQ_BLOCK_K}, dk/dv "
+            f"{DKV_BLOCK_K}x{DKV_BLOCK_Q}); got block_q={block_q}, "
+            f"block_k={block_k}")
     B, S, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)

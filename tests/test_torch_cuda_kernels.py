@@ -43,6 +43,9 @@ def _assert_close(a, b, what):
 
 @pytest.mark.parametrize("BH,S,causal", [
     (4, 256, True), (4, 200, True), (3, 130, False), (2, 64, True), (2, 1, True),
+    # the edges of the 128-row tiles of the forward and dk/dv kernels
+    (2, 127, True), (2, 128, True), (2, 129, True), (2, 255, True),
+    (2, 1000, True), (2, 384, False), (1, 256, True),
 ])
 def test_kernels_match_plain(cuda, BH, S, causal):
     gen = torch.Generator(device=cuda).manual_seed(S)

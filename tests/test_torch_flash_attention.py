@@ -130,3 +130,17 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                                     torch.zeros(4, 128, dtype=torch.float64)))
     with pytest.raises(ValueError, match="tile"):
         tfa.flash_attention(*(torch.zeros(1, 64, 1, 64),) * 3, block_q=128)
+
+
+def test_kernel_wrappers_refuse_unaligned_tensors():
+    """The forward and dk/dv kernels read q, k, v and do through TMA, which
+    takes 16-byte aligned rows: a contiguous view 2 bytes into its storage
+    is refused before any launch."""
+    flat = torch.zeros(4 * 128 * 64 + 1, dtype=torch.bfloat16)
+    t = flat[1:].view(4, 128, 64)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    bf = torch.zeros(4, 128, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._check_cuda((bf, t, bf))
+    f32 = torch.zeros(4 * 128 + 1)[1:].view(4, 128)
+    assert tfa._check_cuda((bf,) * 4, (f32, f32)) == (4, 128)
