@@ -13,36 +13,35 @@
 // What bounds them on an H100: at GPT-2-small's shape (BH 192, S 1024,
 // D 64, causal) the forward moves ~0.10 GB and does ~26 GFLOP, so the
 // least time is ~30 us from HBM and ~26 us from the bf16 tensor cores;
-// dk/dv does twice the products and is bound by the tensor cores
-// (~52 us). The kernels must stream q/k/v once, keep the S x S scores out
-// of device memory, and keep the tensor cores fed. The design:
-//
-// Forward and dk/dv (256 threads, two warpgroups):
-//   * one block per (128-row tile, b*h): Q rows for the forward, KV rows
-//     for dk/dv; each warpgroup owns 64 rows, the M of one wgmma;
-//   * the block's own tile (Q, or K and V) is loaded once by TMA; the
-//     64-row tiles of the other sequence axis (K and V, or Q and dO with
-//     the matching lse and delta) stream through a ring of shared-memory
-//     stages guarded by mbarriers (full: the TMA bytes have landed;
-//     empty: all eight warps are done with the stage). The first warp
-//     also issues each tile's loads two tiles before the tile is needed,
-//     so loads overlap the tensor cores without a producer warp: a ninth
-//     warp would cost registers, since the SM spreads a block's warps over
-//     four register files of 16K registers each;
+// dq does three products per tile pair and dk/dv four, so both are bound
+// by the tensor cores (~39 and ~52 us). The kernels must stream their
+// inputs once, keep the S x S scores out of device memory, and keep the
+// tensor cores fed. One design serves all three (256 threads, two
+// warpgroups):
+//   * one block per (128-row tile, b*h): Q rows for the forward and dq,
+//     KV rows for dk/dv; each warpgroup owns 64 rows, the M of one wgmma;
+//   * the block's own tiles (Q; Q and dO; or K and V) are loaded once by
+//     TMA; the 64-row tiles of the other sequence axis (K and V, or Q and
+//     dO with the matching lse and delta) stream through a ring of
+//     shared-memory stages guarded by mbarriers (full: the TMA bytes have
+//     landed; empty: all eight warps are done with the stage). The first
+//     warp also issues each tile's loads two tiles before the tile is
+//     needed, so loads overlap the tensor cores without a producer warp: a
+//     ninth warp would cost registers, since the SM spreads a block's
+//     warps over four register files of 16K registers each;
 //   * TMA writes every tile in the 128-byte swizzle (one row of D = 64
 //     bf16 is exactly 128 bytes) through a 3-D tensor map [BH, S, 64],
 //     whose bounds zero-fill rows past S without reading the next head;
-//   * every product is a wgmma: scores (s = q.k^T; s^T = k.q^T and
-//     dp^T = v.do^T) with both operands in shared memory, K-major; the
-//     accumulating products (o += p.v; dv += p^T.do, dk += ds^T.q) with
-//     the probabilities packed from the f32 score fragment to bf16 as the
-//     register A operand and B read MN-major from the same swizzled tile;
-//   * the softmax runs on exp2 of scores scaled by scale * log2(e) in one
-//     FFMA; the mask is applied only on diagonal and ragged tiles, and a
-//     tile wholly masked for a warpgroup is skipped.
-// dq (128 threads): one block per (64-row Q tile, b*h), with its 64-row
-// K/V tiles staged in padded shared memory by 16-byte loads, and mma.sync
-// m16n8k16 with the score fragment reused as the next A operand.
+//   * every product is a wgmma m64n64k16: scores (s = q.k^T and dp =
+//     do.v^T; s^T = k.q^T and dp^T = v.do^T) with both operands in shared
+//     memory, K-major; the accumulating products (o += p.v; dq += ds.k;
+//     dv += p^T.do, dk += ds^T.q) with p or ds packed from the f32 score
+//     fragment to bf16 as the register A operand and B read MN-major from
+//     the same swizzled tile;
+//   * probabilities run on exp2 of scores scaled by scale * log2(e) in one
+//     FFMA (the backward kernels recompute p from lse in log2 units); the
+//     mask is applied only on diagonal and ragged tiles, and a tile wholly
+//     masked for a warpgroup is skipped.
 //
 // Under causal masking the grids start with the longest rows of each
 // head. The host entry points encode the tensor maps
@@ -57,15 +56,11 @@
 
 namespace {
 
-constexpr int kD = 64;         // head dim
-constexpr int kTile = 64;      // dq: rows per tile, on both sequence axes
-constexpr int kThreads = 128;  // dq: 4 warps x 16 rows
-constexpr int kLd = kD + 8;    // dq: shared-memory row stride in elements
+constexpr int kD = 64;  // head dim
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Forward and dk/dv: two warpgroups, one of whose threads also issues the
-// TMA loads.
+// Two warpgroups, one of whose threads also issues the TMA loads.
 constexpr int kWgThreads = 256;
 constexpr int kRowBytes = kD * 2;  // one tile row: one 128-byte swizzle row
 constexpr int kBlockM = 128;       // rows of the block's own tile
@@ -73,113 +68,14 @@ constexpr int kFwdBlockN = 64;     // forward: K/V rows per stage
 constexpr int kFwdStages = 4;
 constexpr int kDkvBlockN = 64;     // dk/dv: Q/dO rows per stage
 constexpr int kDkvStages = 4;
+constexpr int kDqBlockN = 64;      // dq: K/V rows per stage
+constexpr int kDqStages = 4;
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two neighbouring bf16 of one row (the lower column in the low half).
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 of one column, from rows r and r + 1.
-__device__ __forceinline__ uint32_t ld_col_pair(const bf16* p) {
-  const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + kLd);
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of a [S, 64] matrix into shared memory; rows at or
-// past S are zero.
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, int row0,
-                                          int S) {
-#pragma unroll
-  for (int c = threadIdx.x; c < kTile * (kD / 8); c += kThreads) {
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * kD + col);
-    *reinterpret_cast<uint4*>(smem + r * kLd + col) = val;
-  }
-}
-
-// A fragments (16 rows starting at row w0, all 64 columns) of a tile.
-__device__ __forceinline__ void load_a(uint32_t a[4][4], const bf16* s, int w0,
-                                       int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = ld_pair(s + (w0 + g) * kLd + ks * 16 + t * 2);
-    a[ks][1] = ld_pair(s + (w0 + g + 8) * kLd + ks * 16 + t * 2);
-    a[ks][2] = ld_pair(s + (w0 + g) * kLd + ks * 16 + 8 + t * 2);
-    a[ks][3] = ld_pair(s + (w0 + g + 8) * kLd + ks * 16 + 8 + t * 2);
-  }
-}
-
-// acc[16 x 64] = A[16 x 64] . T^T, where T is a 64 x 64 tile in shared
-// memory (rows of T are the output columns): s = q.k^T, dp = do.v^T, ...
-__device__ __forceinline__ void mm_abt(float acc[8][4], const uint32_t a[4][4],
-                                       const bf16* tile, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const bf16* p = tile + (nt * 8 + g) * kLd + ks * 16 + t * 2;
-      mma16816(acc[nt], a[ks], ld_pair(p), ld_pair(p + 8));
-    }
-  }
-}
-
-// acc[16 x 64] += P[16 x 64] . T, with P the f32 fragment of a previous
-// product rounded to bf16 and T a 64 x 64 tile in shared memory:
-// o += p.v, dq += ds.k, dv += p^T.do, dk += ds^T.q.
-__device__ __forceinline__ void mm_pt(float acc[8][4], const float p[8][4],
-                                      const bf16* tile, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * j][0], p[2 * j][1]);
-    a[1] = pack_bf16(p[2 * j][2], p[2 * j][3]);
-    a[2] = pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]);
-    a[3] = pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3]);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* c = tile + (j * 16 + t * 2) * kLd + nt * 8 + g;
-      mma16816(acc[nt], a, ld_col_pair(c), ld_col_pair(c + 8 * kLd));
-    }
-  }
-}
-
-// Stores a 16 x 64 f32 fragment (rows w0.. of the tile starting at row0)
-// as bf16, skipping rows at or past S.
-__device__ __forceinline__ void store_rows(bf16* out, const float acc[8][4],
-                                           int row0, int S, int g, int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + g + half * 8;
-    if (row >= S) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      __nv_bfloat162 v = __floats2bfloat162_rn(acc[nt][2 * half],
-                                               acc[nt][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * kD + nt * 8 +
-                                         t * 2) = v;
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -458,19 +354,23 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kN / 2],
   l[1] = fmaf(l[1], corr[1], r[1][0]);
 }
 
-__device__ __forceinline__ void issue_qk(float (&sc)[32], uint64_t desc_q,
-                                         uint64_t desc_k) {
+// d = A.B^T over D = 64, A and B both 64-row tiles read K-major from
+// shared memory: s = q.k^T, dp = do.v^T.
+__device__ __forceinline__ void issue_abt(float (&d)[32], uint64_t desc_a,
+                                          uint64_t desc_b) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_ss_n64(sc, desc_q + kk * kDescK16, desc_k + kk * kDescK16, kk);
+    wgmma_ss_n64(d, desc_a + kk * kDescK16, desc_b + kk * kDescK16, kk);
 }
 
-__device__ __forceinline__ void issue_pv(float (&acc)[32],
-                                         const uint32_t (&pa)[4][4],
-                                         uint64_t desc_v) {
+// d += A.B over 64 KV rows, A the bf16 fragments of p or ds in registers,
+// B a 64-row tile read MN-major from shared memory: o += p.v, dq += ds.k.
+__device__ __forceinline__ void issue_ab(float (&d)[32],
+                                         const uint32_t (&a)[4][4],
+                                         uint64_t desc_b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_n64(acc, pa[kk], desc_v + kk * kDescMN16, 1);
+    wgmma_rs_n64(d, a[kk], desc_b + kk * kDescMN16, 1);
 }
 
 constexpr int fwd_smem_bytes() {
@@ -587,7 +487,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   produce(kAhead);
   wait_full(0);
   wgmma_fence();
-  issue_qk(sc, desc_q, desc_k(0));
+  issue_abt(sc, desc_q, desc_k(0));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -598,9 +498,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     produce(it + kAhead);
     wait_full(it);
     wgmma_fence();
-    issue_qk(sc, desc_q, desc_k(it));
+    issue_abt(sc, desc_q, desc_k(it));
     wgmma_commit();
-    issue_pv(acc, pa, desc_v(it - 1));
+    issue_ab(acc, pa, desc_v(it - 1));
     wgmma_commit();
     wgmma_wait<1>();  // the scores of tile it
     fence_regs(sc);
@@ -614,7 +514,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     pack_all(pa, sc);
   }
   wgmma_fence();
-  issue_pv(acc, pa, desc_v(n_w - 1));
+  issue_ab(acc, pa, desc_v(n_w - 1));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
@@ -644,74 +544,176 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+constexpr int dq_smem_bytes() {
+  return 1024 + 2 * kBlockM * kRowBytes + 2 * kDqStages * kDqBlockN * kRowBytes +
+         (1 + 2 * kDqStages) * 8;
+}
+
+// ds = p.(dp - delta).scale of one KV tile, in place of the scores
+// s = q.k^T, for this thread's rows row and row + 8, with p recomputed as
+// exp2(s.scale.log2(e) - lse2) (lse2: lse in log2 units). Masked elements
+// (the tile crosses the diagonal or S) get p = 0, which is what the Pallas
+// kernel's exp(NEG_INF - lse) gives.
+__device__ __forceinline__ void dq_tile(float (&sc)[32], const float (&dp)[32],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], bool masked,
+                                        int k0, int row, int t, int S,
+                                        int causal, float scale,
+                                        float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int h = i >> 1;
+      float p = exp2_ftz(fmaf(sc[4 * j + i], scale_log2, -lse2[h]));
+      if (masked) {
+        const int col = k0 + 8 * j + 2 * t + (i & 1);
+        if ((causal && col > row + 8 * h) || col >= S) p = 0.f;
+      }
+      sc[4 * j + i] = p * (dp[4 * j + i] - dl[h]) * scale;
+    }
+  }
+}
+
 // Replaces _bwd_dq_kernel (flash_attention.py:160). Bound at the main
 // shape: ~39 us by tensor-core operations (three products per tile pair).
-// One block per (Q tile, b*h): the Q and dO fragments and the row lse and
-// delta stay in registers; each KV tile recomputes p from lse, and
-// dq = sum over KV tiles of ds.k accumulates in f32 registers.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// One block per (128-row Q tile, b*h): Q and dO stay in shared memory for
+// the whole loop, each thread holds lse (in log2 units) and delta of its
+// two rows in registers, and 64-row K and V tiles stream through kStages
+// stages. Per KV tile each warpgroup runs s = q.k^T and dp = do.v^T, turns
+// them into ds in registers, packs ds to bf16 (the Pallas kernel's cast
+// before ds.k) and accumulates dq += ds.k in f32 registers, with B read
+// MN-major from the same swizzled K tile. Each tile's products run in
+// turn: overlapping ds.k of tile j - 1 with ds of tile j, as the forward
+// overlaps p.v, needs the s, dp, dq and ds fragments live at once, and at
+// the 128 registers a thread that two blocks an SM allow ptxas then
+// spills and serialises the wgmmas (slower on the card; PERF.md).
+// Without the overlap dq fits in 126 registers, and the four warpgroups
+// of two blocks an SM hide each other's exponentials.
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int S, float scale, int causal) {
-  __shared__ __align__(16) bf16 sQ[kTile * kLd];
-  __shared__ __align__(16) bf16 sdO[kTile * kLd];
-  __shared__ __align__(16) bf16 sK[kTile * kLd];
-  __shared__ __align__(16) bf16 sV[kTile * kLd];
-  const int nt_seq = (S + kTile - 1) / kTile;
-  const int qt = nt_seq - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const size_t base = (size_t)bh * S * kD;
-  const int q0 = qt * kTile;
+  constexpr int kN = kDqBlockN;
+  constexpr int kStages = kDqStages;
+  constexpr int kAhead = kStages - 2;  // tiles in flight beyond the two in use
+  constexpr int kQBytes = kBlockM * kRowBytes;
+  constexpr int kKVBytes = kN * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t sQ = smem_addr(sm);
+  const uint32_t sdO = sQ + kQBytes;
+  const uint32_t sK = sdO + kQBytes;                   // + stage * kKVBytes
+  const uint32_t sV = sK + kStages * kKVBytes;         // + stage * kKVBytes
+  const uint32_t bar_q = sV + kStages * kKVBytes;      // Q and dO
+  const uint32_t bar_full = bar_q + 8;                 // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;   // + 8 * stage
+
+  const int q0 = ((S + kBlockM - 1) / kBlockM - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;  // a head's tiles run together, longest first
+  const int n_kv = ((causal ? min(q0 + kBlockM, S) : S) + kN - 1) / kN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = warp * 16;
-  const int row[2] = {q0 + w0 + g, q0 + w0 + g + 8};
 
-  load_tile(sQ, q + base, q0, S);
-  load_tile(sdO, dout + base, q0, S);
-  __syncthreads();
-  uint32_t qa[4][4], da[4][4];
-  load_a(qa, sQ, w0, g, t);
-  load_a(da, sdO, w0, g, t);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = row[r] < S ? lse[(size_t)bh * S + row[r]] : 0.f;
-    delta_r[r] = row[r] < S ? delta[(size_t)bh * S + row[r]] : 0.f;
-  }
-
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  const int n_kv = causal ? qt + 1 : nt_seq;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile(sK, k + base, k0, S);
-    load_tile(sV, v + base, k0, S);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mm_abt(s, qa, sK, g, t);
-    mm_abt(dp, da, sV, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + nt * 8 + t * 2 + (i & 1);
-        float x = s[nt][i] * scale;
-        if ((causal && col > row[i >> 1]) || col >= S) x = kNegInf;
-        const float p = expf(x - lse_r[i >> 1]);
-        s[nt][i] = p * (dp[nt][i] - delta_r[i >> 1]) * scale;  // ds
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kWgThreads / 32);
     }
-    mm_pt(acc, s, sK, g, t);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  store_rows(dq + base, acc, q0 + w0, S, g, t);
+  __syncthreads();
+
+  // Thread 0 is also the producer, as in the forward: K/V tile j goes into
+  // its stage once all eight warps have released tile j - kStages, kAhead
+  // tiles before it is needed.
+  auto produce = [&](int j) {
+    if (threadIdx.x == 0 && j < n_kv) {
+      const int s = j % kStages;
+      mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+      mbar_expect_tx(bar_full + 8 * s, 2 * kKVBytes);
+      tma_load(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, j * kN, bh);
+      tma_load(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, j * kN, bh);
+    }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, 2 * kQBytes);
+    tma_load(sQ, &tm_q, bar_q, q0, bh);
+    tma_load(sdO, &tm_do, bar_q, q0, bh);
+  }
+  for (int j = 0; j < kAhead; ++j) produce(j);
+
+  // warpgroup wg owns rows q0 + 64 wg .. + 63 and uses the first n_w KV
+  // tiles (under causal masking the block's last tile may lie wholly in
+  // warpgroup 0's future)
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  const int row = wg_row0 + (warp & 3) * 16 + g;  // and row + 8
+  const int n_w = causal ? (min(wg_row0 + 64, S) + kN - 1) / kN : n_kv;
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    lse2[h] = r < S ? lse[(size_t)bh * S + r] * kLog2e : 0.f;
+    dl[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+  }
+  auto wait_full = [&](int it) {
+    mbar_wait(bar_full + 8 * (it % kStages), (it / kStages) & 1);
+  };
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (it % kStages));
+  };
+  auto desc_k = [&](int it) {
+    return sw128_desc(sK + (it % kStages) * kKVBytes);
+  };
+  auto desc_v = [&](int it) {
+    return sw128_desc(sV + (it % kStages) * kKVBytes);
+  };
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t da[4][4];
+
+  mbar_wait(bar_q, 0);
+  const uint64_t desc_q = sw128_desc(sQ + wg * 64 * kRowBytes);
+  const uint64_t desc_do = sw128_desc(sdO + wg * 64 * kRowBytes);
+  for (int it = 0; it < n_w; ++it) {
+    produce(it + kAhead);
+    wait_full(it);
+    wgmma_fence();
+    issue_abt(sc, desc_q, desc_k(it));
+    issue_abt(dp, desc_do, desc_v(it));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    const int k0 = it * kN;
+    const bool masked = (causal && k0 + kN - 1 > wg_row0) || k0 + kN > S;
+    dq_tile(sc, dp, lse2, dl, masked, k0, row, t, S, causal, scale,
+            scale_log2);
+    pack_all(da, sc);
+    wgmma_fence();
+    issue_ab(acc, da, desc_k(it));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(it);
+  }
+  for (int it = n_w; it < n_kv; ++it) {  // tiles this warpgroup skips
+    produce(it + kAhead);
+    wait_full(it);
+    release(it);
+  }
+  store_frag(dq + (size_t)bh * S * kD, acc, row, S, t);
 }
 
 constexpr int dkv_smem_bytes() {
@@ -991,6 +993,44 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int bh, int seq,
+              float scale, int causal, void* stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, q, bh, seq, kBlockM);
+  if (err == 0) err = make_map(&tk, k, bh, seq, kDqBlockN);
+  if (err == 0) err = make_map(&tv, v, bh, seq, kDqBlockN);
+  if (err == 0) err = make_map(&tdo, dout, bh, seq, kBlockM);
+  if (err != 0) return err;
+  constexpr int smem = dq_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
+  flash_bwd_dq_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, seq,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+const void* kernel_fn(int kernel) {
+  switch (kernel) {
+    case 0: return (const void*)flash_fwd_kernel;
+    case 1: return (const void*)flash_bwd_dkv_kernel;
+    case 2: return (const void*)flash_bwd_dq_kernel;
+    default: return nullptr;
+  }
+}
+
+int kernel_smem(int kernel) {
+  switch (kernel) {
+    case 0: return fwd_smem_bytes();
+    case 1: return dkv_smem_bytes();
+    case 2: return dq_smem_bytes();
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1001,20 +1041,39 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
   return launch_fwd(q, k, v, o, lse, bh, seq, scale, causal, stream);
 }
 
-// The dynamic shared memory of one block of the forward (0) or dk/dv (1).
+// The dynamic shared memory of one block of the forward (0), dk/dv (1) or
+// dq (2); -1 for any other kernel.
 int flash_dynamic_smem_bytes(int kernel) {
-  return kernel == 0 ? fwd_smem_bytes() : dkv_smem_bytes();
+  return kernel_smem(kernel);
+}
+
+// Of the forward (0), dk/dv (1) or dq (2): out[0] registers a thread,
+// out[1] the dynamic shared memory that the kernel's launches allow
+// themselves (the runtime's default of 48 KB before the first launch),
+// out[2] the blocks that one SM holds at once at that shared memory.
+// Returns a cudaError_t, or -1 for any other kernel.
+int flash_kernel_attributes(int kernel, int* out) {
+  const void* fn = kernel_fn(kernel);
+  if (fn == nullptr) return -1;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = attr.maxDynamicSharedSizeBytes;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kernel_smem(kernel));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kWgThreads,
+                                                      kernel_smem(kernel));
+  return (int)e;
 }
 
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int seq, float scale, int causal,
                       void* stream) {
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  flash_bwd_dq_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, seq, scale, causal);
-  return (int)cudaGetLastError();
+  return launch_dq(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal,
+                   stream);
 }
 
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,

@@ -26,13 +26,13 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 # What each kernel tiles by, in rows of the [BH, S, 64] tensors (every
-# GPT-2 preset has d_model / n_head == 64). The forward takes 128 Q rows
-# per block and streams K/V in 64-row tiles; dq is 64 Q rows by 64 KV
-# rows; dk/dv takes 128 KV rows per block and streams Q/dO in 64-row
-# tiles. They are fixed in csrc/flash_attention.cu.
+# GPT-2 preset has d_model / n_head == 64). The forward and dq take 128 Q
+# rows per block and stream K/V in 64-row tiles; dk/dv takes 128 KV rows
+# per block and streams Q/dO in 64-row tiles. They are fixed in
+# csrc/flash_attention.cu.
 HEAD_DIM = 64
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
-DQ_BLOCK_Q, DQ_BLOCK_K = 64, 64
+DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -100,7 +100,9 @@ _SIGNATURES = {
     "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "flash_dynamic_smem_bytes": [_I],
+    "flash_kernel_attributes": [_I, ctypes.POINTER(_I)],
 }
+_KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}
 
 
 def _kernel(name: str):
@@ -113,10 +115,23 @@ def _kernel(name: str):
 
 
 def dynamic_smem_bytes(kernel: str) -> int:
-    """Dynamic shared memory of one block of ``flash_fwd`` or
-    ``flash_bwd_dkv`` (builds the kernels if needed)."""
-    return _kernel("flash_dynamic_smem_bytes")(
-        {"flash_fwd": 0, "flash_bwd_dkv": 1}[kernel])
+    """Dynamic shared memory of one block of ``flash_fwd``,
+    ``flash_bwd_dq`` or ``flash_bwd_dkv`` (builds the kernels if needed)."""
+    return _kernel("flash_dynamic_smem_bytes")(_KERNEL_IDS[kernel])
+
+
+def kernel_attributes(kernel: str) -> dict:
+    """What the CUDA runtime reports of one kernel: ``registers`` a thread,
+    ``max_dynamic_smem`` (the dynamic shared memory its last launch allowed
+    itself) and ``blocks_per_sm`` (blocks one SM holds at once). Needs a
+    CUDA device."""
+    out = (_I * 3)()
+    err = _kernel("flash_kernel_attributes")(_KERNEL_IDS[kernel], out)
+    if err != 0:
+        raise RuntimeError(f"flash_kernel_attributes({kernel}) failed: "
+                           f"cudaError {err}")
+    return {"registers": out[0], "max_dynamic_smem": out[1],
+            "blocks_per_sm": out[2]}
 
 
 def _on_cpu(*tensors) -> bool:

@@ -43,9 +43,11 @@ def _assert_close(a, b, what):
 
 @pytest.mark.parametrize("BH,S,causal", [
     (4, 256, True), (4, 200, True), (3, 130, False), (2, 64, True), (2, 1, True),
-    # the edges of the 128-row tiles of the forward and dk/dv kernels
+    # the edges of the 128-row tiles of all three kernels
     (2, 127, True), (2, 128, True), (2, 129, True), (2, 255, True),
     (2, 1000, True), (2, 384, False), (1, 256, True),
+    # S < 64: one 128-row tile holds a single, partial KV tile
+    (2, 40, True), (2, 40, False),
 ])
 def test_kernels_match_plain(cuda, BH, S, causal):
     gen = torch.Generator(device=cuda).manual_seed(S)
@@ -67,6 +69,28 @@ def test_kernels_match_plain(cuda, BH, S, causal):
     _assert_close(dv, dv_ref, "dv")
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def test_dq_grid_larger_than_the_card(cuda):
+    """More dq blocks than the card holds at once, twice over (two blocks
+    an SM): every block's tile is computed, and the launch asks for the
+    dynamic shared memory that flash_dynamic_smem_bytes(2) reports."""
+    BH, S = 640, 200
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    blocks = BH * -(-S // fa.DQ_BLOCK_Q)
+    assert blocks > 2 * 2 * sms
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    kw = dict(scale=D ** -0.5, causal=True)
+    o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    _assert_close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw), "dq")
+    smem = fa.dynamic_smem_bytes("flash_bwd_dq")
+    assert smem > 48 * 1024  # past the default: the launch must raise its limit
+    assert fa.kernel_attributes("flash_bwd_dq")["max_dynamic_smem"] == smem
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -16,7 +16,8 @@ from ray_tpu.ops import flash_attention as jfa
 from ray_tpu_torch.ops import flash_attention as tfa
 
 B, H, D = 2, 2, 32
-CASES = [(256, True), (256, False), (192, True)]  # 192: S not a block multiple
+# 192: S not a block multiple; 129: one row past a 128-row tile
+CASES = [(256, True), (256, False), (192, True), (129, True)]
 JAX_BLOCK = 128
 # The JAX package's own bounds for its Pallas kernels against full
 # attention (tests/test_parallel.py): f32 sums in another order.
@@ -128,7 +129,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="f32"):
         tfa._check_cuda((bf,) * 4, (torch.zeros(4, 128),
                                     torch.zeros(4, 128, dtype=torch.float64)))
-    with pytest.raises(ValueError, match="tile"):
+    assert (tfa.DQ_BLOCK_Q, tfa.DQ_BLOCK_K) == (128, 64)
+    with pytest.raises(ValueError, match="dq 128x64"):
         tfa.flash_attention(*(torch.zeros(1, 64, 1, 64),) * 3, block_q=128)
 
 
