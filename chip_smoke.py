@@ -22,11 +22,26 @@ Phases, each of which exits non-zero on failure:
    step's loss and grad norm, held against reference attention (whose
    step is timed too); then one more step under ``torch.profiler``:
    device time by kernel category and by operator, and the device's busy
-   time, from which PERF.md's "Where the time goes" is written.
+   time, from which PERF.md's "Where the time goes" is written;
+4. the data-parallel Train gang at world 2: two rank threads share the
+   card, each GPT-2-small at full width on batch 8 (the main path's 16
+   between them) and each with its own gloo group over one in-memory
+   store. Bucketed DDP (``make_train_step(host_grad_sync=...)``, 4 MiB
+   buckets): the ranks' synced grads and params are bit-identical, the
+   synced grads are bit-identical to the whole-tree sync of the kill
+   switch, and the first step's loss and grad norm are the one-card
+   step's on batch 16. ZeRO (``ZeroOptimizer(zero_adam)``): one step's
+   params are bit-identical to an allreduce then the full apply, on both
+   ranks, and each rank holds its half of the replicated state. Each run
+   is timed (2 warm-up and 3 timed steps: step ms, host sync ms, ms
+   blocked in the bucket waits) and its launch counts are set to 0 just
+   before and read just after.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of
-the repository beside it, the script exits non-zero and prints no result.
+The line before the last is ``{"kernels": [...]}``, where each kernel's
+``launches`` is the main path's count and ``gang_launches`` the gang's
+two runs'; the last line is ``{"ok": true, "device": {...}}``. Without
+CUDA, or without the rest of the repository beside it, the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -73,6 +88,17 @@ LSE_ABS_TOL = 2e-5
 LOSS_RTOL = 1e-4
 GRAD_NORM_RTOL = 2e-3
 ATTN_GRAD_RTOL = 2.5e-2  # ||g_flash - g_ref|| / ||g_ref|| per attention leaf
+
+# The data-parallel gang phase: two rank threads share the card, each on
+# half the main path's batch, with 4 MiB buckets (the port's default).
+# Its first step is held to the one-card step on the whole batch by the
+# first-step limits above. Every group op times out after
+# GANG_OP_TIMEOUT_S, and the phase fails if a rank is still running after
+# GANG_JOIN_S.
+GANG_BATCH = 8
+GANG_BUCKET_BYTES = 4 << 20
+GANG_OP_TIMEOUT_S = 120.0
+GANG_JOIN_S = 600.0
 
 KERNELS = [
     {"name": "flash_fwd", "replaces": "ray_tpu/ops/flash_attention.py:29"},
@@ -444,6 +470,274 @@ def profile_step(torch, step, state, batch, step_ms):
         print(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms  "
               f"x{e.count:<4d} {e.key} {str(e.input_shapes)[:90]}")
 
+def run_ranks(torch, world: int, fn):
+    """``fn(rank, group)`` on ``world`` rank threads of this process, each
+    on a CUDA stream of its own and holding its own gloo group
+    (``train_dp_r<rank>``) over one in-memory store, so no port is bound.
+    Returns the results in rank order; a rank's error is raised here, and
+    a rank still running after GANG_JOIN_S fails the script."""
+    import threading
+
+    import torch.distributed as dist
+    from ray_tpu_torch.util import collective as col
+
+    store = dist.HashStore()
+    results, errors = [None] * world, [None] * world
+
+    def body(rank):
+        group = f"train_dp_r{rank}"
+        try:
+            col.init_collective_group(world, rank, group_name=group,
+                                      store=store, timeout_s=GANG_OP_TIMEOUT_S)
+            try:
+                with torch.cuda.stream(torch.cuda.Stream()):
+                    results[rank] = fn(rank, group)
+                    torch.cuda.current_stream().synchronize()
+            finally:
+                col.destroy_collective_group(group)
+        except BaseException as e:  # raised on the main thread below
+            errors[rank] = e
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True)
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + GANG_JOIN_S
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        fail(f"gang rank threads still running after {GANG_JOIN_S} s")
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
+
+
+def same_bits(torch, a_leaves, b_leaves) -> bool:
+    return all(torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+               for a, b in zip(a_leaves, b_leaves, strict=True))
+
+
+def gang(torch, fa, card: str):
+    """The data-parallel Train gang at world 2 on one card: two rank
+    threads, each GPT-2-small at full width on batch 8 (the main path's
+    16 between them), bucketed DDP and then ZeRO; returns the launch
+    counts of each run."""
+    from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
+                                             tree_unflatten)
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import sharding as sh
+    from ray_tpu_torch.parallel.train_step import (default_optimizer,
+                                                   global_norm,
+                                                   make_train_state,
+                                                   make_train_step,
+                                                   make_zero_train_state)
+    from ray_tpu_torch.train import ddp
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(gpt2.gpt2_small(), remat=False)
+    S, warmup, timed = 1024, 2, 3
+    tokens = torch.randint(0, cfg.vocab_size, (2 * GANG_BATCH, S + 1),
+                           device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+
+    def batch_of(rank):
+        return {"tokens": tokens[rank * GANG_BATCH:(rank + 1) * GANG_BATCH]}
+
+    def loss(p, b):
+        return gpt2.loss_fn(p, b, cfg)
+
+    def init(g):
+        return gpt2.init(g, cfg)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    def grads_of(params, batch):
+        value, _ = loss(params, batch)
+        return value.detach(), tree_unflatten(
+            params, torch.autograd.grad(value, tree_leaves(params)))
+
+    # the yardstick: the one-card step's loss and grads on the whole batch
+    params = tree_map(lambda p: p.requires_grad_(True), init(seeded()))
+    ref_loss, ref_grads = grads_of(params, {"tokens": tokens})
+    ref_loss, ref_norm = float(ref_loss), float(global_norm(ref_grads))
+    del params
+
+    def ddp_rank(rank, group):
+        opt = default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+        state = make_train_state(init, seeded(), opt)
+        rec = {"wait_s": [], "sync_s": [], "buckets": 0, "raw": None,
+               "synced": None}
+
+        def hook(grads):
+            t0 = time.perf_counter()
+            pending = ddp.sync_gradients_async(grads, group, average=True,
+                                               bucket_bytes=GANG_BUCKET_BYTES)
+            rec["buckets"] = pending.num_buckets
+            synced = pending.result()
+            rec["sync_s"].append(time.perf_counter() - t0)
+            rec["wait_s"].append(pending.wait_s)
+            if rec["raw"] is None:
+                rec["raw"] = tree_map(lambda g: g.detach().clone(), grads)
+                rec["synced"] = tree_map(torch.clone, synced)
+            return synced
+
+        step = make_train_step(loss, opt, host_grad_sync=hook)
+        state, m = step(state, batch_of(rank))
+        first = (float(m["loss"]), float(m["grad_norm"]))
+        for _ in range(warmup - 1):
+            state, _ = step(state, batch_of(rank))
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, _ = step(state, batch_of(rank))
+        torch.cuda.current_stream().synchronize()
+        return {**rec, "first": first, "params": tree_leaves(state.params),
+                "step_ms": (time.perf_counter() - t0) / timed * 1e3,
+                "wait_ms": sum(rec["wait_s"][-timed:]) / timed * 1e3,
+                "host_ms": sum(rec["sync_s"][-timed:]) / timed * 1e3}
+
+    fa.reset_launch_counts()
+    ranks = run_ranks(torch, 2, ddp_rank)
+    launches = {"ddp": dict(fa.LAUNCHES)}
+    times = {"ddp": ranks, "buckets": ranks[0]["buckets"]}
+    synced = [tree_leaves(r["synced"]) for r in ranks]
+    checks = {
+        "the ranks' synced grads are bit-identical":
+            same_bits(torch, *synced),
+        "the ranks' params after the steps are bit-identical":
+            same_bits(torch, ranks[0]["params"], ranks[1]["params"]),
+    }
+    # the kill switch: the same grads as one synchronous whole-tree sync
+    os.environ["RAY_TPU_TORCH_TRAIN_BUCKET_DDP"] = "0"
+    try:
+        whole = run_ranks(torch, 2, lambda rank, group: tree_leaves(
+            ddp.sync_gradients(ranks[rank]["raw"], group, average=True)))
+    finally:
+        del os.environ["RAY_TPU_TORCH_TRAIN_BUCKET_DDP"]
+    checks["bucketed sync is bit-identical to the whole-tree sync"] = all(
+        same_bits(torch, w, s) for w, s in zip(whole, synced))
+    loss_rel = abs((ranks[0]["first"][0] + ranks[1]["first"][0]) / 2
+                   - ref_loss) / ref_loss
+    gn_rel = abs(ranks[0]["first"][1] - ref_norm) / ref_norm
+    diff_rel = math.sqrt(sum(float((g - r).square().sum())
+                             for g, r in zip(synced[0], tree_leaves(ref_grads))
+                             )) / ref_norm
+    print(f"gang ddp: first step against the one-card step on batch "
+          f"{2 * GANG_BATCH}: loss {ref_loss:.6f}, relative difference "
+          f"{loss_rel:.2e} (limit {LOSS_RTOL:.0e}); grad norm {ref_norm:.6f}, "
+          f"{gn_rel:.2e} (limit {GRAD_NORM_RTOL:.0e}); ||g_gang - g_one|| / "
+          f"||g_one|| {diff_rel:.2e} (not gated)", flush=True)
+    checks["the gang's loss is the one-card step's"] = loss_rel <= LOSS_RTOL
+    checks["the gang's grad norm is the one-card step's"] = gn_rel <= GRAD_NORM_RTOL
+    for r in ranks:  # keep only the times
+        del r["raw"], r["synced"], r["params"]
+    del synced, whole, ref_grads
+    torch.cuda.empty_cache()
+
+    def zero_rank(rank, group):
+        # one step by hand, held to an allreduce then the full apply
+        params = tree_map(lambda p: p.requires_grad_(True), init(seeded()))
+        _, grads = grads_of(params, batch_of(rank))
+        zopt = ddp.ZeroOptimizer(ddp.zero_adam(1e-4), group,
+                                 bucket_bytes=GANG_BUCKET_BYTES, average=True)
+        new = tree_leaves(zopt.step(params, grads))
+        synced = tree_leaves(ddp.sync_gradients(grads, group, average=True,
+                                                bucket_bytes=GANG_BUCKET_BYTES))
+        leaves = tree_leaves(params)
+        oracle, shards = ddp.zero_adam(1e-4), zopt.shard_state_dict()["buckets"]
+        applied = states = True
+        for b, entry in enumerate(zopt.shard_map):
+            indices = entry["indices"]
+            pflat = sh.pack_bucket(leaves, indices)
+            state = oracle.init(pflat.numel(), pflat.dtype)
+            oracle.apply(pflat, sh.pack_bucket(synced, indices), state, 1)
+            applied &= same_bits(torch, [sh.pack_bucket(new, indices)], [pflat])
+            lo, hi = entry["bounds"][rank]
+            states &= same_bits(torch, [state[k][lo:hi] for k in sorted(state)],
+                                [shards[b][k] for k in sorted(state)])
+        out = {"new": new, "applied": applied, "states": states,
+               "state_bytes": zopt.state_bytes(),
+               "replicated": zopt.replicated_state_bytes(),
+               "buckets": len(zopt.shard_map)}
+        del params, grads, synced, zopt, shards
+
+        # the ZeRO regime of make_train_step, timed
+        zopt = ddp.ZeroOptimizer(ddp.zero_adam(1e-4), group,
+                                 bucket_bytes=GANG_BUCKET_BYTES, average=True)
+        pendings, host_s = [], []
+
+        class Recording:  # times each step_async, keeps its pending gathers
+            @staticmethod
+            def step_async(p, g):
+                t0 = time.perf_counter()
+                pendings.append(zopt.step_async(p, g))
+                host_s.append(time.perf_counter() - t0)
+                return pendings[-1]
+
+        state = make_zero_train_state(init, seeded())
+        step = make_train_step(loss, None, host_optimizer=Recording())
+        for _ in range(warmup):
+            state, _ = step(state, batch_of(rank))
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, _ = step(state, batch_of(rank))
+        state = step.finalize(state)
+        torch.cuda.current_stream().synchronize()
+        return {**out, "step_ms": (time.perf_counter() - t0) / timed * 1e3,
+                "wait_ms": sum(p.wait_s for p in pendings[-timed:])
+                / timed * 1e3,
+                "host_ms": sum(host_s[-timed:]) / timed * 1e3}
+
+    fa.reset_launch_counts()
+    ranks = run_ranks(torch, 2, zero_rank)
+    launches["zero"] = dict(fa.LAUNCHES)
+    times["zero"] = ranks
+    slack = ranks[0]["buckets"] * 2 * 4  # an element a bucket, 2 f32 slots
+    checks.update({
+        "ZeRO params are bit-identical to an allreduce then the full apply":
+            all(r["applied"] for r in ranks),
+        "ZeRO params are bit-identical across the ranks":
+            same_bits(torch, ranks[0]["new"], ranks[1]["new"]),
+        "each ZeRO shard state is its slice of the replicated state":
+            all(r["states"] for r in ranks),
+        "each rank holds half the replicated state":
+            all(abs(2 * r["state_bytes"] - r["replicated"]) <= slack
+                for r in ranks),
+        "the two shard states make up the replicated state":
+            ranks[0]["state_bytes"] + ranks[1]["state_bytes"]
+            == ranks[0]["replicated"],
+    })
+    print(f"gang zero: state {ranks[0]['state_bytes'] / 1e6:.1f} / "
+          f"{ranks[1]['state_bytes'] / 1e6:.1f} MB a rank against "
+          f"{ranks[0]['replicated'] / 1e6:.1f} MB replicated, "
+          f"{ranks[0]['buckets']} buckets", flush=True)
+    expected = {"ddp": 2 * (warmup + timed) * cfg.n_layer,
+                "zero": 2 * (1 + warmup + timed) * cfg.n_layer}
+    for run, counts in launches.items():
+        for name, n in counts.items():
+            checks[f"{name} launched {n} times in the {run} run (expected "
+                   f"{expected[run]})"] = n == expected[run]
+    for what, ok in checks.items():
+        print(f"gang check: {what}: {'ok' if ok else 'FAIL'}", flush=True)
+    host = {"ddp": "the sync hook", "zero": "step_async"}
+    for run in ("ddp", "zero"):
+        r0, r1 = times[run]
+        print(f"gang {run}: {card}: world 2, batch {GANG_BATCH} a rank, "
+              f"{times['buckets']} buckets of at most "
+              f"{GANG_BUCKET_BYTES >> 20} MiB: step {r0['step_ms']:.1f} / "
+              f"{r1['step_ms']:.1f} ms (rank 0 / 1), in {host[run]} "
+              f"{r0['host_ms']:.1f} / {r1['host_ms']:.1f} ms, blocked in the "
+              f"bucket waits {r0['wait_ms']:.1f} / {r1['wait_ms']:.1f} ms a "
+              f"step ({warmup} warm-up and {timed} timed steps)", flush=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    if bad:
+        fail(f"gang: {'; '.join(bad)}")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -464,12 +758,15 @@ def main() -> int:
     build_kernels()
     results = check_kernels(torch, F, fa)
     launches = train(torch, fa)
+    gang_launches = gang(torch, fa, card)
 
     kernels = []
     for spec in KERNELS:
         name = spec["name"]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": spec["replaces"], "launches": launches[name],
+                        "gang_launches": {run: counts[name] for run, counts
+                                          in gang_launches.items()},
                         **results[name]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -923,16 +923,20 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+EncodeTiledFn lookup_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                              &found) == cudaSuccess &&
+      found == cudaDriverEntryPointSuccess)
+    return reinterpret_cast<EncodeTiledFn>(p);
+  return nullptr;
+}
+
+// Looked up once; C++11 makes the static's initialisation thread-safe, so
+// two host threads may launch at once.
 EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
+  static const EncodeTiledFn fn = lookup_encode_tiled();
   return fn;
 }
 

@@ -18,6 +18,7 @@ existed only for its (8, 128) tiling and is dropped.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -25,22 +26,26 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# What each kernel tiles by, in rows of the [BH, S, 64] tensors (every
-# GPT-2 preset has d_model / n_head == 64). The forward and dq take 128 Q
-# rows per block and stream K/V in 64-row tiles; dk/dv takes 128 KV rows
-# per block and streams Q/dO in 64-row tiles. They are fixed in
-# csrc/flash_attention.cu.
+# What each kernel tiles by, in rows of the [BH, S, 64] tensors. The
+# kernels take head dim 64 only: the public GPT-2 presets have it, but
+# gpt2_tiny (d 64, 4 heads) has 16, and models.gpt2 sends such configs to
+# reference attention. The forward and dq take 128 Q rows per block and
+# stream K/V in 64-row tiles; dk/dv takes 128 KV rows per block and
+# streams Q/dO in 64-row tiles. They are fixed in csrc/flash_attention.cu.
 HEAD_DIM = 64
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# rank threads of one gang launch at once: the counts stay exact under it
+_launches_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launches_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -181,7 +186,12 @@ def _launch(name: str, counter: str, device, *args) -> None:
         why = {-1: "the driver has no cuTensorMapEncodeTiled",
                -2: "the driver refused a tensor map"}.get(err, f"cudaError {err}")
         raise RuntimeError(f"{name} launch failed: {why}")
-    LAUNCHES[counter] += 1
+    _count_launch(counter)
+
+
+def _count_launch(counter: str) -> None:
+    with _launches_lock:
+        LAUNCHES[counter] += 1
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool):

@@ -8,9 +8,12 @@ the step count before its increment (so the first step has lr 0).
 
 Unlike JAX, the update happens in place: ``update`` writes the new
 parameters and moments into the tensors it is given, and a step returns a
-``TrainState`` holding those same tensors. The host-DP
-(``host_grad_sync``) and ZeRO (``host_optimizer``) regimes and the
-state-bytes gauges come with the data-parallel slice.
+``TrainState`` holding those same tensors.
+
+``make_train_step`` also runs the data-parallel gang's two host regimes:
+``host_grad_sync`` (a grad step, the hook, then the update on the synced
+grads) and ``host_optimizer`` (a ``train.ddp.ZeroOptimizer`` owns the
+sync and the update). The state-bytes gauges are not ported.
 """
 from __future__ import annotations
 
@@ -122,6 +125,12 @@ def default_optimizer(
                      weight_decay=weight_decay)
 
 
+def _init_params(init_params_fn, generator, device):
+    dev = resolve_device(device)
+    return tree_map(lambda p: p.to(dev).requires_grad_(True),
+                    init_params_fn(generator))
+
+
 def make_train_state(
     init_params_fn: Callable[[torch.Generator], Any],
     generator: torch.Generator,
@@ -131,23 +140,83 @@ def make_train_state(
 ) -> TrainState:
     """Params from ``init_params_fn(generator)``, moved to ``device`` (CUDA
     by default) and marked as requiring grad, plus the optimizer state."""
-    dev = resolve_device(device)
-    params = tree_map(lambda p: p.to(dev).requires_grad_(True),
-                      init_params_fn(generator))
+    params = _init_params(init_params_fn, generator, device)
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))
 
 
-def make_train_step(loss_fn: Callable[[Any, Any], tuple], optimizer: ClipAdamW):
+def make_zero_train_state(
+    init_params_fn: Callable[[torch.Generator], Any],
+    generator: torch.Generator,
+    *,
+    device: DeviceLike = None,
+) -> TrainState:
+    """``make_train_state`` for the ZeRO regime: the optimizer state lives
+    in a ``train.ddp.ZeroOptimizer``, sharded over the gang, so
+    ``opt_state`` is the empty tuple."""
+    return TrainState(step=0, opt_state=(),
+                      params=_init_params(init_params_fn, generator, device))
+
+
+def _grads(loss_fn, params, batch):
+    """(detached metrics, grads tree) of one loss_fn call."""
+    loss, metrics = loss_fn(params, batch)
+    grads = tree_unflatten(params, torch.autograd.grad(loss,
+                                                       tree_leaves(params)))
+    return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(loss_fn: Callable[[Any, Any], tuple],
+                    optimizer: ClipAdamW | None, *,
+                    host_grad_sync: Callable[[Any], Any] | None = None,
+                    host_optimizer: Any = None):
     """loss_fn(params, batch) -> (scalar_loss, metrics_dict).
 
     Returns step(state, batch) -> (state, metrics); metrics are detached
-    scalars and carry ``grad_norm``, the global norm before clipping."""
+    scalars and carry ``grad_norm``, the global norm before clipping.
+
+    ``host_grad_sync`` is the host data-parallel hook, a callable
+    ``grads -> synced grads`` (canonically ``train.ddp.sync_gradients``)
+    run between the grad step and the update; ``grad_norm`` is then the
+    synced grads' norm, the one the update clips by.
+
+    ``host_optimizer`` (a ``train.ddp.ZeroOptimizer``; ``optimizer`` is
+    not used) selects the ZeRO regime: the step computes grads, and the
+    sharded optimizer reducescatters them, applies this rank's shards and
+    allgathers the updated params asynchronously. The next call waits for
+    those gathers first; ``step.finalize(state)`` folds the last step's
+    params into the state after the loop. ``grad_norm`` is this rank's
+    norm before the sync. The two hooks are mutually exclusive.
+    """
+    if host_optimizer is not None:
+        if host_grad_sync is not None:
+            raise ValueError("host_optimizer and host_grad_sync are "
+                             "mutually exclusive: the sharded optimizer "
+                             "owns the gradient sync")
+        pending = [None]
+
+        def resolve(state: TrainState) -> TrainState:
+            if pending[0] is None:
+                return state
+            params = pending[0].result(timeout=None)
+            pending[0] = None
+            return dataclasses.replace(
+                state, params=tree_map(lambda p: p.requires_grad_(True),
+                                       params))
+
+        def zero_step(state: TrainState, batch):
+            state = resolve(state)
+            metrics, grads = _grads(loss_fn, state.params, batch)
+            metrics["grad_norm"] = global_norm(grads)
+            pending[0] = host_optimizer.step_async(state.params, grads)
+            return dataclasses.replace(state, step=state.step + 1), metrics
+
+        zero_step.finalize = resolve
+        return zero_step
 
     def step(state: TrainState, batch):
-        leaves = tree_leaves(state.params)
-        loss, metrics = loss_fn(state.params, batch)
-        grads = tree_unflatten(state.params, torch.autograd.grad(loss, leaves))
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics, grads = _grads(loss_fn, state.params, batch)
+        if host_grad_sync is not None:
+            grads = host_grad_sync(grads)
         metrics["grad_norm"] = global_norm(grads)
         opt_state = optimizer.update(grads, state.opt_state, state.params,
                                      metrics["grad_norm"])

@@ -1,0 +1,17 @@
+from ray_tpu_torch.util.collective.async_handles import (  # noqa: F401
+    CollectiveHandle,
+)
+from ray_tpu_torch.util.collective.collective import (  # noqa: F401
+    allgather,
+    allgather_async,
+    allreduce,
+    allreduce_async,
+    destroy_collective_group,
+    get_collective_group_size,
+    get_rank,
+    init_collective_group,
+    is_group_initialized,
+    reducescatter,
+    reducescatter_async,
+    supports_async,
+)

@@ -149,3 +149,58 @@ def test_gpt2_step_runs_the_kernels(cuda):
     assert abs(flash["grad_norm"] - ref["grad_norm"]) <= 2e-3 * ref["grad_norm"]
     for g, g_ref in zip(attn_grads["flash"], attn_grads["reference"]):
         assert ((g - g_ref).norm() / g_ref.norm()).item() <= 2.5e-2
+
+
+def test_gpt2_tiny_auto_trains_on_the_card(cuda):
+    """gpt2_tiny has head dim 16, which the kernels do not take: "auto"
+    picks reference attention before any launch, and the step trains."""
+    cfg = gpt2.gpt2_tiny()
+    opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
+    state = ts.make_train_state(lambda g: gpt2.init(g, cfg),
+                                torch.Generator(device=cuda).manual_seed(0), opt)
+    step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg), opt)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    fa.reset_launch_counts()
+    for _ in range(2):
+        state, m = step(state, {"tokens": tokens})
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert set(fa.LAUNCHES.values()) == {0}
+
+
+def test_world2_thread_ddp_step_on_the_card(cuda):
+    """Two rank threads share the card, each a bf16 GPT-2 with head dim 64
+    on half the batch, synced by bucketed averaged DDP: the kernels run on
+    both ranks, counted exactly, and the ranks' params stay bit-identical."""
+    from functools import partial
+
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.train import ddp
+    from tests.torch_gang import run_gang
+
+    cfg = gpt2.GPT2Config(vocab_size=512, max_seq=128, n_layer=2, n_head=2,
+                          d_model=128, remat=False)
+    tokens = torch.randint(0, 512, (4, 129), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def rank(r, group):
+        opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
+        state = ts.make_train_state(
+            lambda g: gpt2.init(g, cfg),
+            torch.Generator(device=cuda).manual_seed(0), opt)
+        sync = partial(ddp.sync_gradients, group_name=group, average=True,
+                       bucket_bytes=64 << 10)
+        step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg), opt,
+                                  host_grad_sync=sync)
+        for _ in range(2):
+            state, m = step(state, {"tokens": tokens[2 * r:2 * r + 2]})
+            assert torch.isfinite(m["loss"])
+        torch.cuda.synchronize()
+        return [p.detach().cpu() for p in tree_leaves(state.params)]
+
+    fa.reset_launch_counts()
+    p0, p1 = run_gang(2, rank)
+    assert fa.LAUNCHES == {"flash_fwd": 8, "flash_bwd_dq": 8,
+                           "flash_bwd_dkv": 8}
+    for a, b in zip(p0, p1):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -6,6 +6,8 @@ these tests hold the plain versions — and the autograd wiring around them
 — to the TPU kernels. Inputs are made with numpy from a seed and fed to
 both packages in f32.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -146,3 +148,29 @@ def test_kernel_wrappers_refuse_unaligned_tensors():
         tfa._check_cuda((bf, t, bf))
     f32 = torch.zeros(4 * 128 + 1)[1:].view(4, 128)
     assert tfa._check_cuda((bf,) * 4, (f32, f32)) == (4, 128)
+
+
+def test_launch_counts_stay_exact_under_rank_threads():
+    """Rank threads of a gang launch at once: more threads than cores,
+    switching every microsecond, lose no count."""
+    import sys
+    import threading
+
+    threads, per_thread = 4 * (os.cpu_count() or 1), 2000
+    tfa.reset_launch_counts()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(
+            target=lambda: [tfa._count_launch("flash_fwd")
+                            for _ in range(per_thread)])
+            for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert tfa.LAUNCHES["flash_fwd"] == threads * per_thread
+    tfa.reset_launch_counts()

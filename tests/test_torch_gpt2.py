@@ -3,6 +3,8 @@ ray_tpu_torch.parallel.train_step) against the JAX package's, on weights
 made by the JAX ``gpt2.init`` and carried across with
 ``convert.params_from_jax`` (jax.random streams cannot be reproduced in
 torch). Tiny config: 2 layers, d 64, 4 heads, vocab 256, seq 64."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,3 +171,29 @@ def test_init_shapes_dtypes_and_scales(jax_params):
     assert (ours["blocks"]["ln1"]["scale"] == 1).all()
     assert (ours["blocks"]["mlp"]["b1"] == 0).all()
     assert TG.gpt2_small().n_params == JG.gpt2_small().n_params
+
+
+@pytest.mark.parametrize("cfg, device, expect", [
+    (TG.gpt2_tiny(), "cuda", "reference"),  # head dim 16
+    (TG.gpt2_small(), "cuda", "flash"),  # bf16, head dim 64
+    (dataclasses.replace(TG.gpt2_small(), dtype=torch.float32), "cuda",
+     "reference"),
+    (dataclasses.replace(TG.gpt2_tiny(), attention="flash"), "cuda", "flash"),
+    (TG.gpt2_small(), "cpu", "reference"),
+], ids=["tiny", "small_bf16", "small_f32", "explicit_flash", "cpu"])
+def test_auto_attention_picks_what_the_kernels_take(cfg, device, expect):
+    """"auto" is "flash" only where the CUDA kernels take the input; the
+    choice is a pure function of the config and the device type, so it
+    needs no GPU."""
+    assert TG._resolve_attention(cfg, torch.device(device)) == expect
+
+
+def test_explicit_flash_still_refuses_what_the_kernels_do_not_take():
+    """An explicit "flash" reaches the kernel wrapper's checks, which
+    refuse head dim 16 (gpt2_tiny's) and f32 before any launch."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    for D, dtype in ((16, torch.bfloat16), (64, torch.float32)):
+        q = torch.zeros(2, 8, D, dtype=dtype)
+        with pytest.raises(ValueError, match="head dim|bf16"):
+            fa._check_cuda((q, q, q))
