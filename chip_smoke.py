@@ -9,8 +9,8 @@ Phases, each of which exits non-zero on failure:
    each kernel's registers, dynamic shared memory and blocks per SM;
 2. each hand-written kernel against its plain PyTorch version on the card,
    in bf16, at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
-   causal), two ragged S (1000, and 129: one row past a 128-row tile) and
-   a non-causal case; times of the kernel, the plain version and the
+   causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
+   one row past a 128-row tile) and a non-causal case; times of the kernel, the plain version and the
    PyTorch library call (SDPA) beside the bound, with the kernel's TFLOP/s
    and the share of its bound that it reaches; and the backward as
    ``_FlashAttention.backward`` runs it (delta, dq, dk/dv) against SDPA's;
@@ -29,13 +29,15 @@ Phases, each of which exits non-zero on failure:
    store. Bucketed DDP (``make_train_step(host_grad_sync=...)``, 4 MiB
    buckets): the ranks' synced grads and params are bit-identical, the
    synced grads are bit-identical to the whole-tree sync of the kill
-   switch, and the first step's loss and grad norm are the one-card
-   step's on batch 16. ZeRO (``ZeroOptimizer(zero_adam)``): one step's
-   params are bit-identical to an allreduce then the full apply, on both
-   ranks, and each rank holds its half of the replicated state. Each run
-   is timed (2 warm-up and 3 timed steps: step ms, host sync ms, ms
-   blocked in the bucket waits) and its launch counts are set to 0 just
-   before and read just after.
+   switch, and the first step's loss, grad norm and attention leaves'
+   grads are the one-card step's on batch 16 with reference attention,
+   within phase 3's limits. ZeRO (``ZeroOptimizer(zero_adam)``): one
+   step's params are bit-identical to an allreduce then the full apply,
+   on both ranks, and each rank holds its half of the replicated state.
+   Each run is timed (2 warm-up and 3 timed steps: step ms, host sync ms,
+   ms blocked in the bucket waits; for ZeRO also the ms of a step spent
+   packing grads and params, in the host Adam and in the gathers) and
+   its launch counts are set to 0 just before and read just after.
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is the main path's count and ``gang_launches`` the gang's
@@ -52,6 +54,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
@@ -91,8 +94,8 @@ ATTN_GRAD_RTOL = 2.5e-2  # ||g_flash - g_ref|| / ||g_ref|| per attention leaf
 
 # The data-parallel gang phase: two rank threads share the card, each on
 # half the main path's batch, with 4 MiB buckets (the port's default).
-# Its first step is held to the one-card step on the whole batch by the
-# first-step limits above. Every group op times out after
+# Its first step is held to the one-card step on the whole batch, with
+# reference attention, by the first-step and attention-grad limits above. Every group op times out after
 # GANG_OP_TIMEOUT_S, and the phase fails if a rank is still running after
 # GANG_JOIN_S.
 GANG_BATCH = 8
@@ -216,8 +219,9 @@ def check_kernels(torch, F, fa):
         return e, b.square().mean().sqrt().item(), e / LSE_ABS_TOL, None
 
     results, failures = {}, []
-    cases = [("main", 192, 1024, True), ("ragged", 24, 1000, True),
-             ("ragged129", 24, 129, True), ("noncausal", 24, 1024, False)]
+    cases = [("main", 192, 1024, True), ("gang", GANG_BATCH * 12, 1024, True),
+             ("ragged", 24, 1000, True), ("ragged129", 24, 129, True),
+             ("noncausal", 24, 1024, False)]
     for label, BH, S, causal in cases:
         q, k, v, do = (rand(BH, S) for _ in range(4))
         kw = dict(scale=SCALE, causal=causal)
@@ -476,8 +480,6 @@ def run_ranks(torch, world: int, fn):
     (``train_dp_r<rank>``) over one in-memory store, so no port is bound.
     Returns the results in rank order; a rank's error is raised here, and
     a rank still running after GANG_JOIN_S fails the script."""
-    import threading
-
     import torch.distributed as dist
     from ray_tpu_torch.util import collective as col
 
@@ -559,11 +561,16 @@ def gang(torch, fa, card: str):
         return value.detach(), tree_unflatten(
             params, torch.autograd.grad(value, tree_leaves(params)))
 
-    # the yardstick: the one-card step's loss and grads on the whole batch
+    # the yardstick: the one-card step's loss and grads on the whole batch,
+    # with reference attention, so that it sees the kernels as phase 3 does
+    ref_cfg = dataclasses.replace(cfg, attention="reference")
     params = tree_map(lambda p: p.requires_grad_(True), init(seeded()))
-    ref_loss, ref_grads = grads_of(params, {"tokens": tokens})
-    ref_loss, ref_norm = float(ref_loss), float(global_norm(ref_grads))
+    ref_loss, _ = gpt2.loss_fn(params, {"tokens": tokens}, ref_cfg)
+    ref_grads = tree_unflatten(params, torch.autograd.grad(
+        ref_loss, tree_leaves(params)))
+    ref_loss, ref_norm = float(ref_loss.detach()), float(global_norm(ref_grads))
     del params
+    torch.cuda.empty_cache()
 
     def ddp_rank(rank, group):
         opt = default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
@@ -603,6 +610,9 @@ def gang(torch, fa, card: str):
     ranks = run_ranks(torch, 2, ddp_rank)
     launches = {"ddp": dict(fa.LAUNCHES)}
     times = {"ddp": ranks, "buckets": ranks[0]["buckets"]}
+    attn, attn_ref = ranks[0]["synced"]["blocks"]["attn"], ref_grads["blocks"]["attn"]
+    attn_rel = {n: float((attn[n] - attn_ref[n]).norm() / attn_ref[n].norm())
+                for n in sorted(attn)}
     synced = [tree_leaves(r["synced"]) for r in ranks]
     checks = {
         "the ranks' synced grads are bit-identical":
@@ -622,20 +632,45 @@ def gang(torch, fa, card: str):
     loss_rel = abs((ranks[0]["first"][0] + ranks[1]["first"][0]) / 2
                    - ref_loss) / ref_loss
     gn_rel = abs(ranks[0]["first"][1] - ref_norm) / ref_norm
-    diff_rel = math.sqrt(sum(float((g - r).square().sum())
-                             for g, r in zip(synced[0], tree_leaves(ref_grads))
-                             )) / ref_norm
     print(f"gang ddp: first step against the one-card step on batch "
-          f"{2 * GANG_BATCH}: loss {ref_loss:.6f}, relative difference "
-          f"{loss_rel:.2e} (limit {LOSS_RTOL:.0e}); grad norm {ref_norm:.6f}, "
-          f"{gn_rel:.2e} (limit {GRAD_NORM_RTOL:.0e}); ||g_gang - g_one|| / "
-          f"||g_one|| {diff_rel:.2e} (not gated)", flush=True)
+          f"{2 * GANG_BATCH} with reference attention: loss {ref_loss:.6f}, "
+          f"relative difference {loss_rel:.2e} (limit {LOSS_RTOL:.0e}); grad "
+          f"norm {ref_norm:.6f}, {gn_rel:.2e} (limit {GRAD_NORM_RTOL:.0e}); "
+          f"||g_gang - g_one|| / ||g_one|| of the attention leaves "
+          + ", ".join(f"{n} {r:.3e}" for n, r in attn_rel.items())
+          + f" (limit {ATTN_GRAD_RTOL:.1e})", flush=True)
     checks["the gang's loss is the one-card step's"] = loss_rel <= LOSS_RTOL
     checks["the gang's grad norm is the one-card step's"] = gn_rel <= GRAD_NORM_RTOL
+    for n, r in attn_rel.items():
+        checks[f"the gang's grad of {n} is the one-card step's"] = (
+            r <= ATTN_GRAD_RTOL)
     for r in ranks:  # keep only the times
         del r["raw"], r["synced"], r["params"]
-    del synced, whole, ref_grads
+    del synced, whole, ref_grads, attn, attn_ref
     torch.cuda.empty_cache()
+
+    # seconds a rank thread spends in each part of the ZeRO step, summed
+    # over the timed steps: the grad buckets' packing to the host, the
+    # param spans' packing, the host Adam, and PendingParams.result (the
+    # allgathers' waits and the copies back to the card, the warm-up's
+    # last step's included, which the first timed step waits for)
+    SPLIT = ("grad_pack", "param_pack", "adam", "gathers")
+    parts = threading.local()
+
+    def timed_part(fn, key):
+        def timed_fn(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc = getattr(parts, "acc", None)
+                if acc is not None:
+                    acc[key] += time.perf_counter() - t0
+        return timed_fn
+
+    pack_bucket, pack_span = sh.pack_bucket, sh.pack_span
+    sh.pack_bucket = timed_part(pack_bucket, "grad_pack")
+    sh.pack_span = timed_part(pack_span, "param_pack")
 
     def zero_rank(rank, group):
         # one step by hand, held to an allreduce then the full apply
@@ -664,36 +699,49 @@ def gang(torch, fa, card: str):
                "buckets": len(zopt.shard_map)}
         del params, grads, synced, zopt, shards
 
-        # the ZeRO regime of make_train_step, timed
-        zopt = ddp.ZeroOptimizer(ddp.zero_adam(1e-4), group,
-                                 bucket_bytes=GANG_BUCKET_BYTES, average=True)
+        # the ZeRO regime of make_train_step, timed, with step_async's host
+        # work split into its parts (SPLIT)
+        adam = ddp.zero_adam(1e-4)
+        adam.apply = timed_part(adam.apply, "adam")
+        zopt = ddp.ZeroOptimizer(adam, group, bucket_bytes=GANG_BUCKET_BYTES,
+                                 average=True)
         pendings, host_s = [], []
 
         class Recording:  # times each step_async, keeps its pending gathers
             @staticmethod
             def step_async(p, g):
                 t0 = time.perf_counter()
-                pendings.append(zopt.step_async(p, g))
+                pending = zopt.step_async(p, g)
                 host_s.append(time.perf_counter() - t0)
-                return pendings[-1]
+                pending.result = timed_part(pending.result, "gathers")
+                pendings.append(pending)
+                return pending
 
         state = make_zero_train_state(init, seeded())
         step = make_train_step(loss, None, host_optimizer=Recording())
         for _ in range(warmup):
             state, _ = step(state, batch_of(rank))
         torch.cuda.current_stream().synchronize()
+        parts.acc = dict.fromkeys(SPLIT, 0.0)
         t0 = time.perf_counter()
         for _ in range(timed):
             state, _ = step(state, batch_of(rank))
         state = step.finalize(state)
         torch.cuda.current_stream().synchronize()
-        return {**out, "step_ms": (time.perf_counter() - t0) / timed * 1e3,
+        dt = time.perf_counter() - t0
+        split, parts.acc = parts.acc, None
+        return {**out, "step_ms": dt / timed * 1e3,
                 "wait_ms": sum(p.wait_s for p in pendings[-timed:])
                 / timed * 1e3,
-                "host_ms": sum(host_s[-timed:]) / timed * 1e3}
+                "host_ms": sum(host_s[-timed:]) / timed * 1e3,
+                **{f"{k}_ms": v / timed * 1e3 for k, v in split.items()}}
+
 
     fa.reset_launch_counts()
-    ranks = run_ranks(torch, 2, zero_rank)
+    try:
+        ranks = run_ranks(torch, 2, zero_rank)
+    finally:
+        sh.pack_bucket, sh.pack_span = pack_bucket, pack_span
     launches["zero"] = dict(fa.LAUNCHES)
     times["zero"] = ranks
     slack = ranks[0]["buckets"] * 2 * 4  # an element a bucket, 2 f32 slots
@@ -733,6 +781,12 @@ def gang(torch, fa, card: str):
               f"{r0['host_ms']:.1f} / {r1['host_ms']:.1f} ms, blocked in the "
               f"bucket waits {r0['wait_ms']:.1f} / {r1['wait_ms']:.1f} ms a "
               f"step ({warmup} warm-up and {timed} timed steps)", flush=True)
+    r0, r1 = times["zero"]
+    print(f"gang zero: {card}: a timed step's host work, rank 0 / 1: "
+          + ", ".join(f"{k} {r0[k + '_ms']:.1f} / {r1[k + '_ms']:.1f} ms"
+                      for k in SPLIT)
+          + f"; torch CPU threads {torch.get_num_threads()} a rank, "
+          f"{os.cpu_count()} cores", flush=True)
     bad = [what for what, ok in checks.items() if not ok]
     if bad:
         fail(f"gang: {'; '.join(bad)}")

@@ -1,5 +1,8 @@
 """The knobs the port reads, with env-var overrides. The twin of the Train
-entries of ``ray_tpu/_private/config.py`` (``:116-124``), same defaults.
+bucket entries of ``ray_tpu/_private/config.py`` (``:116-117``), same
+defaults. The twin's ``train_ddp_mode`` knob waits for the Train backend,
+which is what reads it; until then the mode is an argument of
+``train.ddp.sync_gradients``.
 
 Each entry is overridable as ``RAY_TPU_TORCH_<NAME>``, read at call time,
 so a test or an operator can set it after import. The port keeps its own
@@ -17,9 +20,6 @@ _CONFIG_DEFS: Dict[str, Any] = {
     # bit-identical at world 2.
     "train_bucket_ddp": True,
     "train_grad_bucket_bytes": 4 * 1024 * 1024,  # target bucket size
-    # "allreduce" (every rank gets the full synced tree) or
-    # "reducescatter" (each rank gets its shard of every bucket; ZeRO).
-    "train_ddp_mode": "allreduce",
 }
 
 

@@ -19,7 +19,6 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch._private.tree import tree_map
 from ray_tpu_torch.models import layers as L
-from ray_tpu_torch.ops.flash_attention import HEAD_DIM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,15 +104,14 @@ def init(generator: torch.Generator, cfg: GPT2Config, device: DeviceLike = None)
 
 # ----------------------------------------------------------------- forward
 def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
-    """``"auto"`` is ``"flash"`` where the kernels take the input (a CUDA
-    device, bf16 compute, head dim 64) and ``"reference"`` elsewhere. The
-    choice is made before any launch; an explicit ``"flash"`` is kept and
-    the kernels' wrappers refuse what they do not take."""
+    """``"auto"`` is ``"flash"`` on a CUDA device and ``"reference"``
+    elsewhere, as ``ray_tpu``'s is ``"flash"`` on a TPU. The hand-written
+    kernels take bf16 with head dim 64 only, and their wrappers refuse
+    anything else before a launch: on the card such a config (f32, or
+    ``gpt2_tiny``'s head dim 16) asks for ``"reference"`` itself."""
     if cfg.attention != "auto":
         return cfg.attention
-    takes = (device.type == "cuda" and cfg.dtype == torch.bfloat16
-             and cfg.d_model // cfg.n_head == HEAD_DIM)
-    return "flash" if takes else "reference"
+    return "flash" if device.type == "cuda" else "reference"
 
 
 def _block_apply(block, x, cfg: GPT2Config, impl: str):

@@ -28,8 +28,8 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 # What each kernel tiles by, in rows of the [BH, S, 64] tensors. The
 # kernels take head dim 64 only: the public GPT-2 presets have it, but
-# gpt2_tiny (d 64, 4 heads) has 16, and models.gpt2 sends such configs to
-# reference attention. The forward and dq take 128 Q rows per block and
+# gpt2_tiny (d 64, 4 heads) has 16, and on the card it runs only with
+# attention="reference". The forward and dq take 128 Q rows per block and
 # stream K/V in 64-row tiles; dk/dv takes 128 KV rows per block and
 # streams Q/dO in 64-row tiles. They are fixed in csrc/flash_attention.cu.
 HEAD_DIM = 64

@@ -91,6 +91,27 @@ def pack_bucket(leaves, indices) -> torch.Tensor:
     return out
 
 
+def pack_span(leaves, indices, lo: int, hi: int) -> torch.Tensor:
+    """Elements ``[lo, hi)`` of what ``pack_bucket(leaves, indices)``
+    packs, copying only the pieces of the leaves that fall in the span (a
+    rank's shard of the bucket). Staged as ``pack_bucket`` stages."""
+    first = leaves[indices[0]]
+    on_cuda = first.device.type == "cuda"
+    out = torch.empty(hi - lo, dtype=first.dtype, pin_memory=on_cuda)
+    pos = 0
+    for i in indices:
+        n = _numel(leaves[i])
+        a, b = max(lo, pos), min(hi, pos + n)
+        if a < b:
+            out[a - lo:b - lo].copy_(
+                leaves[i].detach().reshape(-1)[a - pos:b - pos],
+                non_blocking=on_cuda)
+        pos += n
+    if on_cuda:
+        torch.cuda.current_stream(first.device).synchronize()
+    return out
+
+
 def unpack_bucket(flat, leaves, indices, out_leaves) -> None:
     """Scatter one reduced bucket back into per-leaf tensors, shaped like
     the original leaves and on their devices; writes into ``out_leaves``

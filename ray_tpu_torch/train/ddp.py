@@ -180,8 +180,7 @@ class _DoneShardSync:
 
 
 def _resolve_mode(mode) -> str:
-    m = mode if mode is not None else get_config("train_ddp_mode")
-    m = str(m).strip().lower()
+    m = str(mode).strip().lower()
     if m not in ("allreduce", "reducescatter"):
         raise ValueError(
             f"train DDP mode {mode!r}: expected 'allreduce' (every rank "
@@ -190,42 +189,55 @@ def _resolve_mode(mode) -> str:
     return m
 
 
-def _sync_shards_async(grads, group_name: str, *, average: bool,
-                       bucket_bytes: int | None):
-    """``mode="reducescatter"``: one async reducescatter per bucket. With
-    the kill switch the same plan runs through synchronous
-    reducescatters, so the shard map does not change with it."""
-    leaves, _ = sh.flatten_tree(grads)
+def _bucketed(group_name: str) -> bool:
+    """Async per-bucket collectives, unless the kill switch is thrown or
+    the group cannot run them."""
+    return bool(get_config("train_bucket_ddp")) and col.supports_async(
+        group_name)
+
+
+def _launch_shards(flats, group_name: str, shard_map, *, average: bool):
+    """One reducescatter per packed bucket of ``flats`` (an iterable, so a
+    bucket goes on the wire before the next one is packed); each rank
+    gets its ``shard_map`` shard. With the kill switch the same buckets
+    go through synchronous reducescatters, so the shard map does not
+    change with it."""
     world = col.get_collective_group_size(group_name)
-    if bucket_bytes is None:
-        bucket_bytes = int(get_config("train_grad_bucket_bytes"))
-    plan = sh.plan_buckets(leaves, bucket_bytes)
-    shard_map = sh.plan_shard_map(leaves, plan, world)
-    if not get_config("train_bucket_ddp") or not col.supports_async(group_name):
+    if not _bucketed(group_name):
         shards = []
-        for indices in plan:
-            shard = col.reducescatter(sh.pack_bucket(leaves, indices),
-                                      group_name)
+        for flat in flats:
+            shard = col.reducescatter(flat, group_name)
             if average:
                 shard.div_(world)
             shards.append(shard)
         return _DoneShardSync(shards, shard_map)
-    launched = [col.reducescatter_async(sh.pack_bucket(leaves, indices),
-                                        group_name)
-                for indices in plan]
+    launched = [col.reducescatter_async(flat, group_name) for flat in flats]
     return PendingShardSync(shard_map, launched, world, average)
+
+
+def _sync_shards_async(grads, group_name: str, *, average: bool,
+                       bucket_bytes: int | None):
+    """``mode="reducescatter"``: the grad tree's buckets, each
+    reducescattered (``_launch_shards``)."""
+    leaves, _ = sh.flatten_tree(grads)
+    if bucket_bytes is None:
+        bucket_bytes = int(get_config("train_grad_bucket_bytes"))
+    plan = sh.plan_buckets(leaves, bucket_bytes)
+    shard_map = sh.plan_shard_map(
+        leaves, plan, col.get_collective_group_size(group_name))
+    return _launch_shards((sh.pack_bucket(leaves, indices) for indices in plan),
+                          group_name, shard_map, average=average)
 
 
 def sync_gradients_async(grads, group_name: str = "train_dp", *,
                          average: bool = False,
                          bucket_bytes: int | None = None,
-                         mode: str | None = None,
+                         mode: str = "allreduce",
                          wire_dtype=None):
     """Launch the bucketed gradient sync and return a pending sync at
     once; call ``.result()`` at the optimizer boundary.
 
-    ``mode`` (default: ``RAY_TPU_TORCH_TRAIN_DDP_MODE``, ``allreduce``):
-    ``allreduce`` returns the full synced tree on every rank;
+    ``mode``: ``allreduce`` returns the full synced tree on every rank;
     ``reducescatter`` returns a ``PendingShardSync`` whose result is this
     rank's shard of each packed bucket. With
     ``RAY_TPU_TORCH_TRAIN_BUCKET_DDP=0`` the whole tree goes as one
@@ -248,7 +260,7 @@ def sync_gradients_async(grads, group_name: str = "train_dp", *,
         return _DoneSync(grads)
     if bucket_bytes is None:
         bucket_bytes = int(get_config("train_grad_bucket_bytes"))
-    if not get_config("train_bucket_ddp") or not col.supports_async(group_name):
+    if not _bucketed(group_name):
         # the whole tree as one synchronous allreduce per dtype (a bucket
         # is contiguous in one dtype): what the kill switch promises
         out_leaves: list = [None] * len(leaves)
@@ -270,7 +282,7 @@ def sync_gradients_async(grads, group_name: str = "train_dp", *,
 def sync_gradients(grads, group_name: str = "train_dp", *,
                    average: bool = False,
                    bucket_bytes: int | None = None,
-                   mode: str | None = None,
+                   mode: str = "allreduce",
                    wire_dtype=None):
     """Synchronize one grad tree across the gang and return the summed
     (or averaged) grads, or, in ``mode="reducescatter"``, the list of
@@ -621,34 +633,30 @@ class ZeroOptimizer:
                              "grads= or call accumulate() first")
         gleaves = None if grads is None else sh.flatten_tree(grads)[0]
         self._step += 1
-        bucketed = (get_config("train_bucket_ddp")
-                    and col.supports_async(self._group))
-        # launch: fold bucket b and put its reducescatter on the wire
-        launched = []
-        for b, indices in enumerate(self._plan):
-            if gleaves is None:
-                flat = self._acc[b]
-            else:
+        acc, self._acc = self._acc, None
+
+        def folded():  # bucket b's grads, packed and folded
+            for b, indices in enumerate(self._plan):
+                if gleaves is None:
+                    yield acc[b]
+                    continue
                 flat = sh.pack_bucket(gleaves, indices)
-                if self._acc is not None and self._acc[b] is not None:
-                    flat += self._acc[b]
-            launched.append(col.reducescatter_async(flat, self._group)
-                            if bucketed else flat)
-        self._acc = None
+                if acc is not None and acc[b] is not None:
+                    flat += acc[b]
+                yield flat
+
+        # launch: each bucket's reducescatter goes on the wire as soon as
+        # it is folded
+        shards = _launch_shards(folded(), self._group, self._shard_map,
+                                average=self._average)
+        bucketed = isinstance(shards, PendingShardSync)
         # harvest: wait shard b, apply, launch its allgather, while bucket
         # b+1's reducescatter and buckets < b's allgathers are in flight
-        gathers, waited = [], 0.0
-        for b, launch in enumerate(launched):
+        gathers = []
+        for b, indices in enumerate(self._plan):
             lo, hi = self._my_bounds(b)
-            pshard = sh.pack_bucket(leaves, self._plan[b])[lo:hi].clone()
-            if bucketed:
-                t0 = time.perf_counter()
-                gshard = launch.result(timeout)
-                waited += time.perf_counter() - t0
-            else:
-                gshard = col.reducescatter(launch, self._group)
-            if self._average:
-                gshard.div_(self._world)
+            pshard = sh.pack_span(leaves, indices, lo, hi)
+            gshard = shards.wait_bucket(b, timeout)
             pshard = self._opt.apply(pshard, gshard, self._shard_state(b),
                                      self._step)
             # gloo gathers equal sizes only: pad to the bucket's widest
@@ -663,7 +671,7 @@ class ZeroOptimizer:
                 gathers.append(
                     (b, _DoneHandle(col.allgather(pshard, self._group))))
         return PendingParams(treedef, leaves, self._plan, self._shard_map,
-                             gathers, waited)
+                             gathers, shards.wait_s)
 
     def step(self, params, grads=None, timeout: float | None = None):
         """Blocking convenience: ``step_async(...).result()``."""

@@ -151,20 +151,27 @@ def test_gpt2_step_runs_the_kernels(cuda):
         assert ((g - g_ref).norm() / g_ref.norm()).item() <= 2.5e-2
 
 
-def test_gpt2_tiny_auto_trains_on_the_card(cuda):
+def test_gpt2_tiny_on_the_card_raises_with_auto_and_trains_with_reference(cuda):
     """gpt2_tiny has head dim 16, which the kernels do not take: "auto"
-    picks reference attention before any launch, and the step trains."""
-    cfg = gpt2.gpt2_tiny()
-    opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
-    state = ts.make_train_state(lambda g: gpt2.init(g, cfg),
-                                torch.Generator(device=cuda).manual_seed(0), opt)
-    step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg), opt)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda,
+    picks flash on the card and its wrapper refuses before any launch;
+    asked for "reference", the step trains."""
+    tokens = torch.randint(0, 256, (2, 65), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(1))
     fa.reset_launch_counts()
-    for _ in range(2):
-        state, m = step(state, {"tokens": tokens})
-        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    for attention in ("auto", "reference"):
+        cfg = dataclasses.replace(gpt2.gpt2_tiny(), attention=attention)
+        opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
+        state = ts.make_train_state(
+            lambda g: gpt2.init(g, cfg),
+            torch.Generator(device=cuda).manual_seed(0), opt)
+        step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg), opt)
+        if attention == "auto":
+            with pytest.raises(ValueError, match="head dim"):
+                step(state, {"tokens": tokens})
+            continue
+        for _ in range(2):
+            state, m = step(state, {"tokens": tokens})
+            assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
     assert set(fa.LAUNCHES.values()) == {0}
 
 

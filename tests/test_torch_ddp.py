@@ -3,6 +3,8 @@ regimes of parallel.train_step) on gangs of rank threads
 (tests/torch_gang.py), against numpy oracles and the JAX package's pure
 functions: its shard optimizers and its plain train step. No ray_tpu
 runtime is started."""
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,8 +101,8 @@ def test_world4_ranks_agree_and_sum_within_reassociation(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["bad_mode", "allreduce_wire", "shard_wire",
-                                  "zero_wire", "default", "knob"])
-def test_mode_validation_raises_before_group_state(monkeypatch, case):
+                                  "zero_wire", "default", "spelling"])
+def test_mode_validation_raises_before_group_state(case):
     """The twin of test_zz_zero_ddp.py::test_mode_validation_raises_before_group_state:
     misuse fails at the call site; no group exists, none is touched."""
     g = {"g": torch.zeros(4)}
@@ -120,10 +122,13 @@ def test_mode_validation_raises_before_group_state(monkeypatch, case):
             TD.ZeroOptimizer(TD.zero_adam(0.1), "no_such_group",
                              wire_dtype="bf16")
     elif case == "default":
-        assert TD._resolve_mode(None) == "allreduce" == JD._resolve_mode(None)
+        # the twin's default comes from its knob, whose default this is
+        default = inspect.signature(TD.sync_gradients_async).parameters["mode"]
+        assert (TD._resolve_mode(default.default) == "allreduce"
+                == JD._resolve_mode(None))
     else:
-        monkeypatch.setenv("RAY_TPU_TORCH_TRAIN_DDP_MODE", "ReduceScatter")
-        assert TD._resolve_mode(None) == "reducescatter"
+        assert (TD._resolve_mode(" ReduceScatter ") == "reducescatter"
+                == JD._resolve_mode(" ReduceScatter "))
 
 
 # ------------------------------------------------------ shard optimizers

@@ -174,23 +174,26 @@ def test_init_shapes_dtypes_and_scales(jax_params):
 
 
 @pytest.mark.parametrize("cfg, device, expect", [
-    (TG.gpt2_tiny(), "cuda", "reference"),  # head dim 16
+    (TG.gpt2_tiny(), "cuda", "flash"),  # head dim 16: the wrappers refuse it
     (TG.gpt2_small(), "cuda", "flash"),  # bf16, head dim 64
     (dataclasses.replace(TG.gpt2_small(), dtype=torch.float32), "cuda",
+     "flash"),
+    (dataclasses.replace(TG.gpt2_tiny(), attention="reference"), "cuda",
      "reference"),
-    (dataclasses.replace(TG.gpt2_tiny(), attention="flash"), "cuda", "flash"),
     (TG.gpt2_small(), "cpu", "reference"),
-], ids=["tiny", "small_bf16", "small_f32", "explicit_flash", "cpu"])
-def test_auto_attention_picks_what_the_kernels_take(cfg, device, expect):
-    """"auto" is "flash" only where the CUDA kernels take the input; the
-    choice is a pure function of the config and the device type, so it
-    needs no GPU."""
+], ids=["tiny", "small_bf16", "small_f32", "explicit_reference", "cpu"])
+def test_auto_attention_is_flash_on_the_card(cfg, device, expect):
+    """"auto" is "flash" on any CUDA input, as ray_tpu's is on a TPU: the
+    hand-written kernels are never swapped for the plain version there,
+    and what they do not take raises. The choice is a pure function of
+    the config and the device type, so it needs no GPU."""
     assert TG._resolve_attention(cfg, torch.device(device)) == expect
 
 
 def test_explicit_flash_still_refuses_what_the_kernels_do_not_take():
-    """An explicit "flash" reaches the kernel wrapper's checks, which
-    refuse head dim 16 (gpt2_tiny's) and f32 before any launch."""
+    """"flash", explicit or from "auto" on the card, reaches the kernel
+    wrapper's checks, which refuse head dim 16 (gpt2_tiny's) and f32
+    before any launch."""
     from ray_tpu_torch.ops import flash_attention as fa
 
     for D, dtype in ((16, torch.bfloat16), (64, torch.float32)):

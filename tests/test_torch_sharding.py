@@ -227,3 +227,23 @@ def test_pack_unpack_roundtrip_bitwise(dtype):
     for k, t in ttree.items():
         assert back[k].shape == t.shape and back[k].dtype == t.dtype
         assert _bytes(back[k]) == _bytes(t), k
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4, 7])
+def test_pack_span_is_the_shard_of_the_packed_bucket(world):
+    """A rank's span of a bucket, copied from the leaves alone, is that
+    rank's slice of the packed bucket, bit for bit, for every shard of the
+    plan's shard map: spans that start or end inside a leaf, cover
+    several, or are empty."""
+    rng = np.random.default_rng(11)
+    shapes = {"a": (3, 5), "b": (7,), "c": (), "d": (2, 2, 2), "e": (1,)}
+    tree = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for k, s in shapes.items()}
+    leaves, _ = TS.flatten_tree(tree)
+    plan = TS.plan_buckets(leaves, 64)
+    for entry in TS.plan_shard_map(leaves, plan, world):
+        flat = TS.pack_bucket(leaves, entry["indices"])
+        for lo, hi in entry["bounds"]:
+            span = TS.pack_span(leaves, entry["indices"], lo, hi)
+            assert span.shape == (hi - lo,)
+            assert _bytes(span) == _bytes(flat[lo:hi])
