@@ -5,15 +5,21 @@
 
 Phases, each of which exits non-zero on failure:
 
-1. header: the card's name and power limit, and the kernels' build, with
-   each kernel's registers, dynamic shared memory and blocks per SM;
-2. each hand-written kernel against its plain PyTorch version on the card,
-   in bf16, at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
+1. header: the card's name and power limit, and the kernels' build (one
+   ``nvcc`` a source, started together), with each kernel's registers,
+   dynamic shared memory and blocks per SM (the f32 ones at each head
+   dim they are built for);
+2. each hand-written kernel against its plain PyTorch version on the card:
+   in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
-   one row past a 128-row tile) and a non-causal case; times of the kernel, the plain version and the
-   PyTorch library call (SDPA) beside the bound, with the kernel's TFLOP/s
-   and the share of its bound that it reaches; and the backward as
-   ``_FlashAttention.backward`` runs it (delta, dq, dk/dv) against SDPA's;
+   one row past a 128-row tile), a non-causal case and head dims 16 and
+   32 (zero-padded to 64); in f32 at the main shape and at head dims 16
+   (gpt2_tiny's), 32 and 128, causal and not. At the main shape, times
+   of the kernel, the plain version and the PyTorch library call (SDPA,
+   in the kernel's dtype) beside the bound, with the kernel's TFLOP/s
+   and the share of its bound that it reaches; and, in bf16, the
+   backward as ``_FlashAttention.backward`` runs it (delta, dq, dk/dv)
+   against SDPA's;
 3. the main path: GPT-2-small at full width (12 layers, 12 heads, d 768,
    vocab 50304, seq 1024) training at batch 16 through ``make_train_step``
    (2 warm-up and 5 timed steps, weights from a seeded generator), with
@@ -23,6 +29,10 @@ Phases, each of which exits non-zero on failure:
    step is timed too); then one more step under ``torch.profiler``:
    device time by kernel category and by operator, and the device's busy
    time, from which PERF.md's "Where the time goes" is written;
+3b. the tiny configs: gpt2_tiny (head dim 16) under attention="auto" in
+   bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels), 3 steps
+   each, its launch counts exact and its first step held to reference
+   attention (phase 3's limits in bf16, an order tighter in f32);
 4. the data-parallel Train gang at world 2: two rank threads share the
    card, each GPT-2-small at full width on batch 8 (the main path's 16
    between them) and each with its own gloo group over one in-memory
@@ -37,11 +47,24 @@ Phases, each of which exits non-zero on failure:
    Each run is timed (2 warm-up and 3 timed steps: step ms, host sync ms,
    ms blocked in the bucket waits; for ZeRO also the ms of a step spent
    packing grads and params, in the host Adam and in the gathers) and
-   its launch counts are set to 0 just before and read just after.
+   its launch counts are set to 0 just before and read just after;
+5. checkpoints: the same gang at world 2, brought up by
+   ``TorchBackend.on_start`` over a loopback TCP store, takes ZeRO steps
+   and saves sharded checkpoints asynchronously after steps 1 and 2
+   (each write overlapping the next step, each save harvested); restored
+   at world 2 into fresh optimizers, params and slots are bit-identical
+   to the state at save and one step from them is the uninterrupted
+   step, bit for bit; restored at world 1 the params are too and the
+   slots are the ranks' slots concatenated; with one byte of the newest
+   shard flipped, restore falls back to the older generation and renames
+   the bad one ``.quarantined``. It prints the snapshot, background write,
+   harvest wait and restore times and the bytes a shard, and deletes its
+   ~3 GB directory (``CKPT_DIR``, under ``build/``) at the end.
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
-``launches`` is the main path's count and ``gang_launches`` the gang's
-two runs'; the last line is ``{"ok": true, "device": {...}}``. Without
+``launches`` is its count on the path that runs it (the main path for
+the bf16 kernels, the f32 tiny config for the f32 ones), and
+``tiny_launches`` and ``gang_launches`` the other runs'; the last line is ``{"ok": true, "device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
 non-zero and prints no result.
 """
@@ -58,9 +81,9 @@ import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
-HEAD_DIM = 64
-SCALE = 1.0 / math.sqrt(HEAD_DIM)
+HEAD_DIM = 64  # GPT-2-small's, the main path's
 # Kernel vs plain version, both in bf16 with f32 accumulation, element by
 # element: |kernel - plain| <= BF16_RTOL * |plain| + ATOL_RMS * rms(plain)
 # + ABS_FLOOR. The two round at the same points but sum in other orders,
@@ -78,6 +101,16 @@ ATOL_RMS = 2.0 ** -3
 ABS_FLOOR = 1e-5
 # lse is f32 throughout; it is at most ~8 here, where an f32 ulp is 9.5e-7.
 LSE_ABS_TOL = 2e-5
+# The f32 kernels against their plain versions, both f32 throughout (TF32
+# off): the same products summed in other orders, S up to 1024 terms, so
+# a sum moves by a few ulps (2^-24) of its largest partial sums, ~1e-6 of
+# the tensor's rms on random inputs. The bound, F32_RTOL of the element
+# plus F32_ATOL_RMS of the rms plus F32_FLOOR, sits ~50x above that and
+# ~1000x below what a skipped tile or a wrong mask moves (the bf16 bound
+# of the same shape). The card tests read these limits too.
+F32_RTOL = 2.0 ** -14
+F32_ATOL_RMS = 2.0 ** -14
+F32_FLOOR = 1e-6
 # GPT-2-small's first step, flash vs reference attention on the card, both
 # bf16 (flash rounds p to bf16 before p.v, reference keeps it f32). At
 # init the loss is ~ln(V) whatever attention computes, so the gate that
@@ -103,12 +136,38 @@ GANG_BUCKET_BYTES = 4 << 20
 GANG_OP_TIMEOUT_S = 120.0
 GANG_JOIN_S = 600.0
 
+# The tiny-config phase: gpt2_tiny (head dim 16) under attention="auto",
+# in bf16 (the bf16 kernels, padded to head dim 64) and in f32 (the f32
+# kernels), TINY_STEPS steps each at batch TINY_BATCH. Its first step is
+# held to reference attention by phase 3's limits in bf16, and by limits
+# an order tighter in f32, where flash and reference differ only by f32
+# summation order (the card test read ~1e-6 relative).
+TINY_BATCH = 8
+TINY_STEPS = 3
+TINY_F32_LIMITS = (1e-5, 2e-4, 2.5e-3)  # loss, grad norm, attention leaves
+
+# Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
+# the repository's build/ directory (two generations, ~3 GB), deleted at
+# the end.
+CKPT_DIR = "build/chip_smoke_checkpoints"
+
 KERNELS = [
     {"name": "flash_fwd", "replaces": "ray_tpu/ops/flash_attention.py:29"},
     {"name": "flash_bwd_dq", "replaces": "ray_tpu/ops/flash_attention.py:160"},
     {"name": "flash_bwd_dkv", "replaces": "ray_tpu/ops/flash_attention.py:212"},
+    {"name": "flash_fwd_f32", "replaces": "ray_tpu/ops/flash_attention.py:29"},
+    {"name": "flash_bwd_dq_f32", "replaces": "ray_tpu/ops/flash_attention.py:160"},
+    {"name": "flash_bwd_dkv_f32",
+     "replaces": "ray_tpu/ops/flash_attention.py:212"},
 ]
-SOURCE = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+SOURCE_OF = {"": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+           "_f32": "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"}
+F32_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def family(name: str) -> str:
+    """"_f32" for an f32 kernel's name, "" for a bf16 one's."""
+    return "_f32" if name.endswith("_f32") else ""
 
 
 def fail(msg: str) -> None:
@@ -144,19 +203,22 @@ def time_ms(torch, fn, *, warmup: int, reps: int) -> float:
 
 
 def attention_bound(kernel: str, BH: int, S: int, causal: bool):
-    """Least time for the function on the card: the larger of its tensor
-    core FLOPs over the bf16 peak and its bytes (each input read once,
-    each output written once) over the HBM rate."""
+    """Least time for the function on the card: the larger of its FLOPs
+    over the peak of its type (bf16 tensor cores; f32 outside them) and
+    its bytes (each input read once, each output written once) over the
+    HBM rate."""
+    f32 = family(kernel) == "_f32"
     pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs computed
-    mat = BH * S * HEAD_DIM * 2  # one bf16 [BH, S, D] tensor
+    mat = BH * S * HEAD_DIM * (4 if f32 else 2)  # one [BH, S, D] tensor
     vec = BH * S * 4  # one f32 [BH, S] tensor
     products, nbytes = {
         "flash_fwd": (2, 3 * mat + mat + vec),  # q.k^T, p.v
         "flash_bwd_dq": (3, 4 * mat + 2 * vec + mat),  # + do.v^T, ds.k
         "flash_bwd_dkv": (4, 4 * mat + 2 * vec + 2 * mat),  # + p^T.do, ds^T.q
-    }[kernel]
+    }[kernel.removesuffix("_f32")]
     flops = products * 2 * HEAD_DIM * pairs * BH
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
@@ -189,6 +251,14 @@ def build_kernels():
     from ray_tpu_torch.ops import flash_attention as fa
     for spec in KERNELS:
         name = spec["name"]
+        if family(name):
+            for D in F32_HEAD_DIMS:
+                attrs = fa.kernel_attributes(name, D)
+                print(f"  flash_attention_f32: {name} at head dim {D}: "
+                      f"{attrs['max_dynamic_smem']} bytes of dynamic shared "
+                      f"memory, {attrs['registers']} registers, "
+                      f"{attrs['blocks_per_sm']} blocks per SM", flush=True)
+            continue
         attrs = fa.kernel_attributes(name)
         print(f"  flash_attention: {name}: {fa.dynamic_smem_bytes(name)} bytes "
               f"of dynamic shared memory, {attrs['registers']} registers, "
@@ -196,20 +266,25 @@ def build_kernels():
 
 
 def check_kernels(torch, F, fa):
-    """Each kernel against its plain version; returns per-kernel results
-    at the main path's shape."""
+    """Each kernel against its plain version, in bf16 and in f32; returns
+    per-kernel results at the main path's shape (GPT-2-small's attention:
+    B*H 192, S 1024, D 64, causal) in the kernel's dtype."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def rand(BH, S):
-        return torch.randn(BH, S, HEAD_DIM, generator=gen,
-                           device="cuda").to(torch.bfloat16)
+    def rand(BH, S, D, dtype):
+        return torch.randn(BH, S, D, generator=gen, device="cuda").to(dtype)
 
-    def bf16_check(a, b):
-        """(max |a - b|, rms(b), worst |a - b| over its element's bound)."""
+    def close_check(a, b):
+        """(max |a - b|, rms(b), worst |a - b| over its element's bound,
+        the plain value there), with the bound of b's dtype."""
+        if b.dtype == torch.float32:
+            rtol, atol_rms, floor = F32_RTOL, F32_ATOL_RMS, F32_FLOOR
+        else:
+            rtol, atol_rms, floor = BF16_RTOL, ATOL_RMS, ABS_FLOOR
         a, b = a.float(), b.float()
         diff = (a - b).abs()
         rms = b.square().mean().sqrt().item()
-        share = diff / (BF16_RTOL * b.abs() + ATOL_RMS * rms + ABS_FLOOR)
+        share = diff / (rtol * b.abs() + atol_rms * rms + floor)
         at = share.argmax()
         return (diff.max().item(), rms, share.view(-1)[at].item(),
                 b.view(-1)[at].item())
@@ -218,13 +293,26 @@ def check_kernels(torch, F, fa):
         e = (a - b).abs().max().item()
         return e, b.square().mean().sqrt().item(), e / LSE_ABS_TOL, None
 
+    bf16, f32 = torch.bfloat16, torch.float32
     results, failures = {}, []
-    cases = [("main", 192, 1024, True), ("gang", GANG_BATCH * 12, 1024, True),
-             ("ragged", 24, 1000, True), ("ragged129", 24, 129, True),
-             ("noncausal", 24, 1024, False)]
-    for label, BH, S, causal in cases:
-        q, k, v, do = (rand(BH, S) for _ in range(4))
-        kw = dict(scale=SCALE, causal=causal)
+    cases = [("main", 192, 1024, 64, True, bf16),
+             ("gang", GANG_BATCH * 12, 1024, 64, True, bf16),
+             ("ragged", 24, 1000, 64, True, bf16),
+             ("ragged129", 24, 129, 64, True, bf16),
+             ("noncausal", 24, 1024, 64, False, bf16),
+             # head dims below 64: zero-padded to 64 for the bf16 kernels
+             ("pad16", 24, 1024, 16, True, bf16),
+             ("pad32", 24, 1000, 32, True, bf16),
+             ("pad16nc", 8, 129, 16, False, bf16),
+             ("main", 192, 1024, 64, True, f32),
+             ("f32tiny", 8, 129, 16, True, f32),
+             ("f32tinync", 8, 129, 16, False, f32),
+             ("f32d32", 8, 257, 32, True, f32),
+             ("f32d128", 8, 200, 128, False, f32)]
+    for label, BH, S, D, causal, dtype in cases:
+        suffix = "_f32" if dtype == f32 else ""
+        q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))
+        kw = dict(scale=1.0 / math.sqrt(D), causal=causal)
         o, lse = fa.flash_fwd(q, k, v, **kw)
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
         delta = (do.float() * o_ref.float()).sum(dim=-1)
@@ -234,81 +322,96 @@ def check_kernels(torch, F, fa):
         dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
         torch.cuda.synchronize()
         checks = {
-            "flash_fwd": [("o", *bf16_check(o, o_ref)),
-                          ("lse", *lse_check(lse, lse_ref))],
-            "flash_bwd_dq": [("dq", *bf16_check(dq, dq_ref))],
-            "flash_bwd_dkv": [("dk", *bf16_check(dk, dk_ref)),
-                              ("dv", *bf16_check(dv, dv_ref))],
+            "flash_fwd" + suffix: [("o", *close_check(o, o_ref)),
+                                   ("lse", *lse_check(lse, lse_ref))],
+            "flash_bwd_dq" + suffix: [("dq", *close_check(dq, dq_ref))],
+            "flash_bwd_dkv" + suffix: [("dk", *close_check(dk, dk_ref)),
+                                       ("dv", *close_check(dv, dv_ref))],
         }
         for name, rows in checks.items():
             for what, e, rms, worst, at in rows:
                 ok = math.isfinite(worst) and worst <= 1.0
                 where = "" if at is None else f" (plain value {at:.3e})"
-                print(f"check {label:9s} BH={BH} S={S} causal={causal} "
+                print(f"check {label:9s} BH={BH} S={S} D={D} causal={causal} "
                       f"{name}.{what}: max_abs_err {e:.3e} rms {rms:.3e} "
                       f"err/rms {e / rms:.2e}; worst element {worst:.3f} of "
                       f"its bound{where} {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     failures.append(f"{name}.{what} ({label})")
-        if label != "main":
-            continue
-
-        # timings at the main path's shape
-        fns = {
-            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
-                          lambda: fa.flash_fwd_plain(q, k, v, **kw)),
-            "flash_bwd_dq": (
-                lambda: fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw),
-                lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, **kw)),
-            "flash_bwd_dkv": (
-                lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw),
-                lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)),
-        }
-        B, H = 16, 12
-        q4, k4, v4 = (x.view(B, H, S, HEAD_DIM).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, scale=SCALE), warmup=3, reps=20)
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                              scale=SCALE)
-        do4 = do.view(B, H, S, HEAD_DIM)
-        sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-            out4, (q4, k4, v4), do4, retain_graph=True), warmup=3, reps=20)
-        library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dq": sdpa_bwd_ms,
-                   "flash_bwd_dkv": sdpa_bwd_ms}
-        for name, (kernel_fn, plain_fn) in fns.items():
-            bound_ms, bound_by, flops, nbytes = attention_bound(name, BH, S, causal)
-            ms = time_ms(torch, kernel_fn, warmup=3, reps=20)
-            plain_ms = time_ms(torch, plain_fn, warmup=1, reps=5)
-            tflops = flops / (ms * 1e-3) / 1e12
-            results[name] = {
-                "max_abs_err": max(row[1] for row in checks[name]),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library[name],
-                "tflops": tflops, "bound_share": bound_ms / ms,
-            }
-            print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                  f"SDPA {library[name]:.4f} ms, bound {bound_ms * 1e3:.1f} us "
-                  f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
-                  f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound",
-                  flush=True)
-        # the backward pair as _FlashAttention.backward runs it (delta, dq,
-        # dk/dv) against SDPA's whole backward; printed, not gated
-        qf, kf, vf = (x.detach().requires_grad_(True) for x in (q, k, v))
-        of = fa._FlashAttention.apply(qf, kf, vf, SCALE, causal)
-        flash_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-            of, (qf, kf, vf), do, retain_graph=True), warmup=3, reps=20)
-        o_det = of.detach()
-        delta_ms = time_ms(torch, lambda: (do.float() * o_det.float()).sum(dim=-1),
-                           warmup=3, reps=20)
-        print(f"time backward: flash (delta + dq + dk/dv) {flash_bwd_ms:.4f} ms "
-              f"(delta {delta_ms:.4f}, dq {results['flash_bwd_dq']['ms']:.4f}, "
-              f"dk/dv {results['flash_bwd_dkv']['ms']:.4f} alone), SDPA "
-              f"{sdpa_bwd_ms:.4f} ms: {flash_bwd_ms / sdpa_bwd_ms:.2f}x SDPA's",
-              flush=True)
-        del q4, k4, v4, out4, qf, kf, vf, of, o_det
+        if label == "main":
+            results.update(time_kernels(torch, F, fa, suffix, checks,
+                                        q, k, v, do, lse_ref, delta, kw))
+        del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dq_ref, dk, dv
+        del dk_ref, dv_ref
+        torch.cuda.empty_cache()
     if failures:
         fail(f"kernels disagree with their plain versions: {', '.join(failures)}")
+    return results
+
+
+def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
+                 kw):
+    """Device times at the main path's shape of the three kernels of one
+    dtype, their plain versions and SDPA in that dtype, beside the bound;
+    for bf16 also the backward as ``_FlashAttention.backward`` runs it."""
+    BH, S, D = q.shape
+    causal = kw["causal"]
+    fns = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, **kw)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)),
+    }
+    B, H = 16, 12
+    q4, k4, v4 = (x.view(B, H, S, D).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal, scale=kw["scale"]), warmup=3, reps=20)
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                          scale=kw["scale"])
+    do4 = do.view(B, H, S, D)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True), warmup=3, reps=20)
+    library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dq": sdpa_bwd_ms,
+               "flash_bwd_dkv": sdpa_bwd_ms}
+    results = {}
+    for base, (kernel_fn, plain_fn) in fns.items():
+        name = base + suffix
+        bound_ms, bound_by, flops, nbytes = attention_bound(name, BH, S, causal)
+        ms = time_ms(torch, kernel_fn, warmup=3, reps=20)
+        plain_ms = time_ms(torch, plain_fn, warmup=1, reps=5)
+        tflops = flops / (ms * 1e-3) / 1e12
+        results[name] = {
+            "max_abs_err": max(row[1] for row in checks[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library[base],
+            "tflops": tflops, "bound_share": bound_ms / ms,
+        }
+        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA ({q.dtype}) {library[base]:.4f} ms, bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by}; {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), {tflops:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.3f} of the bound", flush=True)
+    if suffix:
+        return results
+    # the backward pair as _FlashAttention.backward runs it (delta, dq,
+    # dk/dv) against SDPA's whole backward; printed, not gated
+    qf, kf, vf = (x.detach().requires_grad_(True) for x in (q, k, v))
+    of = fa._FlashAttention.apply(qf, kf, vf, kw["scale"], causal)
+    flash_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        of, (qf, kf, vf), do, retain_graph=True), warmup=3, reps=20)
+    o_det = of.detach()
+    delta_ms = time_ms(torch, lambda: (do.float() * o_det.float()).sum(dim=-1),
+                       warmup=3, reps=20)
+    print(f"time backward: flash (delta + dq + dk/dv) {flash_bwd_ms:.4f} ms "
+          f"(delta {delta_ms:.4f}, dq {results['flash_bwd_dq']['ms']:.4f}, "
+          f"dk/dv {results['flash_bwd_dkv']['ms']:.4f} alone), SDPA "
+          f"{sdpa_bwd_ms:.4f} ms: {flash_bwd_ms / sdpa_bwd_ms:.2f}x SDPA's",
+          flush=True)
     return results
 
 
@@ -366,8 +469,8 @@ def train(torch, fa):
     print(f"train: losses {losses}", flush=True)
     if not all(math.isfinite(x) for x in losses):
         fail("non-finite training loss")
-    expected = cfg.n_layer * (warmup + timed)
     for name, n in launches.items():
+        expected = 0 if family(name) else cfg.n_layer * (warmup + timed)
         print(f"train: {name} launched {n} times (expected {expected})")
         if n != expected:
             fail(f"{name} launched {n} times on the main path, expected {expected}")
@@ -395,10 +498,11 @@ def train(torch, fa):
     return launches
 
 
-def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg):
+def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
+                          limit=ATTN_GRAD_RTOL, tag="train"):
     """The gradients of the attention leaves (wq, wk, wv, wo, each stacked
-    over the 12 layers) from one loss_fn call on the same weights, with
-    reference and with flash attention."""
+    over the layers) from one loss_fn call on the same weights, with
+    reference and with flash attention, within ``limit`` relative."""
     attn = params["blocks"]["attn"]
     names = sorted(attn)
     grads, bad = [], []
@@ -407,10 +511,10 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg):
         grads.append(torch.autograd.grad(loss, [attn[n] for n in names]))
     for name, g_ref, g in zip(names, *grads):
         rel = ((g - g_ref).norm() / g_ref.norm()).item()
-        ok = rel <= ATTN_GRAD_RTOL
-        print(f"train: grad of {name}: norm {g.norm().item():.6e} flash, "
+        ok = rel <= limit
+        print(f"{tag}: grad of {name}: norm {g.norm().item():.6e} flash, "
               f"{g_ref.norm().item():.6e} reference; ||flash - reference|| / "
-              f"||reference|| {rel:.3e} (limit {ATTN_GRAD_RTOL:.1e}) "
+              f"||reference|| {rel:.3e} (limit {limit:.1e}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             bad.append(name)
@@ -418,6 +522,76 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg):
     torch.cuda.empty_cache()
     if bad:
         fail(f"attention gradients disagree with reference attention: {bad}")
+
+
+def tiny_configs(torch, fa):
+    """gpt2_tiny (head dim 16) under attention="auto" in bf16 and in f32,
+    TINY_STEPS steps each, its first step held to reference attention;
+    returns each run's launch counts, set to 0 just before its steps and
+    read just after."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.train_step import (default_optimizer,
+                                                   make_train_state,
+                                                   make_train_step)
+
+    base = gpt2.gpt2_tiny()
+    tokens = torch.randint(0, base.vocab_size, (TINY_BATCH, base.max_seq + 1),
+                           device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    batch = {"tokens": tokens}
+    out, bad = {}, []
+    for dtype, (loss_rtol, gn_rtol, attn_rtol) in (
+            (torch.bfloat16, (LOSS_RTOL, GRAD_NORM_RTOL, ATTN_GRAD_RTOL)),
+            (torch.float32, TINY_F32_LIMITS)):
+        tag = f"tiny {str(dtype).removeprefix('torch.')}"
+        cfg = dataclasses.replace(base, dtype=dtype)
+        ref_cfg = dataclasses.replace(cfg, attention="reference")
+
+        def run(run_cfg):
+            opt = default_optimizer(1e-3, warmup_steps=1, total_steps=10)
+            state = make_train_state(
+                lambda g: gpt2.init(g, run_cfg),
+                torch.Generator(device="cuda").manual_seed(0), opt)
+            return state, make_train_step(
+                lambda p, b: gpt2.loss_fn(p, b, run_cfg), opt)
+
+        state, step = run(ref_cfg)
+        _, m = step(state, batch)
+        ref = (float(m["loss"]), float(m["grad_norm"]))
+        state, step = run(cfg)
+        check_attention_grads(torch, gpt2, state.params, batch, ref_cfg, cfg,
+                              limit=attn_rtol, tag=tag)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        metrics = []
+        for _ in range(TINY_STEPS):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        launches = out[tag] = dict(fa.LAUNCHES)
+        (loss, gn) = metrics[0]
+        loss_rel, gn_rel = abs(loss - ref[0]) / ref[0], abs(gn - ref[1]) / ref[1]
+        print(f"{tag}: gpt2_tiny (head dim {base.d_model // base.n_head}) "
+              f"attention=auto, batch {TINY_BATCH}, {TINY_STEPS} steps: losses "
+              f"{[x for x, _ in metrics]}; first step against reference "
+              f"attention: loss {loss_rel:.2e} (limit {loss_rtol:.0e}), grad "
+              f"norm {gn_rel:.2e} (limit {gn_rtol:.0e}); launches {launches}",
+              flush=True)
+        suffix = "_f32" if dtype == torch.float32 else ""
+        for name, n in launches.items():
+            want = cfg.n_layer * TINY_STEPS if family(name) == suffix else 0
+            if n != want:
+                bad.append(f"{tag}: {name} launched {n} times, expected {want}")
+        if not all(math.isfinite(x) for pair in metrics for x in pair):
+            bad.append(f"{tag}: non-finite loss or grad norm")
+        if not loss_rel <= loss_rtol:
+            bad.append(f"{tag}: first-step loss disagrees with reference")
+        if not gn_rel <= gn_rtol:
+            bad.append(f"{tag}: first-step grad norm disagrees with reference")
+        del state, step
+    if bad:
+        fail("; ".join(bad))
+    return out
 
 
 def category(kernel: str) -> str:
@@ -767,8 +941,9 @@ def gang(torch, fa, card: str):
                 "zero": 2 * (1 + warmup + timed) * cfg.n_layer}
     for run, counts in launches.items():
         for name, n in counts.items():
+            want = 0 if family(name) else expected[run]
             checks[f"{name} launched {n} times in the {run} run (expected "
-                   f"{expected[run]})"] = n == expected[run]
+                   f"{want})"] = n == want
     for what, ok in checks.items():
         print(f"gang check: {what}: {'ok' if ok else 'FAIL'}", flush=True)
     host = {"ddp": "the sync hook", "zero": "step_async"}
@@ -793,6 +968,271 @@ def gang(torch, fa, card: str):
     return launches
 
 
+class ThreadWorker:
+    """A rank of a gang whose ranks are threads of this process, shaped
+    like ``ray_tpu``'s ``TrainWorker`` for the Train backend: it runs
+    ``run_setup`` and hands out a free loopback address."""
+
+    def __init__(self, world_rank, world_size):
+        self.world_rank, self.world_size = world_rank, world_size
+        self.address = None
+
+    def run_setup(self, setup_fn_and_args):
+        fn, args, kwargs = setup_fn_and_args
+        return fn(self.world_rank, self.world_size, *args, **kwargs)
+
+    def free_coordinator_address(self):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.address = f"127.0.0.1:{sock.getsockname()[1]}"
+        return self.address
+
+
+class ThreadWorkerGroup:
+    """The worker group the Train backend drives: ``execute`` runs one
+    method on every rank at once, each on a thread of its own, and fails
+    the script if a rank is still running after ``timeout``."""
+
+    def __init__(self, world):
+        self.workers = [ThreadWorker(r, world) for r in range(world)]
+
+    def __len__(self):
+        return len(self.workers)
+
+    def execute(self, method_name, *args, timeout=None):
+        results, errors = [None] * len(self), [None] * len(self)
+
+        def body(rank):
+            try:
+                results[rank] = getattr(self.workers[rank], method_name)(*args)
+            except BaseException as e:  # raised on the main thread below
+                errors[rank] = e
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(len(self))]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + (GANG_JOIN_S if timeout is None
+                                       else timeout)
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        if any(t.is_alive() for t in threads):
+            fail(f"{method_name}: rank threads still running after "
+                 f"{timeout} s")
+        for e in errors:
+            if e is not None:
+                raise e
+        return results
+
+    def execute_single(self, rank, method_name, *args):
+        return getattr(self.workers[rank], method_name)(*args)
+
+
+def checkpoints(torch, card: str):
+    """Phase 5: the gang at world 2, brought up by the Train backend over
+    a loopback TCP store, takes ZeRO steps of GPT-2-small at full width
+    and saves sharded checkpoints asynchronously after steps 1 and 2;
+    then restores at world 2 and at world 1, and falls back past a
+    corrupt generation. Every check is bit equality."""
+    import shutil
+
+    import torch.distributed as dist
+    from ray_tpu_torch._private.tree import tree_leaves, tree_map
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.train_step import (TrainState,
+                                                   make_train_step,
+                                                   make_zero_train_state)
+    from ray_tpu_torch.train import TorchConfig, ddp
+    from ray_tpu_torch.train import sharded_checkpoint as sc
+    from ray_tpu_torch.util import collective as col
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(gpt2.gpt2_small(), remat=False)
+    S = 1024
+    tokens = torch.randint(0, cfg.vocab_size, (2 * GANG_BATCH, S + 1),
+                           device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+
+    def loss(p, b):
+        return gpt2.loss_fn(p, b, cfg)
+
+    def init(g):
+        return gpt2.init(g, cfg)
+
+    def host(params):
+        return [p.detach().cpu() for p in tree_leaves(params)]
+
+    def slot_leaves(buckets):
+        return [st[k] for st in buckets for k in sorted(st)]
+
+    group = ThreadWorkerGroup(2)
+    backend = TorchConfig(group_name="ckpt_dp", rank_threads=True,
+                          timeout_s=GANG_OP_TIMEOUT_S).backend_cls()
+
+    def fresh(name):
+        zopt = ddp.ZeroOptimizer(ddp.zero_adam(1e-4), name,
+                                 bucket_bytes=GANG_BUCKET_BYTES, average=True)
+        return zopt, make_train_step(loss, None, host_optimizer=zopt)
+
+    def rank_run(rank, world):
+        name = backend.group_name_of(rank)
+        batch = {"tokens": tokens[rank * GANG_BATCH:(rank + 1) * GANG_BATCH]}
+        rec = {"saves": [], "saved": {}, "checks": {}}
+        with torch.cuda.stream(torch.cuda.Stream()):
+            zopt, step = fresh(name)
+            state = make_zero_train_state(
+                init, torch.Generator(device="cuda").manual_seed(0))
+            pending = None
+            for i in (1, 2, 3):
+                state, _ = step(state, batch)
+                state = step.finalize(state)
+                torch.cuda.current_stream().synchronize()
+                if pending is not None:  # its write overlapped this step
+                    res = pending.result(timeout=GANG_JOIN_S)
+                    rec["checks"][f"the save after step {i - 1} committed"] = (
+                        res["committed"])
+                    rec["saves"].append({k: getattr(pending, k) for k in (
+                        "snapshot_s", "write_s", "wait_s", "nbytes")})
+                    pending = None
+                if i < 3:
+                    rec["saved"][i] = (host(state.params),
+                                       zopt.shard_state_dict()["buckets"])
+                    pending = sc.save_sharded(state.params, zopt, root=root,
+                                              asynchronous=True)
+            straight = host(state.params)
+
+            # restore at world 2 into a fresh optimizer and other params,
+            # then take step 3 again
+            zopt2, step2 = fresh(name)
+            template = make_zero_train_state(
+                init, torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.current_stream().synchronize()
+            t0 = time.perf_counter()
+            params, meta = sc.restore_sharded(template.params, zopt2,
+                                              root=root)
+            torch.cuda.current_stream().synchronize()
+            rec["restore_s"] = time.perf_counter() - t0
+            zopt2._ensure_plan(tree_leaves(params))  # installs the slots
+            params2, slots2 = rec["saved"][2]
+            rec["checks"].update({
+                "the restore at world 2 found step 2, not resharded":
+                    meta["step"] == 2 and not meta["resharded"],
+                "params restored at world 2 are bit-identical to the saved":
+                    same_bits(torch, host(params), params2),
+                "slots restored at world 2 are bit-identical to the saved":
+                    same_bits(torch, slot_leaves(
+                        zopt2.shard_state_dict()["buckets"]),
+                        slot_leaves(slots2)),
+            })
+            resumed = TrainState(step=2, opt_state=(), params=tree_map(
+                lambda p: p.requires_grad_(True), params))
+            resumed, _ = step2(resumed, batch)
+            resumed = step2.finalize(resumed)
+            rec["checks"]["step 3 from the restored state is the "
+                          "uninterrupted step 3, bit for bit"] = same_bits(
+                torch, host(resumed.params), straight)
+            torch.cuda.current_stream().synchronize()
+        return rec
+
+    checks = {}
+    try:
+        t0 = time.perf_counter()
+        backend.on_start(group, None)
+        print(f"checkpoints: world 2 up through TorchBackend.on_start over "
+              f"a TCP store at {group.workers[0].address} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        try:
+            ranks = group.execute("run_setup", (rank_run, (), {}),
+                                  timeout=GANG_JOIN_S)
+        finally:
+            backend.on_shutdown(group)
+        checks["on_shutdown destroyed both ranks' groups"] = not any(
+            col.is_group_initialized(backend.group_name_of(r))
+            for r in range(2))
+        for r, rec in enumerate(ranks):
+            checks.update({f"rank {r}: {k}": v for k, v in rec["checks"].items()})
+
+        # elastic: world 1 restores both ranks' state
+        col.init_collective_group(1, 0, group_name="ckpt_w1",
+                                  store=dist.HashStore(),
+                                  timeout_s=GANG_OP_TIMEOUT_S)
+        try:
+            zopt1, _ = fresh("ckpt_w1")
+            template = make_zero_train_state(
+                init, torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, meta = sc.restore_sharded(template.params, zopt1,
+                                              root=root)
+            torch.cuda.synchronize()
+            restore1_s = time.perf_counter() - t0
+            zopt1._ensure_plan(tree_leaves(params))
+            slots1 = zopt1.shard_state_dict()["buckets"]
+        finally:
+            col.destroy_collective_group("ckpt_w1")
+        (p2, s0), (_, s1) = ranks[0]["saved"][2], ranks[1]["saved"][2]
+        joined = [{k: torch.cat([a[k], b[k]]) for k in a}
+                  for a, b in zip(s0, s1)]
+        checks.update({
+            "the restore at world 1 found step 2, resharded from world 2":
+                meta["step"] == 2 and meta["resharded"]
+                and meta["world_saved"] == 2,
+            "params restored at world 1 are bit-identical to the saved":
+                same_bits(torch, host(params), p2),
+            "slots restored at world 1 are the ranks' slots concatenated":
+                same_bits(torch, slot_leaves(slots1), slot_leaves(joined)),
+        })
+        del zopt1, slots1, joined, params
+
+        # one flipped byte in the newest generation: restore falls back
+        gen2 = sc.generation_dir(root, 2)
+        shard = os.path.join(gen2, sc.shard_filename(1, 2))
+        with open(shard, "r+b") as f:
+            f.seek(os.path.getsize(shard) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        t0 = time.perf_counter()
+        params, meta = sc.restore_sharded(template.params, root=root,
+                                          world=1, rank=0,
+                                          bucket_bytes=GANG_BUCKET_BYTES)
+        torch.cuda.synchronize()
+        fallback_s = time.perf_counter() - t0
+        checks.update({
+            "with a byte of step 2's shard flipped, restore falls back to "
+            "step 1": meta["step"] == 1,
+            "the corrupt generation is renamed .quarantined":
+                os.path.isdir(gen2 + sc.QUARANTINE_SUFFIX)
+                and not os.path.exists(gen2),
+            "params restored from step 1 are bit-identical to the saved":
+                same_bits(torch, host(params), ranks[0]["saved"][1][0]),
+        })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for what, ok in checks.items():
+        print(f"checkpoint check: {what}: {'ok' if ok else 'FAIL'}",
+              flush=True)
+    for r, rec in enumerate(ranks):
+        for i, save in enumerate(rec["saves"], 1):
+            print(f"checkpoints: {card}: rank {r}, save after step {i}: "
+                  f"{save['nbytes'] / 1e6:.1f} MB a shard, snapshot "
+                  f"{save['snapshot_s'] * 1e3:.1f} ms on the caller, "
+                  f"background write {save['write_s'] * 1e3:.1f} ms, "
+                  f"harvest wait {save['wait_s'] * 1e3:.1f} ms after the "
+                  f"next step", flush=True)
+    print(f"checkpoints: {card}: restore at world 2 "
+          + " / ".join(f"{rec['restore_s'] * 1e3:.1f}" for rec in ranks)
+          + f" ms (rank 0 / 1), at world 1 {restore1_s * 1e3:.1f} ms, past "
+          f"the corrupt generation {fallback_s * 1e3:.1f} ms", flush=True)
+    bad = [what for what, ok in checks.items() if not ok]
+    if bad:
+        fail(f"checkpoints: {'; '.join(bad)}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -812,13 +1252,21 @@ def main() -> int:
     build_kernels()
     results = check_kernels(torch, F, fa)
     launches = train(torch, fa)
+    tiny_launches = tiny_configs(torch, fa)
     gang_launches = gang(torch, fa, card)
+    checkpoints(torch, card)
 
     kernels = []
     for spec in KERNELS:
         name = spec["name"]
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": spec["replaces"], "launches": launches[name],
+        # each kernel's count on the path that runs it: the main path for
+        # the bf16 kernels, the f32 tiny config for the f32 ones
+        path = tiny_launches["tiny float32"] if family(name) else launches
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SOURCE_OF[family(name)],
+                        "replaces": spec["replaces"], "launches": path[name],
+                        "tiny_launches": {run: counts[name] for run, counts
+                                          in tiny_launches.items()},
                         "gang_launches": {run: counts[name] for run, counts
                                           in gang_launches.items()},
                         **results[name]})

@@ -1,8 +1,8 @@
 """The knobs the port reads, with env-var overrides. The twin of the Train
-bucket entries of ``ray_tpu/_private/config.py`` (``:116-117``), same
-defaults. The twin's ``train_ddp_mode`` knob waits for the Train backend,
-which is what reads it; until then the mode is an argument of
-``train.ddp.sync_gradients``.
+entries of ``ray_tpu/_private/config.py`` (``:116-134``), same defaults:
+the bucketed DDP switch and bucket size, the DDP mode that
+``train.ddp.sync_gradients`` reads when its ``mode`` is None, and the
+sharded checkpoint's root, async write and fsync switches.
 
 Each entry is overridable as ``RAY_TPU_TORCH_<NAME>``, read at call time,
 so a test or an operator can set it after import. The port keeps its own
@@ -20,6 +20,19 @@ _CONFIG_DEFS: Dict[str, Any] = {
     # bit-identical at world 2.
     "train_bucket_ddp": True,
     "train_grad_bucket_bytes": 4 * 1024 * 1024,  # target bucket size
+    # The DDP sync's shape when sync_gradients is given no mode:
+    # "allreduce" (every rank gets the full synced tree) or
+    # "reducescatter" (ZeRO-style: each rank gets its shard of every
+    # bucket).
+    "train_ddp_mode": "allreduce",
+    # Sharded checkpoints (train/sharded_checkpoint.py): the generation
+    # root when save/restore get no root; whether the shard's disk write
+    # runs on a background thread (the commit still runs at the caller's
+    # harvest); and the fsyncs of _private/atomic_write.py (0 only for
+    # tests on tmpfs).
+    "checkpoint_dir": "",
+    "checkpoint_async": True,
+    "checkpoint_fsync": True,
 }
 
 

@@ -106,9 +106,9 @@ def init(generator: torch.Generator, cfg: GPT2Config, device: DeviceLike = None)
 def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
     """``"auto"`` is ``"flash"`` on a CUDA device and ``"reference"``
     elsewhere, as ``ray_tpu``'s is ``"flash"`` on a TPU. The hand-written
-    kernels take bf16 with head dim 64 only, and their wrappers refuse
-    anything else before a launch: on the card such a config (f32, or
-    ``gpt2_tiny``'s head dim 16) asks for ``"reference"`` itself."""
+    kernels take bf16 up to head dim 64 and f32 up to 128 (smaller head
+    dims padded, ``gpt2_tiny``'s 16 among them); their wrappers refuse
+    anything else before a launch."""
     if cfg.attention != "auto":
         return cfg.attention
     return "flash" if device.type == "cuda" else "reference"

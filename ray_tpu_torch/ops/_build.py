@@ -59,27 +59,33 @@ def build_dir() -> Path:
 
 
 def build_all() -> Dict[str, str]:
-    """Compiles every source whose library is missing. Returns {name:
-    ptxas report} for the sources built by this call."""
+    """Compiles every source whose library is missing, one ``nvcc`` for
+    each source, all started together. Returns {name: ptxas report} for
+    the sources built by this call."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    reports = {}
+    jobs = {}
     for src in sources():
         lib = out_dir / f"lib{src.stem}.so"
         if lib.exists():
             continue
         tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                             text=True)
-        if res.returncode != 0:
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[src] = (proc, tmp, lib)
+    reports, failed = {}, []
+    for src, (proc, tmp, lib) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"kernel build failed: {src.name}: nvcc exited "
-                f"{res.returncode}\n{res.stdout}")
+            failed.append(f"{src.name}: nvcc exited {proc.returncode}\n{log}")
+            continue
         os.replace(tmp, lib)
-        reports[src.stem] = res.stdout
+        reports[src.stem] = log
+    if failed:
+        raise KernelBuildError("kernel build failed: " + "\n".join(failed))
     return reports
 
 

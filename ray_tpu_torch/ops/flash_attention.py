@@ -1,16 +1,21 @@
 """Flash attention, forward and backward, over hand-written Hopper kernels.
 
 Port of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
-there become three CUDA kernels in ``csrc/flash_attention.cu``: a forward
-with online softmax that writes ``o`` and the row logsumexp, a dq kernel
-and a dk/dv kernel, each recomputing the probabilities from the saved
-logsumexp so that no S x S tensor reaches device memory.
+there become CUDA kernels, one family for each input dtype that
+``ray_tpu``'s configs train with: in ``csrc/flash_attention.cu`` the bf16
+kernels (tensor cores, head dim 64; a smaller head dim is padded up to
+it), in ``csrc/flash_attention_f32.cu`` the f32 ones (CUDA cores, head
+dims 16, 32, 64 and 128; others padded up to the next). Each family has
+a forward with online softmax that writes ``o`` and the row logsumexp, a
+dq kernel and a dk/dv kernel, each recomputing the probabilities from
+the saved logsumexp so that no S x S tensor reaches device memory.
 
 Each kernel has a wrapper and a plain PyTorch version of the same
 function with the same cast points (``flash_fwd_plain``,
-``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``). A wrapper given CPU
-tensors computes the plain version; given CUDA tensors it launches its
-kernel or raises. ``LAUNCHES`` counts kernel launches, one per launch.
+``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``; in f32 the casts keep
+f32, as the Pallas kernels' do). A wrapper given CPU tensors computes
+the plain version; given CUDA tensors it launches the kernel of their
+dtype or raises. ``LAUNCHES`` counts kernel launches, one per launch.
 
 Internal layout is [B*H, S, D]; the TPU's [BH, 8, S] logsumexp layout
 existed only for its (8, 128) tiling and is dropped.
@@ -26,18 +31,23 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# What each kernel tiles by, in rows of the [BH, S, 64] tensors. The
-# kernels take head dim 64 only: the public GPT-2 presets have it, but
-# gpt2_tiny (d 64, 4 heads) has 16, and on the card it runs only with
-# attention="reference". The forward and dq take 128 Q rows per block and
-# stream K/V in 64-row tiles; dk/dv takes 128 KV rows per block and
-# streams Q/dO in 64-row tiles. They are fixed in csrc/flash_attention.cu.
-HEAD_DIM = 64
+# What each bf16 kernel tiles by, in rows of the [BH, S, 64] tensors: the
+# forward and dq take 128 Q rows per block and stream K/V in 64-row
+# tiles; dk/dv takes 128 KV rows per block and streams Q/dO in 64-row
+# tiles. They are fixed in csrc/flash_attention.cu. The f32 kernels
+# (csrc/flash_attention_f32.cu) tile both axes by 64 rows.
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
+# The head dims each kernel family is built for. A smaller head dim is
+# padded with zero columns up to the next one, which is exact: zero
+# columns add exact zeros to q.k^T and do.v^T, the scale stays the
+# caller's, and the padded columns of the outputs are dropped.
+BF16_HEAD_DIMS = (64,)
+F32_HEAD_DIMS = (16, 32, 64, 128)
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
 # rank threads of one gang launch at once: the counts stay exact under it
 _launches_lock = threading.Lock()
 
@@ -106,12 +116,19 @@ _SIGNATURES = {
     "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "flash_dynamic_smem_bytes": [_I],
     "flash_kernel_attributes": [_I, ctypes.POINTER(_I)],
+    "flash_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                          _P],
+    "flash_f32_kernel_attributes": [_I, _I, ctypes.POINTER(_I)],
 }
 _KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _kernel(name: str):
-    lib = _build.load("flash_attention")
+    lib = _build.load("flash_attention_f32" if "_f32" in name
+                      else "flash_attention")
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
@@ -119,22 +136,63 @@ def _kernel(name: str):
     return fn
 
 
+def kernel_plan(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
+    """Which kernel family takes [BH, S, head_dim] tensors of ``dtype``,
+    and the head dim it runs them at: ``("bf16", 64)`` for bf16 with head
+    dim up to 64, ``("f32", d)`` for f32 with head dim up to 128, ``d``
+    the next of ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
+    dims = {torch.bfloat16: BF16_HEAD_DIMS,
+            torch.float32: F32_HEAD_DIMS}.get(dtype)
+    if dims is None:
+        raise ValueError(f"the CUDA kernels take bf16 or f32 tensors, got "
+                         f"{dtype}")
+    padded = next((d for d in dims if head_dim <= d), None)
+    if head_dim < 1 or padded is None:
+        raise ValueError(
+            f"the CUDA kernels take {_DTYPE_NAMES[dtype]} head dims 1 to "
+            f"{dims[-1]}, got {head_dim}")
+    return _DTYPE_NAMES[dtype], padded
+
+
+def pad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """[..., D] -> [..., head_dim] with zero columns after the D given;
+    ``x`` itself when D is already ``head_dim``."""
+    D = x.shape[-1]
+    if D == head_dim:
+        return x
+    return torch.nn.functional.pad(x, (0, head_dim - D))
+
+
+def unpad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The first ``head_dim`` columns of ``x``, contiguous."""
+    if x.shape[-1] == head_dim:
+        return x
+    return x[..., :head_dim].contiguous()
+
+
 def dynamic_smem_bytes(kernel: str) -> int:
-    """Dynamic shared memory of one block of ``flash_fwd``,
+    """Dynamic shared memory of one block of the bf16 ``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv`` (builds the kernels if needed)."""
     return _kernel("flash_dynamic_smem_bytes")(_KERNEL_IDS[kernel])
 
 
-def kernel_attributes(kernel: str) -> dict:
+def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
     """What the CUDA runtime reports of one kernel: ``registers`` a thread,
-    ``max_dynamic_smem`` (the dynamic shared memory its last launch allowed
-    itself) and ``blocks_per_sm`` (blocks one SM holds at once). Needs a
-    CUDA device."""
+    ``max_dynamic_smem`` and ``blocks_per_sm`` (blocks one SM holds at
+    once). ``kernel`` is a name of ``LAUNCHES``; an f32 kernel is asked
+    for at one of ``F32_HEAD_DIMS`` (``head_dim``), and its
+    ``max_dynamic_smem`` is the dynamic shared memory of its launches. For
+    a bf16 kernel it is what its last launch allowed itself. Needs a CUDA
+    device."""
     out = (_I * 3)()
-    err = _kernel("flash_kernel_attributes")(_KERNEL_IDS[kernel], out)
+    if kernel.endswith("_f32"):
+        err = _kernel("flash_f32_kernel_attributes")(
+            _KERNEL_IDS[kernel.removesuffix("_f32")], int(head_dim), out)
+    else:
+        err = _kernel("flash_kernel_attributes")(_KERNEL_IDS[kernel], out)
     if err != 0:
-        raise RuntimeError(f"flash_kernel_attributes({kernel}) failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"kernel attributes of {kernel} failed: "
+                           f"{_why(err)}")
     return {"registers": out[0], "max_dynamic_smem": out[1],
             "blocks_per_sm": out[2]}
 
@@ -149,33 +207,41 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _check_cuda(bf16_tensors, f32_tensors=()):
-    q = bf16_tensors[0]
+def _check_cuda(matrices, f32_rows=()):
+    """Checks what the kernels take: [BH, S, D] matrices of one dtype and
+    shape that ``kernel_plan`` accepts, [BH, S] f32 rows, all contiguous,
+    on one device and the matrices 16-byte aligned. Returns (BH, S)."""
+    q = matrices[0]
     if q.dim() != 3:
         raise ValueError(f"expected [BH, S, D] tensors, got shape {tuple(q.shape)}")
     BH, S, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"the CUDA kernels take head dim {HEAD_DIM}, got {D}")
+    family, _ = kernel_plan(q.dtype, D)
     if not 0 < BH <= 65535 or S <= 0:
         raise ValueError(f"unsupported B*H={BH}, S={S}")
-    for t in bf16_tensors:
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != (BH, S, D):
-            raise ValueError(f"expected bf16 [{BH}, {S}, {D}], got "
+    for t in matrices:
+        if t.dtype != q.dtype or tuple(t.shape) != (BH, S, D):
+            raise ValueError(f"expected {family} [{BH}, {S}, {D}], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    for t in f32_tensors:
+    for t in f32_rows:
         if t.dtype != torch.float32 or tuple(t.shape) != (BH, S):
             raise ValueError(f"expected f32 [{BH}, {S}], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    for t in (*bf16_tensors, *f32_tensors):
+    for t in (*matrices, *f32_rows):
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
         if t.device != q.device:
             raise ValueError("all tensors must be on one device")
-    for t in bf16_tensors:
+    for t in matrices:
         if t.data_ptr() % 16:
-            raise ValueError("the CUDA kernels take 16-byte aligned bf16 "
-                             "tensors (TMA reads them)")
+            raise ValueError("the CUDA kernels take 16-byte aligned [BH, S, "
+                             "D] tensors (they read rows 16 bytes at a time)")
     return BH, S
+
+
+def _why(err: int) -> str:
+    return {-1: "the driver has no cuTensorMapEncodeTiled",
+            -2: "the driver refused a tensor map",
+            -3: "no kernel for this head dim"}.get(err, f"cudaError {err}")
 
 
 def _launch(name: str, counter: str, device, *args) -> None:
@@ -183,9 +249,7 @@ def _launch(name: str, counter: str, device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _kernel(name)(*args, stream)
     if err != 0:
-        why = {-1: "the driver has no cuTensorMapEncodeTiled",
-               -2: "the driver refused a tensor map"}.get(err, f"cudaError {err}")
-        raise RuntimeError(f"{name} launch failed: {why}")
+        raise RuntimeError(f"{name} launch failed: {_why(err)}")
     _count_launch(counter)
 
 
@@ -194,47 +258,75 @@ def _count_launch(counter: str) -> None:
         LAUNCHES[counter] += 1
 
 
+def _padded(tensors, head_dim):
+    return [pad_head_dim(t, head_dim) for t in tensors]
+
+
+def _run(kernel: str, family: str, head_dim: int, device, ptrs, scale,
+         causal) -> None:
+    """Launches ``kernel`` (``flash_fwd``, ``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) of ``family``; the f32 entries also take the head
+    dim they run at."""
+    if family == "bf16":
+        _launch(f"{kernel}_bf16", kernel, device, *ptrs, float(scale),
+                int(causal))
+    else:
+        _launch(f"{kernel}_f32", f"{kernel}_f32", device, *ptrs, head_dim,
+                float(scale), int(causal))
+
+
 def flash_fwd(q, k, v, *, scale: float, causal: bool):
     """(o, lse) of q, k, v [BH, S, D]: the plain version on CPU tensors,
-    the forward kernel on CUDA tensors."""
+    the forward kernel of q's dtype on CUDA tensors."""
     if _on_cpu(q, k, v):
         return flash_fwd_plain(q, k, v, scale=scale, causal=causal)
     BH, S = _check_cuda((q, k, v))
+    D = q.shape[-1]
+    family, Dk = kernel_plan(q.dtype, D)
+    q, k, v = _padded((q, k, v), Dk)
     o = torch.empty_like(q)
     lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_bf16", "flash_fwd", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), BH, S, float(scale), int(causal))
-    return o, lse
+    _run("flash_fwd", family, Dk, q.device,
+         (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          lse.data_ptr(), BH, S), scale, causal)
+    return unpad_head_dim(o, D), lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
-    """dq: the plain version on CPU tensors, the dq kernel on CUDA."""
+    """dq: the plain version on CPU tensors, the dq kernel of q's dtype on
+    CUDA tensors."""
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
                                   causal=causal)
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
+    D = q.shape[-1]
+    family, Dk = kernel_plan(q.dtype, D)
+    q, k, v, do = _padded((q, k, v, do), Dk)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq_bf16", "flash_bwd_dq", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            BH, S, float(scale), int(causal))
-    return dq
+    _run("flash_bwd_dq", family, Dk, q.device,
+         (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, S),
+         scale, causal)
+    return unpad_head_dim(dq, D)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
-    """(dk, dv): the plain version on CPU tensors, the dk/dv kernel on CUDA."""
+    """(dk, dv): the plain version on CPU tensors, the dk/dv kernel of q's
+    dtype on CUDA tensors."""
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                    causal=causal)
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
+    D = q.shape[-1]
+    family, Dk = kernel_plan(q.dtype, D)
+    q, k, v, do = _padded((q, k, v, do), Dk)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv_bf16", "flash_bwd_dkv", q.device,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            BH, S, float(scale), int(causal))
-    return dk, dv
+    _run("flash_bwd_dkv", family, Dk, q.device,
+         (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+          lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          BH, S), scale, causal)
+    return unpad_head_dim(dk, D), unpad_head_dim(dv, D)
 
 
 # --------------------------------------------------------------- autograd

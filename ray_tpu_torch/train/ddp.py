@@ -180,7 +180,10 @@ class _DoneShardSync:
 
 
 def _resolve_mode(mode) -> str:
-    m = str(mode).strip().lower()
+    """``mode``, or the ``train_ddp_mode`` knob (``RAY_TPU_TORCH_TRAIN_DDP_MODE``)
+    when it is None, as ``ray_tpu``'s ``sync_gradients`` reads it."""
+    m = mode if mode is not None else get_config("train_ddp_mode")
+    m = str(m).strip().lower()
     if m not in ("allreduce", "reducescatter"):
         raise ValueError(
             f"train DDP mode {mode!r}: expected 'allreduce' (every rank "
@@ -232,14 +235,15 @@ def _sync_shards_async(grads, group_name: str, *, average: bool,
 def sync_gradients_async(grads, group_name: str = "train_dp", *,
                          average: bool = False,
                          bucket_bytes: int | None = None,
-                         mode: str = "allreduce",
+                         mode: str | None = None,
                          wire_dtype=None):
     """Launch the bucketed gradient sync and return a pending sync at
     once; call ``.result()`` at the optimizer boundary.
 
-    ``mode``: ``allreduce`` returns the full synced tree on every rank;
-    ``reducescatter`` returns a ``PendingShardSync`` whose result is this
-    rank's shard of each packed bucket. With
+    ``mode`` (the ``train_ddp_mode`` knob when None): ``allreduce``
+    returns the full synced tree on every rank; ``reducescatter`` returns
+    a ``PendingShardSync`` whose result is this rank's shard of each
+    packed bucket. With
     ``RAY_TPU_TORCH_TRAIN_BUCKET_DDP=0`` the whole tree goes as one
     synchronous allreduce per dtype, done before this returns, and the
     sharded mode runs synchronous reducescatters over the same shard map.
@@ -282,7 +286,7 @@ def sync_gradients_async(grads, group_name: str = "train_dp", *,
 def sync_gradients(grads, group_name: str = "train_dp", *,
                    average: bool = False,
                    bucket_bytes: int | None = None,
-                   mode: str = "allreduce",
+                   mode: str | None = None,
                    wire_dtype=None):
     """Synchronize one grad tree across the gang and return the summed
     (or averaged) grads, or, in ``mode="reducescatter"``, the list of

@@ -3,6 +3,7 @@ from ray_tpu_torch.util.collective.async_handles import (  # noqa: F401
 )
 from ray_tpu_torch.util.collective.collective import (  # noqa: F401
     allgather,
+    allgather_object,
     allgather_async,
     allreduce,
     allreduce_async,

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import threading
 
 import torch
@@ -199,3 +200,19 @@ def allgather_async(tensor, group_name: str = "default") -> CollectiveHandle:
 
 def allgather(tensor, group_name: str = "default") -> list:
     return allgather_async(tensor, group_name).result()
+
+
+def allgather_object(obj, group_name: str = "default") -> list:
+    """Every rank's picklable ``obj``, in rank order. The object is
+    pickled to bytes; the ranks allgather their byte counts, then their
+    bytes zero-padded to the largest count (gloo's allgather takes equal
+    sizes only), and each rank unpickles every rank's bytes."""
+    data = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+    sizes = allgather(torch.tensor([data.numel()], dtype=torch.int64),
+                      group_name)
+    width = max(int(s) for s in sizes)
+    padded = torch.zeros(width, dtype=torch.uint8)
+    padded[:data.numel()] = data
+    parts = allgather(padded, group_name)
+    return [pickle.loads(part[:int(n)].numpy().tobytes())
+            for part, n in zip(parts, sizes)]

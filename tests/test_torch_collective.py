@@ -93,6 +93,17 @@ def test_allgather_padded_to_the_widest_shard(world):
         assert got.numpy().tobytes() == stream.tobytes()
 
 
+@pytest.mark.parametrize("world", [1, 2, 3])
+def test_allgather_object_of_unequal_sizes(world):
+    """Every rank's object in rank order, though their pickles differ in
+    size (gloo's allgather takes equal sizes: the bytes are padded)."""
+    def obj(r):
+        return (r, "x" * (37 * r), None if r else "sha", {"n": [r] * r})
+
+    outs = run_gang(world, lambda r, g: col.allgather_object(obj(r), g))
+    assert outs == [[obj(r) for r in range(world)]] * world
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_async_handles_poll_and_result(world):
     """Async allreduce, reducescatter and allgather in flight together

@@ -23,6 +23,11 @@ BF16_RTOL = 2.0 ** -6
 ATOL_RMS = 2.0 ** -3
 ABS_FLOOR = 1e-5
 LSE_ABS_TOL = 2e-5
+# chip_smoke.py's bound for the f32 kernels (see the reasons there).
+F32_RTOL = 2.0 ** -14
+F32_ATOL_RMS = 2.0 ** -14
+F32_FLOOR = 1e-6
+NO_LAUNCH = dict.fromkeys(fa.LAUNCHES, 0)
 
 
 @pytest.fixture
@@ -35,10 +40,39 @@ def cuda():
 
 
 def _assert_close(a, b, what):
+    if b.dtype == torch.float32:
+        rtol, atol_rms, floor = F32_RTOL, F32_ATOL_RMS, F32_FLOOR
+    else:
+        rtol, atol_rms, floor = BF16_RTOL, ATOL_RMS, ABS_FLOOR
     a, b = a.float(), b.float()
-    bound = BF16_RTOL * b.abs() + ATOL_RMS * b.square().mean().sqrt() + ABS_FLOOR
+    bound = rtol * b.abs() + atol_rms * b.square().mean().sqrt() + floor
     worst = ((a - b).abs() / bound).max().item()
     assert worst <= 1.0, (what, worst, (a - b).abs().max().item())
+
+
+def _check_all_three(cuda, BH, S, D, causal, dtype, seed):
+    """Each kernel of ``dtype`` against its plain version on the same
+    inputs; returns the launches the three wrappers made."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    kw = dict(scale=D ** -0.5, causal=causal)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_ref.float()).sum(dim=-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    assert o.shape == dq.shape == dk.shape == dv.shape == (BH, S, D)
+    _assert_close(o, o_ref, "o")
+    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
+    _assert_close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, **kw), "dq")
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
+    _assert_close(dk, dk_ref, "dk")
+    _assert_close(dv, dv_ref, "dv")
+    return {n: fa.LAUNCHES[n] - before[n] for n in before if
+            fa.LAUNCHES[n] != before[n]}
 
 
 @pytest.mark.parametrize("BH,S,causal", [
@@ -50,25 +84,35 @@ def _assert_close(a, b, what):
     (2, 40, True), (2, 40, False),
 ])
 def test_kernels_match_plain(cuda, BH, S, causal):
-    gen = torch.Generator(device=cuda).manual_seed(S)
-    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device=cuda)
-                   .to(torch.bfloat16) for _ in range(4))
-    kw = dict(scale=D ** -0.5, causal=causal)
-    before = dict(fa.LAUNCHES)
-    o, lse = fa.flash_fwd(q, k, v, **kw)
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
-    delta = (do.float() * o_ref.float()).sum(dim=-1)
-    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
-    torch.cuda.synchronize()
-    _assert_close(o, o_ref, "o")
-    assert (lse - lse_ref).abs().max().item() <= LSE_ABS_TOL
-    _assert_close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, **kw), "dq")
-    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
-    _assert_close(dk, dk_ref, "dk")
-    _assert_close(dv, dv_ref, "dv")
-    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    launched = _check_all_three(cuda, BH, S, D, causal, torch.bfloat16, S)
+    assert launched == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("BH,S,Dh,causal", [
+    (2, 129, 16, True), (2, 129, 16, False), (4, 256, 32, True),
+    (2, 200, 48, True), (2, 1, 16, True), (3, 40, 8, False),
+])
+def test_bf16_kernels_pad_smaller_head_dims(cuda, BH, S, Dh, causal):
+    """gpt2_tiny's head dim 16, and 32 and 48: zero-padded to 64 for the
+    bf16 kernels and sliced back."""
+    launched = _check_all_three(cuda, BH, S, Dh, causal, torch.bfloat16,
+                                S + Dh)
+    assert launched == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("BH,S,Dh,causal", [
+    (4, 256, 64, True), (3, 130, 64, False), (2, 1, 16, True),
+    (8, 129, 16, True), (8, 129, 16, False), (2, 200, 32, True),
+    (2, 100, 128, True), (2, 64, 128, False), (2, 77, 48, True),
+    (2, 65, 20, False), (1, 1000, 64, True), (2, 63, 96, True),
+])
+def test_f32_kernels_match_plain(cuda, BH, S, Dh, causal):
+    """The f32 kernels at each head dim they are built for (16, 32, 64,
+    128) and at others padded up to the next, ragged S and both masks."""
+    launched = _check_all_three(cuda, BH, S, Dh, causal, torch.float32,
+                                S + Dh)
+    assert launched == {"flash_fwd_f32": 1, "flash_bwd_dq_f32": 1,
+                        "flash_bwd_dkv_f32": 1}
 
 
 def test_dq_grid_larger_than_the_card(cuda):
@@ -94,12 +138,19 @@ def test_dq_grid_larger_than_the_card(cuda):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(2, 64, 32, dtype=torch.bfloat16, device=cuda)
+    """bf16 above head dim 64 (no config of the repo has one), f32 above
+    128, and other dtypes are refused before any launch."""
+    before = dict(fa.LAUNCHES)
+    q = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(q, q, q, scale=1.0, causal=True)
-    q = torch.zeros(2, 64, D, device=cuda)
-    with pytest.raises(ValueError, match="bf16"):
+    q = torch.zeros(2, 64, 256, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(q, q, q, scale=1.0, causal=True)
+    q = torch.zeros(2, 64, D, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fa.flash_fwd(q, q, q, scale=1.0, causal=True)
+    assert fa.LAUNCHES == before
 
 
 def test_flash_attention_autograd_matches_cpu(cuda):
@@ -141,7 +192,8 @@ def test_gpt2_step_runs_the_kernels(cuda):
         fa.reset_launch_counts()
         state, m = step(state, {"tokens": tokens})
         metrics[attention] = {k: float(m[k]) for k in ("loss", "grad_norm")}
-    assert fa.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert fa.LAUNCHES == {**NO_LAUNCH, "flash_fwd": 2, "flash_bwd_dq": 2,
+                           "flash_bwd_dkv": 2}
     # chip_smoke.py's first-step limits: at init the loss is ~ln(V) whatever
     # attention computes, so the attention leaves' gradients carry the test.
     ref, flash = metrics["reference"], metrics["flash"]
@@ -151,28 +203,49 @@ def test_gpt2_step_runs_the_kernels(cuda):
         assert ((g - g_ref).norm() / g_ref.norm()).item() <= 2.5e-2
 
 
-def test_gpt2_tiny_on_the_card_raises_with_auto_and_trains_with_reference(cuda):
-    """gpt2_tiny has head dim 16, which the kernels do not take: "auto"
-    picks flash on the card and its wrapper refuses before any launch;
-    asked for "reference", the step trains."""
+@pytest.mark.parametrize("dtype,limits", [
+    # chip_smoke.py's first-step limits (loss, grad norm, attention
+    # leaves); in f32 an order tighter
+    (torch.bfloat16, (1e-4, 2e-3, 2.5e-2)),
+    (torch.float32, (1e-5, 2e-4, 2.5e-3)),
+])
+def test_gpt2_tiny_trains_with_auto_through_the_kernels(cuda, dtype, limits):
+    """gpt2_tiny (head dim 16) under attention="auto" runs the kernels of
+    its dtype: the bf16 ones padded to head dim 64, or the f32 ones. Its
+    first step matches reference attention's, and each kernel launches
+    once a layer a step."""
     tokens = torch.randint(0, 256, (2, 65), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(1))
-    fa.reset_launch_counts()
-    for attention in ("auto", "reference"):
-        cfg = dataclasses.replace(gpt2.gpt2_tiny(), attention=attention)
+    suffix = "" if dtype == torch.bfloat16 else "_f32"
+    metrics, attn_grads = {}, {}
+    for attention in ("reference", "auto"):
+        cfg = dataclasses.replace(gpt2.gpt2_tiny(), attention=attention,
+                                  dtype=dtype)
         opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
         state = ts.make_train_state(
             lambda g: gpt2.init(g, cfg),
             torch.Generator(device=cuda).manual_seed(0), opt)
+        attn = state.params["blocks"]["attn"]
+        loss, _ = gpt2.loss_fn(state.params, {"tokens": tokens}, cfg)
+        attn_grads[attention] = torch.autograd.grad(
+            loss, [attn[n] for n in sorted(attn)])
         step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg), opt)
-        if attention == "auto":
-            with pytest.raises(ValueError, match="head dim"):
-                step(state, {"tokens": tokens})
-            continue
-        for _ in range(2):
+        fa.reset_launch_counts()
+        for i in range(3):
             state, m = step(state, {"tokens": tokens})
             assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
-    assert set(fa.LAUNCHES.values()) == {0}
+            if i == 0:
+                metrics[attention] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    n = 3 * gpt2.gpt2_tiny().n_layer
+    assert fa.LAUNCHES == {**NO_LAUNCH, "flash_fwd" + suffix: n,
+                           "flash_bwd_dq" + suffix: n,
+                           "flash_bwd_dkv" + suffix: n}
+    loss_rtol, gn_rtol, attn_rtol = limits
+    ref, flash = metrics["reference"], metrics["auto"]
+    assert abs(flash["loss"] - ref["loss"]) <= loss_rtol * ref["loss"]
+    assert abs(flash["grad_norm"] - ref["grad_norm"]) <= gn_rtol * ref["grad_norm"]
+    for g, g_ref in zip(attn_grads["auto"], attn_grads["reference"]):
+        assert ((g - g_ref).norm() / g_ref.norm()).item() <= attn_rtol
 
 
 def test_world2_thread_ddp_step_on_the_card(cuda):
@@ -207,7 +280,7 @@ def test_world2_thread_ddp_step_on_the_card(cuda):
 
     fa.reset_launch_counts()
     p0, p1 = run_gang(2, rank)
-    assert fa.LAUNCHES == {"flash_fwd": 8, "flash_bwd_dq": 8,
+    assert fa.LAUNCHES == {**NO_LAUNCH, "flash_fwd": 8, "flash_bwd_dq": 8,
                            "flash_bwd_dkv": 8}
     for a, b in zip(p0, p1):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))

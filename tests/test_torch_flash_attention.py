@@ -115,14 +115,17 @@ def test_cpu_tensors_launch_no_kernel():
     q, k, v, _ = (torch.from_numpy(x).requires_grad_(True) for x in _inputs(64))
     o = tfa.flash_attention(q, k, v, causal=True)
     o.sum().backward()
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert set(tfa.LAUNCHES.values()) == {0}
+    assert sorted(tfa.LAUNCHES) == sorted(
+        f"{n}{s}" for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        for s in ("", "_f32"))
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     bf = torch.zeros(4, 128, 64, dtype=torch.bfloat16)
     assert tfa._check_cuda((bf, bf, bf)) == (4, 128)
     with pytest.raises(ValueError, match="head dim"):
-        tfa._check_cuda((torch.zeros(4, 128, 32, dtype=torch.bfloat16),) * 3)
+        tfa._check_cuda((torch.zeros(4, 128, 96, dtype=torch.bfloat16),) * 3)
     with pytest.raises(ValueError, match="bf16"):
         tfa._check_cuda((bf, bf.float(), bf))
     with pytest.raises(ValueError, match="contiguous"):
@@ -174,3 +177,123 @@ def test_launch_counts_stay_exact_under_rank_threads():
         sys.setswitchinterval(interval)
     assert tfa.LAUNCHES["flash_fwd"] == threads * per_thread
     tfa.reset_launch_counts()
+
+
+# ----------------------------------- head dims other than 64, and f32
+@pytest.fixture(scope="module")
+def pallas_by_head_dim():
+    """_flash_fwd and _flash_bwd of the JAX package in f32 at head dims 16
+    and 32, S = 129 (one row past a 128-row tile), causal and not."""
+    out = {}
+    for Dh in (16, 32):
+        for causal in (True, False):
+            rng = np.random.default_rng(Dh + causal)
+            q, k, v, do = (rng.standard_normal((3, 129, Dh), dtype=np.float32)
+                           for _ in range(4))
+            kw = dict(scale=Dh ** -0.5, causal=causal, block_q=JAX_BLOCK,
+                      block_k=JAX_BLOCK, interpret=True)
+            o, lse = jfa._flash_fwd(*(jnp.asarray(x) for x in (q, k, v)), **kw)
+            dq, dk, dv = jfa._flash_bwd(*(jnp.asarray(x) for x in (q, k, v)),
+                                        o, lse, jnp.asarray(do), **kw)
+            out[(Dh, causal)] = {n: np.asarray(x) for n, x in dict(
+                q=q, k=k, v=v, do=do, o=o, lse=lse, dq=dq, dk=dk, dv=dv).items()}
+    return out
+
+
+def _padded_path(q, k, v, do, *, scale, causal, head_dim):
+    """What a wrapper does on the card, with each kernel's plain version in
+    the kernel's place: zero-pad q, k, v and do to the kernel's head dim,
+    compute at that head dim with the caller's scale, slice back."""
+    D = q.shape[-1]
+
+    def pad(x):
+        return tfa.pad_head_dim(x, head_dim)
+
+    def unpad(x):
+        return tfa.unpad_head_dim(x, D)
+
+    kw = dict(scale=scale, causal=causal)
+    o, lse = tfa.flash_fwd_plain(pad(q), pad(k), pad(v), **kw)
+    assert not o[..., D:].any()  # zero columns stay zero
+    o = unpad(o)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = tfa.flash_bwd_dq_plain(pad(q), pad(k), pad(v), pad(do), lse, delta,
+                                **kw)
+    dk, dv = tfa.flash_bwd_dkv_plain(pad(q), pad(k), pad(v), pad(do), lse,
+                                     delta, **kw)
+    return o, lse, unpad(dq), unpad(dk), unpad(dv)
+
+
+@pytest.mark.parametrize("Dh", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_versions_match_pallas_at_head_dim(Dh, causal,
+                                                 pallas_by_head_dim):
+    """f32 at head dims 16 and 32: the plain versions (what the f32 kernels
+    compute), and the bf16 kernels' padding to head dim 64 with the plain
+    versions standing in for the kernels."""
+    r = pallas_by_head_dim[(Dh, causal)]
+    q, k, v, do = (torch.tensor(r[n]) for n in ("q", "k", "v", "do"))
+    kw = dict(scale=Dh ** -0.5, causal=causal)
+    o, lse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do * o).sum(dim=-1)
+    plain = (o, lse, tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+             *tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    padded = _padded_path(q, k, v, do, head_dim=64, **kw)
+    for got in (plain, padded):
+        for x, name, atol in zip(got, ("o", "lse", "dq", "dk", "dv"),
+                                 (O_ATOL, 2e-5, GRAD_ATOL, GRAD_ATOL, GRAD_ATOL)):
+            assert x.shape == r[name].shape
+            np.testing.assert_allclose(x.numpy(), r[name], atol=atol,
+                                       err_msg=f"{name} D={Dh} causal={causal}")
+
+
+@pytest.mark.parametrize("Dh", [1, 16, 20, 32, 48, 63])
+def test_padding_to_the_kernels_head_dim_changes_nothing(Dh):
+    """Zero columns add exact zeros to q.k^T and do.v^T, delta = sum(do.o)
+    is unchanged, and the scale stays the caller's: the padded path equals
+    the unpadded plain versions within f32 summation order."""
+    rng = np.random.default_rng(Dh)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 70, Dh),
+                                                        dtype=np.float32))
+                   for _ in range(4))
+    kw = dict(scale=Dh ** -0.5, causal=True)
+    _, Dk = tfa.kernel_plan(torch.bfloat16, Dh)
+    o, lse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do * o).sum(dim=-1)
+    want = (o, lse, tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+            *tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+    got = _padded_path(q, k, v, do, head_dim=Dk, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,Dh,plan", [
+    (torch.bfloat16, 64, ("bf16", 64)), (torch.bfloat16, 16, ("bf16", 64)),
+    (torch.bfloat16, 1, ("bf16", 64)), (torch.float32, 16, ("f32", 16)),
+    (torch.float32, 20, ("f32", 32)), (torch.float32, 33, ("f32", 64)),
+    (torch.float32, 64, ("f32", 64)), (torch.float32, 100, ("f32", 128)),
+    (torch.float32, 128, ("f32", 128)),
+])
+def test_kernel_plan_dispatches_by_dtype_and_head_dim(dtype, Dh, plan):
+    assert tfa.kernel_plan(dtype, Dh) == plan
+    x = torch.ones(2, 3, Dh, dtype=dtype)
+    padded = tfa.pad_head_dim(x, plan[1])
+    assert padded.shape == (2, 3, plan[1]) and padded.dtype == dtype
+    assert padded[..., :Dh].eq(1).all() and not padded[..., Dh:].any()
+    assert tfa.unpad_head_dim(padded, Dh).equal(x)
+    assert tfa.pad_head_dim(x, Dh) is x
+
+
+@pytest.mark.parametrize("dtype,Dh,match", [
+    (torch.bfloat16, 65, "bf16 head dims 1 to 64"),
+    (torch.bfloat16, 128, "bf16 head dims 1 to 64"),
+    (torch.float32, 129, "f32 head dims 1 to 128"),
+    (torch.float32, 0, "f32 head dims 1 to 128"),
+    (torch.float16, 64, "bf16 or f32"), (torch.float64, 64, "bf16 or f32"),
+])
+def test_kernel_plan_refuses_what_no_kernel_takes(dtype, Dh, match):
+    with pytest.raises(ValueError, match=match):
+        tfa.kernel_plan(dtype, Dh)
+    with pytest.raises(ValueError):
+        tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3)

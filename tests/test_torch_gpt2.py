@@ -174,7 +174,7 @@ def test_init_shapes_dtypes_and_scales(jax_params):
 
 
 @pytest.mark.parametrize("cfg, device, expect", [
-    (TG.gpt2_tiny(), "cuda", "flash"),  # head dim 16: the wrappers refuse it
+    (TG.gpt2_tiny(), "cuda", "flash"),  # head dim 16: padded to 64
     (TG.gpt2_small(), "cuda", "flash"),  # bf16, head dim 64
     (dataclasses.replace(TG.gpt2_small(), dtype=torch.float32), "cuda",
      "flash"),
@@ -185,18 +185,24 @@ def test_init_shapes_dtypes_and_scales(jax_params):
 def test_auto_attention_is_flash_on_the_card(cfg, device, expect):
     """"auto" is "flash" on any CUDA input, as ray_tpu's is on a TPU: the
     hand-written kernels are never swapped for the plain version there,
-    and what they do not take raises. The choice is a pure function of
+    and what no kernel takes raises. The choice is a pure function of
     the config and the device type, so it needs no GPU."""
     assert TG._resolve_attention(cfg, torch.device(device)) == expect
 
 
 def test_explicit_flash_still_refuses_what_the_kernels_do_not_take():
     """"flash", explicit or from "auto" on the card, reaches the kernel
-    wrapper's checks, which refuse head dim 16 (gpt2_tiny's) and f32
-    before any launch."""
+    wrapper's checks, which refuse before any launch what no kernel
+    takes: bf16 above head dim 64, f32 above 128, and other dtypes.
+    gpt2_tiny's head dim 16 and f32 configs are taken."""
     from ray_tpu_torch.ops import flash_attention as fa
 
-    for D, dtype in ((16, torch.bfloat16), (64, torch.float32)):
+    for D, dtype in ((96, torch.bfloat16), (256, torch.float32),
+                     (64, torch.float16)):
         q = torch.zeros(2, 8, D, dtype=dtype)
-        with pytest.raises(ValueError, match="head dim|bf16"):
+        with pytest.raises(ValueError, match="head dim|bf16 or f32"):
             fa._check_cuda((q, q, q))
+    for D, dtype in ((16, torch.bfloat16), (64, torch.float32),
+                     (16, torch.float32)):
+        q = torch.zeros(2, 8, D, dtype=dtype)
+        assert fa._check_cuda((q, q, q)) == (2, 8)
