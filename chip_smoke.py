@@ -8,18 +8,22 @@ Phases, each of which exits non-zero on failure:
 1. header: the card's name and power limit, and the kernels' build (one
    ``nvcc`` a source, started together), with each kernel's registers,
    dynamic shared memory and blocks per SM (the f32 ones at each head
-   dim they are built for);
+   dim they are built for, the bf16_wide ones at 128);
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
    one row past a 128-row tile), a non-causal case and head dims 16 and
    32 (zero-padded to 64); in f32 at the main shape and at head dims 16
-   (gpt2_tiny's), 32 and 128, causal and not. At the main shape, times
-   of the kernel, the plain version and the PyTorch library call (SDPA,
-   in the kernel's dtype) beside the bound, with the kernel's TFLOP/s
-   and the share of its bound that it reaches; and, in bf16, the
+   (gpt2_tiny's), 32 and 128, causal and not; in bf16 at head dims 96
+   and 128 (the bf16_wide kernels, padded to 128), among them the wide
+   shape (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of
+   128). At the main shape (the wide one for bf16_wide), times of the
+   kernel, the plain version and the PyTorch library call (SDPA, in the
+   kernel's dtype) beside the bound, with the kernel's TFLOP/s and the
+   share of its bound that it reaches (for f32 the bound of 3xTF32 on the
+   tensor cores and, beside it, of FFMA on the CUDA cores); in bf16 the
    backward as ``_FlashAttention.backward`` runs it (delta, dq, dk/dv)
-   against SDPA's;
+   against SDPA's, and in f32 dq + dk/dv against SDPA's backward;
 3. the main path: GPT-2-small at full width (12 layers, 12 heads, d 768,
    vocab 50304, seq 1024) training at batch 16 through ``make_train_step``
    (2 warm-up and 5 timed steps, weights from a seeded generator), with
@@ -30,9 +34,11 @@ Phases, each of which exits non-zero on failure:
    device time by kernel category and by operator, and the device's busy
    time, from which PERF.md's "Where the time goes" is written;
 3b. the tiny configs: gpt2_tiny (head dim 16) under attention="auto" in
-   bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels), 3 steps
-   each, its launch counts exact and its first step held to reference
-   attention (phase 3's limits in bf16, an order tighter in f32);
+   bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels), and
+   gpt2_tiny with two heads of 128 in bf16 (the bf16_wide kernels), 3
+   steps each, its launch counts exact and its first step held to
+   reference attention (phase 3's limits in bf16, an order tighter in
+   f32);
 4. the data-parallel Train gang at world 2: two rank threads share the
    card, each GPT-2-small at full width on batch 8 (the main path's 16
    between them) and each with its own gloo group over one in-memory
@@ -63,7 +69,8 @@ Phases, each of which exits non-zero on failure:
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
-the bf16 kernels, the f32 tiny config for the f32 ones), and
+the bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
+config for the bf16_wide ones), and
 ``tiny_launches`` and ``gang_launches`` the other runs'; the last line is ``{"ok": true, "device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
 non-zero and prints no result.
@@ -81,7 +88,10 @@ import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
-PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (FFMA)
+# f32-accurate products on the tensor cores: 3xTF32 (big.small + small.big
+# + big.big) at a third of the dense TF32 peak of 495 TFLOP/s
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 HEAD_DIM = 64  # GPT-2-small's, the main path's
 # Kernel vs plain version, both in bf16 with f32 accumulation, element by
@@ -101,13 +111,17 @@ ATOL_RMS = 2.0 ** -3
 ABS_FLOOR = 1e-5
 # lse is f32 throughout; it is at most ~8 here, where an f32 ulp is 9.5e-7.
 LSE_ABS_TOL = 2e-5
-# The f32 kernels against their plain versions, both f32 throughout (TF32
-# off): the same products summed in other orders, S up to 1024 terms, so
-# a sum moves by a few ulps (2^-24) of its largest partial sums, ~1e-6 of
-# the tensor's rms on random inputs. The bound, F32_RTOL of the element
-# plus F32_ATOL_RMS of the rms plus F32_FLOOR, sits ~50x above that and
-# ~1000x below what a skipped tile or a wrong mask moves (the bf16 bound
-# of the same shape). The card tests read these limits too.
+# The f32 kernels against their plain versions (f32 throughout, TF32
+# off): the forward sums the same f32 products in another order, S up to
+# 1024 terms, so a sum moves by a few ulps (2^-24) of its largest partial
+# sums, ~1e-6 of the tensor's rms on random inputs; dq and dk/dv take
+# their products as 3xTF32 on the tensor cores, ~2^-21 of a product
+# (tests/test_torch_tf32_split.py emulates them within a quarter of this
+# bound, and shows one TF32 pass outside it). The bound, F32_RTOL of the
+# element plus F32_ATOL_RMS of the rms plus F32_FLOOR, sits ~50x above
+# f32 summation noise and ~1000x below what a skipped tile or a wrong mask
+# moves (the bf16 bound of the same shape). The card tests read these
+# limits too.
 F32_RTOL = 2.0 ** -14
 F32_ATOL_RMS = 2.0 ** -14
 F32_FLOOR = 1e-6
@@ -145,29 +159,41 @@ GANG_JOIN_S = 600.0
 TINY_BATCH = 8
 TINY_STEPS = 3
 TINY_F32_LIMITS = (1e-5, 2e-4, 2.5e-3)  # loss, grad norm, attention leaves
+# bf16 head dims above 64 run on the bf16_wide kernels: gpt2_tiny with
+# two heads of 128 (d_model 256) in phase 3b, and in phase 2 the shape
+# of GPT-2-small's attention width in heads of 128 (B*H 16 x 6)
+WIDE_TINY = dict(d_model=256, n_head=2)
+WIDE_SHAPE = (96, 1024, 128)
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
 # the end.
 CKPT_DIR = "build/chip_smoke_checkpoints"
 
-KERNELS = [
-    {"name": "flash_fwd", "replaces": "ray_tpu/ops/flash_attention.py:29"},
-    {"name": "flash_bwd_dq", "replaces": "ray_tpu/ops/flash_attention.py:160"},
-    {"name": "flash_bwd_dkv", "replaces": "ray_tpu/ops/flash_attention.py:212"},
-    {"name": "flash_fwd_f32", "replaces": "ray_tpu/ops/flash_attention.py:29"},
-    {"name": "flash_bwd_dq_f32", "replaces": "ray_tpu/ops/flash_attention.py:160"},
-    {"name": "flash_bwd_dkv_f32",
-     "replaces": "ray_tpu/ops/flash_attention.py:212"},
-]
+REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:29",
+            "flash_bwd_dq": "ray_tpu/ops/flash_attention.py:160",
+            "flash_bwd_dkv": "ray_tpu/ops/flash_attention.py:212"}
+KERNELS = [{"name": base + suffix, "replaces": where}
+           for suffix in ("", "_f32", "_bf16w")
+           for base, where in REPLACES.items()]
 SOURCE_OF = {"": "ray_tpu_torch/ops/csrc/flash_attention.cu",
-           "_f32": "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"}
-F32_HEAD_DIMS = (16, 32, 64, 128)
+             "_f32": "ray_tpu_torch/ops/csrc/flash_attention_f32.cu",
+             "_bf16w": "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"}
+# the head dims each family of csrc/flash_attention_f32.cu is built for
+HEAD_DIMS_OF = {"_f32": (16, 32, 64, 128), "_bf16w": (128,)}
 
 
 def family(name: str) -> str:
-    """"_f32" for an f32 kernel's name, "" for a bf16 one's."""
-    return "_f32" if name.endswith("_f32") else ""
+    """"_f32" for an f32 kernel's name, "_bf16w" for a bf16_wide one's (bf16
+    at head dims 65-128), "" for a bf16 one's."""
+    return next((s for s in ("_f32", "_bf16w") if name.endswith(s)), "")
+
+
+def suffix_of(dtype_is_f32: bool, head_dim: int) -> str:
+    """The family of the kernels that take a dtype at a head dim."""
+    if dtype_is_f32:
+        return "_f32"
+    return "_bf16w" if head_dim > HEAD_DIM else ""
 
 
 def fail(msg: str) -> None:
@@ -202,24 +228,30 @@ def time_ms(torch, fn, *, warmup: int, reps: int) -> float:
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-def attention_bound(kernel: str, BH: int, S: int, causal: bool):
+def attention_bound(kernel: str, BH: int, S: int, causal: bool,
+                    D: int = HEAD_DIM):
     """Least time for the function on the card: the larger of its FLOPs
-    over the peak of its type (bf16 tensor cores; f32 outside them) and
-    its bytes (each input read once, each output written once) over the
-    HBM rate."""
+    over the peak of its type (bf16: the tensor cores; f32: 3xTF32 on the
+    tensor cores, f32-accurate) and its bytes (each input read once, each
+    output written once) over the HBM rate. Returns (ms, what bounds it,
+    FLOPs, bytes, the ms of the FLOPs at the FFMA peak of the CUDA cores
+    for f32, else None)."""
     f32 = family(kernel) == "_f32"
     pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs computed
-    mat = BH * S * HEAD_DIM * (4 if f32 else 2)  # one [BH, S, D] tensor
+    mat = BH * S * D * (4 if f32 else 2)  # one [BH, S, D] tensor
     vec = BH * S * 4  # one f32 [BH, S] tensor
     products, nbytes = {
         "flash_fwd": (2, 3 * mat + mat + vec),  # q.k^T, p.v
         "flash_bwd_dq": (3, 4 * mat + 2 * vec + mat),  # + do.v^T, ds.k
         "flash_bwd_dkv": (4, 4 * mat + 2 * vec + 2 * mat),  # + p^T.do, ds^T.q
-    }[kernel.removesuffix("_f32")]
-    flops = products * 2 * HEAD_DIM * pairs * BH
-    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+    }[kernel.removesuffix(family(kernel))]
+    flops = products * 2 * D * pairs * BH
+    peak = PEAK_3XTF32_FLOPS if f32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    ffma_ms = max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3 if f32 else None
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes,
+            ffma_ms)
 
 
 def header(torch):
@@ -252,7 +284,7 @@ def build_kernels():
     for spec in KERNELS:
         name = spec["name"]
         if family(name):
-            for D in F32_HEAD_DIMS:
+            for D in HEAD_DIMS_OF[family(name)]:
                 attrs = fa.kernel_attributes(name, D)
                 print(f"  flash_attention_f32: {name} at head dim {D}: "
                       f"{attrs['max_dynamic_smem']} bytes of dynamic shared "
@@ -308,9 +340,14 @@ def check_kernels(torch, F, fa):
              ("f32tiny", 8, 129, 16, True, f32),
              ("f32tinync", 8, 129, 16, False, f32),
              ("f32d32", 8, 257, 32, True, f32),
-             ("f32d128", 8, 200, 128, False, f32)]
+             ("f32d128", 8, 200, 128, False, f32),
+             # head dims above 64: the bf16_wide kernels, padded to 128
+             ("wide", *WIDE_SHAPE, True, bf16),
+             ("bf16d96", 24, 1000, 96, True, bf16),
+             ("bf16d96nc", 8, 129, 96, False, bf16),
+             ("bf16d128", 8, 200, 128, False, bf16)]
     for label, BH, S, D, causal, dtype in cases:
-        suffix = "_f32" if dtype == f32 else ""
+        suffix = suffix_of(dtype == f32, D)
         q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))
         kw = dict(scale=1.0 / math.sqrt(D), causal=causal)
         o, lse = fa.flash_fwd(q, k, v, **kw)
@@ -338,7 +375,7 @@ def check_kernels(torch, F, fa):
                       f"its bound{where} {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     failures.append(f"{name}.{what} ({label})")
-        if label == "main":
+        if label in ("main", "wide"):
             results.update(time_kernels(torch, F, fa, suffix, checks,
                                         q, k, v, do, lse_ref, delta, kw))
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dq_ref, dk, dv
@@ -351,9 +388,10 @@ def check_kernels(torch, F, fa):
 
 def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
                  kw):
-    """Device times at the main path's shape of the three kernels of one
-    dtype, their plain versions and SDPA in that dtype, beside the bound;
-    for bf16 also the backward as ``_FlashAttention.backward`` runs it."""
+    """Device times of the three kernels of one family, their plain
+    versions and SDPA in their dtype, beside the bound; for bf16 also the
+    backward as ``_FlashAttention.backward`` runs it, for f32 dq + dk/dv
+    against SDPA's backward."""
     BH, S, D = q.shape
     causal = kw["causal"]
     fns = {
@@ -366,7 +404,7 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)),
     }
-    B, H = 16, 12
+    B, H = 16, BH // 16
     q4, k4, v4 = (x.view(B, H, S, D).detach().requires_grad_(True)
                   for x in (q, k, v))
     sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -381,7 +419,8 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
     results = {}
     for base, (kernel_fn, plain_fn) in fns.items():
         name = base + suffix
-        bound_ms, bound_by, flops, nbytes = attention_bound(name, BH, S, causal)
+        bound_ms, bound_by, flops, nbytes, ffma_ms = attention_bound(
+            name, BH, S, causal, D)
         ms = time_ms(torch, kernel_fn, warmup=3, reps=20)
         plain_ms = time_ms(torch, plain_fn, warmup=1, reps=5)
         tflops = flops / (ms * 1e-3) / 1e12
@@ -391,11 +430,25 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
             "bound_by": bound_by, "library_ms": library[base],
             "tflops": tflops, "bound_share": bound_ms / ms,
         }
-        print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"SDPA ({q.dtype}) {library[base]:.4f} ms, bound "
-              f"{bound_ms * 1e3:.1f} us ({bound_by}; {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB), {tflops:.1f} TFLOP/s, "
-              f"{bound_ms / ms:.3f} of the bound", flush=True)
+        also = ""
+        if ffma_ms is not None:
+            results[name].update(ffma_bound_ms=ffma_ms,
+                                 ffma_bound_share=ffma_ms / ms)
+            also = (f"; FFMA bound {ffma_ms * 1e3:.1f} us (67 TFLOP/s), "
+                    f"{ffma_ms / ms:.3f} of it")
+        print(f"time {name} (BH={BH} S={S} D={D}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, SDPA ({q.dtype}) {library[base]:.4f} ms, "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by}"
+              f"{', 3xTF32 165 TFLOP/s' if ffma_ms is not None else ''}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound{also}",
+              flush=True)
+    if suffix == "_f32":
+        pair = (results["flash_bwd_dq_f32"]["ms"]
+                + results["flash_bwd_dkv_f32"]["ms"])
+        print(f"time f32 backward: dq + dk/dv {pair:.4f} ms, SDPA's f32 "
+              f"backward (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms: "
+              f"{pair / sdpa_bwd_ms:.2f}x SDPA's", flush=True)
     if suffix:
         return results
     # the backward pair as _FlashAttention.backward runs it (delta, dq,
@@ -526,9 +579,10 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
 
 def tiny_configs(torch, fa):
     """gpt2_tiny (head dim 16) under attention="auto" in bf16 and in f32,
-    TINY_STEPS steps each, its first step held to reference attention;
-    returns each run's launch counts, set to 0 just before its steps and
-    read just after."""
+    and with two heads of 128 in bf16 (the bf16_wide kernels), TINY_STEPS
+    steps each, its first step held to reference attention; returns each
+    run's launch counts, set to 0 just before its steps and read just
+    after."""
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.parallel.train_step import (default_optimizer,
                                                    make_train_state,
@@ -540,11 +594,14 @@ def tiny_configs(torch, fa):
                            generator=torch.Generator(device="cuda").manual_seed(2))
     batch = {"tokens": tokens}
     out, bad = {}, []
-    for dtype, (loss_rtol, gn_rtol, attn_rtol) in (
-            (torch.bfloat16, (LOSS_RTOL, GRAD_NORM_RTOL, ATTN_GRAD_RTOL)),
-            (torch.float32, TINY_F32_LIMITS)):
-        tag = f"tiny {str(dtype).removeprefix('torch.')}"
-        cfg = dataclasses.replace(base, dtype=dtype)
+    bf16_limits = (LOSS_RTOL, GRAD_NORM_RTOL, ATTN_GRAD_RTOL)
+    for dtype, widths, (loss_rtol, gn_rtol, attn_rtol) in (
+            (torch.bfloat16, {}, bf16_limits),
+            (torch.float32, {}, TINY_F32_LIMITS),
+            (torch.bfloat16, WIDE_TINY, bf16_limits)):
+        tag = (f"tiny {str(dtype).removeprefix('torch.')}"
+               + (" wide" if widths else ""))
+        cfg = dataclasses.replace(base, dtype=dtype, **widths)
         ref_cfg = dataclasses.replace(cfg, attention="reference")
 
         def run(run_cfg):
@@ -571,13 +628,13 @@ def tiny_configs(torch, fa):
         launches = out[tag] = dict(fa.LAUNCHES)
         (loss, gn) = metrics[0]
         loss_rel, gn_rel = abs(loss - ref[0]) / ref[0], abs(gn - ref[1]) / ref[1]
-        print(f"{tag}: gpt2_tiny (head dim {base.d_model // base.n_head}) "
+        print(f"{tag}: gpt2_tiny (head dim {cfg.d_model // cfg.n_head}) "
               f"attention=auto, batch {TINY_BATCH}, {TINY_STEPS} steps: losses "
               f"{[x for x, _ in metrics]}; first step against reference "
               f"attention: loss {loss_rel:.2e} (limit {loss_rtol:.0e}), grad "
               f"norm {gn_rel:.2e} (limit {gn_rtol:.0e}); launches {launches}",
               flush=True)
-        suffix = "_f32" if dtype == torch.float32 else ""
+        suffix = suffix_of(dtype == torch.float32, cfg.d_model // cfg.n_head)
         for name, n in launches.items():
             want = cfg.n_layer * TINY_STEPS if family(name) == suffix else 0
             if n != want:
@@ -1260,8 +1317,10 @@ def main() -> int:
     for spec in KERNELS:
         name = spec["name"]
         # each kernel's count on the path that runs it: the main path for
-        # the bf16 kernels, the f32 tiny config for the f32 ones
-        path = tiny_launches["tiny float32"] if family(name) else launches
+        # the bf16 kernels, the f32 tiny config for the f32 ones, the wide
+        # tiny config for the bf16_wide ones
+        path = {"": launches, "_f32": tiny_launches["tiny float32"],
+                "_bf16w": tiny_launches["tiny bfloat16 wide"]}[family(name)]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE_OF[family(name)],
                         "replaces": spec["replaces"], "launches": path[name],

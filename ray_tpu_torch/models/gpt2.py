@@ -106,8 +106,8 @@ def init(generator: torch.Generator, cfg: GPT2Config, device: DeviceLike = None)
 def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
     """``"auto"`` is ``"flash"`` on a CUDA device and ``"reference"``
     elsewhere, as ``ray_tpu``'s is ``"flash"`` on a TPU. The hand-written
-    kernels take bf16 up to head dim 64 and f32 up to 128 (smaller head
-    dims padded, ``gpt2_tiny``'s 16 among them); their wrappers refuse
+    kernels take bf16 and f32 up to head dim 128 (smaller head dims
+    padded, ``gpt2_tiny``'s 16 among them); their wrappers refuse
     anything else before a launch."""
     if cfg.attention != "auto":
         return cfg.attention

@@ -1,51 +1,132 @@
-// Flash attention in f32 for Hopper (sm_90a): forward, dq and dk/dv.
+// Flash attention for Hopper (sm_90a) in f32 at head dims 16-128, and in
+// bf16 at head dim 128: forward, dq and dk/dv.
 //
-// The f32 twins of the bf16 kernels in flash_attention.cu. They compute
-// what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py compute
-// when given f32 inputs, where the casts of p and ds to the input dtype
-// keep them in f32:
-//   flash_fwd_f32_kernel     <- _fwd_kernel      (flash_attention.py:29)
-//   flash_bwd_dq_f32_kernel  <- _bwd_dq_kernel   (flash_attention.py:160)
-//   flash_bwd_dkv_f32_kernel <- _bwd_dkv_kernel  (flash_attention.py:212)
-// f32 products and sums, an f32 online softmax, p and ds kept in f32, and
-// masked scores set to -1e30 as in the Pallas kernels.
+// They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
+// compute for inputs of their type:
+//   flash_fwd_simt_kernel   <- _fwd_kernel      (flash_attention.py:29)
+//   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (flash_attention.py:160)
+//   flash_bwd_dkv_tc_kernel <- _bwd_dkv_kernel  (flash_attention.py:212)
+// Each is a template on the input type T (float, or __nv_bfloat16 for the
+// head dims above 64 that the wgmma kernels of flash_attention.cu do not
+// take) and on the head dim D. Loads convert T to f32 (exact); sums,
+// softmax and accumulators are f32; p is rounded to T before p.v and p^T.do,
+// and ds before ds.k and ds^T.q, the Pallas kernels' cast points (a no-op
+// in f32); o, dq, dk, dv are written as T, lse as f32. Masked scores are
+// -1e30, as in the Pallas kernels.
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] f32, contiguous and
-// 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64 or 128
-// (a template argument); the wrapper pads any other D up to the next of
-// these with zero columns. A ragged S is masked at the tile edges: rows
-// past S load as zeros, columns past S are masked, rows past S are not
-// stored.
+// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] of T, contiguous and
+// 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64 or 128 for
+// f32 and 128 for bf16; the wrapper pads any other D up with zero columns.
+// A ragged S is masked at the tile edges: rows past S load as zeros,
+// columns past S are masked, rows past S are not stored.
 //
-// What bounds them on an H100: the tensor cores take no f32 (TF32 keeps
-// 10 bits of mantissa, which is not f32), so every product is an FFMA on
-// the CUDA cores, whose peak is 67 TFLOP/s. At GPT-2-small's attention
-// shape (BH 192, S 1024, D 64, causal) the forward does ~26 GFLOP (0.39
-// ms at that peak) and moves ~0.21 GB (0.06 ms), so all three kernels
-// are bound by operations. The design is a plain tiled one, right before
-// fast: one 256-thread block per 64-row tile of its own sequence axis
-// (Q rows for the forward and dq, KV rows for dk/dv); the 64-row tiles of
-// the other axis are staged through shared memory one at a time, rows
-// padded to D + 1 floats so that a column walk hits 32 banks; each thread
-// holds a 4 x 4 block of a 64 x 64 score tile (rows ty + 16 i, columns
-// tx + 16 j), reduces a row's max and sum across its 16-lane half-warp
-// with shuffles, and writes p (or ds) to shared memory, from where the
-// accumulating product (o += p.v, dq += ds.k, dv += p^T.do, dk +=
-// ds^T.q) reads it; its accumulators are 4 rows x D / 16 columns. Under
-// causal masking tiles wholly in the future are skipped, and the forward
-// and dq grids start with the longest rows. The host entry points return
-// cudaGetLastError() right after the launch, or -3 for a head dim the
-// kernels are not built for.
+// What bounds them on an H100: at GPT-2-small's attention shape in f32
+// (BH 192, S 1024, D 64, causal) dq does 38.7 GFLOP and dk/dv 51.6 against
+// ~0.3 GB of traffic, so they are bound by operations. The CUDA cores' f32
+// peak is 67 TFLOP/s; the tensor cores take TF32 (10 mantissa bits) at 495.
+// One TF32 pass is not f32, but three are nearly: x = big + small with
+// big = tf32(x), rounded to nearest, and small = x - big, and a.b is taken
+// as big.big + big.small + small.big with f32 accumulation (the dropped
+// small.small term and small's truncation to TF32 are ~2^-21 of a
+// product). That is 495 / 3 = 165 TFLOP/s of f32-accurate products, 2.5x
+// the FFMA peak; through mma.sync, which reaches ~310 TFLOP/s of TF32 on
+// the card (scripts/mma_sync_rate.py), ~103.
+//
+// dq and dk/dv (the "tc" kernels): one 128-thread block a 64-row tile of
+// its own axis (Q rows for dq, KV rows for dk/dv), 4 warps of 16 rows each.
+// The other axis streams in tiles of 32 rows (16 at D 128) through a
+// 2-stage cp.async ring, so the next tile loads under this one's products.
+// Tiles sit in shared memory as raw T, rows unpadded and XOR-swizzled so
+// that all three fragment reads below are free of bank conflicts; each
+// fragment is split into big and small as it is read, in integer and FMA
+// operations. Every product is mma.sync.m16n8k8 tf32: scores (q.k^T,
+// do.v^T, or k.q^T, v.do^T in dk/dv) contract over D with the columns
+// d, d + 1 of a pair read at once; the softmax, masks, exp(s - lse) and
+// ds = p (dp - delta) scale happen in registers in the accumulator layout,
+// which is the A operand's layout of the accumulating product (ds.k;
+// p^T.do, ds^T.q) once its 8 columns are taken in the order 0, 2, 4, 6,
+// 1, 3, 5, 7, so p and ds never leave registers. The tensor cores truncate
+// as they accumulate, so big.big and the small terms accumulate apart and
+// each tile's accumulating product starts from 0 (see tile_scores). bf16
+// inputs, and p and ds rounded to bf16, are exact in TF32: the bf16
+// instances take the big.big pass alone. Under causal masking whole
+// future tiles are skipped, by the block and by each warp.
+//
+// The forward stays on the CUDA cores (SIMT): one 256-thread block a 64-row
+// Q tile, K/V tiles staged through shared memory at row stride D + 1, a
+// 4 x 4 score block a thread, row max and sum by half-warp shuffles, p
+// through shared memory into o += p.v.
+//
+// The host entry points return cudaGetLastError() right after the launch,
+// or -3 for a head dim the kernels are not built for.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;    // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int kTile = 64;        // rows of every tile, on both axes
-constexpr int kLdS = kTile + 1;  // padded row of a 64 x 64 tile of p or ds
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTile = 64;          // rows of a block's own tile
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x cast to T and back: the Pallas kernels' cast of p and ds
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// four consecutive elements of T as f32; p is 8-byte aligned for bf16
+__device__ __forceinline__ void load4(float (&x)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load4(float (&x)[4], const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// elements (c, c + 1) of a row, c even
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// scale * s, or NEG_INF where masked (causal future, or a column past S)
+__device__ __forceinline__ float masked(float s, float scale, int row,
+                                        int col, int seq, int causal) {
+  const float x = s * scale;
+  return (col >= seq || (causal && col > row)) ? kNegInf : x;
+}
+
+// ------------------------------------------------------- forward (SIMT)
+
+constexpr int kFwdThreads = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
+constexpr int kLdS = kTile + 1;   // padded row of the 64 x 64 tile of p
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -60,30 +141,22 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// Rows [r0, r0 + 64) of one head's [seq, D] matrix into shared memory at
-// row stride D + 1, 16 bytes a thread per load; rows past seq read as 0.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int seq) {
+// Rows [r0, r0 + 64) of one head's [seq, D] matrix of T into shared memory
+// as f32 at row stride D + 1; rows past seq read as 0.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+                                          int seq) {
   constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * kVec; i += kFwdThreads) {
     const int r = i / kVec, c = (i % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < seq)
-      x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + c);
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < seq) load4(x, src + (size_t)(r0 + r) * D + c);
     float* d = dst + r * (D + 1) + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
+    d[0] = x[0];
+    d[1] = x[1];
+    d[2] = x[2];
+    d[3] = x[3];
   }
-}
-
-// Entries [r0, r0 + 64) of one head's [seq] row vector; past seq as 0.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int seq) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads)
-    dst[i] = r0 + i < seq ? src[r0 + i] : 0.f;
 }
 
 // s[i][j] = a[ty + 16 i] . b[tx + 16 j] over D, for two [64, D] tiles in
@@ -109,63 +182,20 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const float* a,
   }
 }
 
-// s = a.b^T and t = c.d^T on the same rows and columns, in one walk of D.
-template <int D>
-__device__ __forceinline__ void two_scores(float (&s)[4][4], float (&t)[4][4],
-                                           const float* a, const float* b,
-                                           const float* c, const float* d,
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
-#pragma unroll 4
-  for (int x = 0; x < D; ++x) {
-    float av[4], bv[4], cv[4], dv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = a[(ty + 16 * i) * (D + 1) + x];
-      cv[i] = c[(ty + 16 * i) * (D + 1) + x];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bv[j] = b[(tx + 16 * j) * (D + 1) + x];
-      dv[j] = d[(tx + 16 * j) * (D + 1) + x];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-        t[i][j] = fmaf(cv[i], dv[j], t[i][j]);
-      }
-  }
-}
-
-// scale * s, or NEG_INF where masked (causal future, or a column past S)
-__device__ __forceinline__ float masked(float s, float scale, int row,
-                                        int col, int seq, int causal) {
-  const float x = s * scale;
-  return (col >= seq || (causal && col > row)) ? kNegInf : x;
-}
-
-// ----------------------------------------------------------------- forward
-
 template <int D>
 constexpr int fwd_smem_bytes() {
   return (3 * kTile * (D + 1) + kTile * kLdS) * 4;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int seq, float scale,
-                         int causal) {
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdThreads)
+    flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse, int seq, float scale,
+                          int causal) {
   constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* sq = smem;
+  extern __shared__ float fwd_smem[];
+  float* sq = fwd_smem;
   float* sk = sq + kTile * LD;
   float* sv = sk + kTile * LD;
   float* sp = sv + kTile * LD;
@@ -174,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t base = (size_t)blockIdx.y * seq * D;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<D>(sq, q + base, q0, seq);
+  load_tile<T, D>(sq, q + base, q0, seq);
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -186,8 +216,8 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = causal ? min(seq, q0 + kTile) : seq;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // the last tile's reads of sk, sv and sp are done
-    load_tile<D>(sk, k + base, k0, seq);
-    load_tile<D>(sv, v + base, k0, seq);
+    load_tile<T, D>(sk, k + base, k0, seq);
+    load_tile<T, D>(sv, v + base, k0, seq);
     __syncthreads();
     float s[4][4];
     scores<D>(s, sq, sk, ty, tx);
@@ -206,8 +236,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-        sp[(ty + 16 * i) * kLdS + tx + 16 * j] = s[i][j];
+        sum += s[i][j];  // l sums p in f32, p.v takes p cast to T
+        sp[(ty + 16 * i) * kLdS + tx + 16 * j] = round_to<T>(s[i][j]);
       }
       l[i] = l[i] * corr + half_warp_sum(sum);
       m[i] = m_new;
@@ -235,312 +265,652 @@ __global__ void __launch_bounds__(kThreads)
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      o[base + (size_t)row * D + tx + 16 * c] = acc[i][c] / lc;
+      o[base + (size_t)row * D + tx + 16 * c] = from_f32<T>(acc[i][c] / lc);
     if (tx == 0) lse[(size_t)blockIdx.y * seq + row] = m[i] + logf(lc);
   }
 }
 
-// ---------------------------------------------------------------------- dq
+// ------------------------------------- dq and dk/dv on the tensor cores
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+
+// Rows of a streamed tile (the other axis): 32, or 16 at D 128, where the
+// accumulators of a 16 x 128 output a warp take 64 registers each.
+template <int D>
+constexpr int kStreamRows = D >= 128 ? 16 : 32;
+
+// Blocks an SM is built for: registers stay under 65,536 / (128 x this).
+template <int D>
+constexpr int kMinBlocks = D >= 128 ? 2 : 3;
+
+// Where element (r, c) of a [rows, D] tile of T sits in shared memory, in
+// 4-byte words. Rows are unpadded; each row's words are XOR-swizzled by
+// its row so that, with g = lane / 4 and t = lane % 4, the three reads of
+// the kernels hit distinct banks: the pair (c, c + 1) at row g, column
+// 8 kd + 2 t (an A or a score B fragment; 8-byte reads, so per half-warp),
+// and single elements at rows 8 j + 2 t (+ 1), column 8 n + g (the B
+// fragment of an accumulating product).
+template <typename T, int D>
+struct Layout;
 
 template <int D>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (D + 1) + kTile * kLdS) * 4;
+struct Layout<float, D> {
+  static constexpr int kRowWords = D;
+  // bits 3 and 4 of the word: (r1, r0 ^ r2) takes distinct values on rows
+  // 0-3, 4-7, {0, 2, 4, 6} and {1, 3, 5, 7}; a 16-float row has bit 3 only
+  static __device__ __forceinline__ int swz(int r) {
+    if constexpr (D >= 32)
+      return ((r & 2) | ((r ^ (r >> 2)) & 1)) << 3;
+    else
+      return ((r >> 1) & 1) << 3;
+  }
+  static __device__ __forceinline__ int at(int r, int c) {
+    return r * D + (c ^ swz(r));
+  }
+  static __device__ __forceinline__ int chunk(int r, int ch) {
+    return at(r, 4 * ch);  // 16-byte chunk ch of row r
+  }
+  static __device__ __forceinline__ float2 pair(const uint32_t* t, int r,
+                                                int c) {
+    return *reinterpret_cast<const float2*>(t + at(r, c));
+  }
+  static __device__ __forceinline__ float one(const uint32_t* t, int r,
+                                              int c) {
+    return __uint_as_float(t[at(r, c)]);
+  }
+};
+
+template <int D>
+struct Layout<bf16, D> {
+  static_assert(D >= 64, "the bf16 swizzle takes rows of 32 words or more");
+  static constexpr int kRowWords = D / 2;
+  // word w of row r; a word holds the pair (2 w, 2 w + 1)
+  static __device__ __forceinline__ int word(int r, int w) {
+    return r * kRowWords + (w ^ ((r & 7) << 2));
+  }
+  static __device__ __forceinline__ int chunk(int r, int ch) {
+    return word(r, 4 * ch);
+  }
+  static __device__ __forceinline__ float2 pair(const uint32_t* t, int r,
+                                                int c) {
+    const uint32_t x = t[word(r, c >> 1)];
+    return make_float2(__uint_as_float(x << 16),
+                       __uint_as_float(x & 0xffff0000u));
+  }
+  static __device__ __forceinline__ float one(const uint32_t* t, int r,
+                                              int c) {
+    const uint32_t x = t[word(r, c >> 1)];
+    return __uint_as_float((c & 1) ? (x & 0xffff0000u) : (x << 16));
+  }
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            float* __restrict__ dq, int seq, float scale,
-                            int causal) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + kTile * LD;
-  float* sk = sdo + kTile * LD;
-  float* sv = sk + kTile * LD;
-  float* sds = sv + kTile * LD;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [r0, r0 + kRows) of one head's [seq, D] matrix of T into a swizzled
+// tile, 16 bytes a copy; rows past seq are zero-filled.
+template <typename T, int D, int kRows>
+__device__ __forceinline__ void load_tile_async(uint32_t* dst, const T* src,
+                                                int r0, int seq) {
+  using L = Layout<T, D>;
+  constexpr int kChunks = L::kRowWords / 4, kPer = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < kRows * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, ch = i % kChunks;
+    const bool valid = r0 + r < seq;
+    cp_async16(dst + L::chunk(r, ch),
+               src + (size_t)(valid ? r0 + r : 0) * D + ch * kPer, valid);
+  }
+}
+
+// Entries [r0, r0 + n) of one head's [seq] f32 row vector; past seq as 0.
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src,
+                                                int r0, int n, int seq) {
+  for (int i = threadIdx.x; i < n; i += kTcThreads) {
+    const bool valid = r0 + i < seq;
+    cp_async4(dst + i, src + (valid ? r0 + i : 0), valid);
+  }
+}
+
+// An operand fragment in TF32: big = tf32(x) (round to nearest, ties away
+// from zero) and small = x - big (exact in f32) when kSplit; the tensor
+// cores read the top 10 mantissa bits of small, so its rounding is their
+// truncation, ~2^-21 of x (one integer round of small cost 8-9% of dq and
+// dk/dv on the card; PERF.md). Otherwise x is exact in TF32 already (a bf16
+// value) and big is x.
+template <int N>
+struct Tf32 {
+  uint32_t big[N], small[N];
+};
+
+// What cvt.rna.tf32.f32 gives for a finite x, in two integer operations:
+// cvt runs on the conversion pipe, a sixteenth of the FMA rate, and took
+// about a quarter of dq's time on the card (PERF.md)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+template <bool kSplit, int N>
+__device__ __forceinline__ Tf32<N> split(const float (&x)[N]) {
+  Tf32<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (kSplit) {
+      f.big[i] = tf32_rna(x[i]);
+      f.small[i] = __float_as_uint(x[i] - __uint_as_float(f.big[i]));
+    } else {
+      f.big[i] = __float_as_uint(x[i]);
+    }
+  }
+  return f;
+}
+
+// c += a.b for a 16 x 8 A (row-major) and an 8 x 8 B (column-major).
+// Fragments, with g = lane / 4 and t = lane % 4: a = A[g][t], A[g + 8][t],
+// A[g][t + 4], A[g + 8][t + 4]; b = B[t][g], B[t + 4][g]; c = C[g][2t],
+// C[g][2t + 1], C[g + 8][2t], C[g + 8][2t + 1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of rows (r, r + 8) of a tile at k-step columns (c, c + 1):
+// k index t is column c, t + 4 is c + 1 (c = 8 kd + 2 t).
+template <typename L, bool kSplit>
+__device__ __forceinline__ Tf32<4> a_frag(const uint32_t* tile, int r, int c) {
+  const float2 lo = L::pair(tile, r, c), hi = L::pair(tile, r + 8, c);
+  const float x[4] = {lo.x, hi.x, lo.y, hi.y};
+  return split<kSplit>(x);
+}
+
+// The B fragment of a score product (B = tile^T): column n = tile row r,
+// k indices t, t + 4 = tile columns c, c + 1.
+template <typename L, bool kSplit>
+__device__ __forceinline__ Tf32<2> b_frag(const uint32_t* tile, int r, int c) {
+  const float2 p = L::pair(tile, r, c);
+  const float x[2] = {p.x, p.y};
+  return split<kSplit>(x);
+}
+
+// The B fragment of an accumulating product (B = tile): k indices t, t + 4
+// = tile rows r, r + 1 (r = 8 j + 2 t), column n = tile column c.
+template <typename L, bool kSplit>
+__device__ __forceinline__ Tf32<2> bt_frag(const uint32_t* tile, int r,
+                                           int c) {
+  const float x[2] = {L::one(tile, r, c), L::one(tile, r + 1, c)};
+  return split<kSplit>(x);
+}
+
+// The A fragment of an accumulating product from an accumulator tile x of
+// 16 x 8: its columns 2t and 2t + 1 are the k indices t and t + 4.
+template <bool kSplit>
+__device__ __forceinline__ Tf32<4> acc_frag(const float (&x)[4]) {
+  const float a[4] = {x[0], x[2], x[1], x[3]};
+  return split<kSplit>(a);
+}
+
+// The tensor cores add into their f32 accumulator with truncation, up to
+// an ulp of the accumulator each time, toward zero, so the errors of a
+// sum add up. Summing the 3 passes of every k-step into one accumulator
+// (CUTLASS's order, the small terms first) read up to 0.65 of the f32
+// bound on the card, at dq elements near 0 where ds = p (dp - delta)
+// cancels (PERF.md). So big.big and the small terms accumulate apart, the
+// small ones (~2^-11 of the sum, and so are their truncations) in an
+// accumulator of their own, added once at the end. dp, whose error the
+// cancellation carries into ds whole, also restarts big.big from 0 every
+// two k-steps and adds it in f32, rounded (kRestart): 0.45 of the bound
+// without, 0.30 with, for 1-4% of the kernels' time. An error in s moves
+// p by a relative ~1e-6 only.
+
+// s[16 x BN] = a[16 rows from `row`] . b[BN rows]^T, contracted over D
+template <typename L, bool kSplit, int D, int NT, bool kRestart>
+__device__ __forceinline__ void tile_scores(float (&s)[NT][4],
+                                            const uint32_t* a,
+                                            const uint32_t* b, int row) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  float small[NT][4], part[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = small[n][e] = part[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 8; ++kd) {
+    const int col = 8 * kd + 2 * t4;
+    const Tf32<4> fa = a_frag<L, kSplit>(a, row + g, col);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const Tf32<2> fb = b_frag<L, kSplit>(b, 8 * n + g, col);
+      if constexpr (kSplit && kRestart) {
+        mma_tf32(part[n], fa.big, fb.big);
+        if (kd & 1) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] += part[n][e];
+            part[n][e] = 0.f;
+          }
+        }
+      } else {
+        mma_tf32(s[n], fa.big, fb.big);
+      }
+      if constexpr (kSplit) {
+        mma_tf32(small[n], fa.big, fb.small);
+        mma_tf32(small[n], fa.small, fb.big);
+      }
+    }
+  }
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += part[n][e] + small[n][e];
+  }
+}
+
+// acc[16 x D] += x[16 x BN] . tile[BN x D], x in the accumulator layout:
+// each tile's product starts from 0 and is added to acc in f32, rounded
+template <typename L, bool kSplit, int D, int NT>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&x)[NT][4],
+                                           const uint32_t* tile) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  Tf32<4> a[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) a[j] = acc_frag<kSplit>(x[j]);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const Tf32<2> fb = bt_frag<L, kSplit>(tile, 8 * j + 2 * t4, 8 * n + g);
+      mma_tf32(big, a[j].big, fb.big);
+      if constexpr (kSplit) {
+        mma_tf32(small, a[j].big, fb.small);
+        mma_tf32(small, a[j].small, fb.big);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += big[e] + small[e];
+  }
+}
+
+template <typename T, int D>
+constexpr int dq_tc_smem_bytes() {
+  return (2 * kTile + 2 * 2 * kStreamRows<D>) * Layout<T, D>::kRowWords * 4;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
+    flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dq, int seq, float scale,
+                           int causal) {
+  using L = Layout<T, D>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int BN = kStreamRows<D>, NT = BN / 8, W = L::kRowWords;
+  extern __shared__ __align__(16) uint32_t tc_smem[];
+  uint32_t* sq = tc_smem;
+  uint32_t* sdo = sq + kTile * W;
+  uint32_t* ring = sdo + kTile * W;  // [stage][k, v][BN rows]
   const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = tile * kTile;
   const size_t base = (size_t)blockIdx.y * seq * D;
   const size_t rbase = (size_t)blockIdx.y * seq;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
 
-  load_tile<D>(sq, q + base, q0, seq);
-  load_tile<D>(sdo, dout + base, q0, seq);
-  float lse_r[4], delta_r[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < seq ? lse[rbase + row] : 0.f;
-    delta_r[i] = row < seq ? delta[rbase + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
   const int kv_end = causal ? min(seq, q0 + kTile) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<D>(sk, k + base, k0, seq);
-    load_tile<D>(sv, v + base, k0, seq);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    two_scores<D>(s, dp, sq, sk, sdo, sv, ty, tx);
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  load_tile_async<T, D, kTile>(sq, q + base, q0, seq);
+  load_tile_async<T, D, kTile>(sdo, dout + base, q0, seq);
+  load_tile_async<T, D, BN>(ring, k + base, 0, seq);
+  load_tile_async<T, D, BN>(ring + BN * W, v + base, 0, seq);
+  cp_async_commit();
+
+  // p = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
+  const float scale2 = scale * kLog2e;
+  float lse2[2], delta_r[2], acc[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x =
-            masked(s[i][j], scale, row, k0 + tx + 16 * j, seq, causal);
-        const float p = expf(x - lse_r[i]);
-        sds[(ty + 16 * i) * kLdS + tx + 16 * j] =
-            p * (dp[i][j] - delta_r[i]) * scale;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int n = 0; n < kTile; ++n) {  // acc += ds . k
-      float kv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = sk[n * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = sds[(ty + 16 * i) * kLdS + n];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
-      }
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    lse2[h] = row < seq ? lse[rbase + row] * kLog2e : 0.f;
+    delta_r[h] = row < seq ? delta[rbase + row] : 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    if (j + 1 < n_tiles) {  // the next tile loads under this one
+      uint32_t* next = ring + ((j + 1) & 1) * 2 * BN * W;
+      load_tile_async<T, D, BN>(next, k + base, k0 + BN, seq);
+      load_tile_async<T, D, BN>(next + BN * W, v + base, k0 + BN, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t* sk = ring + (j & 1) * 2 * BN * W;
+    const uint32_t* sv = sk + BN * W;
+    // under causal masking a tile wholly after the warp's rows adds nothing
+    if (!causal || k0 <= q0 + wr + 15) {
+      float s[NT][4], dp[NT][4];
+      tile_scores<L, kSplit, D, NT, false>(s, sq, sk, wr);
+      tile_scores<L, kSplit, D, NT, true>(dp, sdo, sv, wr);
+      // only a tile past S or across the diagonal has masked entries
+      const bool edge = k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, row = q0 + wr + g + 8 * h,
+                    col = k0 + 8 * n + 2 * t4 + (e & 1);
+          float p = exp2f(fmaf(s[n][e], scale2, -lse2[h]));
+          if (edge && (col >= seq || (causal && col > row))) p = 0.f;
+          s[n][e] = round_to<T>(p * (dp[n][e] - delta_r[h]) * scale);  // ds
+        }
+      accumulate<L, kSplit, D, NT>(acc, s, sk);  // dq += ds . k
+    }
+    __syncthreads();  // this stage is read: the next load may refill it
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
     if (row >= seq) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      dq[base + (size_t)row * D + tx + 16 * c] = acc[i][c];
+    for (int n = 0; n < D / 8; ++n)
+      store2(dq + base + (size_t)row * D + 8 * n + 2 * t4, acc[n][2 * h],
+             acc[n][2 * h + 1]);
   }
 }
 
-// ------------------------------------------------------------------- dk/dv
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (D + 1) + 2 * kTile * kLdS + 2 * kTile) * 4;
+template <typename T, int D>
+constexpr int dkv_tc_smem_bytes() {
+  return (2 * kTile + 2 * 2 * kStreamRows<D>) * Layout<T, D>::kRowWords * 4 +
+         2 * 2 * kStreamRows<D> * 4;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             int seq, float scale, int causal) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + kTile * LD;
-  float* sq = sv + kTile * LD;
-  float* sdo = sq + kTile * LD;
-  float* sp = sdo + kTile * LD;
-  float* sds = sp + kTile * kLdS;
-  float* slse = sds + kTile * kLdS;
-  float* sdelta = slse + kTile;
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
+    flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv, int seq,
+                            float scale, int causal) {
+  using L = Layout<T, D>;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int BN = kStreamRows<D>, NT = BN / 8, W = L::kRowWords;
+  extern __shared__ __align__(16) uint32_t tc_smem[];
+  uint32_t* sk = tc_smem;
+  uint32_t* sv = sk + kTile * W;
+  uint32_t* ring = sv + kTile * W;  // [stage][q, do][BN rows]
+  float* rows = reinterpret_cast<float*>(ring + 2 * 2 * BN * W);
+  // rows: [stage][lse, delta][BN]
   const int k0 = blockIdx.x * kTile;  // the longest column runs come first
   const size_t base = (size_t)blockIdx.y * seq * D;
   const size_t rbase = (size_t)blockIdx.y * seq;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's KV rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
 
-  load_tile<D>(sk, k + base, k0, seq);
-  load_tile<D>(sv, v + base, k0, seq);
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   // Q tiles wholly before this KV tile see none of it under causal masking
-  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kTile) {
-    __syncthreads();
-    load_tile<D>(sq, q + base, q0, seq);
-    load_tile<D>(sdo, dout + base, q0, seq);
-    load_rows(slse, lse + rbase, q0, seq);
-    load_rows(sdelta, delta + rbase, q0, seq);
-    __syncthreads();
-    // the thread's block of the tile: Q rows ty + 16 i, KV columns tx + 16 j
-    float s[4][4], dp[4][4];
-    two_scores<D>(s, dp, sq, sk, sdo, sv, ty, tx);
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = (seq - q_begin + BN - 1) / BN;
+  load_tile_async<T, D, kTile>(sk, k + base, k0, seq);
+  load_tile_async<T, D, kTile>(sv, v + base, k0, seq);
+  load_tile_async<T, D, BN>(ring, q + base, q_begin, seq);
+  load_tile_async<T, D, BN>(ring + BN * W, dout + base, q_begin, seq);
+  load_rows_async(rows, lse + rbase, q_begin, BN, seq);
+  load_rows_async(rows + BN, delta + rbase, q_begin, BN, seq);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int a = ty + 16 * i, row = q0 + a;
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x =
-            masked(s[i][j], scale, row, k0 + tx + 16 * j, seq, causal);
-        const float p = row < seq ? expf(x - slse[a]) : 0.f;
-        sp[a * kLdS + tx + 16 * j] = p;
-        sds[a * kLdS + tx + 16 * j] = p * (dp[i][j] - sdelta[a]) * scale;
-      }
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = q_begin + j * BN;
+    if (j + 1 < n_tiles) {  // the next tile loads under this one
+      const int nxt = (j + 1) & 1;
+      uint32_t* next = ring + nxt * 2 * BN * W;
+      load_tile_async<T, D, BN>(next, q + base, q0 + BN, seq);
+      load_tile_async<T, D, BN>(next + BN * W, dout + base, q0 + BN, seq);
+      load_rows_async(rows + nxt * 2 * BN, lse + rbase, q0 + BN, BN, seq);
+      load_rows_async(rows + nxt * 2 * BN + BN, delta + rbase, q0 + BN, BN,
+                      seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    // dv += p^T . do and dk += ds^T . q, on KV rows ty + 16 i
-#pragma unroll 4
-    for (int a = 0; a < kTile; ++a) {
-      float dov[NC], qv[NC];
+    const uint32_t* sq = ring + (j & 1) * 2 * BN * W;
+    const uint32_t* sdo = sq + BN * W;
+    const float* slse = rows + (j & 1) * 2 * BN;
+    const float* sdelta = slse + BN;
+    // under causal masking a Q tile wholly before the warp's rows adds
+    // nothing
+    if (!causal || q0 + BN - 1 >= k0 + wr) {
+      // transposed scores: rows are the warp's KV rows, columns Q rows
+      float p[NT][4], ds[NT][4];
+      tile_scores<L, kSplit, D, NT, false>(p, sk, sq, wr);
+      tile_scores<L, kSplit, D, NT, true>(ds, sv, sdo, wr);
+      // only a tile past S or across the diagonal has masked entries (KV
+      // rows past S are never stored, so they need no mask)
+      const bool edge = q0 + BN > seq || (causal && q0 < k0 + wr + 15);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        dov[c] = sdo[a * LD + tx + 16 * c];
-        qv[c] = sq[a * LD + tx + 16 * c];
-      }
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sp[a * kLdS + ty + 16 * i];
-        const float ds = sds[a * kLdS + ty + 16 * i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv_acc[i][c] = fmaf(p, dov[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(ds, qv[c], dk_acc[i][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int a = 8 * n + 2 * t4 + (e & 1), row = q0 + a,
+                    col = k0 + wr + g + 8 * (e >> 1);
+          float pe = exp2f(fmaf(p[n][e], scale2, -slse[a] * kLog2e));
+          if (edge && (row >= seq || (causal && col > row))) pe = 0.f;
+          ds[n][e] = round_to<T>(pe * (ds[n][e] - sdelta[a]) * scale);
+          p[n][e] = round_to<T>(pe);
         }
-      }
+      accumulate<L, kSplit, D, NT>(dv_acc, p, sdo);  // dv += p^T . do
+      accumulate<L, kSplit, D, NT>(dk_acc, ds, sq);  // dk += ds^T . q
     }
+    __syncthreads();  // this stage is read: the next load may refill it
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + wr + g + 8 * h;
     if (row >= seq) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[base + (size_t)row * D + tx + 16 * c] = dk_acc[i][c];
-      dv[base + (size_t)row * D + tx + 16 * c] = dv_acc[i][c];
+    for (int n = 0; n < D / 8; ++n) {
+      const size_t at = base + (size_t)row * D + 8 * n + 2 * t4;
+      store2(dk + at, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+      store2(dv + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
   }
 }
 
 // -------------------------------------------------------------- launching
 
-template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               void* lse, int bh, int seq, float scale, int causal,
-               void* stream) {
-  constexpr int smem = fwd_smem_bytes<D>();
-  const cudaError_t e =
-      cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (float*)lse, seq, scale, causal);
-  return (int)cudaGetLastError();
+// f(std::integral_constant<int, D>) for a head dim the kernels of T are
+// built for: 16, 32, 64, 128 for f32, 128 for bf16; -3 for another.
+template <typename T, typename F>
+int with_head_dim(int d, F f) {
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 16: return f(std::integral_constant<int, 16>());
+      case 32: return f(std::integral_constant<int, 32>());
+      case 64: return f(std::integral_constant<int, 64>());
+      case 128: return f(std::integral_constant<int, 128>());
+      default: return -3;
+    }
+  } else {
+    return d == 128 ? f(std::integral_constant<int, 128>()) : -3;
+  }
 }
 
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int bh, int seq,
-              float scale, int causal, void* stream) {
-  constexpr int smem = dq_smem_bytes<D>();
-  const cudaError_t e =
-      cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)delta, (float*)dq, seq, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int bh,
-               int seq, float scale, int causal, void* stream) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  const cudaError_t e =
-      cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, seq,
-      scale, causal);
-  return (int)cudaGetLastError();
-}
-
-// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) at head
-// dim D, and its dynamic shared memory.
-template <int D>
-const void* kernel_fn(int kernel, int* smem) {
+// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) of T at
+// head dim D, its threads a block and its dynamic shared memory.
+template <typename T, int D>
+const void* kernel_fn(int kernel, int* threads, int* smem) {
   switch (kernel) {
     case 0:
+      *threads = kFwdThreads;
       *smem = fwd_smem_bytes<D>();
-      return (const void*)flash_fwd_f32_kernel<D>;
+      return (const void*)flash_fwd_simt_kernel<T, D>;
     case 1:
-      *smem = dkv_smem_bytes<D>();
-      return (const void*)flash_bwd_dkv_f32_kernel<D>;
+      *threads = kTcThreads;
+      *smem = dkv_tc_smem_bytes<T, D>();
+      return (const void*)flash_bwd_dkv_tc_kernel<T, D>;
     case 2:
-      *smem = dq_smem_bytes<D>();
-      return (const void*)flash_bwd_dq_f32_kernel<D>;
+      *threads = kTcThreads;
+      *smem = dq_tc_smem_bytes<T, D>();
+      return (const void*)flash_bwd_dq_tc_kernel<T, D>;
     default:
       return nullptr;
   }
 }
 
-const void* kernel_at(int kernel, int d, int* smem) {
-  switch (d) {
-    case 16: return kernel_fn<16>(kernel, smem);
-    case 32: return kernel_fn<32>(kernel, smem);
-    case 64: return kernel_fn<64>(kernel, smem);
-    case 128: return kernel_fn<128>(kernel, smem);
-    default: return nullptr;
-  }
+// Raises the kernel's dynamic shared-memory limit to what it launches with.
+template <typename T, int D>
+cudaError_t prepare(int kernel, int* threads, int* smem) {
+  const void* fn = kernel_fn<T, D>(kernel, threads, smem);
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
+}
+
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int bh, int seq, int d, float scale, int causal,
+               void* stream) {
+  return with_head_dim<T>(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    int threads, smem;
+    const cudaError_t e = prepare<T, D>(0, &threads, &smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((seq + kTile - 1) / kTile, bh);
+    flash_fwd_simt_kernel<T, D><<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, seq, scale,
+        causal);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int bh, int seq,
+              int d, float scale, int causal, void* stream) {
+  return with_head_dim<T>(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    int threads, smem;
+    const cudaError_t e = prepare<T, D>(2, &threads, &smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((seq + kTile - 1) / kTile, bh);
+    flash_bwd_dq_tc_kernel<T, D>
+        <<<grid, threads, smem, (cudaStream_t)stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+            (const float*)lse, (const float*)delta, (T*)dq, seq, scale,
+            causal);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int bh,
+               int seq, int d, float scale, int causal, void* stream) {
+  return with_head_dim<T>(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    int threads, smem;
+    const cudaError_t e = prepare<T, D>(1, &threads, &smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((seq + kTile - 1) / kTile, bh);
+    flash_bwd_dkv_tc_kernel<T, D>
+        <<<grid, threads, smem, (cudaStream_t)stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+            (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, seq,
+            scale, causal);
+    return (int)cudaGetLastError();
+  });
+}
+
+// out[0] registers a thread, out[1] dynamic shared memory, out[2] blocks
+// one SM holds at once
+template <typename T>
+int attributes(int kernel, int d, int* out) {
+  return with_head_dim<T>(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    int threads, smem;
+    const void* fn = kernel_fn<T, D>(kernel, &threads, &smem);
+    if (fn == nullptr) return -3;
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = attr.numRegs;
+    out[1] = smem;
+    e = prepare<T, D>(kernel, &threads, &smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads,
+                                                        smem);
+    return (int)e;
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
+// f32 at head dim d (16, 32, 64 or 128)
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int seq, int d, float scale, int causal,
                   void* stream) {
-  switch (d) {
-    case 16: return launch_fwd<16>(q, k, v, o, lse, bh, seq, scale, causal, stream);
-    case 32: return launch_fwd<32>(q, k, v, o, lse, bh, seq, scale, causal, stream);
-    case 64: return launch_fwd<64>(q, k, v, o, lse, bh, seq, scale, causal, stream);
-    case 128: return launch_fwd<128>(q, k, v, o, lse, bh, seq, scale, causal, stream);
-    default: return -3;
-  }
+  return launch_fwd<float>(q, k, v, o, lse, bh, seq, d, scale, causal, stream);
 }
 
 int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int bh, int seq, int d, float scale,
                      int causal, void* stream) {
-  switch (d) {
-    case 16: return launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal, stream);
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal, stream);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal, stream);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal, stream);
-    default: return -3;
-  }
+  return launch_dq<float>(q, k, v, dout, lse, delta, dq, bh, seq, d, scale,
+                          causal, stream);
 }
 
 int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int bh, int seq, int d, float scale,
                       int causal, void* stream) {
-  switch (d) {
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, stream);
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, stream);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, stream);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, stream);
-    default: return -3;
-  }
+  return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, seq, d,
+                           scale, causal, stream);
 }
 
 // Of the forward (0), dk/dv (1) or dq (2) at head dim d: out[0] registers a
@@ -548,20 +918,34 @@ int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
 // holds at once with it. Returns a cudaError_t, or -3 for another kernel
 // or head dim.
 int flash_f32_kernel_attributes(int kernel, int d, int* out) {
-  int smem = 0;
-  const void* fn = kernel_at(kernel, d, &smem);
-  if (fn == nullptr) return -3;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = attr.numRegs;
-  out[1] = smem;
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kThreads,
-                                                      smem);
-  return (int)e;
+  return attributes<float>(kernel, d, out);
+}
+
+// bf16 at head dim d = 128 (the wider bf16 head dims, padded to it)
+int flash_fwd_bf16w(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int bh, int seq, int d, float scale,
+                    int causal, void* stream) {
+  return launch_fwd<bf16>(q, k, v, o, lse, bh, seq, d, scale, causal, stream);
+}
+
+int flash_bwd_dq_bf16w(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dq, int bh, int seq, int d, float scale,
+                       int causal, void* stream) {
+  return launch_dq<bf16>(q, k, v, dout, lse, delta, dq, bh, seq, d, scale,
+                         causal, stream);
+}
+
+int flash_bwd_dkv_bf16w(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int bh, int seq, int d,
+                        float scale, int causal, void* stream) {
+  return launch_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, bh, seq, d,
+                          scale, causal, stream);
+}
+
+int flash_bf16w_kernel_attributes(int kernel, int d, int* out) {
+  return attributes<bf16>(kernel, d, out);
 }
 
 }  // extern "C"

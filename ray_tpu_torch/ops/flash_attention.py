@@ -1,21 +1,24 @@
 """Flash attention, forward and backward, over hand-written Hopper kernels.
 
 Port of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
-there become CUDA kernels, one family for each input dtype that
-``ray_tpu``'s configs train with: in ``csrc/flash_attention.cu`` the bf16
-kernels (tensor cores, head dim 64; a smaller head dim is padded up to
-it), in ``csrc/flash_attention_f32.cu`` the f32 ones (CUDA cores, head
-dims 16, 32, 64 and 128; others padded up to the next). Each family has
-a forward with online softmax that writes ``o`` and the row logsumexp, a
-dq kernel and a dk/dv kernel, each recomputing the probabilities from
-the saved logsumexp so that no S x S tensor reaches device memory.
+there become CUDA kernels, in three families (``kernel_plan``): in
+``csrc/flash_attention.cu`` the bf16 kernels for head dims up to 64
+(wgmma, at head dim 64; a smaller head dim is padded up to it); in
+``csrc/flash_attention_f32.cu`` the f32 ones (head dims 16, 32, 64 and
+128; others padded up to the next) and, from the same templates, the
+bf16 ones for head dims 65 to 128 ("bf16_wide", padded to 128). Each
+family has a forward with online softmax that writes ``o`` and the row
+logsumexp, a dq kernel and a dk/dv kernel, each recomputing the
+probabilities from the saved logsumexp so that no S x S tensor reaches
+device memory.
 
 Each kernel has a wrapper and a plain PyTorch version of the same
 function with the same cast points (``flash_fwd_plain``,
 ``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``; in f32 the casts keep
 f32, as the Pallas kernels' do). A wrapper given CPU tensors computes
 the plain version; given CUDA tensors it launches the kernel of their
-dtype or raises. ``LAUNCHES`` counts kernel launches, one per launch.
+dtype and head dim or raises. ``LAUNCHES`` counts kernel launches, one
+per launch.
 
 Internal layout is [B*H, S, D]; the TPU's [BH, 8, S] logsumexp layout
 existed only for its (8, 128) tiling and is dropped.
@@ -34,8 +37,10 @@ NEG_INF = -1e30
 # What each bf16 kernel tiles by, in rows of the [BH, S, 64] tensors: the
 # forward and dq take 128 Q rows per block and stream K/V in 64-row
 # tiles; dk/dv takes 128 KV rows per block and streams Q/dO in 64-row
-# tiles. They are fixed in csrc/flash_attention.cu. The f32 kernels
-# (csrc/flash_attention_f32.cu) tile both axes by 64 rows.
+# tiles. They are fixed in csrc/flash_attention.cu. The kernels of
+# csrc/flash_attention_f32.cu (f32 and bf16_wide) take 64 rows of their own
+# axis a block and stream the other in tiles of 64 rows (the forward) or
+# 32 (dq, dk/dv; 16 at head dim 128).
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
@@ -43,11 +48,13 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 # padded with zero columns up to the next one, which is exact: zero
 # columns add exact zeros to q.k^T and do.v^T, the scale stays the
 # caller's, and the padded columns of the outputs are dropped.
-BF16_HEAD_DIMS = (64,)
+BF16_HEAD_DIMS = (64, 128)  # 64: the wgmma kernels; 128: bf16_wide
 F32_HEAD_DIMS = (16, 32, 64, 128)
+# family -> the suffix of its kernels' entry points and launch counters
+_SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "f32": "_f32"}
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
+LAUNCHES = {f"{kernel}{suffix}": 0 for suffix in _SUFFIXES.values()
+            for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 # rank threads of one gang launch at once: the counts stay exact under it
 _launches_lock = threading.Lock()
 
@@ -122,13 +129,21 @@ _SIGNATURES = {
                           _P],
     "flash_f32_kernel_attributes": [_I, _I, ctypes.POINTER(_I)],
 }
+# the bf16_wide entries take what the f32 ones take
+_SIGNATURES.update({
+    "flash_fwd_bf16w": _SIGNATURES["flash_fwd_f32"],
+    "flash_bwd_dq_bf16w": _SIGNATURES["flash_bwd_dq_f32"],
+    "flash_bwd_dkv_bf16w": _SIGNATURES["flash_bwd_dkv_f32"],
+    "flash_bf16w_kernel_attributes":
+        _SIGNATURES["flash_f32_kernel_attributes"],
+})
 _KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _kernel(name: str):
     lib = _build.load("flash_attention_f32" if "_f32" in name
-                      else "flash_attention")
+                      or "bf16w" in name else "flash_attention")
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURES[name]
@@ -139,8 +154,9 @@ def _kernel(name: str):
 def kernel_plan(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
     """Which kernel family takes [BH, S, head_dim] tensors of ``dtype``,
     and the head dim it runs them at: ``("bf16", 64)`` for bf16 with head
-    dim up to 64, ``("f32", d)`` for f32 with head dim up to 128, ``d``
-    the next of ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
+    dim up to 64, ``("bf16_wide", 128)`` for bf16 with head dim 65 to 128,
+    ``("f32", d)`` for f32 with head dim up to 128, ``d`` the next of
+    ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
     dims = {torch.bfloat16: BF16_HEAD_DIMS,
             torch.float32: F32_HEAD_DIMS}.get(dtype)
     if dims is None:
@@ -151,6 +167,8 @@ def kernel_plan(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
         raise ValueError(
             f"the CUDA kernels take {_DTYPE_NAMES[dtype]} head dims 1 to "
             f"{dims[-1]}, got {head_dim}")
+    if dtype == torch.bfloat16 and padded > BF16_HEAD_DIMS[0]:
+        return "bf16_wide", padded
     return _DTYPE_NAMES[dtype], padded
 
 
@@ -180,14 +198,16 @@ def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
     """What the CUDA runtime reports of one kernel: ``registers`` a thread,
     ``max_dynamic_smem`` and ``blocks_per_sm`` (blocks one SM holds at
     once). ``kernel`` is a name of ``LAUNCHES``; an f32 kernel is asked
-    for at one of ``F32_HEAD_DIMS`` (``head_dim``), and its
-    ``max_dynamic_smem`` is the dynamic shared memory of its launches. For
-    a bf16 kernel it is what its last launch allowed itself. Needs a CUDA
-    device."""
+    for at one of ``F32_HEAD_DIMS`` (``head_dim``), a bf16_wide one at
+    128, and their ``max_dynamic_smem`` is the dynamic shared memory of
+    their launches. For a bf16 kernel it is what its last launch allowed
+    itself. Needs a CUDA device."""
     out = (_I * 3)()
-    if kernel.endswith("_f32"):
-        err = _kernel("flash_f32_kernel_attributes")(
-            _KERNEL_IDS[kernel.removesuffix("_f32")], int(head_dim), out)
+    suffix = next((s for s in _SUFFIXES.values() if s and kernel.endswith(s)),
+                  "")
+    if suffix:
+        err = _kernel(f"flash{suffix}_kernel_attributes")(
+            _KERNEL_IDS[kernel.removesuffix(suffix)], int(head_dim), out)
     else:
         err = _kernel("flash_kernel_attributes")(_KERNEL_IDS[kernel], out)
     if err != 0:
@@ -265,14 +285,15 @@ def _padded(tensors, head_dim):
 def _run(kernel: str, family: str, head_dim: int, device, ptrs, scale,
          causal) -> None:
     """Launches ``kernel`` (``flash_fwd``, ``flash_bwd_dq`` or
-    ``flash_bwd_dkv``) of ``family``; the f32 entries also take the head
-    dim they run at."""
+    ``flash_bwd_dkv``) of ``family``; the f32 and bf16_wide entries also
+    take the head dim they run at."""
     if family == "bf16":
         _launch(f"{kernel}_bf16", kernel, device, *ptrs, float(scale),
                 int(causal))
     else:
-        _launch(f"{kernel}_f32", f"{kernel}_f32", device, *ptrs, head_dim,
-                float(scale), int(causal))
+        counter = kernel + _SUFFIXES[family]
+        _launch(counter, counter, device, *ptrs, head_dim, float(scale),
+                int(causal))
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool):

@@ -7,8 +7,10 @@ on one GPU, each checkout in its own process, in the order given:
 For each ROOT the child process imports ROOT's
 ``ray_tpu_torch.ops.flash_attention`` (its kernels build from ROOT's own
 sources into ROOT/build/) and times, at GPT-2-small's attention shape
-(B*H 192, S 1024, D 64, causal, bf16), the three kernels through their
-wrappers and ``F.scaled_dot_product_attention``'s forward and backward.
+(B*H 192, S 1024, D 64, causal), in bf16 and in f32 (TF32 off, as in
+chip_smoke.py), the three kernels of each dtype through their wrappers
+and ``F.scaled_dot_product_attention``'s forward and backward in that
+dtype (the f32 names end in ``_f32``).
 Every root is timed with ``time_ms`` of THIS checkout's chip_smoke.py, so
 two versions of the kernels are compared by one method. The host's own
 time per wrapper call is measured too (the device is left to drain before
@@ -30,7 +32,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 BH, S, D, B = 192, 1024, 64, 16
-NAMES = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sdpa_fwd", "sdpa_bwd"]
+NAMES = [f"{name}{suffix}" for suffix in ("", "_f32") for name in (
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sdpa_fwd", "sdpa_bwd")]
 
 
 def child(root: str) -> None:
@@ -50,10 +53,33 @@ def child(root: str) -> None:
             os.path.abspath(root), "ray_tpu_torch", "ops"):
         sys.exit(f"flash_attention_ab: imported {fa.__file__}, not {root}'s")
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
     kw = dict(scale=D ** -0.5, causal=True)
+    fns = {}
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        fns.update(functions(torch, F, fa, gen, dtype, suffix, kw))
+    out = {"root": root}
+    for name, fn in fns.items():
+        out[name] = statistics.median(
+            smoke.time_ms(torch, fn, warmup=3, reps=30) for _ in range(3))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        fns[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fns[name]()
+        out[f"{name}_host_us"] = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+    print(json.dumps(out), flush=True)
+
+
+def functions(torch, F, fa, gen, dtype, suffix, kw):
+    """{name + suffix: fn} of the three kernels and SDPA's forward and
+    backward on one set of seeded inputs of ``dtype``."""
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
     o_ref, lse = fa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o_ref.float()).sum(dim=-1)
     q4, k4, v4 = (x.view(B, BH // B, S, D).detach().requires_grad_(True)
@@ -70,19 +96,7 @@ def child(root: str) -> None:
         "sdpa_bwd": lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                                 retain_graph=True),
     }
-    out = {"root": root}
-    for name, fn in fns.items():
-        out[name] = statistics.median(
-            smoke.time_ms(torch, fn, warmup=3, reps=30) for _ in range(3))
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        fns[name]()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fns[name]()
-        out[f"{name}_host_us"] = (time.perf_counter() - t0) / 20 * 1e6
-        torch.cuda.synchronize()
-    print(json.dumps(out), flush=True)
+    return {name + suffix: fn for name, fn in fns.items()}
 
 
 def main(roots) -> int:

@@ -115,6 +115,21 @@ def test_f32_kernels_match_plain(cuda, BH, S, Dh, causal):
                         "flash_bwd_dkv_f32": 1}
 
 
+@pytest.mark.parametrize("BH,S,Dh,causal", [
+    (2, 129, 96, True), (2, 129, 96, False), (2, 200, 128, True),
+    (2, 129, 128, False), (3, 64, 65, True), (2, 1, 128, True),
+    (1, 1000, 128, True), (2, 40, 100, False),
+])
+def test_bf16_wide_kernels_match_plain(cuda, BH, S, Dh, causal):
+    """bf16 at head dims 65 to 128: the bf16_wide kernels (the f32
+    kernels' templates instantiated for bf16, padded to head dim 128),
+    held to the plain versions under the bf16 bound."""
+    launched = _check_all_three(cuda, BH, S, Dh, causal, torch.bfloat16,
+                                S + Dh)
+    assert launched == {"flash_fwd_bf16w": 1, "flash_bwd_dq_bf16w": 1,
+                        "flash_bwd_dkv_bf16w": 1}
+
+
 def test_dq_grid_larger_than_the_card(cuda):
     """More dq blocks than the card holds at once, twice over (two blocks
     an SM): every block's tile is computed, and the launch asks for the
@@ -138,11 +153,11 @@ def test_dq_grid_larger_than_the_card(cuda):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    """bf16 above head dim 64 (no config of the repo has one), f32 above
-    128, and other dtypes are refused before any launch."""
+    """bf16 and f32 above head dim 128, and other dtypes, are refused
+    before any launch."""
     before = dict(fa.LAUNCHES)
-    q = torch.zeros(2, 64, 96, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.zeros(2, 64, 129, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims 1 to 128"):
         fa.flash_fwd(q, q, q, scale=1.0, causal=True)
     q = torch.zeros(2, 64, 256, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -246,6 +261,42 @@ def test_gpt2_tiny_trains_with_auto_through_the_kernels(cuda, dtype, limits):
     assert abs(flash["grad_norm"] - ref["grad_norm"]) <= gn_rtol * ref["grad_norm"]
     for g, g_ref in zip(attn_grads["auto"], attn_grads["reference"]):
         assert ((g - g_ref).norm() / g_ref.norm()).item() <= attn_rtol
+
+
+def test_gpt2_wide_heads_train_with_auto_through_the_bf16_wide_kernels(cuda):
+    """gpt2_tiny with two heads of 128 (chip_smoke.py's phase 3b config)
+    under attention="auto" in bf16 runs the bf16_wide kernels once a layer
+    a step, and its first step matches reference attention's within
+    chip_smoke.py's bf16 limits."""
+    tokens = torch.randint(0, 256, (2, 65), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    base = dataclasses.replace(gpt2.gpt2_tiny(), d_model=256, n_head=2)
+    metrics, attn_grads = {}, {}
+    for attention in ("reference", "auto"):
+        cfg = dataclasses.replace(base, attention=attention)
+        opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
+        state = ts.make_train_state(
+            lambda g: gpt2.init(g, cfg),
+            torch.Generator(device=cuda).manual_seed(0), opt)
+        attn = state.params["blocks"]["attn"]
+        loss, _ = gpt2.loss_fn(state.params, {"tokens": tokens}, cfg)
+        attn_grads[attention] = torch.autograd.grad(
+            loss, [attn[n] for n in sorted(attn)])
+        step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg), opt)
+        fa.reset_launch_counts()
+        for i in range(3):
+            state, m = step(state, {"tokens": tokens})
+            assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+            if i == 0:
+                metrics[attention] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    n = 3 * base.n_layer
+    assert fa.LAUNCHES == {**NO_LAUNCH, "flash_fwd_bf16w": n,
+                           "flash_bwd_dq_bf16w": n, "flash_bwd_dkv_bf16w": n}
+    ref, flash = metrics["reference"], metrics["auto"]
+    assert abs(flash["loss"] - ref["loss"]) <= 1e-4 * ref["loss"]
+    assert abs(flash["grad_norm"] - ref["grad_norm"]) <= 2e-3 * ref["grad_norm"]
+    for g, g_ref in zip(attn_grads["auto"], attn_grads["reference"]):
+        assert ((g - g_ref).norm() / g_ref.norm()).item() <= 2.5e-2
 
 
 def test_world2_thread_ddp_step_on_the_card(cuda):

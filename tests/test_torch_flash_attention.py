@@ -118,14 +118,14 @@ def test_cpu_tensors_launch_no_kernel():
     assert set(tfa.LAUNCHES.values()) == {0}
     assert sorted(tfa.LAUNCHES) == sorted(
         f"{n}{s}" for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-        for s in ("", "_f32"))
+        for s in ("", "_f32", "_bf16w"))
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     bf = torch.zeros(4, 128, 64, dtype=torch.bfloat16)
     assert tfa._check_cuda((bf, bf, bf)) == (4, 128)
     with pytest.raises(ValueError, match="head dim"):
-        tfa._check_cuda((torch.zeros(4, 128, 96, dtype=torch.bfloat16),) * 3)
+        tfa._check_cuda((torch.zeros(4, 128, 160, dtype=torch.bfloat16),) * 3)
     with pytest.raises(ValueError, match="bf16"):
         tfa._check_cuda((bf, bf.float(), bf))
     with pytest.raises(ValueError, match="contiguous"):
@@ -247,7 +247,7 @@ def test_plain_versions_match_pallas_at_head_dim(Dh, causal,
                                        err_msg=f"{name} D={Dh} causal={causal}")
 
 
-@pytest.mark.parametrize("Dh", [1, 16, 20, 32, 48, 63])
+@pytest.mark.parametrize("Dh", [1, 16, 20, 32, 48, 63, 65, 96, 100])
 def test_padding_to_the_kernels_head_dim_changes_nothing(Dh):
     """Zero columns add exact zeros to q.k^T and do.v^T, delta = sum(do.o)
     is unchanged, and the scale stays the caller's: the padded path equals
@@ -270,7 +270,9 @@ def test_padding_to_the_kernels_head_dim_changes_nothing(Dh):
 
 @pytest.mark.parametrize("dtype,Dh,plan", [
     (torch.bfloat16, 64, ("bf16", 64)), (torch.bfloat16, 16, ("bf16", 64)),
-    (torch.bfloat16, 1, ("bf16", 64)), (torch.float32, 16, ("f32", 16)),
+    (torch.bfloat16, 1, ("bf16", 64)), (torch.bfloat16, 65, ("bf16_wide", 128)),
+    (torch.bfloat16, 96, ("bf16_wide", 128)),
+    (torch.bfloat16, 128, ("bf16_wide", 128)), (torch.float32, 16, ("f32", 16)),
     (torch.float32, 20, ("f32", 32)), (torch.float32, 33, ("f32", 64)),
     (torch.float32, 64, ("f32", 64)), (torch.float32, 100, ("f32", 128)),
     (torch.float32, 128, ("f32", 128)),
@@ -286,8 +288,8 @@ def test_kernel_plan_dispatches_by_dtype_and_head_dim(dtype, Dh, plan):
 
 
 @pytest.mark.parametrize("dtype,Dh,match", [
-    (torch.bfloat16, 65, "bf16 head dims 1 to 64"),
-    (torch.bfloat16, 128, "bf16 head dims 1 to 64"),
+    (torch.bfloat16, 129, "bf16 head dims 1 to 128"),
+    (torch.bfloat16, 160, "bf16 head dims 1 to 128"),
     (torch.float32, 129, "f32 head dims 1 to 128"),
     (torch.float32, 0, "f32 head dims 1 to 128"),
     (torch.float16, 64, "bf16 or f32"), (torch.float64, 64, "bf16 or f32"),
@@ -297,3 +299,62 @@ def test_kernel_plan_refuses_what_no_kernel_takes(dtype, Dh, match):
         tfa.kernel_plan(dtype, Dh)
     with pytest.raises(ValueError):
         tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3)
+
+
+# ------------------------------------------ bf16 at head dims 65 to 128
+# chip_smoke.py's bound for bf16 outputs, element by element: both sides
+# round p (or ds) to bf16 before the second product and their outputs to
+# bf16, at scales that differ (the Pallas forward rounds p against its
+# running max, the plain version against the row's max).
+BF16_RTOL, BF16_ATOL_RMS, BF16_FLOOR = 2.0 ** -6, 2.0 ** -3, 1e-5
+
+
+def _assert_close_bf16(a, b, what):
+    a, b = (np.asarray(x, dtype=np.float32) for x in (a, b))
+    bound = (BF16_RTOL * np.abs(b) + BF16_ATOL_RMS * np.sqrt(np.mean(b * b))
+             + BF16_FLOOR)
+    worst = float((np.abs(a - b) / bound).max())
+    assert worst <= 1.0, (what, worst)
+
+
+@pytest.fixture(scope="module")
+def pallas_bf16_wide():
+    """_flash_fwd and _flash_bwd of the JAX package on bf16 inputs at head
+    dims 96 and 128, S = 129, causal and not."""
+    out = {}
+    for Dh in (96, 128):
+        for causal in (True, False):
+            rng = np.random.default_rng(Dh + causal)
+            q, k, v, do = (jnp.asarray(rng.standard_normal((2, 129, Dh),
+                                                           dtype=np.float32),
+                                       dtype=jnp.bfloat16) for _ in range(4))
+            kw = dict(scale=Dh ** -0.5, causal=causal, block_q=JAX_BLOCK,
+                      block_k=JAX_BLOCK, interpret=True)
+            o, lse = jfa._flash_fwd(q, k, v, **kw)
+            dq, dk, dv = jfa._flash_bwd(q, k, v, o, lse, do, **kw)
+            out[(Dh, causal)] = {n: np.asarray(x.astype(jnp.float32)) for n, x
+                                 in dict(q=q, k=k, v=v, do=do, o=o, lse=lse,
+                                         dq=dq, dk=dk, dv=dv).items()}
+    return out
+
+
+@pytest.mark.parametrize("Dh", [96, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_wide_plain_versions_match_pallas(Dh, causal, pallas_bf16_wide):
+    """bf16 at head dims above 64: what a wrapper computes for the
+    bf16_wide kernels (zero-padded to head dim 128, the plain versions in
+    the kernels' place) against the Pallas kernels on the same bf16
+    inputs, under chip_smoke.py's bf16 bound; lse within 2e-5."""
+    r = pallas_bf16_wide[(Dh, causal)]
+    q, k, v, do = (torch.tensor(r[n]).to(torch.bfloat16)
+                   for n in ("q", "k", "v", "do"))
+    family, Dk = tfa.kernel_plan(torch.bfloat16, Dh)
+    assert (family, Dk) == ("bf16_wide", 128)
+    o, lse, dq, dk, dv = _padded_path(q, k, v, do, scale=Dh ** -0.5,
+                                      causal=causal, head_dim=Dk)
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    np.testing.assert_allclose(lse.numpy(), r["lse"], atol=2e-5)
+    for x, name in zip((o, dq, dk, dv), ("o", "dq", "dk", "dv")):
+        assert x.shape == r[name].shape
+        _assert_close_bf16(x.float().numpy(), r[name],
+                           f"{name} D={Dh} causal={causal}")
