@@ -7,21 +7,23 @@ Phases, each of which exits non-zero on failure:
 
 1. header: the card's name and power limit, and the kernels' build (one
    ``nvcc`` a source, started together), with each kernel's registers,
-   dynamic shared memory and blocks per SM (the f32 ones at each head
-   dim they are built for, the bf16_wide ones at 128);
+   dynamic shared memory, blocks per SM and local memory a thread (the
+   bf16 ones at head dim 64, the f32 ones at each head dim they are built
+   for, the bf16_wide ones at 128);
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
    one row past a 128-row tile), a non-causal case and head dims 16 and
    32 (zero-padded to 64); in f32 at the main shape and at head dims 16
    (gpt2_tiny's), 32 and 128, causal and not; in bf16 at head dims 96
-   and 128 (the bf16_wide kernels, padded to 128), among them the wide
-   shape (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of
-   128). At the main shape (the wide one for bf16_wide), times of the
-   kernel, the plain version and the PyTorch library call (SDPA, in the
-   kernel's dtype) beside the bound, with the kernel's TFLOP/s and the
-   share of its bound that it reaches (for f32 the bound of 3xTF32 on the
-   tensor cores and, beside it, of FFMA on the CUDA cores); in bf16 the
+   and 128 (the bf16_wide kernels, padded to 128), among them S 129
+   causal at head dim 128 and the wide shape (B*H 96, S 1024, D 128,
+   causal: GPT-2-small's width in heads of 128). At the main shape (the
+   wide one for bf16_wide), times of the kernel, the plain version and
+   the PyTorch library call (SDPA, in the kernel's dtype) beside the
+   bound, with the kernel's TFLOP/s and the share of its bound that it
+   reaches (for f32 the bound of 3xTF32 on the tensor cores and, beside
+   it, of FFMA on the CUDA cores); in bf16 the
    backward as ``_FlashAttention.backward`` runs it (delta, dq, dk/dv)
    against SDPA's, and in f32 dq + dk/dv against SDPA's backward;
 3. the main path: GPT-2-small at full width (12 layers, 12 heads, d 768,
@@ -176,11 +178,16 @@ REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:29",
 KERNELS = [{"name": base + suffix, "replaces": where}
            for suffix in ("", "_f32", "_bf16w")
            for base, where in REPLACES.items()]
-SOURCE_OF = {"": "ray_tpu_torch/ops/csrc/flash_attention.cu",
-             "_f32": "ray_tpu_torch/ops/csrc/flash_attention_f32.cu",
-             "_bf16w": "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"}
-# the head dims each family of csrc/flash_attention_f32.cu is built for
-HEAD_DIMS_OF = {"_f32": (16, 32, 64, 128), "_bf16w": (128,)}
+# each kernel's source: the wgmma kernels (bf16 at head dim 64, and the
+# bf16_wide forward and dk/dv at 128) and the mma.sync ones (f32, and the
+# bf16_wide dq)
+WGMMA_CU = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+MMA_SYNC_CU = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"
+SOURCE_OF = {spec["name"]: WGMMA_CU if spec["name"] in (
+    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_bf16w",
+    "flash_bwd_dkv_bf16w") else MMA_SYNC_CU for spec in KERNELS}
+# the head dims each family's kernels are built for
+HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128), "_bf16w": (128,)}
 
 
 def family(name: str) -> str:
@@ -283,18 +290,18 @@ def build_kernels():
     from ray_tpu_torch.ops import flash_attention as fa
     for spec in KERNELS:
         name = spec["name"]
-        if family(name):
-            for D in HEAD_DIMS_OF[family(name)]:
-                attrs = fa.kernel_attributes(name, D)
-                print(f"  flash_attention_f32: {name} at head dim {D}: "
-                      f"{attrs['max_dynamic_smem']} bytes of dynamic shared "
-                      f"memory, {attrs['registers']} registers, "
-                      f"{attrs['blocks_per_sm']} blocks per SM", flush=True)
-            continue
-        attrs = fa.kernel_attributes(name)
-        print(f"  flash_attention: {name}: {fa.dynamic_smem_bytes(name)} bytes "
-              f"of dynamic shared memory, {attrs['registers']} registers, "
-              f"{attrs['blocks_per_sm']} blocks per SM", flush=True)
+        source = SOURCE_OF[name]
+        for D in HEAD_DIMS_OF[family(name)]:
+            attrs = fa.kernel_attributes(name, D)
+            # a wgmma kernel's attributes read the shared memory its last
+            # launch allowed itself; the module knows what it launches with
+            smem = (fa.dynamic_smem_bytes(name, D) if source == WGMMA_CU
+                    else attrs["max_dynamic_smem"])
+            print(f"  {os.path.basename(source)}: {name} at head dim {D}: "
+                  f"{smem} bytes of dynamic shared memory, "
+                  f"{attrs['registers']} registers, {attrs['blocks_per_sm']} "
+                  f"blocks per SM, {attrs['local_bytes']} bytes of local "
+                  f"memory", flush=True)
 
 
 def check_kernels(torch, F, fa):
@@ -343,6 +350,7 @@ def check_kernels(torch, F, fa):
              ("f32d128", 8, 200, 128, False, f32),
              # head dims above 64: the bf16_wide kernels, padded to 128
              ("wide", *WIDE_SHAPE, True, bf16),
+             ("wide129", 24, 129, 128, True, bf16),
              ("bf16d96", 24, 1000, 96, True, bf16),
              ("bf16d96nc", 8, 129, 96, False, bf16),
              ("bf16d128", 8, 200, 128, False, bf16)]
@@ -1322,7 +1330,7 @@ def main() -> int:
         path = {"": launches, "_f32": tiny_launches["tiny float32"],
                 "_bf16w": tiny_launches["tiny bfloat16 wide"]}[family(name)]
         kernels.append({"name": name, "route": "cuda",
-                        "source": SOURCE_OF[family(name)],
+                        "source": SOURCE_OF[name],
                         "replaces": spec["replaces"], "launches": path[name],
                         "tiny_launches": {run: counts[name] for run, counts
                                           in tiny_launches.items()},

@@ -1,43 +1,51 @@
-// Flash attention for Hopper (sm_90a): forward, dq and dk/dv kernels.
+// Flash attention for Hopper (sm_90a) in bf16: forward, dq and dk/dv
+// kernels at head dim 64, and the forward and dk/dv at head dim 128.
 //
 // Replaces the three Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel     <- _fwd_kernel      (flash_attention.py:29)
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (flash_attention.py:160)
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (flash_attention.py:212)
+//   flash_fwd_kernel<D>     <- _fwd_kernel      (flash_attention.py:29)
+//   flash_bwd_dq_kernel     <- _bwd_dq_kernel   (flash_attention.py:160)
+//   flash_bwd_dkv_kernel<D> <- _bwd_dkv_kernel  (flash_attention.py:212)
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, 64] bf16, contiguous;
-// lse and delta are [BH, S] f32. A ragged S is masked at the tile edges
-// (rows past S load as zeros, columns past S are masked, rows past S are
-// not stored), so nothing is padded in memory.
+// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] bf16, contiguous, D 64
+// or 128 (the wrapper pads smaller head dims with zero columns; dq takes
+// D 64 only, the dq of D 128 is flash_attention_f32.cu's); lse and delta
+// are [BH, S] f32. A ragged S is masked at the tile edges (rows past S
+// load as zeros, columns past S are masked, rows past S are not stored),
+// so nothing is padded in memory.
 //
 // What bounds them on an H100: at GPT-2-small's shape (BH 192, S 1024,
 // D 64, causal) the forward moves ~0.10 GB and does ~26 GFLOP, so the
 // least time is ~30 us from HBM and ~26 us from the bf16 tensor cores;
 // dq does three products per tile pair and dk/dv four, so both are bound
-// by the tensor cores (~39 and ~52 us). The kernels must stream their
-// inputs once, keep the S x S scores out of device memory, and keep the
-// tensor cores fed. One design serves all three (256 threads, two
+// by the tensor cores (~39 and ~52 us). At D 128 with half the heads (BH
+// 96) the bytes and the operations are the same. The kernels must stream
+// their inputs once, keep the S x S scores out of device memory, and keep
+// the tensor cores fed. One design serves all of them (256 threads, two
 // warpgroups):
 //   * one block per (128-row tile, b*h): Q rows for the forward and dq,
 //     KV rows for dk/dv; each warpgroup owns 64 rows, the M of one wgmma;
 //   * the block's own tiles (Q; Q and dO; or K and V) are loaded once by
-//     TMA; the 64-row tiles of the other sequence axis (K and V, or Q and
-//     dO with the matching lse and delta) stream through a ring of
-//     shared-memory stages guarded by mbarriers (full: the TMA bytes have
-//     landed; empty: all eight warps are done with the stage). The first
-//     warp also issues each tile's loads two tiles before the tile is
-//     needed, so loads overlap the tensor cores without a producer warp: a
-//     ninth warp would cost registers, since the SM spreads a block's
-//     warps over four register files of 16K registers each;
-//   * TMA writes every tile in the 128-byte swizzle (one row of D = 64
-//     bf16 is exactly 128 bytes) through a 3-D tensor map [BH, S, 64],
-//     whose bounds zero-fill rows past S without reading the next head;
-//   * every product is a wgmma m64n64k16: scores (s = q.k^T and dp =
-//     do.v^T; s^T = k.q^T and dp^T = v.do^T) with both operands in shared
-//     memory, K-major; the accumulating products (o += p.v; dq += ds.k;
-//     dv += p^T.do, dk += ds^T.q) with p or ds packed from the f32 score
-//     fragment to bf16 as the register A operand and B read MN-major from
-//     the same swizzled tile;
+//     TMA; the tiles of the other sequence axis (K and V, or Q and dO with
+//     the matching lse and delta) stream through a ring of shared-memory
+//     stages guarded by mbarriers (full: the TMA bytes have landed; empty:
+//     all eight warps are done with the stage). The first warp also issues
+//     each tile's loads two tiles before the tile is needed, so loads
+//     overlap the tensor cores without a producer warp: a ninth warp would
+//     cost registers, since the SM spreads a block's warps over four
+//     register files of 16K registers each;
+//   * TMA writes every tile in the 128-byte swizzle through a 3-D tensor
+//     map [BH, S, D], whose bounds zero-fill rows past S without reading
+//     the next head. The swizzle takes boxes at most 128 bytes wide, one
+//     row of 64 bf16: a [rows, D] tile lands as D / 64 halves [rows, 64],
+//     one box each at columns 0 and 64, half h at h * rows * 128 bytes,
+//     each 1024-byte aligned as the swizzle's period needs;
+//   * every product is a wgmma: scores (s = q.k^T and dp = do.v^T; s^T =
+//     k.q^T and dp^T = v.do^T) with both operands in shared memory,
+//     K-major, k-steps 0-3 reading half 0 and 4-7 half 1; the accumulating
+//     products (o += p.v; dq += ds.k; dv += p^T.do, dk += ds^T.q) with p
+//     or ds packed from the f32 score fragment to bf16 as the register A
+//     operand and B read MN-major from the same swizzled tile, one
+//     m64n64k16 per half of D;
 //   * probabilities run on exp2 of scores scaled by scale * log2(e) in one
 //     FFMA (the backward kernels recompute p from lse in log2 units); the
 //     mask is applied only on diagonal and ragged tiles, and a tile wholly
@@ -47,7 +55,8 @@
 // head. The host entry points encode the tensor maps
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so no
 // -lcuda) and return cudaGetLastError() right after the launch, or -1 if
-// the driver has no cuTensorMapEncodeTiled, -2 if it refuses a tensor map.
+// the CUDA driver has no cuTensorMapEncodeTiled, -2 if it refuses a tensor
+// map, -3 for a head dim the kernel is not built for.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -56,20 +65,26 @@
 
 namespace {
 
-constexpr int kD = 64;  // head dim
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Two warpgroups, one of whose threads also issues the TMA loads.
 constexpr int kWgThreads = 256;
-constexpr int kRowBytes = kD * 2;  // one tile row: one 128-byte swizzle row
-constexpr int kBlockM = 128;       // rows of the block's own tile
-constexpr int kFwdBlockN = 64;     // forward: K/V rows per stage
+// One 128-byte swizzle row holds 64 bf16 columns of the head dim: a tile
+// of D columns is D / 64 such halves.
+constexpr int kHalfD = 64;
+constexpr int kRowBytes = kHalfD * 2;
+constexpr int kBlockM = 128;  // rows of the block's own tile
+constexpr int kFwdBlockN = 64;  // forward: K/V rows per stage
 constexpr int kFwdStages = 4;
-constexpr int kDkvBlockN = 64;     // dk/dv: Q/dO rows per stage
-constexpr int kDkvStages = 4;
-constexpr int kDqBlockN = 64;      // dq: K/V rows per stage
+constexpr int kDqBlockN = 64;  // dq: K/V rows per stage
 constexpr int kDqStages = 4;
+constexpr int kDkvBlockN = 64;  // dk/dv: Q/dO rows per stage
+constexpr int kDkvStages = 4;
+// Blocks an SM holds: the forward at D 64 keeps to 128 registers a thread
+// so that two do; at D 128 its o accumulator alone takes 64.
+template <int D>
+constexpr int kFwdMinBlocks = D == 64 ? 2 : 1;
 
 typedef __nv_bfloat16 bf16;
 
@@ -138,16 +153,28 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One [rows x 64] box of a [BH, S, 64] tensor map at (row, bh) into shared
-// memory; the box's bytes complete a transaction on the barrier.
+// One [rows x 64] box of a [BH, S, D] tensor map at (col, row, bh) into
+// shared memory; the box's bytes complete a transaction on the barrier.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int bh) {
+                                         uint32_t bar, int col, int row,
+                                         int bh) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
       "r"(bh)
       : "memory");
+}
+
+// A [kRows, D] tile at (row, bh): one box a half, half h at
+// dst + h * kRows * 128 bytes. The barrier's expect_tx counts every half.
+template <int D, int kRows>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int row, int bh) {
+#pragma unroll
+  for (int h = 0; h < D / kHalfD; ++h)
+    tma_load(dst + h * kRows * kRowBytes, map, bar, h * kHalfD, row, bh);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -173,6 +200,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int H, int N>
+__device__ __forceinline__ void fence_regs(float (&d)[H][N]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) fence_regs(d[h]);
+}
+
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
@@ -181,26 +214,32 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// wgmma shared-memory descriptor of a tile written by TMA in the 128-byte
-// swizzle: 8-row groups 1024 bytes apart (stride byte offset), 14-bit
-// start address in 16-byte units, layout type 1 = 128-byte swizzle. The
-// leading byte offset is unused here: a K-major operand's K (64) and an
-// MN-major operand's N (64) each fit one 128-byte swizzle row. A k-step
-// of 16 advances a K-major operand by 32 bytes (+2) and an MN-major one
-// by 16 rows, 2048 bytes (+128).
+// wgmma shared-memory descriptor of a tile half written by TMA in the
+// 128-byte swizzle: 8-row groups 1024 bytes apart (stride byte offset),
+// 14-bit start address in 16-byte units, layout type 1 = 128-byte
+// swizzle. The leading byte offset is unused: a K-major operand's k-step
+// (16 columns, 32 bytes) and an MN-major operand's N (64) each lie within
+// one 128-byte swizzle row, and the other half of D is a descriptor of its
+// own. A k-step of 16 advances a K-major operand by 32 bytes (+2) and an
+// MN-major one by 16 rows, 2048 bytes (+128); the next half of a [rows, D]
+// tile starts rows * 128 bytes on (half_desc).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 constexpr uint64_t kDescK16 = 32 >> 4;                // K-major k-step
 constexpr uint64_t kDescMN16 = (16 * kRowBytes) >> 4;  // MN-major k-step
+constexpr int kKStepsPerHalf = kHalfD / 16;            // K-major k-steps a half
+__host__ __device__ constexpr uint64_t half_desc(int rows) {
+  return (uint64_t)(rows * kRowBytes) >> 4;
+}
 
 // ------------------------------------------------ wgmma wrappers
 
 // d[64 x 64] (+)= A . B, A and B both read K-major from shared memory
 // through descriptors; acc = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                            uint64_t db, int acc) {
+                                             uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -261,31 +300,40 @@ __device__ __forceinline__ void pack_all(uint32_t (&a)[N / 8][4],
   for (int kk = 0; kk < N / 8; ++kk) pack_a(a[kk], d, kk);
 }
 
-// Stores a 64 x 64 f32 accumulator fragment as bf16: this thread's rows
-// row and row + 8, columns 8j + 2t; rows at or past S are skipped.
-__device__ __forceinline__ void store_frag(bf16* out, const float (&d)[32],
+// Stores a 64 x D f32 accumulator fragment (one 64 x 64 fragment a half
+// of D) as bf16: this thread's rows row and row + 8, columns
+// 64 h + 8j + 2t; rows at or past S are skipped.
+template <int D>
+__device__ __forceinline__ void store_frag(bf16* out,
+                                           const float (&d)[D / kHalfD][32],
                                            int row, int S, int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = row + 8 * half;
     if (r >= S) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * kD + 8 * j +
-                                         2 * t) =
-          __floats2bfloat162_rn(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+    for (int h = 0; h < D / kHalfD; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * D + h * kHalfD +
+                                           8 * j + 2 * t) =
+            __floats2bfloat162_rn(d[h][4 * j + 2 * half],
+                                  d[h][4 * j + 2 * half + 1]);
   }
 }
 
-__device__ __forceinline__ void scale_rows(float (&acc)[32],
+template <int H>
+__device__ __forceinline__ void scale_rows(float (&acc)[H][32],
                                            const float (&f)[2]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[4 * j + 0] *= f[0];
-    acc[4 * j + 1] *= f[0];
-    acc[4 * j + 2] *= f[1];
-    acc[4 * j + 3] *= f[1];
-  }
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[h][4 * j + 0] *= f[0];
+      acc[h][4 * j + 1] *= f[0];
+      acc[h][4 * j + 2] *= f[1];
+      acc[h][4 * j + 3] *= f[1];
+    }
 }
 
 // One KV tile of the online softmax for this thread's rows row and
@@ -354,27 +402,39 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kN / 2],
   l[1] = fmaf(l[1], corr[1], r[1][0]);
 }
 
-// d = A.B^T over D = 64, A and B both 64-row tiles read K-major from
-// shared memory: s = q.k^T, dp = do.v^T.
+// d = A.B^T over D, A and B both 64-row operands read K-major from
+// shared memory: s = q.k^T, dp = do.v^T, s^T = k.q^T, dp^T = v.do^T.
+// desc_a and desc_b point at the operands' rows in half 0 of their tiles;
+// half_a and half_b step to half 1 (half_desc).
+template <int D>
 __device__ __forceinline__ void issue_abt(float (&d)[32], uint64_t desc_a,
-                                          uint64_t desc_b) {
+                                          uint64_t half_a, uint64_t desc_b,
+                                          uint64_t half_b) {
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_ss_n64(d, desc_a + kk * kDescK16, desc_b + kk * kDescK16, kk);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int h = kk / kKStepsPerHalf;
+    const uint64_t k = (kk % kKStepsPerHalf) * kDescK16;
+    wgmma_ss_n64(d, desc_a + h * half_a + k, desc_b + h * half_b + k, kk);
+  }
 }
 
-// d += A.B over 64 KV rows, A the bf16 fragments of p or ds in registers,
-// B a 64-row tile read MN-major from shared memory: o += p.v, dq += ds.k.
-__device__ __forceinline__ void issue_ab(float (&d)[32],
-                                         const uint32_t (&a)[4][4],
-                                         uint64_t desc_b) {
+// d += A.B over kK rows, A the bf16 fragments of p or ds in registers, B
+// a [kK, D] tile read MN-major from shared memory, one m64n64k16 a half of
+// D: o += p.v, dq += ds.k, dv += p^T.do, dk += ds^T.q.
+template <int D, int kK>
+__device__ __forceinline__ void issue_ab(float (&d)[D / kHalfD][32],
+                                         const uint32_t (&a)[kK / 16][4],
+                                         uint64_t desc_b, uint64_t half_b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_n64(d, a[kk], desc_b + kk * kDescMN16, 1);
+  for (int kk = 0; kk < kK / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < D / kHalfD; ++h)
+      wgmma_rs_n64(d[h], a[kk], desc_b + h * half_b + kk * kDescMN16, 1);
 }
 
+template <int D>
 constexpr int fwd_smem_bytes() {
-  return 1024 + kBlockM * kRowBytes + 2 * kFwdStages * kFwdBlockN * kRowBytes +
+  return 1024 + kBlockM * D * 2 + 2 * kFwdStages * kFwdBlockN * D * 2 +
          (1 + 2 * kFwdStages) * 8;
 }
 
@@ -387,9 +447,16 @@ constexpr int fwd_smem_bytes() {
 // tile j runs on the other units (FlashAttention-3's
 // intra-warpgroup pipelining); p is packed to bf16 only after that product
 // is done, so no register that an in-flight wgmma reads is redefined
-// (ptxas would serialise the wgmmas otherwise). At most 128 registers a
-// thread, so that two blocks share an SM.
-__global__ void __launch_bounds__(kWgThreads, 2)
+// (ptxas would serialise the wgmmas otherwise). At D 64 at most 128
+// registers a thread, so that two blocks share an SM. At D 128 o takes 64
+// registers, s 32 and p 16: under 128 a thread they would spill, so one
+// block an SM, with registers to spare and the same 64-row K/V tiles in 4
+// stages (160 KB of shared memory). 128-row K/V tiles, FlashAttention-3's
+// choice at this head dim, would double s and p (~200 registers) and leave
+// room for 2 stages of 64 KB only, too few to keep a load ahead of the
+// pipelined p.v.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, kFwdMinBlocks<D>)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
@@ -397,9 +464,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  float scale, int causal) {
   constexpr int kN = kFwdBlockN;
   constexpr int kStages = kFwdStages;
+  constexpr int kH = D / kHalfD;
   constexpr int kAhead = kStages - 2;  // tiles in flight beyond the two in use
-  constexpr int kQBytes = kBlockM * kRowBytes;
-  constexpr int kKVBytes = kN * kRowBytes;
+  constexpr int kQBytes = kBlockM * D * 2;
+  constexpr int kKVBytes = kN * D * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   const uint32_t sQ = smem_addr(sm);
@@ -430,8 +498,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto issue_kv = [&](int j) {
     const int s = j % kStages;
     mbar_expect_tx(bar_full + 8 * s, 2 * kKVBytes);
-    tma_load(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, j * kN, bh);
-    tma_load(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, j * kN, bh);
+    tma_load_tile<D, kN>(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, j * kN,
+                         bh);
+    tma_load_tile<D, kN>(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, j * kN,
+                         bh);
   };
   auto produce = [&](int j) {
     if (threadIdx.x == 0 && j < n_kv) {
@@ -442,7 +512,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, kQBytes);
-    tma_load(sQ, &tm_q, bar_q, q0, bh);
+    tma_load_tile<D, kBlockM>(sQ, &tm_q, bar_q, q0, bh);
   }
   for (int j = 0; j < kAhead; ++j) produce(j);
 
@@ -472,10 +542,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto desc_v = [&](int it) {
     return sw128_desc(sV + (it % kStages) * kKVBytes);
   };
+  constexpr uint64_t half_q = half_desc(kBlockM), half_kv = half_desc(kN);
 
-  float acc[32];
+  float acc[kH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
   float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
   float l[2] = {0.f, 0.f};          // this thread's share of the row sums
   float corr[2];
@@ -487,7 +560,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   produce(kAhead);
   wait_full(0);
   wgmma_fence();
-  issue_abt(sc, desc_q, desc_k(0));
+  issue_abt<D>(sc, desc_q, half_q, desc_k(0), half_kv);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -498,9 +571,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     produce(it + kAhead);
     wait_full(it);
     wgmma_fence();
-    issue_abt(sc, desc_q, desc_k(it));
+    issue_abt<D>(sc, desc_q, half_q, desc_k(it), half_kv);
     wgmma_commit();
-    issue_ab(acc, pa, desc_v(it - 1));
+    issue_ab<D, kN>(acc, pa, desc_v(it - 1), half_kv);
     wgmma_commit();
     wgmma_wait<1>();  // the scores of tile it
     fence_regs(sc);
@@ -514,7 +587,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     pack_all(pa, sc);
   }
   wgmma_fence();
-  issue_ab(acc, pa, desc_v(n_w - 1));
+  issue_ab<D, kN>(acc, pa, desc_v(n_w - 1), half_kv);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
@@ -529,13 +602,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(l[r]), 1e-30f);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[4 * j + 0] /= lc[0];
-    acc[4 * j + 1] /= lc[0];
-    acc[4 * j + 2] /= lc[1];
-    acc[4 * j + 3] /= lc[1];
-  }
-  store_frag(o + (size_t)bh * S * kD, acc, row, S, t);
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[h][4 * j + 0] /= lc[0];
+      acc[h][4 * j + 1] /= lc[0];
+      acc[h][4 * j + 2] /= lc[1];
+      acc[h][4 * j + 3] /= lc[1];
+    }
+  store_frag<D>(o + (size_t)bh * S * D, acc, row, S, t);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -544,8 +619,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+constexpr int kDqD = 64;  // dq runs at head dim 64 only
+
 constexpr int dq_smem_bytes() {
-  return 1024 + 2 * kBlockM * kRowBytes + 2 * kDqStages * kDqBlockN * kRowBytes +
+  return 1024 + 2 * kBlockM * kDqD * 2 + 2 * kDqStages * kDqBlockN * kDqD * 2 +
          (1 + 2 * kDqStages) * 8;
 }
 
@@ -598,11 +675,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int S, float scale, int causal) {
+  constexpr int D = kDqD;
   constexpr int kN = kDqBlockN;
   constexpr int kStages = kDqStages;
   constexpr int kAhead = kStages - 2;  // tiles in flight beyond the two in use
-  constexpr int kQBytes = kBlockM * kRowBytes;
-  constexpr int kKVBytes = kN * kRowBytes;
+  constexpr int kQBytes = kBlockM * D * 2;
+  constexpr int kKVBytes = kN * D * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   const uint32_t sQ = smem_addr(sm);
@@ -636,15 +714,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = j % kStages;
       mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
       mbar_expect_tx(bar_full + 8 * s, 2 * kKVBytes);
-      tma_load(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, j * kN, bh);
-      tma_load(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, j * kN, bh);
+      tma_load_tile<D, kN>(sK + s * kKVBytes, &tm_k, bar_full + 8 * s, j * kN,
+                           bh);
+      tma_load_tile<D, kN>(sV + s * kKVBytes, &tm_v, bar_full + 8 * s, j * kN,
+                           bh);
     }
     __syncwarp();
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, 2 * kQBytes);
-    tma_load(sQ, &tm_q, bar_q, q0, bh);
-    tma_load(sdO, &tm_do, bar_q, q0, bh);
+    tma_load_tile<D, kBlockM>(sQ, &tm_q, bar_q, q0, bh);
+    tma_load_tile<D, kBlockM>(sdO, &tm_do, bar_q, q0, bh);
   }
   for (int j = 0; j < kAhead; ++j) produce(j);
 
@@ -677,9 +757,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto desc_v = [&](int it) {
     return sw128_desc(sV + (it % kStages) * kKVBytes);
   };
-  float acc[32];
+  constexpr uint64_t half_q = half_desc(kBlockM), half_kv = half_desc(kN);
+  float acc[1][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[0][i] = 0.f;
   float sc[32], dp[32];
   uint32_t da[4][4];
 
@@ -690,8 +771,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     produce(it + kAhead);
     wait_full(it);
     wgmma_fence();
-    issue_abt(sc, desc_q, desc_k(it));
-    issue_abt(dp, desc_do, desc_v(it));
+    issue_abt<D>(sc, desc_q, half_q, desc_k(it), half_kv);
+    issue_abt<D>(dp, desc_do, half_q, desc_v(it), half_kv);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -702,7 +783,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
             scale_log2);
     pack_all(da, sc);
     wgmma_fence();
-    issue_ab(acc, da, desc_k(it));
+    issue_ab<D, kN>(acc, da, desc_k(it), half_kv);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -713,12 +794,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     wait_full(it);
     release(it);
   }
-  store_frag(dq + (size_t)bh * S * kD, acc, row, S, t);
+  store_frag<D>(dq + (size_t)bh * S * D, acc, row, S, t);
 }
 
+template <int D>
 constexpr int dkv_smem_bytes() {
-  return 1024 + 2 * kBlockM * kRowBytes +
-         2 * kDkvStages * kDkvBlockN * kRowBytes +
+  return 1024 + 2 * kBlockM * D * 2 + 2 * kDkvStages * kDkvBlockN * D * 2 +
          2 * kDkvStages * kDkvBlockN * 4 + (1 + 2 * kDkvStages) * 8;
 }
 
@@ -757,8 +838,14 @@ __device__ __forceinline__ void dkv_tile(float (&st)[32], float (&dpt)[32],
 // adds the TMA bytes of Q and dO. Per Q tile, the two score products run,
 // then p^T and ds^T, then the two accumulating products: the scores are
 // not overlapped with the previous tile's gradients as the forward does,
-// since holding both sets of fragments takes ~220 registers a thread for
-// no gain, and a block of 256 threads already has the SM to itself.
+// since holding both sets of fragments takes ~220 registers a thread at
+// D 64 for no gain, and a block of 256 threads already has the SM to
+// itself. At D 128 dk and dv take 128 registers, s^T and dp^T 64 and their
+// packed fragments 32: ptxas fits that in the cap of 255 without a spill.
+// 32-row Q tiles (m64n32k16 score products) took 199 registers but ran
+// 1.3x slower on the card, and overlapping their scores with the previous
+// tile's gradients slower still (PERF.md).
+template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -769,9 +856,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      bf16* __restrict__ dv, int S, float scale, int causal) {
   constexpr int kN = kDkvBlockN;
   constexpr int kStages = kDkvStages;
+  constexpr int kH = D / kHalfD;
   constexpr int kAhead = kStages - 2;  // tiles in flight beyond the two in use
-  constexpr int kKVBytes = kBlockM * kRowBytes;
-  constexpr int kQBytes = kN * kRowBytes;
+  constexpr int kKVBytes = kBlockM * D * 2;
+  constexpr int kQBytes = kN * D * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   const uint32_t sK = smem_addr(sm);
@@ -815,16 +903,17 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     if (lane == 0) {
       mbar_expect_tx(bar_full + 8 * s, 2 * kQBytes);
-      tma_load(sQ + s * kQBytes, &tm_q, bar_full + 8 * s, q0, bh);
-      tma_load(sdO + s * kQBytes, &tm_do, bar_full + 8 * s, q0, bh);
+      tma_load_tile<D, kN>(sQ + s * kQBytes, &tm_q, bar_full + 8 * s, q0, bh);
+      tma_load_tile<D, kN>(sdO + s * kQBytes, &tm_do, bar_full + 8 * s, q0,
+                           bh);
     } else {
       mbar_arrive(bar_full + 8 * s);
     }
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_kv, 2 * kKVBytes);
-    tma_load(sK, &tm_k, bar_kv, k0, bh);
-    tma_load(sV, &tm_v, bar_kv, k0, bh);
+    tma_load_tile<D, kBlockM>(sK, &tm_k, bar_kv, k0, bh);
+    tma_load_tile<D, kBlockM>(sV, &tm_v, bar_kv, k0, bh);
   }
   for (int j = 0; j < kAhead; ++j) produce(j);
 
@@ -846,9 +935,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) mbar_arrive(bar_empty + 8 * (it % kStages));
   };
 
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[kH][32], dv_acc[kH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[h][i] = dv_acc[h][i] = 0.f;
 
   for (int it = 0; it < it_w; ++it) {  // Q tiles this warpgroup skips
     wait_full(it);
@@ -858,29 +949,19 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(bar_kv, 0);
     const uint64_t desc_k = sw128_desc(sK + wg * 64 * kRowBytes);
     const uint64_t desc_v = sw128_desc(sV + wg * 64 * kRowBytes);
+    constexpr uint64_t half_kv = half_desc(kBlockM), half_q = half_desc(kN);
     float st[32], dpt[32];
     uint32_t pa[4][4], da[4][4];
     auto issue_scores = [&](int it) {  // s^T = k.q^T, dp^T = v.do^T
       const int s = it % kStages;
-      const uint64_t dq = sw128_desc(sQ + s * kQBytes);
-      const uint64_t ddo = sw128_desc(sdO + s * kQBytes);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss_n64(st, desc_k + kk * kDescK16, dq + kk * kDescK16, kk);
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss_n64(dpt, desc_v + kk * kDescK16, ddo + kk * kDescK16, kk);
+      issue_abt<D>(st, desc_k, half_kv, sw128_desc(sQ + s * kQBytes), half_q);
+      issue_abt<D>(dpt, desc_v, half_kv, sw128_desc(sdO + s * kQBytes),
+                   half_q);
     };
     auto issue_grads = [&](int it) {  // dv += p^T.do, dk += ds^T.q
       const int s = it % kStages;
-      const uint64_t dq = sw128_desc(sQ + s * kQBytes);
-      const uint64_t ddo = sw128_desc(sdO + s * kQBytes);
-#pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk)
-        wgmma_rs_n64(dv_acc, pa[kk], ddo + kk * kDescMN16, 1);
-#pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk)
-        wgmma_rs_n64(dk_acc, da[kk], dq + kk * kDescMN16, 1);
+      issue_ab<D, kN>(dv_acc, pa, sw128_desc(sdO + s * kQBytes), half_q);
+      issue_ab<D, kN>(dk_acc, da, sw128_desc(sQ + s * kQBytes), half_q);
     };
     auto elementwise = [&](int it) {
       const int s = it % kStages;
@@ -912,8 +993,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       release(it);
     }
   }
-  store_frag(dk + (size_t)bh * S * kD, dk_acc, krow, S, t);
-  store_frag(dv + (size_t)bh * S * kD, dv_acc, krow, S, t);
+  store_frag<D>(dk + (size_t)bh * S * D, dk_acc, krow, S, t);
+  store_frag<D>(dv + (size_t)bh * S * D, dv_acc, krow, S, t);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -940,16 +1021,16 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A [BH, S, 64] bf16 tensor as a 3-D tensor map with [box_rows x 64]
-// boxes in the 128-byte swizzle; rows past S read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
+// A [BH, S, D] bf16 tensor as a 3-D tensor map with [box_rows x 64] boxes
+// (one 128-byte swizzle row wide) in the 128-byte swizzle; rows past S
+// read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int bh, int seq, int d,
              int box_rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return -1;
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)seq, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)kRowBytes,
-                                 (cuuint64_t)seq * kRowBytes};
-  const cuuint32_t box[3] = {(cuuint32_t)kD, (cuuint32_t)box_rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kHalfD, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
@@ -959,39 +1040,42 @@ int make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
   return r == CUDA_SUCCESS ? 0 : -2;
 }
 
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int seq, float scale, int causal,
                void* stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, bh, seq, kBlockM);
-  if (err == 0) err = make_map(&tk, k, bh, seq, kFwdBlockN);
-  if (err == 0) err = make_map(&tv, v, bh, seq, kFwdBlockN);
+  int err = make_map(&tq, q, bh, seq, D, kBlockM);
+  if (err == 0) err = make_map(&tk, k, bh, seq, D, kFwdBlockN);
+  if (err == 0) err = make_map(&tv, v, bh, seq, D, kFwdBlockN);
   if (err != 0) return err;
-  constexpr int smem = fwd_smem_bytes();
+  constexpr int smem = fwd_smem_bytes<D>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
-  flash_fwd_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<D><<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
       tq, tk, tv, (bf16*)o, (float*)lse, seq, scale, causal);
   return (int)cudaGetLastError();
 }
 
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int seq, float scale, int causal, void* stream) {
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_map(&tq, q, bh, seq, kDkvBlockN);
-  if (err == 0) err = make_map(&tk, k, bh, seq, kBlockM);
-  if (err == 0) err = make_map(&tv, v, bh, seq, kBlockM);
-  if (err == 0) err = make_map(&tdo, dout, bh, seq, kDkvBlockN);
+  int err = make_map(&tq, q, bh, seq, D, kDkvBlockN);
+  if (err == 0) err = make_map(&tk, k, bh, seq, D, kBlockM);
+  if (err == 0) err = make_map(&tv, v, bh, seq, D, kBlockM);
+  if (err == 0) err = make_map(&tdo, dout, bh, seq, D, kDkvBlockN);
   if (err != 0) return err;
-  constexpr int smem = dkv_smem_bytes();
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = dkv_smem_bytes<D>();
+  const cudaError_t e =
+      cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
-  flash_bwd_dkv_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+  flash_bwd_dkv_kernel<D><<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, seq, scale, causal);
   return (int)cudaGetLastError();
@@ -1001,10 +1085,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int seq,
               float scale, int causal, void* stream) {
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_map(&tq, q, bh, seq, kBlockM);
-  if (err == 0) err = make_map(&tk, k, bh, seq, kDqBlockN);
-  if (err == 0) err = make_map(&tv, v, bh, seq, kDqBlockN);
-  if (err == 0) err = make_map(&tdo, dout, bh, seq, kBlockM);
+  int err = make_map(&tq, q, bh, seq, kDqD, kBlockM);
+  if (err == 0) err = make_map(&tk, k, bh, seq, kDqD, kDqBlockN);
+  if (err == 0) err = make_map(&tv, v, bh, seq, kDqD, kDqBlockN);
+  if (err == 0) err = make_map(&tdo, dout, bh, seq, kDqD, kBlockM);
   if (err != 0) return err;
   constexpr int smem = dq_smem_bytes();
   const cudaError_t e = cudaFuncSetAttribute(
@@ -1017,22 +1101,22 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-const void* kernel_fn(int kernel) {
-  switch (kernel) {
-    case 0: return (const void*)flash_fwd_kernel;
-    case 1: return (const void*)flash_bwd_dkv_kernel;
-    case 2: return (const void*)flash_bwd_dq_kernel;
-    default: return nullptr;
+// The forward (0), dk/dv (1) or dq (2) at head dim d and the dynamic shared
+// memory of one block; nullptr for a kernel not built at d.
+const void* kernel_fn(int kernel, int d, int* smem) {
+  if (d == 64) {
+    switch (kernel) {
+      case 0: *smem = fwd_smem_bytes<64>(); return (const void*)flash_fwd_kernel<64>;
+      case 1: *smem = dkv_smem_bytes<64>(); return (const void*)flash_bwd_dkv_kernel<64>;
+      case 2: *smem = dq_smem_bytes(); return (const void*)flash_bwd_dq_kernel;
+    }
+  } else if (d == 128) {
+    switch (kernel) {
+      case 0: *smem = fwd_smem_bytes<128>(); return (const void*)flash_fwd_kernel<128>;
+      case 1: *smem = dkv_smem_bytes<128>(); return (const void*)flash_bwd_dkv_kernel<128>;
+    }
   }
-}
-
-int kernel_smem(int kernel) {
-  switch (kernel) {
-    case 0: return fwd_smem_bytes();
-    case 1: return dkv_smem_bytes();
-    case 2: return dq_smem_bytes();
-    default: return -1;
-  }
+  return nullptr;
 }
 
 }  // namespace
@@ -1042,34 +1126,7 @@ extern "C" {
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int seq, float scale, int causal,
                    void* stream) {
-  return launch_fwd(q, k, v, o, lse, bh, seq, scale, causal, stream);
-}
-
-// The dynamic shared memory of one block of the forward (0), dk/dv (1) or
-// dq (2); -1 for any other kernel.
-int flash_dynamic_smem_bytes(int kernel) {
-  return kernel_smem(kernel);
-}
-
-// Of the forward (0), dk/dv (1) or dq (2): out[0] registers a thread,
-// out[1] the dynamic shared memory that the kernel's launches allow
-// themselves (the runtime's default of 48 KB before the first launch),
-// out[2] the blocks that one SM holds at once at that shared memory.
-// Returns a cudaError_t, or -1 for any other kernel.
-int flash_kernel_attributes(int kernel, int* out) {
-  const void* fn = kernel_fn(kernel);
-  if (fn == nullptr) return -1;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = attr.numRegs;
-  out[1] = attr.maxDynamicSharedSizeBytes;
-  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kernel_smem(kernel));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kWgThreads,
-                                                      kernel_smem(kernel));
-  return (int)e;
+  return launch_fwd<64>(q, k, v, o, lse, bh, seq, scale, causal, stream);
 }
 
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
@@ -1084,8 +1141,57 @@ int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int seq, float scale,
                        int causal, void* stream) {
-  return launch_dkv(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal,
-                    stream);
+  return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale,
+                        causal, stream);
+}
+
+// bf16 at head dim d = 128 (the wider bf16 head dims, padded to it); -3
+// for another d
+int flash_fwd_bf16w(const void* q, const void* k, const void* v, void* o,
+                    void* lse, int bh, int seq, int d, float scale,
+                    int causal, void* stream) {
+  if (d != 128) return -3;
+  return launch_fwd<128>(q, k, v, o, lse, bh, seq, scale, causal, stream);
+}
+
+int flash_bwd_dkv_bf16w(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int bh, int seq, int d,
+                        float scale, int causal, void* stream) {
+  if (d != 128) return -3;
+  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale,
+                         causal, stream);
+}
+
+// The dynamic shared memory of one block of the forward (0), dk/dv (1) or
+// dq (2) at head dim d; -3 for a kernel not built at d.
+int flash_dynamic_smem_bytes(int kernel, int d) {
+  int smem;
+  return kernel_fn(kernel, d, &smem) == nullptr ? -3 : smem;
+}
+
+// Of the forward (0), dk/dv (1) or dq (2) at head dim d: out[0] registers
+// a thread, out[1] the dynamic shared memory that the kernel's launches
+// allow themselves (the runtime's default of 48 KB before the first
+// launch), out[2] the blocks that one SM holds at once at the shared
+// memory it launches with, out[3] its local memory a thread in bytes
+// (spills). Returns a cudaError_t, or -3 for a kernel not built at d.
+int flash_kernel_attributes(int kernel, int d, int* out) {
+  int smem;
+  const void* fn = kernel_fn(kernel, d, &smem);
+  if (fn == nullptr) return -3;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = attr.maxDynamicSharedSizeBytes;
+  out[3] = (int)attr.localSizeBytes;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kWgThreads,
+                                                      smem);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -1,24 +1,25 @@
-// Flash attention for Hopper (sm_90a) in f32 at head dims 16-128, and in
-// bf16 at head dim 128: forward, dq and dk/dv.
+// Flash attention for Hopper (sm_90a) in f32 at head dims 16-128: forward,
+// dq and dk/dv; and the dq of bf16 at head dim 128.
 //
 // They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
 // compute for inputs of their type:
 //   flash_fwd_simt_kernel   <- _fwd_kernel      (flash_attention.py:29)
 //   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (flash_attention.py:160)
 //   flash_bwd_dkv_tc_kernel <- _bwd_dkv_kernel  (flash_attention.py:212)
-// Each is a template on the input type T (float, or __nv_bfloat16 for the
-// head dims above 64 that the wgmma kernels of flash_attention.cu do not
-// take) and on the head dim D. Loads convert T to f32 (exact); sums,
-// softmax and accumulators are f32; p is rounded to T before p.v and p^T.do,
-// and ds before ds.k and ds^T.q, the Pallas kernels' cast points (a no-op
-// in f32); o, dq, dk, dv are written as T, lse as f32. Masked scores are
-// -1e30, as in the Pallas kernels.
+// Each is a template on the input type T and on the head dim D. All three
+// are built for T = float; flash_bwd_dq_tc_kernel also for __nv_bfloat16 at
+// D 128, the dq of the bf16 head dims above 64 (the forward and dk/dv of
+// those are the wgmma kernels of flash_attention.cu at D 128). Loads convert
+// T to f32 (exact); sums, softmax and accumulators are f32; p is rounded to
+// T before p.v and p^T.do, and ds before ds.k and ds^T.q, the Pallas
+// kernels' cast points (a no-op in f32); o, dq, dk, dv are written as T,
+// lse as f32. Masked scores are -1e30, as in the Pallas kernels.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] of T, contiguous and
 // 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64 or 128 for
-// f32 and 128 for bf16; the wrapper pads any other D up with zero columns.
-// A ragged S is masked at the tile edges: rows past S load as zeros,
-// columns past S are masked, rows past S are not stored.
+// f32 and 128 for the bf16 dq; the wrapper pads any other D up with zero
+// columns. A ragged S is masked at the tile edges: rows past S load as
+// zeros, columns past S are masked, rows past S are not stored.
 //
 // What bounds them on an H100: at GPT-2-small's attention shape in f32
 // (BH 192, S 1024, D 64, causal) dq does 38.7 GFLOP and dk/dv 51.6 against
@@ -49,7 +50,7 @@
 // as they accumulate, so big.big and the small terms accumulate apart and
 // each tile's accumulating product starts from 0 (see tile_scores). bf16
 // inputs, and p and ds rounded to bf16, are exact in TF32: the bf16
-// instances take the big.big pass alone. Under causal masking whole
+// instance takes the big.big pass alone. Under causal masking whole
 // future tiles are skipped, by the block and by each warp.
 //
 // The forward stays on the CUDA cores (SIMT): one 256-thread block a 64-row
@@ -92,20 +93,13 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// four consecutive elements of T as f32; p is 8-byte aligned for bf16
+// four consecutive f32 elements (the forward is built for f32 only)
 __device__ __forceinline__ void load4(float (&x)[4], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x;
   x[1] = v.y;
   x[2] = v.z;
   x[3] = v.w;
-}
-__device__ __forceinline__ void load4(float (&x)[4], const bf16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  x[0] = __uint_as_float(v.x << 16);
-  x[1] = __uint_as_float(v.x & 0xffff0000u);
-  x[2] = __uint_as_float(v.y << 16);
-  x[3] = __uint_as_float(v.y & 0xffff0000u);
 }
 
 // elements (c, c + 1) of a row, c even
@@ -763,7 +757,8 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
 // -------------------------------------------------------------- launching
 
 // f(std::integral_constant<int, D>) for a head dim the kernels of T are
-// built for: 16, 32, 64, 128 for f32, 128 for bf16; -3 for another.
+// built for: 16, 32, 64, 128 for f32, 128 for bf16 (dq only); -3 for
+// another.
 template <typename T, typename F>
 int with_head_dim(int d, F f) {
   if constexpr (std::is_same<T, float>::value) {
@@ -780,25 +775,28 @@ int with_head_dim(int d, F f) {
 }
 
 // The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) of T at
-// head dim D, its threads a block and its dynamic shared memory.
+// head dim D, its threads a block and its dynamic shared memory; nullptr
+// for the bf16 forward and dk/dv, which are flash_attention.cu's.
 template <typename T, int D>
 const void* kernel_fn(int kernel, int* threads, int* smem) {
-  switch (kernel) {
-    case 0:
+  if constexpr (std::is_same<T, float>::value) {
+    if (kernel == 0) {
       *threads = kFwdThreads;
       *smem = fwd_smem_bytes<D>();
       return (const void*)flash_fwd_simt_kernel<T, D>;
-    case 1:
+    }
+    if (kernel == 1) {
       *threads = kTcThreads;
       *smem = dkv_tc_smem_bytes<T, D>();
       return (const void*)flash_bwd_dkv_tc_kernel<T, D>;
-    case 2:
-      *threads = kTcThreads;
-      *smem = dq_tc_smem_bytes<T, D>();
-      return (const void*)flash_bwd_dq_tc_kernel<T, D>;
-    default:
-      return nullptr;
+    }
   }
+  if (kernel == 2) {
+    *threads = kTcThreads;
+    *smem = dq_tc_smem_bytes<T, D>();
+    return (const void*)flash_bwd_dq_tc_kernel<T, D>;
+  }
+  return nullptr;
 }
 
 // Raises the kernel's dynamic shared-memory limit to what it launches with.
@@ -809,10 +807,10 @@ cudaError_t prepare(int kernel, int* threads, int* smem) {
                               *smem);
 }
 
-template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int seq, int d, float scale, int causal,
                void* stream) {
+  typedef float T;
   return with_head_dim<T>(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     int threads, smem;
@@ -845,10 +843,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   });
 }
 
-template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int seq, int d, float scale, int causal, void* stream) {
+  typedef float T;
   return with_head_dim<T>(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     int threads, smem;
@@ -865,7 +863,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // out[0] registers a thread, out[1] dynamic shared memory, out[2] blocks
-// one SM holds at once
+// one SM holds at once, out[3] local memory a thread in bytes (spills)
 template <typename T>
 int attributes(int kernel, int d, int* out) {
   return with_head_dim<T>(d, [&](auto dim) {
@@ -878,6 +876,7 @@ int attributes(int kernel, int d, int* out) {
     if (e != cudaSuccess) return (int)e;
     out[0] = attr.numRegs;
     out[1] = smem;
+    out[3] = (int)attr.localSizeBytes;
     e = prepare<T, D>(kernel, &threads, &smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads,
@@ -894,7 +893,7 @@ extern "C" {
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int seq, int d, float scale, int causal,
                   void* stream) {
-  return launch_fwd<float>(q, k, v, o, lse, bh, seq, d, scale, causal, stream);
+  return launch_fwd(q, k, v, o, lse, bh, seq, d, scale, causal, stream);
 }
 
 int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
@@ -909,25 +908,20 @@ int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int bh, int seq, int d, float scale,
                       int causal, void* stream) {
-  return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, seq, d,
-                           scale, causal, stream);
+  return launch_dkv(q, k, v, dout, lse, delta, dk, dv, bh, seq, d, scale,
+                    causal, stream);
 }
 
 // Of the forward (0), dk/dv (1) or dq (2) at head dim d: out[0] registers a
 // thread, out[1] its dynamic shared memory, out[2] the blocks that one SM
-// holds at once with it. Returns a cudaError_t, or -3 for another kernel
-// or head dim.
+// holds at once with it, out[3] its local memory a thread in bytes.
+// Returns a cudaError_t, or -3 for another kernel or head dim.
 int flash_f32_kernel_attributes(int kernel, int d, int* out) {
   return attributes<float>(kernel, d, out);
 }
 
-// bf16 at head dim d = 128 (the wider bf16 head dims, padded to it)
-int flash_fwd_bf16w(const void* q, const void* k, const void* v, void* o,
-                    void* lse, int bh, int seq, int d, float scale,
-                    int causal, void* stream) {
-  return launch_fwd<bf16>(q, k, v, o, lse, bh, seq, d, scale, causal, stream);
-}
-
+// the dq of bf16 at head dim d = 128 (the wider bf16 head dims, padded to
+// it); its forward and dk/dv are flash_attention.cu's
 int flash_bwd_dq_bf16w(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq, int bh, int seq, int d, float scale,
@@ -936,14 +930,7 @@ int flash_bwd_dq_bf16w(const void* q, const void* k, const void* v,
                          causal, stream);
 }
 
-int flash_bwd_dkv_bf16w(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, int bh, int seq, int d,
-                        float scale, int causal, void* stream) {
-  return launch_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, bh, seq, d,
-                          scale, causal, stream);
-}
-
+// as flash_f32_kernel_attributes, for the bf16 dq (kernel 2) at d = 128
 int flash_bf16w_kernel_attributes(int kernel, int d, int* out) {
   return attributes<bf16>(kernel, d, out);
 }

@@ -1,16 +1,16 @@
 """Flash attention, forward and backward, over hand-written Hopper kernels.
 
 Port of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
-there become CUDA kernels, in three families (``kernel_plan``): in
-``csrc/flash_attention.cu`` the bf16 kernels for head dims up to 64
-(wgmma, at head dim 64; a smaller head dim is padded up to it); in
-``csrc/flash_attention_f32.cu`` the f32 ones (head dims 16, 32, 64 and
-128; others padded up to the next) and, from the same templates, the
-bf16 ones for head dims 65 to 128 ("bf16_wide", padded to 128). Each
-family has a forward with online softmax that writes ``o`` and the row
-logsumexp, a dq kernel and a dk/dv kernel, each recomputing the
-probabilities from the saved logsumexp so that no S x S tensor reaches
-device memory.
+there become CUDA kernels, in three families (``kernel_plan``): "bf16"
+for bf16 head dims up to 64 (padded to 64), the wgmma kernels of
+``csrc/flash_attention.cu`` at head dim 64; "bf16_wide" for bf16 head
+dims 65 to 128 (padded to 128), the forward and dk/dv of the same file at
+head dim 128 and the dq of ``csrc/flash_attention_f32.cu``; "f32", the
+kernels of ``csrc/flash_attention_f32.cu`` (head dims 16, 32, 64 and 128;
+others padded up to the next). Each family has a forward with online
+softmax that writes ``o`` and the row logsumexp, a dq kernel and a dk/dv
+kernel, each recomputing the probabilities from the saved logsumexp so
+that no S x S tensor reaches device memory.
 
 Each kernel has a wrapper and a plain PyTorch version of the same
 function with the same cast points (``flash_fwd_plain``,
@@ -34,13 +34,13 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# What each bf16 kernel tiles by, in rows of the [BH, S, 64] tensors: the
-# forward and dq take 128 Q rows per block and stream K/V in 64-row
-# tiles; dk/dv takes 128 KV rows per block and streams Q/dO in 64-row
-# tiles. They are fixed in csrc/flash_attention.cu. The kernels of
-# csrc/flash_attention_f32.cu (f32 and bf16_wide) take 64 rows of their own
-# axis a block and stream the other in tiles of 64 rows (the forward) or
-# 32 (dq, dk/dv; 16 at head dim 128).
+# What each kernel of csrc/flash_attention.cu tiles by, in rows of the
+# [BH, S, D] tensors: the forward and dq take 128 Q rows per block and
+# stream K/V in 64-row tiles; dk/dv takes 128 KV rows per block and
+# streams Q/dO in 64-row tiles. The kernels of
+# csrc/flash_attention_f32.cu (f32, and the bf16_wide dq) take 64 rows of
+# their own axis a block and stream the other in tiles of 64 rows (the
+# forward) or 32 (dq, dk/dv; 16 at head dim 128).
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
@@ -48,7 +48,7 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 # padded with zero columns up to the next one, which is exact: zero
 # columns add exact zeros to q.k^T and do.v^T, the scale stays the
 # caller's, and the padded columns of the outputs are dropped.
-BF16_HEAD_DIMS = (64, 128)  # 64: the wgmma kernels; 128: bf16_wide
+BF16_HEAD_DIMS = (64, 128)  # 64: family bf16; 128: bf16_wide
 F32_HEAD_DIMS = (16, 32, 64, 128)
 # family -> the suffix of its kernels' entry points and launch counters
 _SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "f32": "_f32"}
@@ -117,36 +117,44 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale, causal
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
-    "flash_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "flash_dynamic_smem_bytes": [_I],
-    "flash_kernel_attributes": [_I, ctypes.POINTER(_I)],
-    "flash_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                          _P],
-    "flash_f32_kernel_attributes": [_I, _I, ctypes.POINTER(_I)],
+# the entries' arguments: the bf16 ones (head dim 64) take no head dim, the
+# others take it after S
+_FWD = [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P]
+_DQ = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P]
+_DKV = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P]
+_FWD_D, _DQ_D, _DKV_D = ([*a[:-3], _I, *a[-3:]] for a in (_FWD, _DQ, _DKV))
+_ATTRIBUTES = [_I, _I, ctypes.POINTER(_I)]
+# library (csrc/<name>.cu) -> its entries and their arguments
+_ENTRIES = {
+    "flash_attention": {
+        "flash_fwd_bf16": _FWD, "flash_bwd_dq_bf16": _DQ,
+        "flash_bwd_dkv_bf16": _DKV, "flash_fwd_bf16w": _FWD_D,
+        "flash_bwd_dkv_bf16w": _DKV_D, "flash_dynamic_smem_bytes": [_I, _I],
+        "flash_kernel_attributes": _ATTRIBUTES,
+    },
+    "flash_attention_f32": {
+        "flash_fwd_f32": _FWD_D, "flash_bwd_dq_f32": _DQ_D,
+        "flash_bwd_dkv_f32": _DKV_D, "flash_bwd_dq_bf16w": _DQ_D,
+        "flash_f32_kernel_attributes": _ATTRIBUTES,
+        "flash_bf16w_kernel_attributes": _ATTRIBUTES,
+    },
 }
-# the bf16_wide entries take what the f32 ones take
-_SIGNATURES.update({
-    "flash_fwd_bf16w": _SIGNATURES["flash_fwd_f32"],
-    "flash_bwd_dq_bf16w": _SIGNATURES["flash_bwd_dq_f32"],
-    "flash_bwd_dkv_bf16w": _SIGNATURES["flash_bwd_dkv_f32"],
-    "flash_bf16w_kernel_attributes":
-        _SIGNATURES["flash_f32_kernel_attributes"],
-})
+_LIBRARY_OF = {entry: lib for lib, entries in _ENTRIES.items()
+               for entry in entries}
 _KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
+def _entry(counter: str) -> str:
+    """The C entry that launches the kernel of a name of ``LAUNCHES``."""
+    return counter + "_bf16" if counter in _KERNEL_IDS else counter
+
+
 def _kernel(name: str):
-    lib = _build.load("flash_attention_f32" if "_f32" in name
-                      or "bf16w" in name else "flash_attention")
-    fn = getattr(lib, name)
+    lib = _LIBRARY_OF[name]
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
+        fn.argtypes = _ENTRIES[lib][name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -188,33 +196,57 @@ def unpad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
     return x[..., :head_dim].contiguous()
 
 
-def dynamic_smem_bytes(kernel: str) -> int:
-    """Dynamic shared memory of one block of the bf16 ``flash_fwd``,
-    ``flash_bwd_dq`` or ``flash_bwd_dkv`` (builds the kernels if needed)."""
-    return _kernel("flash_dynamic_smem_bytes")(_KERNEL_IDS[kernel])
+def _suffix(kernel: str) -> str:
+    return next((s for s in _SUFFIXES.values() if s and kernel.endswith(s)),
+                "")
+
+
+def _head_dim_of(kernel: str, head_dim: Optional[int]) -> int:
+    """The head dim a kernel is asked about at: the one given, else 64 for
+    the bf16 family and 128 for bf16_wide (f32 kernels need one)."""
+    if head_dim is None:
+        head_dim = {"": BF16_HEAD_DIMS[0],
+                    "_bf16w": BF16_HEAD_DIMS[1]}.get(_suffix(kernel))
+    if head_dim is None:
+        raise ValueError(f"{kernel}: give the head dim, one of "
+                         f"{F32_HEAD_DIMS}")
+    return int(head_dim)
+
+
+def dynamic_smem_bytes(kernel: str, head_dim: Optional[int] = None) -> int:
+    """Dynamic shared memory of one block of a kernel of
+    ``csrc/flash_attention.cu``, by its name in ``LAUNCHES`` (``flash_fwd``,
+    ``flash_bwd_dq``, ``flash_bwd_dkv`` at head dim 64, ``flash_fwd_bf16w``,
+    ``flash_bwd_dkv_bf16w`` at 128); builds the kernels if needed."""
+    smem = _kernel("flash_dynamic_smem_bytes")(
+        _KERNEL_IDS[kernel.removesuffix(_suffix(kernel))],
+        _head_dim_of(kernel, head_dim))
+    if smem < 0:
+        raise ValueError(f"{kernel} is not a kernel of flash_attention.cu")
+    return smem
 
 
 def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
     """What the CUDA runtime reports of one kernel: ``registers`` a thread,
-    ``max_dynamic_smem`` and ``blocks_per_sm`` (blocks one SM holds at
-    once). ``kernel`` is a name of ``LAUNCHES``; an f32 kernel is asked
-    for at one of ``F32_HEAD_DIMS`` (``head_dim``), a bf16_wide one at
-    128, and their ``max_dynamic_smem`` is the dynamic shared memory of
-    their launches. For a bf16 kernel it is what its last launch allowed
-    itself. Needs a CUDA device."""
-    out = (_I * 3)()
-    suffix = next((s for s in _SUFFIXES.values() if s and kernel.endswith(s)),
-                  "")
-    if suffix:
-        err = _kernel(f"flash{suffix}_kernel_attributes")(
-            _KERNEL_IDS[kernel.removesuffix(suffix)], int(head_dim), out)
-    else:
-        err = _kernel("flash_kernel_attributes")(_KERNEL_IDS[kernel], out)
+    ``max_dynamic_smem``, ``blocks_per_sm`` (blocks one SM holds at once at
+    the shared memory it launches with) and ``local_bytes`` (local memory
+    a thread: ptxas's spills). ``kernel`` is a name of ``LAUNCHES``; an f32
+    kernel is asked for at one of ``F32_HEAD_DIMS`` (``head_dim``). For a
+    kernel of ``csrc/flash_attention.cu`` ``max_dynamic_smem`` is what its
+    last launch allowed itself, for the others the dynamic shared memory of
+    their launches. Needs a CUDA device."""
+    out = (_I * 4)()
+    suffix = _suffix(kernel)
+    lib = _LIBRARY_OF[_entry(kernel)]
+    attributes = ("flash_kernel_attributes" if lib == "flash_attention"
+                  else f"flash{suffix}_kernel_attributes")
+    err = _kernel(attributes)(_KERNEL_IDS[kernel.removesuffix(suffix)],
+                              _head_dim_of(kernel, head_dim), out)
     if err != 0:
         raise RuntimeError(f"kernel attributes of {kernel} failed: "
                            f"{_why(err)}")
     return {"registers": out[0], "max_dynamic_smem": out[1],
-            "blocks_per_sm": out[2]}
+            "blocks_per_sm": out[2], "local_bytes": out[3]}
 
 
 def _on_cpu(*tensors) -> bool:
@@ -287,13 +319,10 @@ def _run(kernel: str, family: str, head_dim: int, device, ptrs, scale,
     """Launches ``kernel`` (``flash_fwd``, ``flash_bwd_dq`` or
     ``flash_bwd_dkv``) of ``family``; the f32 and bf16_wide entries also
     take the head dim they run at."""
-    if family == "bf16":
-        _launch(f"{kernel}_bf16", kernel, device, *ptrs, float(scale),
-                int(causal))
-    else:
-        counter = kernel + _SUFFIXES[family]
-        _launch(counter, counter, device, *ptrs, head_dim, float(scale),
-                int(causal))
+    counter = kernel + _SUFFIXES[family]
+    dims = () if family == "bf16" else (head_dim,)
+    _launch(_entry(counter), counter, device, *ptrs, *dims, float(scale),
+            int(causal))
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool):

@@ -8,9 +8,11 @@ For each ROOT the child process imports ROOT's
 ``ray_tpu_torch.ops.flash_attention`` (its kernels build from ROOT's own
 sources into ROOT/build/) and times, at GPT-2-small's attention shape
 (B*H 192, S 1024, D 64, causal), in bf16 and in f32 (TF32 off, as in
-chip_smoke.py), the three kernels of each dtype through their wrappers
-and ``F.scaled_dot_product_attention``'s forward and backward in that
-dtype (the f32 names end in ``_f32``).
+chip_smoke.py), and in bf16 at chip_smoke.py's wide shape (B*H 96, S
+1024, D 128, causal: the bf16_wide kernels), the three kernels of each
+through their wrappers and ``F.scaled_dot_product_attention``'s forward
+and backward in that dtype (the f32 names end in ``_f32``, the wide ones
+in ``_bf16w``).
 Every root is timed with ``time_ms`` of THIS checkout's chip_smoke.py, so
 two versions of the kernels are compared by one method. The host's own
 time per wrapper call is measured too (the device is left to drain before
@@ -31,8 +33,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
-BH, S, D, B = 192, 1024, 64, 16
-NAMES = [f"{name}{suffix}" for suffix in ("", "_f32") for name in (
+B = 16
+# suffix -> (B*H, S, D, dtype name)
+SHAPES = {"": (192, 1024, 64, "bfloat16"), "_f32": (192, 1024, 64, "float32"),
+          "_bf16w": (96, 1024, 128, "bfloat16")}
+NAMES = [f"{name}{suffix}" for suffix in SHAPES for name in (
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sdpa_fwd", "sdpa_bwd")]
 
 
@@ -56,10 +61,9 @@ def child(root: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kw = dict(scale=D ** -0.5, causal=True)
     fns = {}
-    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-        fns.update(functions(torch, F, fa, gen, dtype, suffix, kw))
+    for suffix, shape in SHAPES.items():
+        fns.update(functions(torch, F, fa, gen, suffix, *shape))
     out = {"root": root}
     for name, fn in fns.items():
         out[name] = statistics.median(
@@ -75,11 +79,12 @@ def child(root: str) -> None:
     print(json.dumps(out), flush=True)
 
 
-def functions(torch, F, fa, gen, dtype, suffix, kw):
+def functions(torch, F, fa, gen, suffix, BH, S, D, dtype):
     """{name + suffix: fn} of the three kernels and SDPA's forward and
-    backward on one set of seeded inputs of ``dtype``."""
+    backward on one set of seeded [BH, S, D] inputs of ``dtype``."""
+    kw = dict(scale=D ** -0.5, causal=True)
     q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda")
-                   .to(dtype) for _ in range(4))
+                   .to(getattr(torch, dtype)) for _ in range(4))
     o_ref, lse = fa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o_ref.float()).sum(dim=-1)
     q4, k4, v4 = (x.view(B, BH // B, S, D).detach().requires_grad_(True)

@@ -119,11 +119,14 @@ def test_f32_kernels_match_plain(cuda, BH, S, Dh, causal):
     (2, 129, 96, True), (2, 129, 96, False), (2, 200, 128, True),
     (2, 129, 128, False), (3, 64, 65, True), (2, 1, 128, True),
     (1, 1000, 128, True), (2, 40, 100, False),
+    # one row past a 128-row tile, and GPT-2-small's width in heads of 128
+    (2, 129, 128, True), (96, 1024, 128, True),
 ])
 def test_bf16_wide_kernels_match_plain(cuda, BH, S, Dh, causal):
-    """bf16 at head dims 65 to 128: the bf16_wide kernels (the f32
-    kernels' templates instantiated for bf16, padded to head dim 128),
-    held to the plain versions under the bf16 bound."""
+    """bf16 at head dims 65 to 128, padded to head dim 128: the bf16_wide
+    kernels (the wgmma forward and dk/dv of flash_attention.cu at head dim
+    128, the tensor-core dq of flash_attention_f32.cu), held to the plain
+    versions under the bf16 bound."""
     launched = _check_all_three(cuda, BH, S, Dh, causal, torch.bfloat16,
                                 S + Dh)
     assert launched == {"flash_fwd_bf16w": 1, "flash_bwd_dq_bf16w": 1,
@@ -150,6 +153,25 @@ def test_dq_grid_larger_than_the_card(cuda):
     smem = fa.dynamic_smem_bytes("flash_bwd_dq")
     assert smem > 48 * 1024  # past the default: the launch must raise its limit
     assert fa.kernel_attributes("flash_bwd_dq")["max_dynamic_smem"] == smem
+
+
+@pytest.mark.parametrize("kernel,head_dim,want", [
+    # (registers a thread, dynamic shared memory, blocks per SM, local
+    # memory a thread): the head-dim-64 kernels as they were before head dim
+    # 128 was added to their templates, and the head-dim-128 ones, unspilled
+    ("flash_fwd", 64, (110, 83016, 2, 0)),
+    ("flash_bwd_dq", 64, (126, 99400, 2, 0)),
+    ("flash_bwd_dkv", 64, (210, 101448, 1, 0)),
+    ("flash_fwd_bf16w", 128, (156, 164936, 1, 0)),
+    ("flash_bwd_dkv_bf16w", 128, (255, 199752, 1, 0)),
+])
+def test_wgmma_kernel_attributes(cuda, kernel, head_dim, want):
+    """What the CUDA runtime reports of each kernel of flash_attention.cu
+    at the head dim it is built for."""
+    attrs = fa.kernel_attributes(kernel, head_dim)
+    got = (attrs["registers"], fa.dynamic_smem_bytes(kernel, head_dim),
+           attrs["blocks_per_sm"], attrs["local_bytes"])
+    assert got == want
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
