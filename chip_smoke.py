@@ -9,16 +9,17 @@ Phases, each of which exits non-zero on failure:
    ``nvcc`` a source, started together), with each kernel's registers,
    dynamic shared memory, blocks per SM and local memory a thread (the
    bf16 ones at head dim 64, the f32 ones at each head dim they are built
-   for, the bf16_wide ones at 128);
+   for, the bf16_wide ones at 128), failing if a kernel other than the
+   f32 dq and dk/dv spills to local memory;
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
    one row past a 128-row tile), a non-causal case and head dims 16 and
    32 (zero-padded to 64); in f32 at the main shape and at head dims 16
-   (gpt2_tiny's), 32 and 128, causal and not; in bf16 at head dims 96
-   and 128 (the bf16_wide kernels, padded to 128), among them S 129
-   causal at head dim 128 and the wide shape (B*H 96, S 1024, D 128,
-   causal: GPT-2-small's width in heads of 128). At the main shape (the
+   (gpt2_tiny's), 32 and 128 (S 1000 causal among them), causal and
+   not; in bf16 at head dims 96 and 128 (the bf16_wide kernels, padded
+   to 128), among them S 129 causal at head dim 128 and the wide shape
+   (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of 128). At the main shape (the
    wide one for bf16_wide), times of the kernel, the plain version and
    the PyTorch library call (SDPA, in the kernel's dtype) beside the
    bound, with the kernel's TFLOP/s and the share of its bound that it
@@ -114,16 +115,14 @@ ABS_FLOOR = 1e-5
 # lse is f32 throughout; it is at most ~8 here, where an f32 ulp is 9.5e-7.
 LSE_ABS_TOL = 2e-5
 # The f32 kernels against their plain versions (f32 throughout, TF32
-# off): the forward sums the same f32 products in another order, S up to
-# 1024 terms, so a sum moves by a few ulps (2^-24) of its largest partial
-# sums, ~1e-6 of the tensor's rms on random inputs; dq and dk/dv take
-# their products as 3xTF32 on the tensor cores, ~2^-21 of a product
-# (tests/test_torch_tf32_split.py emulates them within a quarter of this
-# bound, and shows one TF32 pass outside it). The bound, F32_RTOL of the
-# element plus F32_ATOL_RMS of the rms plus F32_FLOOR, sits ~50x above
-# f32 summation noise and ~1000x below what a skipped tile or a wrong mask
-# moves (the bf16 bound of the same shape). The card tests read these
-# limits too.
+# off): the kernels take their products as 3xTF32 on the tensor cores,
+# ~2^-21 of a product, and sum in another order than the plain version
+# (tests/test_torch_tf32_split.py emulates the forward, dq and dk/dv
+# within a quarter of this bound, and shows one TF32 pass outside it).
+# The bound, F32_RTOL of the element plus F32_ATOL_RMS of the rms plus
+# F32_FLOOR, sits ~50x above f32 summation noise and ~1000x below what a
+# skipped tile or a wrong mask moves (the bf16 bound of the same shape).
+# The card tests read these limits too.
 F32_RTOL = 2.0 ** -14
 F32_ATOL_RMS = 2.0 ** -14
 F32_FLOOR = 1e-6
@@ -178,14 +177,17 @@ REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:29",
 KERNELS = [{"name": base + suffix, "replaces": where}
            for suffix in ("", "_f32", "_bf16w")
            for base, where in REPLACES.items()]
-# each kernel's source: the wgmma kernels (bf16 at head dim 64, and the
-# bf16_wide forward and dk/dv at 128) and the mma.sync ones (f32, and the
-# bf16_wide dq)
+# each kernel's source: the wgmma kernels (bf16 at head dim 64, bf16_wide
+# at 128) and the 3xTF32 mma.sync ones (f32)
 WGMMA_CU = "ray_tpu_torch/ops/csrc/flash_attention.cu"
 MMA_SYNC_CU = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"
-SOURCE_OF = {spec["name"]: WGMMA_CU if spec["name"] in (
-    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_bf16w",
-    "flash_bwd_dkv_bf16w") else MMA_SYNC_CU for spec in KERNELS}
+SOURCE_OF = {spec["name"]: MMA_SYNC_CU if spec["name"].endswith("_f32")
+             else WGMMA_CU for spec in KERNELS}
+# kernels that must show no local memory (no spills) at any head dim; the
+# f32 dq and dk/dv spill a little at the 168-register cap of 3 blocks an SM
+NO_LOCAL_MEMORY = [spec["name"] for spec in KERNELS
+                   if spec["name"] not in ("flash_bwd_dq_f32",
+                                           "flash_bwd_dkv_f32")]
 # the head dims each family's kernels are built for
 HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128), "_bf16w": (128,)}
 
@@ -288,6 +290,7 @@ def build_kernels():
                                            "Performance Loss")):
                 print(f"  {name}: {line.strip()}")
     from ray_tpu_torch.ops import flash_attention as fa
+    spilled = []
     for spec in KERNELS:
         name = spec["name"]
         source = SOURCE_OF[name]
@@ -302,6 +305,10 @@ def build_kernels():
                   f"{attrs['registers']} registers, {attrs['blocks_per_sm']} "
                   f"blocks per SM, {attrs['local_bytes']} bytes of local "
                   f"memory", flush=True)
+            if name in NO_LOCAL_MEMORY and attrs["local_bytes"]:
+                spilled.append(f"{name} at head dim {D}")
+    if spilled:
+        fail(f"kernels spill to local memory: {', '.join(spilled)}")
 
 
 def check_kernels(torch, F, fa):
@@ -348,6 +355,7 @@ def check_kernels(torch, F, fa):
              ("f32tinync", 8, 129, 16, False, f32),
              ("f32d32", 8, 257, 32, True, f32),
              ("f32d128", 8, 200, 128, False, f32),
+             ("f32d128c", 8, 1000, 128, True, f32),
              # head dims above 64: the bf16_wide kernels, padded to 128
              ("wide", *WIDE_SHAPE, True, bf16),
              ("wide129", 24, 129, 128, True, bf16),

@@ -1,15 +1,14 @@
 // Flash attention for Hopper (sm_90a) in bf16: forward, dq and dk/dv
-// kernels at head dim 64, and the forward and dk/dv at head dim 128.
+// kernels at head dims 64 and 128.
 //
 // Replaces the three Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel<D>     <- _fwd_kernel      (flash_attention.py:29)
-//   flash_bwd_dq_kernel     <- _bwd_dq_kernel   (flash_attention.py:160)
+//   flash_bwd_dq_kernel<D>  <- _bwd_dq_kernel   (flash_attention.py:160)
 //   flash_bwd_dkv_kernel<D> <- _bwd_dkv_kernel  (flash_attention.py:212)
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] bf16, contiguous, D 64
-// or 128 (the wrapper pads smaller head dims with zero columns; dq takes
-// D 64 only, the dq of D 128 is flash_attention_f32.cu's); lse and delta
-// are [BH, S] f32. A ragged S is masked at the tile edges (rows past S
+// or 128 (the wrapper pads smaller head dims with zero columns); lse and
+// delta are [BH, S] f32. A ragged S is masked at the tile edges (rows past S
 // load as zeros, columns past S are masked, rows past S are not stored),
 // so nothing is padded in memory.
 //
@@ -85,6 +84,10 @@ constexpr int kDkvStages = 4;
 // so that two do; at D 128 its o accumulator alone takes 64.
 template <int D>
 constexpr int kFwdMinBlocks = D == 64 ? 2 : 1;
+// dq at D 64 fits 128 registers with its products in turn, so two blocks
+// share an SM; at D 128 its dq accumulator alone takes 64.
+template <int D>
+constexpr int kDqMinBlocks = D == 64 ? 2 : 1;
 
 typedef __nv_bfloat16 bf16;
 
@@ -619,10 +622,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-constexpr int kDqD = 64;  // dq runs at head dim 64 only
-
+template <int D>
 constexpr int dq_smem_bytes() {
-  return 1024 + 2 * kBlockM * kDqD * 2 + 2 * kDqStages * kDqBlockN * kDqD * 2 +
+  return 1024 + 2 * kBlockM * D * 2 + 2 * kDqStages * kDqBlockN * D * 2 +
          (1 + 2 * kDqStages) * 8;
 }
 
@@ -663,11 +665,17 @@ __device__ __forceinline__ void dq_tile(float (&sc)[32], const float (&dp)[32],
 // MN-major from the same swizzled K tile. Each tile's products run in
 // turn: overlapping ds.k of tile j - 1 with ds of tile j, as the forward
 // overlaps p.v, needs the s, dp, dq and ds fragments live at once, and at
-// the 128 registers a thread that two blocks an SM allow ptxas then
-// spills and serialises the wgmmas (slower on the card; PERF.md).
-// Without the overlap dq fits in 126 registers, and the four warpgroups
-// of two blocks an SM hide each other's exponentials.
-__global__ void __launch_bounds__(kWgThreads, 2)
+// the 128 registers a thread that two blocks an SM allow at D 64 ptxas
+// then spills and serialises the wgmmas (slower on the card; PERF.md).
+// Without the overlap dq fits in 126 registers there, and the four
+// warpgroups of two blocks an SM hide each other's exponentials. At D 128
+// (bound ~39 us as at D 64: the same bytes and operations at half the
+// heads) the dq accumulator takes 64 registers, so one block an SM (Q and
+// dO 64 KB, 4 stages of K and V 128 KB); the overlap then fits under 255
+// registers but ran no faster on the card (PERF.md), so both head dims
+// share one loop.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, kDqMinBlocks<D>)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -675,9 +683,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int S, float scale, int causal) {
-  constexpr int D = kDqD;
   constexpr int kN = kDqBlockN;
   constexpr int kStages = kDqStages;
+  constexpr int kH = D / kHalfD;
   constexpr int kAhead = kStages - 2;  // tiles in flight beyond the two in use
   constexpr int kQBytes = kBlockM * D * 2;
   constexpr int kKVBytes = kN * D * 2;
@@ -758,9 +766,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     return sw128_desc(sV + (it % kStages) * kKVBytes);
   };
   constexpr uint64_t half_q = half_desc(kBlockM), half_kv = half_desc(kN);
-  float acc[1][32];
+  float acc[kH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[0][i] = 0.f;
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
   float sc[32], dp[32];
   uint32_t da[4][4];
 
@@ -1081,21 +1091,23 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int seq,
               float scale, int causal, void* stream) {
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_map(&tq, q, bh, seq, kDqD, kBlockM);
-  if (err == 0) err = make_map(&tk, k, bh, seq, kDqD, kDqBlockN);
-  if (err == 0) err = make_map(&tv, v, bh, seq, kDqD, kDqBlockN);
-  if (err == 0) err = make_map(&tdo, dout, bh, seq, kDqD, kBlockM);
+  int err = make_map(&tq, q, bh, seq, D, kBlockM);
+  if (err == 0) err = make_map(&tk, k, bh, seq, D, kDqBlockN);
+  if (err == 0) err = make_map(&tv, v, bh, seq, D, kDqBlockN);
+  if (err == 0) err = make_map(&tdo, dout, bh, seq, D, kBlockM);
   if (err != 0) return err;
-  constexpr int smem = dq_smem_bytes();
+  constexpr int smem = dq_smem_bytes<D>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
-  flash_bwd_dq_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, seq,
       scale, causal);
   return (int)cudaGetLastError();
@@ -1108,12 +1120,13 @@ const void* kernel_fn(int kernel, int d, int* smem) {
     switch (kernel) {
       case 0: *smem = fwd_smem_bytes<64>(); return (const void*)flash_fwd_kernel<64>;
       case 1: *smem = dkv_smem_bytes<64>(); return (const void*)flash_bwd_dkv_kernel<64>;
-      case 2: *smem = dq_smem_bytes(); return (const void*)flash_bwd_dq_kernel;
+      case 2: *smem = dq_smem_bytes<64>(); return (const void*)flash_bwd_dq_kernel<64>;
     }
   } else if (d == 128) {
     switch (kernel) {
       case 0: *smem = fwd_smem_bytes<128>(); return (const void*)flash_fwd_kernel<128>;
       case 1: *smem = dkv_smem_bytes<128>(); return (const void*)flash_bwd_dkv_kernel<128>;
+      case 2: *smem = dq_smem_bytes<128>(); return (const void*)flash_bwd_dq_kernel<128>;
     }
   }
   return nullptr;
@@ -1133,8 +1146,8 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int seq, float scale, int causal,
                       void* stream) {
-  return launch_dq(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal,
-                   stream);
+  return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal,
+                       stream);
 }
 
 int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
@@ -1152,6 +1165,15 @@ int flash_fwd_bf16w(const void* q, const void* k, const void* v, void* o,
                     int causal, void* stream) {
   if (d != 128) return -3;
   return launch_fwd<128>(q, k, v, o, lse, bh, seq, scale, causal, stream);
+}
+
+int flash_bwd_dq_bf16w(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dq, int bh, int seq, int d, float scale,
+                       int causal, void* stream) {
+  if (d != 128) return -3;
+  return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal,
+                        stream);
 }
 
 int flash_bwd_dkv_bf16w(const void* q, const void* k, const void* v,

@@ -1,67 +1,57 @@
 // Flash attention for Hopper (sm_90a) in f32 at head dims 16-128: forward,
-// dq and dk/dv; and the dq of bf16 at head dim 128.
+// dq and dk/dv, every product on the tensor cores as 3xTF32.
 //
 // They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
-// compute for inputs of their type:
-//   flash_fwd_simt_kernel   <- _fwd_kernel      (flash_attention.py:29)
+// compute for f32 inputs:
+//   flash_fwd_tc_kernel     <- _fwd_kernel      (flash_attention.py:29)
 //   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (flash_attention.py:160)
 //   flash_bwd_dkv_tc_kernel <- _bwd_dkv_kernel  (flash_attention.py:212)
-// Each is a template on the input type T and on the head dim D. All three
-// are built for T = float; flash_bwd_dq_tc_kernel also for __nv_bfloat16 at
-// D 128, the dq of the bf16 head dims above 64 (the forward and dk/dv of
-// those are the wgmma kernels of flash_attention.cu at D 128). Loads convert
-// T to f32 (exact); sums, softmax and accumulators are f32; p is rounded to
-// T before p.v and p^T.do, and ds before ds.k and ds^T.q, the Pallas
-// kernels' cast points (a no-op in f32); o, dq, dk, dv are written as T,
-// lse as f32. Masked scores are -1e30, as in the Pallas kernels.
+// Each is a template on the head dim D. Sums, softmax and accumulators are
+// f32, as are o, dq, dk, dv and lse (the Pallas kernels' casts of p and ds
+// to the input type are no-ops in f32). Masked scores are -1e30, as in the
+// Pallas kernels. The bf16 kernels are flash_attention.cu's.
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] of T, contiguous and
-// 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64 or 128 for
-// f32 and 128 for the bf16 dq; the wrapper pads any other D up with zero
-// columns. A ragged S is masked at the tile edges: rows past S load as
-// zeros, columns past S are masked, rows past S are not stored.
+// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] f32, contiguous and
+// 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64 or 128;
+// the wrapper pads any other D up with zero columns. A ragged S is masked
+// at the tile edges: rows past S load as zeros, columns past S are
+// masked, rows past S are not stored.
 //
 // What bounds them on an H100: at GPT-2-small's attention shape in f32
-// (BH 192, S 1024, D 64, causal) dq does 38.7 GFLOP and dk/dv 51.6 against
-// ~0.3 GB of traffic, so they are bound by operations. The CUDA cores' f32
-// peak is 67 TFLOP/s; the tensor cores take TF32 (10 mantissa bits) at 495.
-// One TF32 pass is not f32, but three are nearly: x = big + small with
-// big = tf32(x), rounded to nearest, and small = x - big, and a.b is taken
-// as big.big + big.small + small.big with f32 accumulation (the dropped
-// small.small term and small's truncation to TF32 are ~2^-21 of a
-// product). That is 495 / 3 = 165 TFLOP/s of f32-accurate products, 2.5x
-// the FFMA peak; through mma.sync, which reaches ~310 TFLOP/s of TF32 on
-// the card (scripts/mma_sync_rate.py), ~103.
+// (BH 192, S 1024, D 64, causal) the forward does 25.8 GFLOP, dq 38.7 and
+// dk/dv 51.6 against ~0.2-0.3 GB of traffic, so they are bound by
+// operations. The CUDA cores' f32 peak is 67 TFLOP/s; the tensor cores
+// take TF32 (10 mantissa bits) at 495. One TF32 pass is not f32, but three
+// are nearly: x = big + small with big = tf32(x), rounded to nearest, and
+// small = x - big, and a.b is taken as big.big + big.small + small.big with
+// f32 accumulation (the dropped small.small term and small's truncation to
+// TF32 are ~2^-21 of a product). That is 495 / 3 = 165 TFLOP/s of
+// f32-accurate products, 2.5x the FFMA peak; through mma.sync, which
+// reaches ~310 TFLOP/s of TF32 on the card (scripts/mma_sync_rate.py),
+// ~103.
 //
-// dq and dk/dv (the "tc" kernels): one 128-thread block a 64-row tile of
-// its own axis (Q rows for dq, KV rows for dk/dv), 4 warps of 16 rows each.
-// The other axis streams in tiles of 32 rows (16 at D 128) through a
-// 2-stage cp.async ring, so the next tile loads under this one's products.
-// Tiles sit in shared memory as raw T, rows unpadded and XOR-swizzled so
-// that all three fragment reads below are free of bank conflicts; each
-// fragment is split into big and small as it is read, in integer and FMA
-// operations. Every product is mma.sync.m16n8k8 tf32: scores (q.k^T,
-// do.v^T, or k.q^T, v.do^T in dk/dv) contract over D with the columns
-// d, d + 1 of a pair read at once; the softmax, masks, exp(s - lse) and
-// ds = p (dp - delta) scale happen in registers in the accumulator layout,
-// which is the A operand's layout of the accumulating product (ds.k;
-// p^T.do, ds^T.q) once its 8 columns are taken in the order 0, 2, 4, 6,
-// 1, 3, 5, 7, so p and ds never leave registers. The tensor cores truncate
-// as they accumulate, so big.big and the small terms accumulate apart and
-// each tile's accumulating product starts from 0 (see tile_scores). bf16
-// inputs, and p and ds rounded to bf16, are exact in TF32: the bf16
-// instance takes the big.big pass alone. Under causal masking whole
-// future tiles are skipped, by the block and by each warp.
-//
-// The forward stays on the CUDA cores (SIMT): one 256-thread block a 64-row
-// Q tile, K/V tiles staged through shared memory at row stride D + 1, a
-// 4 x 4 score block a thread, row max and sum by half-warp shuffles, p
-// through shared memory into o += p.v.
+// One design serves all three: one 128-thread block a 64-row tile of its
+// own axis (Q rows for the forward and dq, KV rows for dk/dv), 4 warps of
+// 16 rows each. The other axis streams in tiles of 32 rows (16 at D 128)
+// through a 2-stage cp.async ring, so the next tile loads under this one's
+// products. Tiles sit in shared memory as raw f32, rows unpadded and
+// XOR-swizzled so that all three fragment reads below are free of bank
+// conflicts; each fragment is split into big and small as it is read, in
+// integer and FMA operations. Every product is mma.sync.m16n8k8 tf32:
+// scores (q.k^T, do.v^T, or k.q^T, v.do^T in dk/dv) contract over D with
+// the columns d, d + 1 of a pair read at once; the softmax, masks,
+// exp(s - lse) and ds = p (dp - delta) scale happen in registers in the
+// accumulator layout, which is the A operand's layout of the accumulating
+// product (p.v; ds.k; p^T.do, ds^T.q) once its 8 columns are taken in the
+// order 0, 2, 4, 6, 1, 3, 5, 7, so p and ds never leave registers. The
+// tensor cores truncate as they accumulate, so big.big and the small terms
+// accumulate apart and each tile's accumulating product starts from 0 (see
+// tile_scores). Under causal masking whole future tiles are skipped, by
+// the block and by each warp.
 //
 // The host entry points return cudaGetLastError() right after the launch,
 // or -3 for a head dim the kernels are not built for.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,202 +59,26 @@
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kTile = 64;          // rows of a block's own tile
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x cast to T and back: the Pallas kernels' cast of p and ds
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// four consecutive f32 elements (the forward is built for f32 only)
-__device__ __forceinline__ void load4(float (&x)[4], const float* p) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
 
 // elements (c, c + 1) of a row, c even
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+
+// the max and sum over the 4 threads of a quad, which hold one row's
+// columns of an accumulator tile
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// scale * s, or NEG_INF where masked (causal future, or a column past S)
-__device__ __forceinline__ float masked(float s, float scale, int row,
-                                        int col, int seq, int causal) {
-  const float x = s * scale;
-  return (col >= seq || (causal && col > row)) ? kNegInf : x;
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
-
-// ------------------------------------------------------- forward (SIMT)
-
-constexpr int kFwdThreads = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int kLdS = kTile + 1;   // padded row of the 64 x 64 tile of p
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows [r0, r0 + 64) of one head's [seq, D] matrix of T into shared memory
-// as f32 at row stride D + 1; rows past seq read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int seq) {
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kFwdThreads) {
-    const int r = i / kVec, c = (i % kVec) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < seq) load4(x, src + (size_t)(r0 + r) * D + c);
-    float* d = dst + r * (D + 1) + c;
-    d[0] = x[0];
-    d[1] = x[1];
-    d[2] = x[2];
-    d[3] = x[3];
-  }
-}
-
-// s[i][j] = a[ty + 16 i] . b[tx + 16 j] over D, for two [64, D] tiles in
-// shared memory.
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[4][4], const float* a,
-                                       const float* b, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return (3 * kTile * (D + 1) + kTile * kLdS) * 4;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kFwdThreads)
-    flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ o,
-                          float* __restrict__ lse, int seq, float scale,
-                          int causal) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float fwd_smem[];
-  float* sq = fwd_smem;
-  float* sk = sq + kTile * LD;
-  float* sv = sk + kTile * LD;
-  float* sp = sv + kTile * LD;
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * kTile;
-  const size_t base = (size_t)blockIdx.y * seq * D;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<T, D>(sq, q + base, q0, seq);
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // the last tile's reads of sk, sv and sp are done
-    load_tile<T, D>(sk, k + base, k0, seq);
-    load_tile<T, D>(sv, v + base, k0, seq);
-    __syncthreads();
-    float s[4][4];
-    scores<D>(s, sq, sk, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked(s[i][j], scale, row, k0 + tx + 16 * j, seq, causal);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];  // l sums p in f32, p.v takes p cast to T
-        sp[(ty + 16 * i) * kLdS + tx + 16 * j] = round_to<T>(s[i][j]);
-      }
-      l[i] = l[i] * corr + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int n = 0; n < kTile; ++n) {  // acc += p . v
-      float vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = sv[n * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sp[(ty + 16 * i) * kLdS + n];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= seq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      o[base + (size_t)row * D + tx + 16 * c] = from_f32<T>(acc[i][c] / lc);
-    if (tx == 0) lse[(size_t)blockIdx.y * seq + row] = m[i] + logf(lc);
-  }
-}
-
-// ------------------------------------- dq and dk/dv on the tensor cores
 
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -278,19 +92,15 @@ constexpr int kStreamRows = D >= 128 ? 16 : 32;
 template <int D>
 constexpr int kMinBlocks = D >= 128 ? 2 : 3;
 
-// Where element (r, c) of a [rows, D] tile of T sits in shared memory, in
+// Where element (r, c) of a [rows, D] f32 tile sits in shared memory, in
 // 4-byte words. Rows are unpadded; each row's words are XOR-swizzled by
 // its row so that, with g = lane / 4 and t = lane % 4, the three reads of
 // the kernels hit distinct banks: the pair (c, c + 1) at row g, column
 // 8 kd + 2 t (an A or a score B fragment; 8-byte reads, so per half-warp),
 // and single elements at rows 8 j + 2 t (+ 1), column 8 n + g (the B
 // fragment of an accumulating product).
-template <typename T, int D>
-struct Layout;
-
 template <int D>
-struct Layout<float, D> {
-  static constexpr int kRowWords = D;
+struct Layout {
   // bits 3 and 4 of the word: (r1, r0 ^ r2) takes distinct values on rows
   // 0-3, 4-7, {0, 2, 4, 6} and {1, 3, 5, 7}; a 16-float row has bit 3 only
   static __device__ __forceinline__ int swz(int r) {
@@ -312,30 +122,6 @@ struct Layout<float, D> {
   static __device__ __forceinline__ float one(const uint32_t* t, int r,
                                               int c) {
     return __uint_as_float(t[at(r, c)]);
-  }
-};
-
-template <int D>
-struct Layout<bf16, D> {
-  static_assert(D >= 64, "the bf16 swizzle takes rows of 32 words or more");
-  static constexpr int kRowWords = D / 2;
-  // word w of row r; a word holds the pair (2 w, 2 w + 1)
-  static __device__ __forceinline__ int word(int r, int w) {
-    return r * kRowWords + (w ^ ((r & 7) << 2));
-  }
-  static __device__ __forceinline__ int chunk(int r, int ch) {
-    return word(r, 4 * ch);
-  }
-  static __device__ __forceinline__ float2 pair(const uint32_t* t, int r,
-                                                int c) {
-    const uint32_t x = t[word(r, c >> 1)];
-    return make_float2(__uint_as_float(x << 16),
-                       __uint_as_float(x & 0xffff0000u));
-  }
-  static __device__ __forceinline__ float one(const uint32_t* t, int r,
-                                              int c) {
-    const uint32_t x = t[word(r, c >> 1)];
-    return __uint_as_float((c & 1) ? (x & 0xffff0000u) : (x << 16));
   }
 };
 
@@ -362,18 +148,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [r0, r0 + kRows) of one head's [seq, D] matrix of T into a swizzled
+// Rows [r0, r0 + kRows) of one head's [seq, D] matrix into a swizzled
 // tile, 16 bytes a copy; rows past seq are zero-filled.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_tile_async(uint32_t* dst, const T* src,
-                                                int r0, int seq) {
-  using L = Layout<T, D>;
-  constexpr int kChunks = L::kRowWords / 4, kPer = 16 / sizeof(T);
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile_async(uint32_t* dst,
+                                                const float* src, int r0,
+                                                int seq) {
+  using L = Layout<D>;
+  constexpr int kChunks = D / 4;
   for (int i = threadIdx.x; i < kRows * kChunks; i += kTcThreads) {
     const int r = i / kChunks, ch = i % kChunks;
     const bool valid = r0 + r < seq;
     cp_async16(dst + L::chunk(r, ch),
-               src + (size_t)(valid ? r0 + r : 0) * D + ch * kPer, valid);
+               src + (size_t)(valid ? r0 + r : 0) * D + ch * 4, valid);
   }
 }
 
@@ -387,11 +174,10 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
 }
 
 // An operand fragment in TF32: big = tf32(x) (round to nearest, ties away
-// from zero) and small = x - big (exact in f32) when kSplit; the tensor
-// cores read the top 10 mantissa bits of small, so its rounding is their
-// truncation, ~2^-21 of x (one integer round of small cost 8-9% of dq and
-// dk/dv on the card; PERF.md). Otherwise x is exact in TF32 already (a bf16
-// value) and big is x.
+// from zero) and small = x - big (exact in f32); the tensor cores read the
+// top 10 mantissa bits of small, so its rounding is their truncation,
+// ~2^-21 of x (one integer round of small cost 8-9% of dq and dk/dv on
+// the card; PERF.md).
 template <int N>
 struct Tf32 {
   uint32_t big[N], small[N];
@@ -404,17 +190,13 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-template <bool kSplit, int N>
+template <int N>
 __device__ __forceinline__ Tf32<N> split(const float (&x)[N]) {
   Tf32<N> f;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    if constexpr (kSplit) {
-      f.big[i] = tf32_rna(x[i]);
-      f.small[i] = __float_as_uint(x[i] - __uint_as_float(f.big[i]));
-    } else {
-      f.big[i] = __float_as_uint(x[i]);
-    }
+    f.big[i] = tf32_rna(x[i]);
+    f.small[i] = __float_as_uint(x[i] - __uint_as_float(f.big[i]));
   }
   return f;
 }
@@ -434,37 +216,36 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4],
 
 // The A fragment of rows (r, r + 8) of a tile at k-step columns (c, c + 1):
 // k index t is column c, t + 4 is c + 1 (c = 8 kd + 2 t).
-template <typename L, bool kSplit>
+template <typename L>
 __device__ __forceinline__ Tf32<4> a_frag(const uint32_t* tile, int r, int c) {
   const float2 lo = L::pair(tile, r, c), hi = L::pair(tile, r + 8, c);
   const float x[4] = {lo.x, hi.x, lo.y, hi.y};
-  return split<kSplit>(x);
+  return split(x);
 }
 
 // The B fragment of a score product (B = tile^T): column n = tile row r,
 // k indices t, t + 4 = tile columns c, c + 1.
-template <typename L, bool kSplit>
+template <typename L>
 __device__ __forceinline__ Tf32<2> b_frag(const uint32_t* tile, int r, int c) {
   const float2 p = L::pair(tile, r, c);
   const float x[2] = {p.x, p.y};
-  return split<kSplit>(x);
+  return split(x);
 }
 
 // The B fragment of an accumulating product (B = tile): k indices t, t + 4
 // = tile rows r, r + 1 (r = 8 j + 2 t), column n = tile column c.
-template <typename L, bool kSplit>
+template <typename L>
 __device__ __forceinline__ Tf32<2> bt_frag(const uint32_t* tile, int r,
                                            int c) {
   const float x[2] = {L::one(tile, r, c), L::one(tile, r + 1, c)};
-  return split<kSplit>(x);
+  return split(x);
 }
 
 // The A fragment of an accumulating product from an accumulator tile x of
 // 16 x 8: its columns 2t and 2t + 1 are the k indices t and t + 4.
-template <bool kSplit>
 __device__ __forceinline__ Tf32<4> acc_frag(const float (&x)[4]) {
   const float a[4] = {x[0], x[2], x[1], x[3]};
-  return split<kSplit>(a);
+  return split(a);
 }
 
 // The tensor cores add into their f32 accumulator with truncation, up to
@@ -481,10 +262,11 @@ __device__ __forceinline__ Tf32<4> acc_frag(const float (&x)[4]) {
 // p by a relative ~1e-6 only.
 
 // s[16 x BN] = a[16 rows from `row`] . b[BN rows]^T, contracted over D
-template <typename L, bool kSplit, int D, int NT, bool kRestart>
+template <int D, int NT, bool kRestart>
 __device__ __forceinline__ void tile_scores(float (&s)[NT][4],
                                             const uint32_t* a,
                                             const uint32_t* b, int row) {
+  using L = Layout<D>;
   const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
   float small[NT][4], part[NT][4];
 #pragma unroll
@@ -494,11 +276,11 @@ __device__ __forceinline__ void tile_scores(float (&s)[NT][4],
 #pragma unroll
   for (int kd = 0; kd < D / 8; ++kd) {
     const int col = 8 * kd + 2 * t4;
-    const Tf32<4> fa = a_frag<L, kSplit>(a, row + g, col);
+    const Tf32<4> fa = a_frag<L>(a, row + g, col);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const Tf32<2> fb = b_frag<L, kSplit>(b, 8 * n + g, col);
-      if constexpr (kSplit && kRestart) {
+      const Tf32<2> fb = b_frag<L>(b, 8 * n + g, col);
+      if constexpr (kRestart) {
         mma_tf32(part[n], fa.big, fb.big);
         if (kd & 1) {
 #pragma unroll
@@ -510,68 +292,188 @@ __device__ __forceinline__ void tile_scores(float (&s)[NT][4],
       } else {
         mma_tf32(s[n], fa.big, fb.big);
       }
-      if constexpr (kSplit) {
-        mma_tf32(small[n], fa.big, fb.small);
-        mma_tf32(small[n], fa.small, fb.big);
-      }
+      mma_tf32(small[n], fa.big, fb.small);
+      mma_tf32(small[n], fa.small, fb.big);
     }
   }
-  if constexpr (kSplit) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] += part[n][e] + small[n][e];
-  }
+    for (int e = 0; e < 4; ++e) s[n][e] += part[n][e] + small[n][e];
 }
 
 // acc[16 x D] += x[16 x BN] . tile[BN x D], x in the accumulator layout:
 // each tile's product starts from 0 and is added to acc in f32, rounded
-template <typename L, bool kSplit, int D, int NT>
+template <int D, int NT>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
                                            const float (&x)[NT][4],
                                            const uint32_t* tile) {
+  using L = Layout<D>;
   const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
   Tf32<4> a[NT];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) a[j] = acc_frag<kSplit>(x[j]);
+  for (int j = 0; j < NT; ++j) a[j] = acc_frag(x[j]);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const Tf32<2> fb = bt_frag<L, kSplit>(tile, 8 * j + 2 * t4, 8 * n + g);
+      const Tf32<2> fb = bt_frag<L>(tile, 8 * j + 2 * t4, 8 * n + g);
       mma_tf32(big, a[j].big, fb.big);
-      if constexpr (kSplit) {
-        mma_tf32(small, a[j].big, fb.small);
-        mma_tf32(small, a[j].small, fb.big);
-      }
+      mma_tf32(small, a[j].big, fb.small);
+      mma_tf32(small, a[j].small, fb.big);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += big[e] + small[e];
   }
 }
 
-template <typename T, int D>
-constexpr int dq_tc_smem_bytes() {
-  return (2 * kTile + 2 * 2 * kStreamRows<D>) * Layout<T, D>::kRowWords * 4;
+// ---------------------------------------------------------------- forward
+
+template <int D>
+constexpr int fwd_tc_smem_bytes() {
+  return (kTile + 2 * 2 * kStreamRows<D>) * D * 4;
 }
 
-template <typename T, int D>
+// Replaces _fwd_kernel (flash_attention.py:29). Bound at the main shape:
+// 0.156 ms by 3xTF32 operations (two products per tile pair). One block
+// a 64-row Q tile, which stays in shared memory; K and V tiles stream
+// through the ring. Each warp keeps the online softmax of its 16 rows in
+// registers, in the accumulator layout: a row's columns of one n-tile sit
+// on the 4 threads of a quad, so its max over the tile is two shuffles
+// after the thread's own max over all n-tiles, and l is the thread's share
+// of the row sum until the end. Per KV tile: s = q.k^T (3xTF32), the mask
+// where the tile crosses the diagonal or S, m and the rescale factor corr,
+// p = exp2(s scale log2(e) - m scale log2(e)), o *= corr, then o += p.v
+// (3xTF32, p as the A operand straight from the registers). At the end
+// o = acc / max(l, 1e-30) and lse = m scale + log(l), as _fwd_kernel
+// writes them. Q is split on every tile, as in dq: splitting it once into
+// registers (64 more at D 64, so 2 blocks an SM, not 3) read ~1% faster
+// on the card, inside the spread between runs (PERF.md).
+template <int D>
 __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
-    flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v,
-                           const T* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           T* __restrict__ dq, int seq, float scale,
-                           int causal) {
-  using L = Layout<T, D>;
-  constexpr bool kSplit = std::is_same<T, float>::value;
-  constexpr int BN = kStreamRows<D>, NT = BN / 8, W = L::kRowWords;
+    flash_fwd_tc_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int seq, float scale,
+                        int causal) {
+  constexpr int BN = kStreamRows<D>, NT = BN / 8;
   extern __shared__ __align__(16) uint32_t tc_smem[];
   uint32_t* sq = tc_smem;
-  uint32_t* sdo = sq + kTile * W;
-  uint32_t* ring = sdo + kTile * W;  // [stage][k, v][BN rows]
+  uint32_t* ring = sq + kTile * D;  // [stage][k, v][BN rows]
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * kTile;
+  const size_t base = (size_t)blockIdx.y * seq * D;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+
+  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  load_tile_async<D, kTile>(sq, q + base, q0, seq);
+  load_tile_async<D, BN>(ring, k + base, 0, seq);
+  load_tile_async<D, BN>(ring + BN * D, v + base, 0, seq);
+  cp_async_commit();
+
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    if (j + 1 < n_tiles) {  // the next tile loads under this one
+      uint32_t* next = ring + ((j + 1) & 1) * 2 * BN * D;
+      load_tile_async<D, BN>(next, k + base, k0 + BN, seq);
+      load_tile_async<D, BN>(next + BN * D, v + base, k0 + BN, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t* sk = ring + (j & 1) * 2 * BN * D;
+    const uint32_t* sv = sk + BN * D;
+    // under causal masking a tile wholly after the warp's rows adds nothing
+    if (!causal || k0 <= q0 + wr + 15) {
+      float s[NT][4];
+      tile_scores<D, NT, false>(s, sq, sk, wr);
+      // only a tile past S or across the diagonal has masked entries
+      const bool edge = k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, row = q0 + wr + g + 8 * h,
+                    col = k0 + 8 * n + 2 * t4 + (e & 1);
+          if (edge && (col >= seq || (causal && col > row)))
+            s[n][e] = kNegInf;
+          mx[h] = fmaxf(mx[h], s[n][e]);
+        }
+      float corr[2], ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = quad_max(mx[h]);
+        corr[h] = exp2f((m[h] - mx[h]) * scale2);
+        m[h] = mx[h];
+        ms[h] = mx[h] * scale2;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(fmaf(s[n][e], scale2, -ms[e >> 1]));  // p
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+      accumulate<D, NT>(acc, s, sv);  // o += p . v
+    }
+    __syncthreads();  // this stage is read: the next load may refill it
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    const float lc = fmaxf(quad_sum(l[h]), 1e-30f);
+    if (row >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(o + base + (size_t)row * D + 8 * n + 2 * t4, acc[n][2 * h] / lc,
+             acc[n][2 * h + 1] / lc);
+    if (t4 == 0) lse[(size_t)blockIdx.y * seq + row] = m[h] * scale + logf(lc);
+  }
+}
+
+// --------------------------------------------------------- dq and dk/dv
+
+template <int D>
+constexpr int dq_tc_smem_bytes() {
+  return (2 * kTile + 2 * 2 * kStreamRows<D>) * D * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
+    flash_bwd_dq_tc_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int seq, float scale,
+                           int causal) {
+  constexpr int BN = kStreamRows<D>, NT = BN / 8;
+  extern __shared__ __align__(16) uint32_t tc_smem[];
+  uint32_t* sq = tc_smem;
+  uint32_t* sdo = sq + kTile * D;
+  uint32_t* ring = sdo + kTile * D;  // [stage][k, v][BN rows]
   const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = tile * kTile;
   const size_t base = (size_t)blockIdx.y * seq * D;
@@ -581,10 +483,10 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
 
   const int kv_end = causal ? min(seq, q0 + kTile) : seq;
   const int n_tiles = (kv_end + BN - 1) / BN;
-  load_tile_async<T, D, kTile>(sq, q + base, q0, seq);
-  load_tile_async<T, D, kTile>(sdo, dout + base, q0, seq);
-  load_tile_async<T, D, BN>(ring, k + base, 0, seq);
-  load_tile_async<T, D, BN>(ring + BN * W, v + base, 0, seq);
+  load_tile_async<D, kTile>(sq, q + base, q0, seq);
+  load_tile_async<D, kTile>(sdo, dout + base, q0, seq);
+  load_tile_async<D, BN>(ring, k + base, 0, seq);
+  load_tile_async<D, BN>(ring + BN * D, v + base, 0, seq);
   cp_async_commit();
 
   // p = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
@@ -604,22 +506,22 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BN;
     if (j + 1 < n_tiles) {  // the next tile loads under this one
-      uint32_t* next = ring + ((j + 1) & 1) * 2 * BN * W;
-      load_tile_async<T, D, BN>(next, k + base, k0 + BN, seq);
-      load_tile_async<T, D, BN>(next + BN * W, v + base, k0 + BN, seq);
+      uint32_t* next = ring + ((j + 1) & 1) * 2 * BN * D;
+      load_tile_async<D, BN>(next, k + base, k0 + BN, seq);
+      load_tile_async<D, BN>(next + BN * D, v + base, k0 + BN, seq);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const uint32_t* sk = ring + (j & 1) * 2 * BN * W;
-    const uint32_t* sv = sk + BN * W;
+    const uint32_t* sk = ring + (j & 1) * 2 * BN * D;
+    const uint32_t* sv = sk + BN * D;
     // under causal masking a tile wholly after the warp's rows adds nothing
     if (!causal || k0 <= q0 + wr + 15) {
       float s[NT][4], dp[NT][4];
-      tile_scores<L, kSplit, D, NT, false>(s, sq, sk, wr);
-      tile_scores<L, kSplit, D, NT, true>(dp, sdo, sv, wr);
+      tile_scores<D, NT, false>(s, sq, sk, wr);
+      tile_scores<D, NT, true>(dp, sdo, sv, wr);
       // only a tile past S or across the diagonal has masked entries
       const bool edge = k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr);
 #pragma unroll
@@ -630,9 +532,9 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
                     col = k0 + 8 * n + 2 * t4 + (e & 1);
           float p = exp2f(fmaf(s[n][e], scale2, -lse2[h]));
           if (edge && (col >= seq || (causal && col > row))) p = 0.f;
-          s[n][e] = round_to<T>(p * (dp[n][e] - delta_r[h]) * scale);  // ds
+          s[n][e] = p * (dp[n][e] - delta_r[h]) * scale;  // ds
         }
-      accumulate<L, kSplit, D, NT>(acc, s, sk);  // dq += ds . k
+      accumulate<D, NT>(acc, s, sk);  // dq += ds . k
     }
     __syncthreads();  // this stage is read: the next load may refill it
   }
@@ -647,29 +549,28 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
   }
 }
 
-template <typename T, int D>
+template <int D>
 constexpr int dkv_tc_smem_bytes() {
-  return (2 * kTile + 2 * 2 * kStreamRows<D>) * Layout<T, D>::kRowWords * 4 +
+  return (2 * kTile + 2 * 2 * kStreamRows<D>) * D * 4 +
          2 * 2 * kStreamRows<D> * 4;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
-    flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dout,
+    flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            T* __restrict__ dk, T* __restrict__ dv, int seq,
-                            float scale, int causal) {
-  using L = Layout<T, D>;
-  constexpr bool kSplit = std::is_same<T, float>::value;
-  constexpr int BN = kStreamRows<D>, NT = BN / 8, W = L::kRowWords;
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int seq, float scale, int causal) {
+  constexpr int BN = kStreamRows<D>, NT = BN / 8;
   extern __shared__ __align__(16) uint32_t tc_smem[];
   uint32_t* sk = tc_smem;
-  uint32_t* sv = sk + kTile * W;
-  uint32_t* ring = sv + kTile * W;  // [stage][q, do][BN rows]
-  float* rows = reinterpret_cast<float*>(ring + 2 * 2 * BN * W);
+  uint32_t* sv = sk + kTile * D;
+  uint32_t* ring = sv + kTile * D;  // [stage][q, do][BN rows]
+  float* rows = reinterpret_cast<float*>(ring + 2 * 2 * BN * D);
   // rows: [stage][lse, delta][BN]
   const int k0 = blockIdx.x * kTile;  // the longest column runs come first
   const size_t base = (size_t)blockIdx.y * seq * D;
@@ -681,10 +582,10 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
   // Q tiles wholly before this KV tile see none of it under causal masking
   const int q_begin = causal ? k0 : 0;
   const int n_tiles = (seq - q_begin + BN - 1) / BN;
-  load_tile_async<T, D, kTile>(sk, k + base, k0, seq);
-  load_tile_async<T, D, kTile>(sv, v + base, k0, seq);
-  load_tile_async<T, D, BN>(ring, q + base, q_begin, seq);
-  load_tile_async<T, D, BN>(ring + BN * W, dout + base, q_begin, seq);
+  load_tile_async<D, kTile>(sk, k + base, k0, seq);
+  load_tile_async<D, kTile>(sv, v + base, k0, seq);
+  load_tile_async<D, BN>(ring, q + base, q_begin, seq);
+  load_tile_async<D, BN>(ring + BN * D, dout + base, q_begin, seq);
   load_rows_async(rows, lse + rbase, q_begin, BN, seq);
   load_rows_async(rows + BN, delta + rbase, q_begin, BN, seq);
   cp_async_commit();
@@ -699,9 +600,9 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
     const int q0 = q_begin + j * BN;
     if (j + 1 < n_tiles) {  // the next tile loads under this one
       const int nxt = (j + 1) & 1;
-      uint32_t* next = ring + nxt * 2 * BN * W;
-      load_tile_async<T, D, BN>(next, q + base, q0 + BN, seq);
-      load_tile_async<T, D, BN>(next + BN * W, dout + base, q0 + BN, seq);
+      uint32_t* next = ring + nxt * 2 * BN * D;
+      load_tile_async<D, BN>(next, q + base, q0 + BN, seq);
+      load_tile_async<D, BN>(next + BN * D, dout + base, q0 + BN, seq);
       load_rows_async(rows + nxt * 2 * BN, lse + rbase, q0 + BN, BN, seq);
       load_rows_async(rows + nxt * 2 * BN + BN, delta + rbase, q0 + BN, BN,
                       seq);
@@ -711,8 +612,8 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const uint32_t* sq = ring + (j & 1) * 2 * BN * W;
-    const uint32_t* sdo = sq + BN * W;
+    const uint32_t* sq = ring + (j & 1) * 2 * BN * D;
+    const uint32_t* sdo = sq + BN * D;
     const float* slse = rows + (j & 1) * 2 * BN;
     const float* sdelta = slse + BN;
     // under causal masking a Q tile wholly before the warp's rows adds
@@ -720,8 +621,8 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
     if (!causal || q0 + BN - 1 >= k0 + wr) {
       // transposed scores: rows are the warp's KV rows, columns Q rows
       float p[NT][4], ds[NT][4];
-      tile_scores<L, kSplit, D, NT, false>(p, sk, sq, wr);
-      tile_scores<L, kSplit, D, NT, true>(ds, sv, sdo, wr);
+      tile_scores<D, NT, false>(p, sk, sq, wr);
+      tile_scores<D, NT, true>(ds, sv, sdo, wr);
       // only a tile past S or across the diagonal has masked entries (KV
       // rows past S are never stored, so they need no mask)
       const bool edge = q0 + BN > seq || (causal && q0 < k0 + wr + 15);
@@ -733,11 +634,11 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
                     col = k0 + wr + g + 8 * (e >> 1);
           float pe = exp2f(fmaf(p[n][e], scale2, -slse[a] * kLog2e));
           if (edge && (row >= seq || (causal && col > row))) pe = 0.f;
-          ds[n][e] = round_to<T>(pe * (ds[n][e] - sdelta[a]) * scale);
-          p[n][e] = round_to<T>(pe);
+          ds[n][e] = pe * (ds[n][e] - sdelta[a]) * scale;
+          p[n][e] = pe;
         }
-      accumulate<L, kSplit, D, NT>(dv_acc, p, sdo);  // dv += p^T . do
-      accumulate<L, kSplit, D, NT>(dk_acc, ds, sq);  // dk += ds^T . q
+      accumulate<D, NT>(dv_acc, p, sdo);  // dv += p^T . do
+      accumulate<D, NT>(dk_acc, ds, sq);  // dk += ds^T . q
     }
     __syncthreads();  // this stage is read: the next load may refill it
   }
@@ -756,53 +657,41 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
 
 // -------------------------------------------------------------- launching
 
-// f(std::integral_constant<int, D>) for a head dim the kernels of T are
-// built for: 16, 32, 64, 128 for f32, 128 for bf16 (dq only); -3 for
-// another.
-template <typename T, typename F>
+// f(std::integral_constant<int, D>) for a head dim the kernels are built
+// for (16, 32, 64, 128); -3 for another.
+template <typename F>
 int with_head_dim(int d, F f) {
-  if constexpr (std::is_same<T, float>::value) {
-    switch (d) {
-      case 16: return f(std::integral_constant<int, 16>());
-      case 32: return f(std::integral_constant<int, 32>());
-      case 64: return f(std::integral_constant<int, 64>());
-      case 128: return f(std::integral_constant<int, 128>());
-      default: return -3;
-    }
-  } else {
-    return d == 128 ? f(std::integral_constant<int, 128>()) : -3;
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return -3;
   }
 }
 
-// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) of T at
-// head dim D, its threads a block and its dynamic shared memory; nullptr
-// for the bf16 forward and dk/dv, which are flash_attention.cu's.
-template <typename T, int D>
-const void* kernel_fn(int kernel, int* threads, int* smem) {
-  if constexpr (std::is_same<T, float>::value) {
-    if (kernel == 0) {
-      *threads = kFwdThreads;
-      *smem = fwd_smem_bytes<D>();
-      return (const void*)flash_fwd_simt_kernel<T, D>;
-    }
-    if (kernel == 1) {
-      *threads = kTcThreads;
-      *smem = dkv_tc_smem_bytes<T, D>();
-      return (const void*)flash_bwd_dkv_tc_kernel<T, D>;
-    }
-  }
-  if (kernel == 2) {
-    *threads = kTcThreads;
-    *smem = dq_tc_smem_bytes<T, D>();
-    return (const void*)flash_bwd_dq_tc_kernel<T, D>;
+// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) at head
+// dim D and its dynamic shared memory; nullptr for another kernel id.
+template <int D>
+const void* kernel_fn(int kernel, int* smem) {
+  switch (kernel) {
+    case 0:
+      *smem = fwd_tc_smem_bytes<D>();
+      return (const void*)flash_fwd_tc_kernel<D>;
+    case 1:
+      *smem = dkv_tc_smem_bytes<D>();
+      return (const void*)flash_bwd_dkv_tc_kernel<D>;
+    case 2:
+      *smem = dq_tc_smem_bytes<D>();
+      return (const void*)flash_bwd_dq_tc_kernel<D>;
   }
   return nullptr;
 }
 
 // Raises the kernel's dynamic shared-memory limit to what it launches with.
-template <typename T, int D>
-cudaError_t prepare(int kernel, int* threads, int* smem) {
-  const void* fn = kernel_fn<T, D>(kernel, threads, smem);
+template <int D>
+cudaError_t prepare(int kernel, int* smem) {
+  const void* fn = kernel_fn<D>(kernel, smem);
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               *smem);
 }
@@ -810,35 +699,33 @@ cudaError_t prepare(int kernel, int* threads, int* smem) {
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int seq, int d, float scale, int causal,
                void* stream) {
-  typedef float T;
-  return with_head_dim<T>(d, [&](auto dim) {
+  return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    int threads, smem;
-    const cudaError_t e = prepare<T, D>(0, &threads, &smem);
+    int smem;
+    const cudaError_t e = prepare<D>(0, &smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    flash_fwd_simt_kernel<T, D><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, seq, scale,
-        causal);
+    flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        (float*)lse, seq, scale, causal);
     return (int)cudaGetLastError();
   });
 }
 
-template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int seq,
               int d, float scale, int causal, void* stream) {
-  return with_head_dim<T>(d, [&](auto dim) {
+  return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    int threads, smem;
-    const cudaError_t e = prepare<T, D>(2, &threads, &smem);
+    int smem;
+    const cudaError_t e = prepare<D>(2, &smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    flash_bwd_dq_tc_kernel<T, D>
-        <<<grid, threads, smem, (cudaStream_t)stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-            (const float*)lse, (const float*)delta, (T*)dq, seq, scale,
-            causal);
+    flash_bwd_dq_tc_kernel<D>
+        <<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
+            (const float*)q, (const float*)k, (const float*)v,
+            (const float*)dout, (const float*)lse, (const float*)delta,
+            (float*)dq, seq, scale, causal);
     return (int)cudaGetLastError();
   });
 }
@@ -846,42 +733,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int seq, int d, float scale, int causal, void* stream) {
-  typedef float T;
-  return with_head_dim<T>(d, [&](auto dim) {
+  return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    int threads, smem;
-    const cudaError_t e = prepare<T, D>(1, &threads, &smem);
+    int smem;
+    const cudaError_t e = prepare<D>(1, &smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    flash_bwd_dkv_tc_kernel<T, D>
-        <<<grid, threads, smem, (cudaStream_t)stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-            (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, seq,
-            scale, causal);
+    flash_bwd_dkv_tc_kernel<D>
+        <<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
+            (const float*)q, (const float*)k, (const float*)v,
+            (const float*)dout, (const float*)lse, (const float*)delta,
+            (float*)dk, (float*)dv, seq, scale, causal);
     return (int)cudaGetLastError();
-  });
-}
-
-// out[0] registers a thread, out[1] dynamic shared memory, out[2] blocks
-// one SM holds at once, out[3] local memory a thread in bytes (spills)
-template <typename T>
-int attributes(int kernel, int d, int* out) {
-  return with_head_dim<T>(d, [&](auto dim) {
-    constexpr int D = decltype(dim)::value;
-    int threads, smem;
-    const void* fn = kernel_fn<T, D>(kernel, &threads, &smem);
-    if (fn == nullptr) return -3;
-    cudaFuncAttributes attr;
-    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-    if (e != cudaSuccess) return (int)e;
-    out[0] = attr.numRegs;
-    out[1] = smem;
-    out[3] = (int)attr.localSizeBytes;
-    e = prepare<T, D>(kernel, &threads, &smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads,
-                                                        smem);
-    return (int)e;
   });
 }
 
@@ -900,8 +763,8 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int bh, int seq, int d, float scale,
                      int causal, void* stream) {
-  return launch_dq<float>(q, k, v, dout, lse, delta, dq, bh, seq, d, scale,
-                          causal, stream);
+  return launch_dq(q, k, v, dout, lse, delta, dq, bh, seq, d, scale, causal,
+                   stream);
 }
 
 int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -914,25 +777,26 @@ int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
 
 // Of the forward (0), dk/dv (1) or dq (2) at head dim d: out[0] registers a
 // thread, out[1] its dynamic shared memory, out[2] the blocks that one SM
-// holds at once with it, out[3] its local memory a thread in bytes.
-// Returns a cudaError_t, or -3 for another kernel or head dim.
+// holds at once with it, out[3] its local memory a thread in bytes
+// (spills). Returns a cudaError_t, or -3 for another kernel or head dim.
 int flash_f32_kernel_attributes(int kernel, int d, int* out) {
-  return attributes<float>(kernel, d, out);
-}
-
-// the dq of bf16 at head dim d = 128 (the wider bf16 head dims, padded to
-// it); its forward and dk/dv are flash_attention.cu's
-int flash_bwd_dq_bf16w(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, int bh, int seq, int d, float scale,
-                       int causal, void* stream) {
-  return launch_dq<bf16>(q, k, v, dout, lse, delta, dq, bh, seq, d, scale,
-                         causal, stream);
-}
-
-// as flash_f32_kernel_attributes, for the bf16 dq (kernel 2) at d = 128
-int flash_bf16w_kernel_attributes(int kernel, int d, int* out) {
-  return attributes<bf16>(kernel, d, out);
+  return with_head_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    int smem;
+    const void* fn = kernel_fn<D>(kernel, &smem);
+    if (fn == nullptr) return -3;
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = attr.numRegs;
+    out[1] = smem;
+    out[3] = (int)attr.localSizeBytes;
+    e = prepare<D>(kernel, &smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn,
+                                                        kTcThreads, smem);
+    return (int)e;
+  });
 }
 
 }  // extern "C"

@@ -4,13 +4,13 @@ Port of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
 there become CUDA kernels, in three families (``kernel_plan``): "bf16"
 for bf16 head dims up to 64 (padded to 64), the wgmma kernels of
 ``csrc/flash_attention.cu`` at head dim 64; "bf16_wide" for bf16 head
-dims 65 to 128 (padded to 128), the forward and dk/dv of the same file at
-head dim 128 and the dq of ``csrc/flash_attention_f32.cu``; "f32", the
-kernels of ``csrc/flash_attention_f32.cu`` (head dims 16, 32, 64 and 128;
-others padded up to the next). Each family has a forward with online
-softmax that writes ``o`` and the row logsumexp, a dq kernel and a dk/dv
-kernel, each recomputing the probabilities from the saved logsumexp so
-that no S x S tensor reaches device memory.
+dims 65 to 128 (padded to 128), the same file's kernels at head dim 128;
+"f32", the 3xTF32 tensor-core kernels of ``csrc/flash_attention_f32.cu``
+(head dims 16, 32, 64 and 128; others padded up to the next). Each
+family has a forward with online softmax that writes ``o`` and the row
+logsumexp, a dq kernel and a dk/dv kernel, each recomputing the
+probabilities from the saved logsumexp so that no S x S tensor reaches
+device memory.
 
 Each kernel has a wrapper and a plain PyTorch version of the same
 function with the same cast points (``flash_fwd_plain``,
@@ -34,13 +34,12 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# What each kernel of csrc/flash_attention.cu tiles by, in rows of the
-# [BH, S, D] tensors: the forward and dq take 128 Q rows per block and
-# stream K/V in 64-row tiles; dk/dv takes 128 KV rows per block and
-# streams Q/dO in 64-row tiles. The kernels of
-# csrc/flash_attention_f32.cu (f32, and the bf16_wide dq) take 64 rows of
-# their own axis a block and stream the other in tiles of 64 rows (the
-# forward) or 32 (dq, dk/dv; 16 at head dim 128).
+# What each kernel of csrc/flash_attention.cu (bf16, bf16_wide) tiles by,
+# in rows of the [BH, S, D] tensors: the forward and dq take 128 Q rows
+# per block and stream K/V in 64-row tiles; dk/dv takes 128 KV rows per
+# block and streams Q/dO in 64-row tiles. The kernels of
+# csrc/flash_attention_f32.cu (f32) take 64 rows of their own axis a
+# block and stream the other in tiles of 32 rows (16 at head dim 128).
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
@@ -129,14 +128,14 @@ _ENTRIES = {
     "flash_attention": {
         "flash_fwd_bf16": _FWD, "flash_bwd_dq_bf16": _DQ,
         "flash_bwd_dkv_bf16": _DKV, "flash_fwd_bf16w": _FWD_D,
-        "flash_bwd_dkv_bf16w": _DKV_D, "flash_dynamic_smem_bytes": [_I, _I],
+        "flash_bwd_dq_bf16w": _DQ_D, "flash_bwd_dkv_bf16w": _DKV_D,
+        "flash_dynamic_smem_bytes": [_I, _I],
         "flash_kernel_attributes": _ATTRIBUTES,
     },
     "flash_attention_f32": {
         "flash_fwd_f32": _FWD_D, "flash_bwd_dq_f32": _DQ_D,
-        "flash_bwd_dkv_f32": _DKV_D, "flash_bwd_dq_bf16w": _DQ_D,
+        "flash_bwd_dkv_f32": _DKV_D,
         "flash_f32_kernel_attributes": _ATTRIBUTES,
-        "flash_bf16w_kernel_attributes": _ATTRIBUTES,
     },
 }
 _LIBRARY_OF = {entry: lib for lib, entries in _ENTRIES.items()
@@ -216,8 +215,8 @@ def _head_dim_of(kernel: str, head_dim: Optional[int]) -> int:
 def dynamic_smem_bytes(kernel: str, head_dim: Optional[int] = None) -> int:
     """Dynamic shared memory of one block of a kernel of
     ``csrc/flash_attention.cu``, by its name in ``LAUNCHES`` (``flash_fwd``,
-    ``flash_bwd_dq``, ``flash_bwd_dkv`` at head dim 64, ``flash_fwd_bf16w``,
-    ``flash_bwd_dkv_bf16w`` at 128); builds the kernels if needed."""
+    ``flash_bwd_dq``, ``flash_bwd_dkv`` at head dim 64, the ``_bf16w``
+    ones at 128); builds the kernels if needed."""
     smem = _kernel("flash_dynamic_smem_bytes")(
         _KERNEL_IDS[kernel.removesuffix(_suffix(kernel))],
         _head_dim_of(kernel, head_dim))
@@ -239,7 +238,7 @@ def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
     suffix = _suffix(kernel)
     lib = _LIBRARY_OF[_entry(kernel)]
     attributes = ("flash_kernel_attributes" if lib == "flash_attention"
-                  else f"flash{suffix}_kernel_attributes")
+                  else "flash_f32_kernel_attributes")
     err = _kernel(attributes)(_KERNEL_IDS[kernel.removesuffix(suffix)],
                               _head_dim_of(kernel, head_dim), out)
     if err != 0:

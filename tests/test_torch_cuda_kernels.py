@@ -124,9 +124,8 @@ def test_f32_kernels_match_plain(cuda, BH, S, Dh, causal):
 ])
 def test_bf16_wide_kernels_match_plain(cuda, BH, S, Dh, causal):
     """bf16 at head dims 65 to 128, padded to head dim 128: the bf16_wide
-    kernels (the wgmma forward and dk/dv of flash_attention.cu at head dim
-    128, the tensor-core dq of flash_attention_f32.cu), held to the plain
-    versions under the bf16 bound."""
+    kernels (the wgmma forward, dq and dk/dv of flash_attention.cu at head
+    dim 128), held to the plain versions under the bf16 bound."""
     launched = _check_all_three(cuda, BH, S, Dh, causal, torch.bfloat16,
                                 S + Dh)
     assert launched == {"flash_fwd_bf16w": 1, "flash_bwd_dq_bf16w": 1,
@@ -163,6 +162,7 @@ def test_dq_grid_larger_than_the_card(cuda):
     ("flash_bwd_dq", 64, (126, 99400, 2, 0)),
     ("flash_bwd_dkv", 64, (210, 101448, 1, 0)),
     ("flash_fwd_bf16w", 128, (156, 164936, 1, 0)),
+    ("flash_bwd_dq_bf16w", 128, (160, 197704, 1, 0)),
     ("flash_bwd_dkv_bf16w", 128, (255, 199752, 1, 0)),
 ])
 def test_wgmma_kernel_attributes(cuda, kernel, head_dim, want):
@@ -172,6 +172,19 @@ def test_wgmma_kernel_attributes(cuda, kernel, head_dim, want):
     got = (attrs["registers"], fa.dynamic_smem_bytes(kernel, head_dim),
            attrs["blocks_per_sm"], attrs["local_bytes"])
     assert got == want
+
+
+@pytest.mark.parametrize("head_dim,smem", [
+    (16, 12288), (32, 24576), (64, 49152), (128, 65536)])
+def test_f32_forward_attributes(cuda, head_dim, smem):
+    """The tensor-core f32 forward at each head dim it is built for: its
+    dynamic shared memory (the Q tile and a 2-stage ring of K and V
+    tiles), no local memory (no spills), and at least the blocks an SM it
+    is built for (3 up to head dim 64, 2 at 128)."""
+    attrs = fa.kernel_attributes("flash_fwd_f32", head_dim)
+    assert attrs["max_dynamic_smem"] == smem
+    assert attrs["local_bytes"] == 0
+    assert attrs["blocks_per_sm"] >= (2 if head_dim == 128 else 3)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -1,5 +1,5 @@
-"""The accuracy of the f32 dq and dk/dv kernels' products, known without a
-card: the kernels of ray_tpu_torch/ops/csrc/flash_attention_f32.cu take
+"""The accuracy of the f32 kernels' products, known without a card: the
+forward, dq and dk/dv of ray_tpu_torch/ops/csrc/flash_attention_f32.cu take
 every product on the tensor cores in TF32 (10 mantissa bits) as 3xTF32,
 and this test emulates that arithmetic in numpy.
 
@@ -18,14 +18,27 @@ F32_ATOL_RMS, F32_FLOOR); one TF32 pass breaks it many times over.
 Summing all three passes into one accumulator over the whole sequence
 (CUTLASS's order) loses about twice as much as the kernels' arrangement
 here, and read 0.65 of the bound on the card at S 1024 (PERF.md).
+
+The forward streams K and V in the same 32-row tiles with the online
+softmax: per tile the scores (3xTF32), the running max m and the rescale
+factor corr = exp2((m_old - m) scale log2(e)), p = exp2(s scale log2(e) -
+m scale log2(e)), l = l corr + the tile's row sums, o = o corr and then
+the tile's p.v (3xTF32, from 0) added, rounded; at the end o / max(l,
+1e-30) and lse = m scale + log(l). o built so stays within a quarter of
+the f32 bound against f64 and against the Pallas _fwd_kernel (interpret
+mode), lse within chip_smoke.py's 2e-5; one TF32 pass breaks the bound.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
+
+from ray_tpu.ops import flash_attention as jfa
 
 # chip_smoke.py's bound for the f32 kernels against their plain versions
 F32_RTOL = 2.0 ** -14
 F32_ATOL_RMS = 2.0 ** -14
 F32_FLOOR = 1e-6
+LSE_ABS_TOL = 2e-5
 BH, S, D, SEED = 2, 129, 64, 0
 TILE = 32  # rows of a streamed tile at head dim 64
 MMA_K = 8  # products an MMA sums
@@ -193,3 +206,71 @@ def test_summing_the_passes_in_one_accumulator_costs_accuracy(case):
     """The three passes of every MMA, and every tile, into one truncating
     accumulator lose more than the kernels' arrangement does."""
     assert max(case["one_accumulator"]) > max(case["3xtf32"]), case
+
+
+# ---------------------------------------------------------------- forward
+LOG2E = np.float32(1.4426950408889634)
+NEG_INF = np.float32(-1e30)
+
+
+def forward(q, k, v, mode, scale, causal):
+    """o and lse as the forward kernel computes them, products by
+    ``mode``: TILE-row K/V tiles, the online max and sum in f32."""
+    mask = np.tril(np.ones((S, S), bool)) if causal else np.ones((S, S), bool)
+    scale2 = np.float32(scale) * LOG2E
+    m = np.full((BH, S), NEG_INF, np.float32)  # running max of raw scores
+    l = np.zeros((BH, S), np.float32)
+    acc = np.zeros((BH, S, D), np.float32)
+    for t0 in range(0, S, TILE):
+        kt = np.swapaxes(k[:, t0:t0 + TILE], 1, 2)
+        s = np.where(mask[:, t0:t0 + TILE], product(q, kt, mode), NEG_INF)
+        m_new = np.maximum(m, s.max(-1))
+        corr = np.exp2((m - m_new) * scale2)
+        p = np.exp2(s * scale2 - (m_new * scale2)[..., None])
+        l = l * corr + p.sum(-1, dtype=np.float32)
+        acc = acc * corr[..., None] + product(p, v[:, t0:t0 + TILE], mode)
+        m = m_new
+    lc = np.maximum(l, np.float32(1e-30))
+    return acc / lc[..., None], m * np.float32(scale) + np.log(lc)
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["causal", "full"])
+def fwd_case(request):
+    """Per mode, o's worst element over the f32 bound against f64 and
+    against the Pallas forward, and lse's largest error against f64."""
+    causal = request.param
+    rng = np.random.default_rng(SEED + 1)
+    q, k, v = (rng.standard_normal((BH, S, D), dtype=np.float32)
+               for _ in range(3))
+    scale = D ** -0.5
+    q64, k64, v64 = (x.astype(np.float64) for x in (q, k, v))
+    mask = np.tril(np.ones((S, S), bool)) if causal else np.ones((S, S), bool)
+    s64 = np.where(mask, q64 @ np.swapaxes(k64, 1, 2) * scale, -np.inf)
+    lse64 = np.log(np.exp(s64 - s64.max(-1, keepdims=True)).sum(-1)) + \
+        s64.max(-1)
+    o64 = np.exp(s64 - lse64[..., None]) @ v64
+    o_pl, _ = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             scale=scale, causal=causal, block_q=128,
+                             block_k=128, interpret=True)
+    o_pl = np.asarray(o_pl).astype(np.float64)
+    out = {}
+    for mode in ("3xtf32", "1xtf32"):
+        o, lse = forward(q, k, v, mode, scale, causal)
+        out[mode] = {"f64": worst_share(o, o64),
+                     "pallas": worst_share(o, o_pl),
+                     "lse": float(np.abs(lse - lse64).max())}
+    return out
+
+
+def test_forward_3xtf32_is_within_a_quarter_of_the_f32_bound(fwd_case):
+    """The forward's o from 3xTF32 products, against f64 and against the
+    Pallas forward: the worst element within a quarter of the card's f32
+    bound; lse within 2e-5."""
+    got = fwd_case["3xtf32"]
+    assert got["f64"] <= 0.25 and got["pallas"] <= 0.25, got
+    assert got["lse"] <= LSE_ABS_TOL, got
+
+
+def test_forward_one_tf32_pass_is_not_f32(fwd_case):
+    """big.big alone, one TF32 pass, breaks the f32 bound on o."""
+    assert fwd_case["1xtf32"]["f64"] > 1.0, fwd_case["1xtf32"]

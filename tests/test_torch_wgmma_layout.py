@@ -1,9 +1,9 @@
 """The head-dim-128 plumbing of the wgmma kernels
 (ray_tpu_torch/ops/csrc/flash_attention.cu), known without a card.
 
-1. Routing: bf16 head dims 65-128 launch the forward and dk/dv entries of
-   flash_attention.cu at head dim 128 and the dq entry of
-   flash_attention_f32.cu; bf16 up to 64 and f32 keep their entries.
+1. Routing: bf16 head dims 65-128 launch the forward, dq and dk/dv
+   entries of flash_attention.cu at head dim 128; bf16 up to 64 keeps its
+   entries there, and f32 its entries of flash_attention_f32.cu.
 2. A numpy model of the shared-memory layout, with the kernel's constants
    read from its source. TMA's 128-byte swizzle takes boxes one 128-byte
    row (64 bf16) wide, so a [rows, 128] tile lands as two [rows, 64]
@@ -17,10 +17,11 @@
    MN-major one's element (k, n) at start + SBO (k / 8) + 128 (k % 8) +
    2 n. The model checks that the two boxes cover every element of the
    tile once, that K-major k-steps 0-3 read half 0 and 4-7 half 1, that
-   each MN-major N half reads its own half, and that q.k^T, p.v, k.q^T and
-   p^T.do come out exact on small integers at the kernels' tile shapes;
-   and that stepping k-steps 4-7 on by +2 past column 64, as at head dim
-   64, would not.
+   each MN-major N half reads its own half, and that q.k^T, p.v, k.q^T,
+   p^T.do, do.v^T and ds.k come out exact on small integers at the
+   kernels' tile shapes and stage offsets; that stepping k-steps 4-7 on by
+   +2 past column 64, as at head dim 64, would not; and that the dq
+   kernel's shared memory at head dim 128 fits one block.
 """
 import re
 from pathlib import Path
@@ -62,10 +63,10 @@ def _c_entries(lib):
 
 @pytest.mark.parametrize("dtype,Dh,want", [
     (torch.bfloat16, 65, {"flash_fwd_bf16w": "flash_attention",
-                          "flash_bwd_dq_bf16w": "flash_attention_f32",
+                          "flash_bwd_dq_bf16w": "flash_attention",
                           "flash_bwd_dkv_bf16w": "flash_attention"}),
     (torch.bfloat16, 128, {"flash_fwd_bf16w": "flash_attention",
-                           "flash_bwd_dq_bf16w": "flash_attention_f32",
+                           "flash_bwd_dq_bf16w": "flash_attention",
                            "flash_bwd_dkv_bf16w": "flash_attention"}),
     (torch.bfloat16, 64, {"flash_fwd_bf16": "flash_attention",
                           "flash_bwd_dq_bf16": "flash_attention",
@@ -95,30 +96,42 @@ def test_each_entry_launches_from_its_library(monkeypatch, dtype, Dh, want):
 
 
 def test_bf16_wide_forward_and_dkv_left_the_f32_library():
-    """The bf16 instances of the f32 file's SIMT forward and dk/dv are
-    gone: that library keeps only the bf16 dq; flash_attention.cu has the
-    head-dim-128 forward and dk/dv."""
+    """All three bf16_wide kernels have left the f32 file: it holds f32
+    entries only, no bf16 instance and no SIMT forward, and
+    flash_attention.cu has the head-dim-128 forward, dq and dk/dv."""
     f32_entries, wgmma_entries = (_c_entries("flash_attention_f32"),
                                   _c_entries("flash_attention"))
-    assert "flash_bwd_dq_bf16w" in f32_entries
-    assert not {"flash_fwd_bf16w", "flash_bwd_dkv_bf16w"} & set(f32_entries)
-    assert {"flash_fwd_bf16w", "flash_bwd_dkv_bf16w"} <= set(wgmma_entries)
+    wide = {"flash_fwd_bf16w", "flash_bwd_dq_bf16w", "flash_bwd_dkv_bf16w"}
+    assert not wide & set(f32_entries)
+    assert wide <= set(wgmma_entries)
+    assert all(e.endswith("_f32") or e == "flash_f32_kernel_attributes"
+               for e in f32_entries), f32_entries
+    assert set(tfa._ENTRIES["flash_attention_f32"]) == set(f32_entries)
+    f32_src = (CSRC / "flash_attention_f32.cu").read_text()
+    assert "__nv_bfloat16" not in f32_src and "cuda_bf16.h" not in f32_src
+    assert "flash_fwd_simt_kernel" not in f32_src
     assert set(f32_entries) | set(wgmma_entries) >= {
         tfa._entry(c) for c in tfa.LAUNCHES}
 
 
 # -------------------------------------------------- 2. the layout model
+def _cu_int_expr(expr, env):
+    """A C++ integer expression of the source (it may span lines),
+    evaluated in integers."""
+    return int(eval(" ".join(expr.split()).replace("/", "//"), {}, dict(env)))
+
+
 def _cu_int(name, env):
     """A constexpr of flash_attention.cu, evaluated in integers."""
     m = re.search(rf"constexpr (?:int|uint64_t) {name} = ([^;]+);", SRC)
     assert m, name
-    expr = m.group(1).replace("/", "//")
-    return int(eval(expr, {}, dict(env)))
+    return _cu_int_expr(m.group(1), env)
 
 
 C = {}
-for _name in ("kHalfD", "kRowBytes", "kBlockM", "kFwdBlockN", "kDkvBlockN",
-              "kDescK16", "kDescMN16", "kKStepsPerHalf"):
+for _name in ("kHalfD", "kRowBytes", "kBlockM", "kFwdBlockN", "kDqBlockN",
+              "kDqStages", "kDkvBlockN", "kDescK16", "kDescMN16",
+              "kKStepsPerHalf"):
     C[_name] = _cu_int(_name, C)
 # the stride byte offset that sw128_desc encodes
 SBO = int(re.search(r"\(uint64_t\)\((\d+) >> 4\) << 32", SRC).group(1))
@@ -127,8 +140,9 @@ D = 128
 
 def test_the_mirrored_constants():
     assert C == {"kHalfD": 64, "kRowBytes": 128, "kBlockM": 128,
-                 "kFwdBlockN": 64, "kDkvBlockN": 64, "kDescK16": 2,
-                 "kDescMN16": 128, "kKStepsPerHalf": 4}
+                 "kFwdBlockN": 64, "kDqBlockN": 64, "kDqStages": 4,
+                 "kDkvBlockN": 64, "kDescK16": 2, "kDescMN16": 128,
+                 "kKStepsPerHalf": 4}
     assert SBO == 1024
     assert "return (uint64_t)(rows * kRowBytes) >> 4;" in SRC  # half_desc
 
@@ -326,3 +340,51 @@ def test_k_steps_past_column_64_need_the_second_half():
                      sw128_desc(1024 + 64 * D * 2), 0, 64,
                      k_step=lambda kk: kk * C["kDescK16"])
     assert not np.array_equal(s, q @ k.T)
+
+
+def test_dq_products_at_head_dim_128():
+    """dq's s = q.k^T and dp = do.v^T (each warpgroup's 64 rows of the
+    128-row Q and dO tiles against a 64-row K or V stage, K-major, k-steps
+    4-7 on half 1) and dq += ds.k (ds in registers, the same K stage read
+    MN-major, one m64n64k16 a half of D), exact, at the kernel's stage
+    offsets."""
+    rng = np.random.default_rng(4)
+    n, m = C["kDqBlockN"], C["kBlockM"]
+    q, do = _ints(rng, m, D), _ints(rng, m, D)
+    k, v = _ints(rng, n, D), _ints(rng, n, D)
+    sQ = 1024
+    sdO = sQ + m * D * 2
+    stage, kv_bytes = 2, n * D * 2
+    sK = sdO + m * D * 2 + stage * kv_bytes
+    sV = sdO + m * D * 2 + C["kDqStages"] * kv_bytes + stage * kv_bytes
+    smem = Smem()
+    for base, name, x in ((sQ, "q", q), (sdO, "do", do), (sK, "k", k),
+                          (sV, "v", v)):
+        smem.tma_tile(base, name, x)
+    for wg in (0, 1):
+        rows = slice(64 * wg, 64 * wg + 64)
+        for a_base, a, a_name, b_base, b, b_name in (
+                (sQ, q, "q", sK, k, "k"), (sdO, do, "do", sV, v, "v")):
+            d, read = issue_abt(smem, sw128_desc(a_base + wg * 64 *
+                                                 C["kRowBytes"]),
+                                half_desc(m), 64, sw128_desc(b_base),
+                                half_desc(n), n)
+            np.testing.assert_array_equal(d, a[rows] @ b.T)
+            assert read == [{(a_name, kk // 4), (b_name, kk // 4)}
+                            for kk in range(8)]
+    ds = _ints(rng, 64, n)
+    dq, cols = issue_ab(smem, ds, sw128_desc(sK), half_desc(n))
+    np.testing.assert_array_equal(dq, ds @ k)
+    assert cols == {0: set(range(64)), 1: set(range(64, 128))}
+
+
+def test_dq_shared_memory_at_head_dim_128_fits_one_block():
+    """dq_smem_bytes<128>() as the source computes it: Q and dO (32 KB
+    each), 4 stages of K and V (16 KB each), the 1024-byte alignment slack
+    and the barriers, under the 227 KB a block may take; at D 64 it is the
+    99,400 bytes the card reports."""
+    body = re.search(r"constexpr int dq_smem_bytes\(\) \{\s*return ([^;]+);",
+                     SRC).group(1)
+    smem = {d: _cu_int_expr(body, {**C, "D": d}) for d in (64, 128)}
+    assert smem == {64: 99400, 128: 197704}
+    assert smem[128] <= 232448
