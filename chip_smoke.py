@@ -9,8 +9,9 @@ Phases, each of which exits non-zero on failure:
    ``nvcc`` a source, started together), with each kernel's registers,
    dynamic shared memory, blocks per SM and local memory a thread (the
    bf16 ones at head dim 64, the f32 ones at each head dim they are built
-   for, the bf16_wide ones at 128), failing if a kernel other than the
-   f32 dq and dk/dv spills to local memory;
+   for, 256 among them, where the f32 dk/dv runs as a dv pass and a dk
+   pass, two kernels, the bf16_wide ones at 128), failing if a kernel
+   other than the f32 dq and dk/dv spills to local memory;
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
@@ -19,8 +20,12 @@ Phases, each of which exits non-zero on failure:
    (gpt2_tiny's), 32 and 128 (S 1000 causal among them), causal and
    not; in bf16 at head dims 96 and 128 (the bf16_wide kernels, padded
    to 128), among them S 129 causal at head dim 128 and the wide shape
-   (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of 128). At the main shape (the
-   wide one for bf16_wide), times of the kernel, the plain version and
+   (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of 128);
+   in f32 and in bf16 at head dims 129, 192 and 256 (the f32 kernels at
+   head dim 256, bf16 cast to f32 and back). At the main shape (for
+   bf16_wide the wide one; for head dim 256 B*H 48, S 1024, D 256,
+   causal: the main shape's operations), times of the kernel, the plain
+   version and
    the PyTorch library call (SDPA, in the kernel's dtype) beside the
    bound, with the kernel's TFLOP/s and the share of its bound that it
    reaches (for f32 the bound of 3xTF32 on the tensor cores and, beside
@@ -37,11 +42,25 @@ Phases, each of which exits non-zero on failure:
    device time by kernel category and by operator, and the device's busy
    time, from which PERF.md's "Where the time goes" is written;
 3b. the tiny configs: gpt2_tiny (head dim 16) under attention="auto" in
-   bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels), and
-   gpt2_tiny with two heads of 128 in bf16 (the bf16_wide kernels), 3
-   steps each, its launch counts exact and its first step held to
-   reference attention (phase 3's limits in bf16, an order tighter in
+   bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels),
+   gpt2_tiny with two heads of 128 in bf16 (the bf16_wide kernels), and
+   with one head of 256 in bf16 and in f32 (the f32 kernels at head dim
+   256), 3 steps each, its launch counts exact and its first step held
+   to reference attention (phase 3's limits in bf16, an order tighter in
    f32);
+3c. GPT-2-small-MoE at full width (12 layers, 12 heads, d 768, ff 3072,
+   vocab 50304, seq 1024, 8 experts, top-2, capacity factor 1.25) at
+   batch 8 (2 warm-up and 5 timed steps, seeded weights, bf16, flash
+   attention), after ``apply_moe`` in f32 at its width is held to a
+   per-token loop, and the same model's first step in f32 (loss, grad
+   norm, attention leaves' gradients) to reference attention's by phase
+   3b's f32 limits (in bf16 the router's top-k sends a few tokens to
+   other experts under either attention, which moves the step by more
+   than phase 3's limits whatever attention computes: the bf16 first
+   step is printed beside it); its aux loss must be finite and positive
+   at every step; it prints the step ms, tokens/s, peak memory, the share of
+   (token, k) pairs past capacity, the launch counts and, for one more
+   step, phase 3's profile;
 4. the data-parallel Train gang at world 2: two rank threads share the
    card, each GPT-2-small at full width on batch 8 (the main path's 16
    between them) and each with its own gloo group over one in-memory
@@ -73,8 +92,11 @@ Phases, each of which exits non-zero on failure:
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
 the bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
-config for the bf16_wide ones), and
-``tiny_launches`` and ``gang_launches`` the other runs'; the last line is ``{"ok": true, "device": {...}}``. Without
+config for the bf16_wide ones, the f32 tiny config with a head of 256
+for the f32 kernels' head-dim-256 instances, listed apart as
+``*_f32_d256``), and ``tiny_launches``, ``moe_launches`` and
+``gang_launches`` the other runs'; the last line is ``{"ok": true,
+"device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
 non-zero and prints no result.
 """
@@ -165,6 +187,20 @@ TINY_F32_LIMITS = (1e-5, 2e-4, 2.5e-3)  # loss, grad norm, attention leaves
 # of GPT-2-small's attention width in heads of 128 (B*H 16 x 6)
 WIDE_TINY = dict(d_model=256, n_head=2)
 WIDE_SHAPE = (96, 1024, 128)
+# Head dims 129-256, both dtypes, run the f32 kernels at head dim 256:
+# gpt2_tiny with one head of 256 in phase 3b, and in phase 2 B*H 48 (the
+# main shape's operations at four times the head dim)
+D256_TINY = dict(d_model=256, n_head=1)
+D256_SHAPE = (48, 1024, 256)
+
+# Phase 3c, GPT-2-small-MoE: batch 8, where the dense dispatch tensors
+# [B, S, E, C] (C = 2560) take 168 M elements, 335 MB in bf16, each; the
+# layer is first held in f32 at its width on MOE_ORACLE_TOKENS (2 x 16)
+# with room for every token (capacity factor 8) to a per-token loop,
+# within MOE_ORACLE_ATOL (f32 sums of 768 and 3072 terms in other orders).
+MOE_BATCH = 8
+MOE_ORACLE_TOKENS = (2, 16)
+MOE_ORACLE_ATOL = 1e-5
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
@@ -189,7 +225,9 @@ NO_LOCAL_MEMORY = [spec["name"] for spec in KERNELS
                    if spec["name"] not in ("flash_bwd_dq_f32",
                                            "flash_bwd_dkv_f32")]
 # the head dims each family's kernels are built for
-HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128), "_bf16w": (128,)}
+HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128, 256), "_bf16w": (128,)}
+# what the kernels' line calls the f32 kernels' head-dim-256 instances
+D256 = "_d256"
 
 
 def family(name: str) -> str:
@@ -199,8 +237,9 @@ def family(name: str) -> str:
 
 
 def suffix_of(dtype_is_f32: bool, head_dim: int) -> str:
-    """The family of the kernels that take a dtype at a head dim."""
-    if dtype_is_f32:
+    """The family of the kernels that take a dtype at a head dim (bf16
+    above 128 runs the f32 kernels)."""
+    if dtype_is_f32 or head_dim > WIDE_SHAPE[2]:
         return "_f32"
     return "_bf16w" if head_dim > HEAD_DIM else ""
 
@@ -238,14 +277,16 @@ def time_ms(torch, fn, *, warmup: int, reps: int) -> float:
 
 
 def attention_bound(kernel: str, BH: int, S: int, causal: bool,
-                    D: int = HEAD_DIM):
+                    D: int = HEAD_DIM, f32: bool | None = None):
     """Least time for the function on the card: the larger of its FLOPs
     over the peak of its type (bf16: the tensor cores; f32: 3xTF32 on the
     tensor cores, f32-accurate) and its bytes (each input read once, each
     output written once) over the HBM rate. Returns (ms, what bounds it,
     FLOPs, bytes, the ms of the FLOPs at the FFMA peak of the CUDA cores
-    for f32, else None)."""
-    f32 = family(kernel) == "_f32"
+    for f32, else None). ``f32`` is the inputs' dtype, by default the
+    kernel's (bf16 head dims above 128 run f32 kernels on bf16 inputs)."""
+    if f32 is None:
+        f32 = family(kernel) == "_f32"
     pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs computed
     mat = BH * S * D * (4 if f32 else 2)  # one [BH, S, D] tensor
     vec = BH * S * 4  # one f32 [BH, S] tensor
@@ -295,18 +336,26 @@ def build_kernels():
         name = spec["name"]
         source = SOURCE_OF[name]
         for D in HEAD_DIMS_OF[family(name)]:
-            attrs = fa.kernel_attributes(name, D)
-            # a wgmma kernel's attributes read the shared memory its last
-            # launch allowed itself; the module knows what it launches with
-            smem = (fa.dynamic_smem_bytes(name, D) if source == WGMMA_CU
-                    else attrs["max_dynamic_smem"])
-            print(f"  {os.path.basename(source)}: {name} at head dim {D}: "
-                  f"{smem} bytes of dynamic shared memory, "
-                  f"{attrs['registers']} registers, {attrs['blocks_per_sm']} "
-                  f"blocks per SM, {attrs['local_bytes']} bytes of local "
-                  f"memory", flush=True)
-            if name in NO_LOCAL_MEMORY and attrs["local_bytes"]:
-                spilled.append(f"{name} at head dim {D}")
+            # the f32 dk/dv above F32_DKV_FUSED_MAX_HEAD_DIM runs as a dv
+            # pass and a dk pass, two kernels
+            passes = ([("", False)] if name != "flash_bwd_dkv_f32"
+                      or D <= fa.F32_DKV_FUSED_MAX_HEAD_DIM
+                      else [(" (dv pass)", False), (" (dk pass)", True)])
+            for what, dk_pass in passes:
+                attrs = fa.kernel_attributes(name, D, dk_pass=dk_pass)
+                # a wgmma kernel's attributes read the shared memory its
+                # last launch allowed itself; the module knows what it
+                # launches with
+                smem = (fa.dynamic_smem_bytes(name, D) if source == WGMMA_CU
+                        else attrs["max_dynamic_smem"])
+                print(f"  {os.path.basename(source)}: {name}{what} at head "
+                      f"dim {D}: {smem} bytes of dynamic shared memory, "
+                      f"{attrs['registers']} registers, "
+                      f"{attrs['blocks_per_sm']} blocks per SM, "
+                      f"{attrs['local_bytes']} bytes of local memory",
+                      flush=True)
+                if name in NO_LOCAL_MEMORY and attrs["local_bytes"]:
+                    spilled.append(f"{name}{what} at head dim {D}")
     if spilled:
         fail(f"kernels spill to local memory: {', '.join(spilled)}")
 
@@ -361,7 +410,19 @@ def check_kernels(torch, F, fa):
              ("wide129", 24, 129, 128, True, bf16),
              ("bf16d96", 24, 1000, 96, True, bf16),
              ("bf16d96nc", 8, 129, 96, False, bf16),
-             ("bf16d128", 8, 200, 128, False, bf16)]
+             ("bf16d128", 8, 200, 128, False, bf16),
+             # head dims 129-256: the f32 kernels at head dim 256, bf16
+             # cast to f32 and back
+             ("f32d129", 8, 129, 129, True, f32),
+             ("f32d192", 8, 1000, 192, False, f32),
+             ("f32d256", 8, 1024, 256, False, f32),
+             ("f32d256r", 8, 129, 256, True, f32),
+             ("d256", *D256_SHAPE, True, f32),
+             ("bf16d129", 8, 1000, 129, True, bf16),
+             ("bf16d192", 8, 129, 192, False, bf16),
+             ("bf16d256", 8, 1024, 256, False, bf16),
+             ("bf16d256r", 8, 129, 256, True, bf16),
+             ("d256", *D256_SHAPE, True, bf16)]
     for label, BH, S, D, causal, dtype in cases:
         suffix = suffix_of(dtype == f32, D)
         q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))
@@ -391,9 +452,13 @@ def check_kernels(torch, F, fa):
                       f"its bound{where} {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     failures.append(f"{name}.{what} ({label})")
-        if label in ("main", "wide"):
+        if label in ("main", "wide", "d256"):
+            # head dim 256's times go under their own names, bf16's apart
+            tag = "" if label != "d256" else (
+                D256 if dtype == f32 else D256 + "_bf16")
             results.update(time_kernels(torch, F, fa, suffix, checks,
-                                        q, k, v, do, lse_ref, delta, kw))
+                                        q, k, v, do, lse_ref, delta, kw,
+                                        tag=tag))
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dq_ref, dk, dv
         del dk_ref, dv_ref
         torch.cuda.empty_cache()
@@ -403,11 +468,12 @@ def check_kernels(torch, F, fa):
 
 
 def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
-                 kw):
+                 kw, tag=""):
     """Device times of the three kernels of one family, their plain
-    versions and SDPA in their dtype, beside the bound; for bf16 also the
-    backward as ``_FlashAttention.backward`` runs it, for f32 dq + dk/dv
-    against SDPA's backward."""
+    versions and SDPA in the inputs' dtype, beside the bound (of that
+    dtype); for bf16 also the backward as ``_FlashAttention.backward``
+    runs it, for f32 dq + dk/dv against SDPA's backward. Results go under
+    each kernel's name followed by ``tag``."""
     BH, S, D = q.shape
     causal = kw["causal"]
     fns = {
@@ -436,11 +502,11 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
     for base, (kernel_fn, plain_fn) in fns.items():
         name = base + suffix
         bound_ms, bound_by, flops, nbytes, ffma_ms = attention_bound(
-            name, BH, S, causal, D)
+            name, BH, S, causal, D, f32=q.dtype == torch.float32)
         ms = time_ms(torch, kernel_fn, warmup=3, reps=20)
         plain_ms = time_ms(torch, plain_fn, warmup=1, reps=5)
         tflops = flops / (ms * 1e-3) / 1e12
-        results[name] = {
+        results[name + tag] = {
             "max_abs_err": max(row[1] for row in checks[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library[base],
@@ -448,11 +514,12 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
         }
         also = ""
         if ffma_ms is not None:
-            results[name].update(ffma_bound_ms=ffma_ms,
-                                 ffma_bound_share=ffma_ms / ms)
+            results[name + tag].update(ffma_bound_ms=ffma_ms,
+                                       ffma_bound_share=ffma_ms / ms)
             also = (f"; FFMA bound {ffma_ms * 1e3:.1f} us (67 TFLOP/s), "
                     f"{ffma_ms / ms:.3f} of it")
-        print(f"time {name} (BH={BH} S={S} D={D}): kernel {ms:.4f} ms, plain "
+        print(f"time {name}{tag} ({q.dtype} BH={BH} S={S} D={D}): kernel "
+              f"{ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, SDPA ({q.dtype}) {library[base]:.4f} ms, "
               f"bound {bound_ms * 1e3:.1f} us ({bound_by}"
               f"{', 3xTF32 165 TFLOP/s' if ffma_ms is not None else ''}; "
@@ -460,10 +527,11 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
               f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound{also}",
               flush=True)
     if suffix == "_f32":
-        pair = (results["flash_bwd_dq_f32"]["ms"]
-                + results["flash_bwd_dkv_f32"]["ms"])
-        print(f"time f32 backward: dq + dk/dv {pair:.4f} ms, SDPA's f32 "
-              f"backward (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms: "
+        pair = (results["flash_bwd_dq_f32" + tag]["ms"]
+                + results["flash_bwd_dkv_f32" + tag]["ms"])
+        print(f"time f32 kernels' backward{tag} ({q.dtype}, D={D}): dq + "
+              f"dk/dv {pair:.4f} ms, SDPA's backward in {q.dtype} (dq, dk, "
+              f"dv in one call) {sdpa_bwd_ms:.4f} ms: "
               f"{pair / sdpa_bwd_ms:.2f}x SDPA's", flush=True)
     if suffix:
         return results
@@ -568,10 +636,11 @@ def train(torch, fa):
 
 
 def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
-                          limit=ATTN_GRAD_RTOL, tag="train"):
+                          limit=ATTN_GRAD_RTOL, tag="train", gate=True):
     """The gradients of the attention leaves (wq, wk, wv, wo, each stacked
     over the layers) from one loss_fn call on the same weights, with
-    reference and with flash attention, within ``limit`` relative."""
+    reference and with flash attention, within ``limit`` relative; with
+    ``gate`` False printed only."""
     attn = params["blocks"]["attn"]
     names = sorted(attn)
     grads, bad = [], []
@@ -581,11 +650,13 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
     for name, g_ref, g in zip(names, *grads):
         rel = ((g - g_ref).norm() / g_ref.norm()).item()
         ok = rel <= limit
+        verdict = (("ok" if ok else "FAIL") if gate
+                   else "(printed, not gated)")
         print(f"{tag}: grad of {name}: norm {g.norm().item():.6e} flash, "
               f"{g_ref.norm().item():.6e} reference; ||flash - reference|| / "
-              f"||reference|| {rel:.3e} (limit {limit:.1e}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
+              f"||reference|| {rel:.3e} (limit {limit:.1e}) {verdict}",
+              flush=True)
+        if gate and not ok:
             bad.append(name)
     del grads
     torch.cuda.empty_cache()
@@ -595,10 +666,11 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
 
 def tiny_configs(torch, fa):
     """gpt2_tiny (head dim 16) under attention="auto" in bf16 and in f32,
-    and with two heads of 128 in bf16 (the bf16_wide kernels), TINY_STEPS
-    steps each, its first step held to reference attention; returns each
-    run's launch counts, set to 0 just before its steps and read just
-    after."""
+    with two heads of 128 in bf16 (the bf16_wide kernels), and with one
+    head of 256 in bf16 and in f32 (the f32 kernels at head dim 256),
+    TINY_STEPS steps each, its first step held to reference attention;
+    returns each run's launch counts, set to 0 just before its steps and
+    read just after."""
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.parallel.train_step import (default_optimizer,
                                                    make_train_state,
@@ -611,12 +683,13 @@ def tiny_configs(torch, fa):
     batch = {"tokens": tokens}
     out, bad = {}, []
     bf16_limits = (LOSS_RTOL, GRAD_NORM_RTOL, ATTN_GRAD_RTOL)
-    for dtype, widths, (loss_rtol, gn_rtol, attn_rtol) in (
-            (torch.bfloat16, {}, bf16_limits),
-            (torch.float32, {}, TINY_F32_LIMITS),
-            (torch.bfloat16, WIDE_TINY, bf16_limits)):
-        tag = (f"tiny {str(dtype).removeprefix('torch.')}"
-               + (" wide" if widths else ""))
+    for dtype, widths, name, (loss_rtol, gn_rtol, attn_rtol) in (
+            (torch.bfloat16, {}, "", bf16_limits),
+            (torch.float32, {}, "", TINY_F32_LIMITS),
+            (torch.bfloat16, WIDE_TINY, " wide", bf16_limits),
+            (torch.bfloat16, D256_TINY, " d256", bf16_limits),
+            (torch.float32, D256_TINY, " d256", TINY_F32_LIMITS)):
+        tag = f"tiny {str(dtype).removeprefix('torch.')}{name}"
         cfg = dataclasses.replace(base, dtype=dtype, **widths)
         ref_cfg = dataclasses.replace(cfg, attention="reference")
 
@@ -667,6 +740,201 @@ def tiny_configs(torch, fa):
     return out
 
 
+def moe_layer_check(torch, L):
+    """Gate (a) of phase 3c: ``apply_moe`` on the card in f32 (TF32 off)
+    at GPT-2-small-MoE's width, on MOE_ORACLE_TOKENS tokens with room for
+    every one (capacity factor 8), against a loop over the tokens: each
+    token's top-k experts' MLPs weighted by its renormalized gates (the
+    oracle of ``tests/test_parallel.py``'s
+    ``test_moe_matches_per_token_oracle``), within MOE_ORACLE_ATOL."""
+    cfg = L.MoEConfig(capacity_factor=8.0)
+    d, f, E = 768, 3072, cfg.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    # a router sharp enough that no two of a token's probabilities tie,
+    # and experts whose outputs are O(1)
+    params = {"wg": randn(d, E), "w1": randn(E, d, f, scale=d ** -0.5),
+              "w2": randn(E, f, d, scale=f ** -0.5)}
+    x = randn(*MOE_ORACLE_TOKENS, d)
+    out, aux = L.apply_moe(params, x, cfg, compute_dtype=torch.float32)
+    probs = torch.softmax(x @ params["wg"], dim=-1)
+    gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    want = torch.zeros_like(x)
+    for b in range(x.shape[0]):
+        for s in range(x.shape[1]):
+            want[b, s] = sum(
+                gates[b, s, j] * (L._gelu(x[b, s] @ params["w1"][e]) @
+                                  params["w2"][e])
+                for j, e in enumerate(experts[b, s].tolist()))
+    err = (out - want).abs().max().item()
+    ok = err <= MOE_ORACLE_ATOL and math.isfinite(float(aux))
+    print(f"moe check: apply_moe in f32 at d {d}, ff {f}, {E} experts, "
+          f"top-{cfg.top_k}, on {x.shape[0]} x {x.shape[1]} tokens against "
+          f"the per-token loop: max_abs_err {err:.3e} (limit "
+          f"{MOE_ORACLE_ATOL:.0e}), rms of the output "
+          f"{want.square().mean().sqrt().item():.3e}, aux {float(aux):.4f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("apply_moe disagrees with the per-token loop on the card")
+
+
+def moe(torch, fa, card: str):
+    """Phase 3c: GPT-2-small-MoE at full width, batch MOE_BATCH, seq 1024,
+    through make_train_step (2 warm-up and 5 timed steps); returns the
+    launch counts of the timed run, set to 0 just before its steps and
+    read just after."""
+    from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
+                                             tree_unflatten)
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import layers as L
+    from ray_tpu_torch.parallel.train_step import (default_optimizer,
+                                                   global_norm,
+                                                   make_train_state,
+                                                   make_train_step)
+
+    torch.cuda.empty_cache()
+    moe_layer_check(torch, L)
+    cfg = dataclasses.replace(gpt2.gpt2_small(), remat=False,
+                              moe=L.MoEConfig())
+    B, S, warmup, timed = MOE_BATCH, 1024, 2, 5
+    C = L.moe_capacity(cfg.moe, B * S)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    batch = {"tokens": tokens}
+
+    def run(run_cfg):
+        opt = default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+        state = make_train_state(lambda g: gpt2.init(g, run_cfg),
+                                 torch.Generator(device="cuda").manual_seed(0), opt)
+        return state, make_train_step(lambda p, b: gpt2.loss_fn(p, b, run_cfg),
+                                      opt)
+
+    def steps(state, step, n):
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, batch)
+            out.append(m)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return state, [{k: float(v) for k, v in m.items()} for m in out], dt
+
+    # Gate (b), the first step against reference attention, is taken in
+    # f32 on this model. In bf16 the router's top-k turns the rounding by
+    # which flash and reference attention differ into other experts for a
+    # few tokens a layer, and at init a layer's output outweighs the
+    # residual stream (wte is drawn at 0.02), so a token whose experts
+    # change changes whole: with the plain versions on the CPU, no kernel
+    # involved, the loss moves by 1.1e-4 and the attention leaves'
+    # gradients by 0.11-0.14, against 5.4e-6 and 0.7-1.0e-2 for the dense
+    # model, while in f32 no token changes experts
+    # (scripts/moe_routing_sensitivity.py). The bf16 first step is printed
+    # beside it.
+    f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tree_map(lambda p: p.requires_grad_(True), gpt2.init(
+        torch.Generator(device="cuda").manual_seed(0), f32_cfg))
+    f32_ref_cfg = dataclasses.replace(f32_cfg, attention="reference")
+    first = []
+    for run_cfg in (f32_ref_cfg, f32_cfg):
+        total, m = gpt2.loss_fn(params, batch, run_cfg)
+        grads = torch.autograd.grad(total, tree_leaves(params))
+        first.append((float(m["loss"].detach()),
+                      float(global_norm(tree_unflatten(params, grads)))))
+        del total, m, grads
+    check_attention_grads(torch, gpt2, params, batch, f32_ref_cfg, f32_cfg,
+                          limit=TINY_F32_LIMITS[2], tag="moe f32")
+    del params
+    torch.cuda.empty_cache()
+    (ref_loss, ref_gn), (loss, gn) = first
+    loss_rel, gn_rel = abs(loss - ref_loss) / ref_loss, abs(gn - ref_gn) / ref_gn
+    print(f"moe f32: first step flash loss {loss:.6f} grad_norm {gn:.6f}; "
+          f"reference loss {ref_loss:.6f} grad_norm {ref_gn:.6f}; relative "
+          f"differences {loss_rel:.2e} (limit {TINY_F32_LIMITS[0]:.0e}) and "
+          f"{gn_rel:.2e} (limit {TINY_F32_LIMITS[1]:.0e})", flush=True)
+    bad = []
+    if not loss_rel <= TINY_F32_LIMITS[0]:
+        bad.append("the f32 first-step loss disagrees with reference attention")
+    if not gn_rel <= TINY_F32_LIMITS[1]:
+        bad.append("the f32 first-step grad norm disagrees with reference "
+                   "attention")
+
+    ref_cfg = dataclasses.replace(cfg, attention="reference")
+    state, step = run(ref_cfg)
+    state, (ref,), _ = steps(state, step, 1)
+    del state, step
+    torch.cuda.empty_cache()
+    state, step = run(cfg)
+    check_attention_grads(torch, gpt2, state.params, batch, ref_cfg, cfg,
+                          tag="moe bf16", gate=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    state, metrics, _ = steps(state, step, warmup)
+    state, timed_metrics, dt = steps(state, step, timed)
+    launches = dict(fa.LAUNCHES)
+    metrics += timed_metrics
+    peak = torch.cuda.max_memory_allocated()
+
+    # the share of (token, k) pairs past capacity, layer by layer, in one
+    # more forward from the state after the timed steps
+    dropped = []
+    apply_moe = L.apply_moe
+
+    def counting(params, x, moe_cfg, compute_dtype):
+        _, _, _, slots = L.route_tokens(params["wg"], x, moe_cfg)
+        dropped.append(((slots >= C).sum() / slots.numel()).item())
+        return apply_moe(params, x, moe_cfg, compute_dtype)
+
+    L.apply_moe = counting
+    try:
+        with torch.no_grad():
+            gpt2.forward(state.params, tokens[:, :-1], cfg)
+    finally:
+        L.apply_moe = apply_moe
+    profile_step(torch, step, state, batch, dt / timed * 1e3,
+                 tag="moe profile")
+    del state, step
+    torch.cuda.empty_cache()
+
+    losses = [m["loss"] for m in metrics]
+    auxes = [m["aux_loss"] for m in metrics]
+    print(f"moe: losses {losses}; aux losses {auxes}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        bad.append("non-finite loss")
+    if not all(math.isfinite(x) and x > 0 for x in auxes):
+        bad.append("an aux loss that is not finite and positive")
+    loss_rel = abs(metrics[0]["loss"] - ref["loss"]) / ref["loss"]
+    gn_rel = abs(metrics[0]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    print(f"moe bf16: first step flash loss {metrics[0]['loss']:.6f} "
+          f"grad_norm {metrics[0]['grad_norm']:.6f} aux "
+          f"{metrics[0]['aux_loss']:.6f}; reference loss {ref['loss']:.6f} "
+          f"grad_norm {ref['grad_norm']:.6f} aux {ref['aux_loss']:.6f}; "
+          f"relative differences {loss_rel:.2e} and {gn_rel:.2e} (printed, "
+          f"not gated)", flush=True)
+    for name, n in launches.items():
+        expected = 0 if family(name) else cfg.n_layer * (warmup + timed)
+        if n != expected:
+            bad.append(f"{name} launched {n} times, expected {expected}")
+    step_ms = dt / timed * 1e3
+    print(f"moe: {card}: GPT-2-small-MoE ({cfg.n_params / 1e6:.1f} M params, "
+          f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, capacity factor "
+          f"{cfg.moe.capacity_factor}, C {C}) batch {B} seq {S}: step "
+          f"{step_ms:.1f} ms, {timed * B * S / dt:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB ({warmup} warm-up and {timed} timed "
+          f"steps); (token, k) pairs past capacity after the steps, by layer: "
+          + ", ".join(f"{x:.4f}" for x in dropped)
+          + f" (mean {statistics.fmean(dropped):.4f}); launches {launches}",
+          flush=True)
+    if bad:
+        fail(f"moe: {'; '.join(bad)}")
+    return launches
+
+
 def category(kernel: str) -> str:
     name = kernel.lower()
     if "flash_" in name:
@@ -680,9 +948,9 @@ def category(kernel: str) -> str:
     return "elementwise and other"
 
 
-def profile_step(torch, step, state, batch, step_ms):
-    """One more main-path step under torch.profiler: device time by kernel
-    category and by operator. The profiler's own host cost stretches the
+def profile_step(torch, step, state, batch, step_ms, tag="profile"):
+    """One more step under torch.profiler, its lines prefixed by ``tag``:
+    device time by kernel category and by operator. The profiler's own host cost stretches the
     profiled step's wall time, so the device's idle share is taken against
     the unprofiled step time ``step_ms``."""
     from torch.autograd import DeviceType
@@ -700,9 +968,9 @@ def profile_step(torch, step, state, batch, step_ms):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(t for _, _, t in rows)
     if busy_us == 0:
-        print("profile: the profiler saw no device time (not measured)")
+        print(f"{tag}: the profiler saw no device time (not measured)")
         return
-    print(f"profile: one step, device busy {busy_us / 1e3:.1f} ms in "
+    print(f"{tag}: one step, device busy {busy_us / 1e3:.1f} ms in "
           f"{sum(c for _, c, _ in rows)} kernels; idle share "
           f"{1 - busy_us / (step_ms * 1e3):.3f} of the unprofiled "
           f"{step_ms:.1f} ms step (wall {wall_us / 1e3:.1f} ms with the "
@@ -711,14 +979,14 @@ def profile_step(torch, step, state, batch, step_ms):
     for key, _, t in rows:
         shares[category(key)] = shares.get(category(key), 0.0) + t
     for cat, t in sorted(shares.items(), key=lambda kv: -kv[1]):
-        print(f"profile: {cat}: {t / 1e3:.2f} ms ({t / busy_us:.3f})")
+        print(f"{tag}: {cat}: {t / 1e3:.2f} ms ({t / busy_us:.3f})")
     for key, count, t in sorted(rows, key=lambda r: -r[2])[:8]:
-        print(f"profile:   {t / 1e3:8.2f} ms  x{count:<4d} {key[:100]}")
+        print(f"{tag}:   {t / 1e3:8.2f} ms  x{count:<4d} {key[:100]}")
     # the operators that launched them, by input shapes
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"profile:   {e.self_device_time_total / 1e3:8.2f} ms  "
+        print(f"{tag}:   {e.self_device_time_total / 1e3:8.2f} ms  "
               f"x{e.count:<4d} {e.key} {str(e.input_shapes)[:90]}")
 
 def run_ranks(torch, world: int, fn):
@@ -1326,25 +1594,40 @@ def main() -> int:
     results = check_kernels(torch, F, fa)
     launches = train(torch, fa)
     tiny_launches = tiny_configs(torch, fa)
+    moe_launches = moe(torch, fa, card)
     gang_launches = gang(torch, fa, card)
     checkpoints(torch, card)
 
     kernels = []
-    for spec in KERNELS:
-        name = spec["name"]
-        # each kernel's count on the path that runs it: the main path for
-        # the bf16 kernels, the f32 tiny config for the f32 ones, the wide
-        # tiny config for the bf16_wide ones
-        path = {"": launches, "_f32": tiny_launches["tiny float32"],
-                "_bf16w": tiny_launches["tiny bfloat16 wide"]}[family(name)]
+    # each kernel's count on the path that runs it: the main path for the
+    # bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
+    # config for the bf16_wide ones, the f32 tiny config with a head of
+    # 256 for the f32 kernels' head-dim-256 instances (whose bf16 times,
+    # bf16 cast to f32 and back, go beside their own as bf16_*)
+    rows = [(spec, spec["name"], {
+        "": launches, "_f32": tiny_launches["tiny float32"],
+        "_bf16w": tiny_launches["tiny bfloat16 wide"]}[family(spec["name"])])
+        for spec in KERNELS]
+    rows += [(spec, spec["name"] + D256, tiny_launches["tiny float32 d256"])
+             for spec in KERNELS if family(spec["name"]) == "_f32"]
+    for spec, name, path in rows:
+        counter = spec["name"]
+        extra = {}
+        if name.endswith(D256):
+            bf16 = results[name + "_bf16"]
+            extra = {"head_dim": 256, **{f"bf16_{k}": bf16[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}}
         kernels.append({"name": name, "route": "cuda",
-                        "source": SOURCE_OF[name],
-                        "replaces": spec["replaces"], "launches": path[name],
-                        "tiny_launches": {run: counts[name] for run, counts
+                        "source": SOURCE_OF[counter],
+                        "replaces": spec["replaces"],
+                        "launches": path[counter],
+                        "tiny_launches": {run: counts[counter] for run, counts
                                           in tiny_launches.items()},
-                        "gang_launches": {run: counts[name] for run, counts
+                        "moe_launches": moe_launches[counter],
+                        "gang_launches": {run: counts[counter] for run, counts
                                           in gang_launches.items()},
-                        **results[name]})
+                        **results[name], **extra})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,14 +3,15 @@
 Parameters are the JAX package's tree: stacked ``[n_layer, ...]`` block
 leaves, f32, with bf16 compute. The forward loops over the stacked
 leaves; ``remat`` maps to ``torch.utils.checkpoint``. Architecture: learned
-positional embeddings, pre-LN blocks, GELU MLP, tied LM head. The routed
-MoE variant, the pipelined forward and the sharding specs come in later
-slices.
+positional embeddings, pre-LN blocks, GELU MLP, tied LM head; with
+``moe`` set, every block's MLP is the routed MoE layer and the forward
+returns its aux loss, averaged over the layers. The pipelined forward
+and the sharding specs come in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +30,7 @@ class GPT2Config:
     n_head: int = 12
     d_model: int = 768
     d_ff: int = 0  # 0 -> 4 * d_model
+    moe: Optional[L.MoEConfig] = None  # if set, every block's MLP is routed
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
@@ -44,6 +46,8 @@ class GPT2Config:
         """Parameter count (for MFU math)."""
         d, f, l, v = self.d_model, self.ff, self.n_layer, self.vocab_size
         per_block = 4 * d * d + (2 * d * f + d + f) + 4 * d  # attn + mlp + lns
+        if self.moe:
+            per_block += self.moe.n_experts * 2 * d * f - (2 * d * f + d + f)
         return v * d + self.max_seq * d + l * per_block + 2 * d
 
 
@@ -94,9 +98,13 @@ def init(generator: torch.Generator, cfg: GPT2Config, device: DeviceLike = None)
         "attn": L.init_attention(generator, cfg.d_model, cfg.n_head, pd,
                                  device=dev, lead=lead),
         "ln2": ln(),
-        "mlp": L.init_mlp(generator, cfg.d_model, cfg.ff, pd, device=dev,
-                          lead=lead),
     }
+    if cfg.moe:
+        blocks["moe"] = L.init_moe(generator, cfg.d_model, cfg.ff, cfg.moe,
+                                   pd, device=dev, lead=lead)
+    else:
+        blocks["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.ff, pd,
+                                   device=dev, lead=lead)
     final_ln = {"scale": torch.ones(cfg.d_model, dtype=pd, device=dev),
                 "bias": torch.zeros(cfg.d_model, dtype=pd, device=dev)}
     return {"wte": wte, "wpe": wpe, "blocks": blocks, "ln_f": final_ln}
@@ -106,21 +114,25 @@ def init(generator: torch.Generator, cfg: GPT2Config, device: DeviceLike = None)
 def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
     """``"auto"`` is ``"flash"`` on a CUDA device and ``"reference"``
     elsewhere, as ``ray_tpu``'s is ``"flash"`` on a TPU. The hand-written
-    kernels take bf16 and f32 up to head dim 128 (smaller head dims
-    padded, ``gpt2_tiny``'s 16 among them); their wrappers refuse
-    anything else before a launch."""
+    kernels take bf16 and f32 up to head dim 256 (smaller head dims
+    padded, ``gpt2_tiny``'s 16 among them; bf16 above 128 cast to f32);
+    their wrappers refuse anything else before a launch."""
     if cfg.attention != "auto":
         return cfg.attention
     return "flash" if device.type == "cuda" else "reference"
 
 
 def _block_apply(block, x, cfg: GPT2Config, impl: str):
+    """(the block's output, its MoE aux loss, or None without MoE)."""
     cd = cfg.dtype
     h = L.layer_norm(x, block["ln1"]["scale"], block["ln1"]["bias"])
     x = x + L.apply_attention(block["attn"], h, causal=True, impl=impl,
                               compute_dtype=cd)
     h = L.layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"])
-    return x + L.apply_mlp(block["mlp"], h, compute_dtype=cd)
+    if cfg.moe:
+        m, aux = L.apply_moe(block["moe"], h, cfg.moe, compute_dtype=cd)
+        return x + m, aux
+    return x + L.apply_mlp(block["mlp"], h, compute_dtype=cd), None
 
 
 def embed(params, tokens, cfg: GPT2Config):
@@ -160,9 +172,11 @@ def unembed(params, x, cfg: GPT2Config):
 
 
 def forward(params, tokens, cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> (logits [B, S, V] f32, aux loss scalar (0: no MoE))."""
+    """tokens [B, S] -> (logits [B, S, V] f32, the MoE aux loss summed over
+    the layers over n_layer: an f32 scalar, 0 without MoE)."""
     impl = _resolve_attention(cfg, tokens.device)
     x = embed(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     # One unbind per stacked leaf: its backward stacks the layers' grads in
     # one pass, where indexing leaf[i] per layer would zero-fill and add a
     # full [n_layer, ...] gradient for every layer.
@@ -170,12 +184,14 @@ def forward(params, tokens, cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor
     for i in range(cfg.n_layer):
         block = tree_map(lambda per_layer: per_layer[i], layers)
         if cfg.remat:
-            x = checkpoint(_block_apply, block, x, cfg, impl,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_apply, block, x, cfg, impl,
+                              use_reentrant=False)
         else:
-            x = _block_apply(block, x, cfg, impl)
+            x, a = _block_apply(block, x, cfg, impl)
+        if a is not None:
+            aux = aux + a
     logits = unembed(params, x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux / cfg.n_layer
 
 
 def loss_fn(params, batch, cfg: GPT2Config):

@@ -4,11 +4,13 @@ Parameters are plain nested dicts of tensors with the JAX package's keys,
 shapes and dtypes; layers are functions over them. Compute is bf16 by
 default with f32 params and accumulators. The memory-lean custom VJPs
 (``layer_norm``, the MLP) are ``torch.autograd.Function``s that save the
-same residuals as the JAX rules. The routed MoE layer comes in a later
-slice.
+same residuals as the JAX rules. The routed MoE layer (``apply_moe``)
+mirrors the JAX package's dense-dispatch einsums; expert parallelism
+comes with the mesh slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
@@ -176,3 +178,106 @@ def apply_mlp(params: Params, x, compute_dtype=torch.bfloat16):
     out = _LeanMLP.apply(x, params["w1"], params["b1"], params["w2"],
                          params["b2"], compute_dtype)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MoE
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+
+
+def init_moe(generator, d_model, d_ff, cfg: MoEConfig, dtype=torch.float32,
+             *, device: DeviceLike = None, lead: Tuple[int, ...] = ()):
+    """The router ``wg [d, E]`` and the experts' ``w1 [E, d, f]`` and
+    ``w2 [E, f, d]``, with ``lead`` prepended (``(n_layer,)`` for a
+    stack)."""
+    dev = resolve_device(device)
+    E = cfg.n_experts
+    return {
+        "wg": _init_dense(generator, (*lead, d_model, E), dev, dtype=dtype),
+        "w1": _init_dense(generator, (*lead, E, d_model, d_ff), dev,
+                          dtype=dtype),
+        "w2": _init_dense(generator, (*lead, E, d_ff, d_model), dev,
+                          dtype=dtype),
+    }
+
+
+# The JAX package's logical axes of each leaf, as plain data: the experts'
+# leading dim is what expert parallelism shards.
+MOE_LOGICAL = {
+    "wg": ("embed", None),
+    "w1": ("experts", "embed", "expert_mlp"),
+    "w2": ("experts", "expert_mlp", "embed"),
+}
+
+
+def moe_capacity(cfg: MoEConfig, n_tokens: int) -> int:
+    """Slots an expert holds for ``n_tokens`` (B*S) tokens, with the JAX
+    package's factors in its order."""
+    return max(1, int(cfg.capacity_factor * cfg.top_k * n_tokens
+                      / cfg.n_experts))
+
+
+def route_tokens(wg: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
+    """The router, in f32: x [B, S, D] -> (probs [B, S, E], gates [B, S, K]
+    renormalized with max(sum, 1e-9), experts [B, S, K], slots [B, S, K]).
+    A (token, k) pair's slot is its place in its expert's buffer, counted
+    over the whole flattened token stream in (b, s, k) order; a slot at or
+    past ``moe_capacity`` is dropped."""
+    B, S, _ = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(x.float() @ wg.float(), dim=-1)
+    gates, experts = torch.topk(probs, K, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    # the count runs along the inner dim of [E, B*S*K]: on the card a scan
+    # down the 8 columns of [B*S*K, E] took 3 ms a layer at B*S 8192
+    onehot = F.one_hot(experts.reshape(-1), E).t().contiguous()
+    pos = onehot.cumsum(dim=1) - 1
+    slots = pos.gather(0, experts.reshape(1, -1)).view(B, S, K)
+    return probs, gates, experts, slots
+
+
+def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig,
+              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style top-k routed MoE with capacity, over dense-dispatch
+    einsums: x [B, S, D] -> (out [B, S, D] in x's dtype, the Switch aux
+    loss, an f32 scalar).
+
+    ``disp [B, S, E, C]`` is 1 where token (b, s) holds slot c of expert
+    e. It is written by a scatter into zeros where the JAX package sums
+    one-hots: a token's experts are distinct, so the two agree, and a
+    dropped pair's ``one_hot(-1)`` is JAX's zero row. ``gates_per_e``
+    is scattered the same way from the gates rounded to the compute dtype
+    (JAX's sum over k of gate times one-hot, which adds exact zeros). The
+    products are plain einsums in the compute dtype, with the casts where
+    the JAX package makes them; ``combine`` carries the gradient to the
+    router."""
+    cd = compute_dtype
+    B, S, D = x.shape
+    E = cfg.n_experts
+    C = moe_capacity(cfg, B * S)
+    probs, gates, experts, slots = route_tokens(params["wg"], x, cfg)
+
+    # Switch load balancing: mean router prob per expert times the
+    # fraction of tokens whose top-1 expert it is
+    me = probs.mean(dim=(0, 1))
+    ce = (F.one_hot(experts[..., 0], E).float().sum(dim=1) / S).mean(dim=0)
+    aux_loss = E * torch.sum(me * ce)
+
+    # A dropped pair writes its 0 into slot C - 1 of its own (token,
+    # expert) row, which no other pair writes.
+    index = experts * C + slots.clamp(max=C - 1)
+    disp = torch.zeros(B, S, E * C, dtype=cd, device=x.device)
+    disp.scatter_(-1, index, (slots < C).to(cd))
+    disp = disp.view(B, S, E, C)
+    gates_per_e = torch.zeros(B, S, E, dtype=cd, device=x.device).scatter(
+        -1, experts, gates.to(cd))
+    combine = disp * gates_per_e.unsqueeze(-1)
+
+    expert_in = torch.einsum("bsec,bsd->ecd", disp, x.to(cd))
+    h = _gelu(torch.einsum("ecd,edf->ecf", expert_in, params["w1"].to(cd)))
+    expert_out = torch.einsum("ecf,efd->ecd", h, params["w2"].to(cd))
+    out = torch.einsum("bsec,ecd->bsd", combine, expert_out)
+    return out.to(x.dtype), aux_loss

@@ -1,4 +1,4 @@
-// Flash attention for Hopper (sm_90a) in f32 at head dims 16-128: forward,
+// Flash attention for Hopper (sm_90a) in f32 at head dims 16-256: forward,
 // dq and dk/dv, every product on the tensor cores as 3xTF32.
 //
 // They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
@@ -9,11 +9,13 @@
 // Each is a template on the head dim D. Sums, softmax and accumulators are
 // f32, as are o, dq, dk, dv and lse (the Pallas kernels' casts of p and ds
 // to the input type are no-ops in f32). Masked scores are -1e30, as in the
-// Pallas kernels. The bf16 kernels are flash_attention.cu's.
+// Pallas kernels. The bf16 kernels are flash_attention.cu's; bf16 head dims
+// 129-256 come here as f32 (the wrapper casts them: every bf16 value is
+// exact in f32).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] f32, contiguous and
-// 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64 or 128;
-// the wrapper pads any other D up with zero columns. A ragged S is masked
+// 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64, 128 or
+// 256; the wrapper pads any other D up with zero columns. A ragged S is masked
 // at the tile edges: rows past S load as zeros, columns past S are
 // masked, rows past S are not stored.
 //
@@ -32,8 +34,8 @@
 //
 // One design serves all three: one 128-thread block a 64-row tile of its
 // own axis (Q rows for the forward and dq, KV rows for dk/dv), 4 warps of
-// 16 rows each. The other axis streams in tiles of 32 rows (16 at D 128)
-// through a 2-stage cp.async ring, so the next tile loads under this one's
+// 16 rows each. The other axis streams in tiles of 32 rows (16 at D 128, 8
+// at D 256) through a 2-stage cp.async ring, so the next tile loads under this one's
 // products. Tiles sit in shared memory as raw f32, rows unpadded and
 // XOR-swizzled so that all three fragment reads below are free of bank
 // conflicts; each fragment is split into big and small as it is read, in
@@ -83,14 +85,27 @@ __device__ __forceinline__ float quad_sum(float x) {
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
 
-// Rows of a streamed tile (the other axis): 32, or 16 at D 128, where the
-// accumulators of a 16 x 128 output a warp take 64 registers each.
+// Rows of a streamed tile (the other axis): 32, 16 at D 128, where the
+// accumulators of a 16 x 128 output a warp take 64 registers each, and 8
+// at D 256, where they take 128.
 template <int D>
-constexpr int kStreamRows = D >= 128 ? 16 : 32;
+constexpr int kStreamRows = D >= 256 ? 8 : D >= 128 ? 16 : 32;
 
-// Blocks an SM is built for: registers stay under 65,536 / (128 x this).
+// Blocks an SM is built for: registers stay under 65,536 / (128 x this),
+// and at 1 under the cap of 255 a thread.
 template <int D>
-constexpr int kMinBlocks = D >= 128 ? 2 : 3;
+constexpr int kMinBlocks = D >= 256 ? 1 : D >= 128 ? 2 : 3;
+
+// dk and dv of a 16 x D output a warp take D / 2 accumulator registers a
+// thread each: 256 together at D 256, past the cap. There dk/dv runs as
+// two passes, two kernels launched one after the other: a dv pass (p,
+// then p^T.do) and a dk pass (p and dp, then ds^T.q), each recomputing
+// the scores it needs, 5 products for the fused kernel's 4. One kernel
+// with the two passes on two grid z-slices ran 4.66 ms against the two
+// launches' 3.80 at B*H 48, S 1024, causal (PERF.md): its registers
+// are the union of both passes', and it spilled 368 bytes a thread.
+template <int D>
+constexpr bool kDkvSplit = D > 128;
 
 // Where element (r, c) of a [rows, D] f32 tile sits in shared memory, in
 // 4-byte words. Rows are unpadded; each row's words are XOR-swizzled by
@@ -555,7 +570,11 @@ constexpr int dkv_tc_smem_bytes() {
          2 * 2 * kStreamRows<D> * 4;
 }
 
-template <int D>
+// What a dk/dv kernel computes: both (kDkDv), or one pass of the split
+// (kDkvSplit).
+constexpr int kDkOnly = 1, kDvOnly = 2, kDkDv = 3;
+
+template <int D, int kOut>
 __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
     flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -565,6 +584,7 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
                             const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv,
                             int seq, float scale, int causal) {
+  constexpr bool kDk = kOut & kDkOnly, kDv = kOut & kDvOnly;
   constexpr int BN = kStreamRows<D>, NT = BN / 8;
   extern __shared__ __align__(16) uint32_t tc_smem[];
   uint32_t* sk = tc_smem;
@@ -590,11 +610,14 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
   load_rows_async(rows + BN, delta + rbase, q_begin, BN, seq);
   cp_async_commit();
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[kDk ? D / 8 : 1][4], dv_acc[kDv ? D / 8 : 1][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kDk) dk_acc[n][e] = 0.f;
+      if constexpr (kDv) dv_acc[n][e] = 0.f;
+    }
 
   for (int j = 0; j < n_tiles; ++j) {
     const int q0 = q_begin + j * BN;
@@ -622,7 +645,7 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
       // transposed scores: rows are the warp's KV rows, columns Q rows
       float p[NT][4], ds[NT][4];
       tile_scores<D, NT, false>(p, sk, sq, wr);
-      tile_scores<D, NT, true>(ds, sv, sdo, wr);
+      if constexpr (kDk) tile_scores<D, NT, true>(ds, sv, sdo, wr);
       // only a tile past S or across the diagonal has masked entries (KV
       // rows past S are never stored, so they need no mask)
       const bool edge = q0 + BN > seq || (causal && q0 < k0 + wr + 15);
@@ -634,11 +657,11 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
                     col = k0 + wr + g + 8 * (e >> 1);
           float pe = exp2f(fmaf(p[n][e], scale2, -slse[a] * kLog2e));
           if (edge && (row >= seq || (causal && col > row))) pe = 0.f;
-          ds[n][e] = pe * (ds[n][e] - sdelta[a]) * scale;
+          if constexpr (kDk) ds[n][e] = pe * (ds[n][e] - sdelta[a]) * scale;
           p[n][e] = pe;
         }
-      accumulate<D, NT>(dv_acc, p, sdo);  // dv += p^T . do
-      accumulate<D, NT>(dk_acc, ds, sq);  // dk += ds^T . q
+      if constexpr (kDv) accumulate<D, NT>(dv_acc, p, sdo);  // dv += p^T . do
+      if constexpr (kDk) accumulate<D, NT>(dk_acc, ds, sq);  // dk += ds^T . q
     }
     __syncthreads();  // this stage is read: the next load may refill it
   }
@@ -649,8 +672,8 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const size_t at = base + (size_t)row * D + 8 * n + 2 * t4;
-      store2(dk + at, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
-      store2(dv + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      if constexpr (kDk) store2(dk + at, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+      if constexpr (kDv) store2(dv + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
   }
 }
@@ -658,7 +681,7 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
 // -------------------------------------------------------------- launching
 
 // f(std::integral_constant<int, D>) for a head dim the kernels are built
-// for (16, 32, 64, 128); -3 for another.
+// for (16, 32, 64, 128, 256); -3 for another.
 template <typename F>
 int with_head_dim(int d, F f) {
   switch (d) {
@@ -666,12 +689,14 @@ int with_head_dim(int d, F f) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
     default: return -3;
   }
 }
 
-// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) at head
-// dim D and its dynamic shared memory; nullptr for another kernel id.
+// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu; where
+// dk/dv is split, 1 is its dv pass and 3 its dk pass) at head dim D and
+// its dynamic shared memory; nullptr for another kernel id.
 template <int D>
 const void* kernel_fn(int kernel, int* smem) {
   switch (kernel) {
@@ -680,7 +705,16 @@ const void* kernel_fn(int kernel, int* smem) {
       return (const void*)flash_fwd_tc_kernel<D>;
     case 1:
       *smem = dkv_tc_smem_bytes<D>();
-      return (const void*)flash_bwd_dkv_tc_kernel<D>;
+      if constexpr (kDkvSplit<D>)
+        return (const void*)flash_bwd_dkv_tc_kernel<D, kDvOnly>;
+      else
+        return (const void*)flash_bwd_dkv_tc_kernel<D, kDkDv>;
+    case 3:
+      *smem = dkv_tc_smem_bytes<D>();
+      if constexpr (kDkvSplit<D>)
+        return (const void*)flash_bwd_dkv_tc_kernel<D, kDkOnly>;
+      else
+        return nullptr;
     case 2:
       *smem = dq_tc_smem_bytes<D>();
       return (const void*)flash_bwd_dq_tc_kernel<D>;
@@ -735,16 +769,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int seq, int d, float scale, int causal, void* stream) {
   return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    int smem;
-    const cudaError_t e = prepare<D>(1, &smem);
-    if (e != cudaSuccess) return (int)e;
+    const int smem = dkv_tc_smem_bytes<D>();
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    flash_bwd_dkv_tc_kernel<D>
-        <<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
-            (const float*)q, (const float*)k, (const float*)v,
-            (const float*)dout, (const float*)lse, (const float*)delta,
-            (float*)dk, (float*)dv, seq, scale, causal);
-    return (int)cudaGetLastError();
+    auto run = [&](auto fn) {
+      cudaError_t e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      fn<<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
+          (const float*)q, (const float*)k, (const float*)v,
+          (const float*)dout, (const float*)lse, (const float*)delta,
+          (float*)dk, (float*)dv, seq, scale, causal);
+      return (int)cudaGetLastError();
+    };
+    if constexpr (kDkvSplit<D>) {
+      const int e = run(flash_bwd_dkv_tc_kernel<D, kDvOnly>);
+      return e != 0 ? e : run(flash_bwd_dkv_tc_kernel<D, kDkOnly>);
+    } else {
+      return run(flash_bwd_dkv_tc_kernel<D, kDkDv>);
+    }
   });
 }
 
@@ -752,7 +794,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// f32 at head dim d (16, 32, 64 or 128)
+// f32 at head dim d (16, 32, 64, 128 or 256)
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   void* lse, int bh, int seq, int d, float scale, int causal,
                   void* stream) {
@@ -775,7 +817,8 @@ int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                     causal, stream);
 }
 
-// Of the forward (0), dk/dv (1) or dq (2) at head dim d: out[0] registers a
+// Of the forward (0), dk/dv (1; its dv pass where it is split) or dq (2),
+// or the dk pass of a split dk/dv (3), at head dim d: out[0] registers a
 // thread, out[1] its dynamic shared memory, out[2] the blocks that one SM
 // holds at once with it, out[3] its local memory a thread in bytes
 // (spills). Returns a cudaError_t, or -3 for another kernel or head dim.

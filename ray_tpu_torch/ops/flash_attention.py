@@ -6,8 +6,12 @@ for bf16 head dims up to 64 (padded to 64), the wgmma kernels of
 ``csrc/flash_attention.cu`` at head dim 64; "bf16_wide" for bf16 head
 dims 65 to 128 (padded to 128), the same file's kernels at head dim 128;
 "f32", the 3xTF32 tensor-core kernels of ``csrc/flash_attention_f32.cu``
-(head dims 16, 32, 64 and 128; others padded up to the next). Each
-family has a forward with online softmax that writes ``o`` and the row
+(head dims 16, 32, 64, 128 and 256; others padded up to the next);
+"bf16_f32" for bf16 head dims 129 to 256, which the wrappers cast to f32
+for the f32 kernels at head dim 256 and whose outputs they cast back
+(every bf16 value is exact in f32; the one difference from the bf16
+Pallas kernels is that p and ds are not rounded to bf16 before the
+accumulating products). Each family has a forward with online softmax that writes ``o`` and the row
 logsumexp, a dq kernel and a dk/dv kernel, each recomputing the
 probabilities from the saved logsumexp so that no S x S tensor reaches
 device memory.
@@ -39,7 +43,8 @@ NEG_INF = -1e30
 # per block and stream K/V in 64-row tiles; dk/dv takes 128 KV rows per
 # block and streams Q/dO in 64-row tiles. The kernels of
 # csrc/flash_attention_f32.cu (f32) take 64 rows of their own axis a
-# block and stream the other in tiles of 32 rows (16 at head dim 128).
+# block and stream the other in tiles of 32 rows (16 at head dim 128, 8 at
+# 256).
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
@@ -48,8 +53,15 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 # columns add exact zeros to q.k^T and do.v^T, the scale stays the
 # caller's, and the padded columns of the outputs are dropped.
 BF16_HEAD_DIMS = (64, 128)  # 64: family bf16; 128: bf16_wide
-F32_HEAD_DIMS = (16, 32, 64, 128)
+F32_HEAD_DIMS = (16, 32, 64, 128, 256)
+# bf16 above BF16_HEAD_DIMS[-1]: family bf16_f32, the f32 kernels at 256
+BF16_VIA_F32_HEAD_DIM = 256
+# Above this head dim the f32 dk/dv runs as two kernels, a dv pass and a
+# dk pass (their accumulators together would pass 255 registers a
+# thread), launched by one call of its entry and counted as one launch.
+F32_DKV_FUSED_MAX_HEAD_DIM = 128
 # family -> the suffix of its kernels' entry points and launch counters
+# (bf16_f32 launches the f32 kernels and counts under their names)
 _SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "f32": "_f32"}
 
 LAUNCHES = {f"{kernel}{suffix}": 0 for suffix in _SUFFIXES.values()
@@ -141,6 +153,7 @@ _ENTRIES = {
 _LIBRARY_OF = {entry: lib for lib, entries in _ENTRIES.items()
                for entry in entries}
 _KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}
+_DK_PASS_ID = 3  # the dk pass of the split f32 dk/dv (1 is its dv pass)
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -162,9 +175,10 @@ def kernel_plan(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
     """Which kernel family takes [BH, S, head_dim] tensors of ``dtype``,
     and the head dim it runs them at: ``("bf16", 64)`` for bf16 with head
     dim up to 64, ``("bf16_wide", 128)`` for bf16 with head dim 65 to 128,
-    ``("f32", d)`` for f32 with head dim up to 128, ``d`` the next of
-    ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
-    dims = {torch.bfloat16: BF16_HEAD_DIMS,
+    ``("bf16_f32", 256)`` for bf16 with head dim 129 to 256 (cast to f32
+    for the f32 kernels), ``("f32", d)`` for f32 with head dim up to 256,
+    ``d`` the next of ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
+    dims = {torch.bfloat16: (*BF16_HEAD_DIMS, BF16_VIA_F32_HEAD_DIM),
             torch.float32: F32_HEAD_DIMS}.get(dtype)
     if dims is None:
         raise ValueError(f"the CUDA kernels take bf16 or f32 tensors, got "
@@ -174,6 +188,8 @@ def kernel_plan(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
         raise ValueError(
             f"the CUDA kernels take {_DTYPE_NAMES[dtype]} head dims 1 to "
             f"{dims[-1]}, got {head_dim}")
+    if dtype == torch.bfloat16 and padded > BF16_HEAD_DIMS[-1]:
+        return "bf16_f32", padded
     if dtype == torch.bfloat16 and padded > BF16_HEAD_DIMS[0]:
         return "bf16_wide", padded
     return _DTYPE_NAMES[dtype], padded
@@ -225,7 +241,8 @@ def dynamic_smem_bytes(kernel: str, head_dim: Optional[int] = None) -> int:
     return smem
 
 
-def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
+def kernel_attributes(kernel: str, head_dim: Optional[int] = None, *,
+                      dk_pass: bool = False) -> dict:
     """What the CUDA runtime reports of one kernel: ``registers`` a thread,
     ``max_dynamic_smem``, ``blocks_per_sm`` (blocks one SM holds at once at
     the shared memory it launches with) and ``local_bytes`` (local memory
@@ -233,14 +250,16 @@ def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
     kernel is asked for at one of ``F32_HEAD_DIMS`` (``head_dim``). For a
     kernel of ``csrc/flash_attention.cu`` ``max_dynamic_smem`` is what its
     last launch allowed itself, for the others the dynamic shared memory of
-    their launches. Needs a CUDA device."""
+    their launches. Where the f32 dk/dv runs as two passes (head dims above
+    ``F32_DKV_FUSED_MAX_HEAD_DIM``), ``flash_bwd_dkv_f32`` is its dv pass,
+    and ``dk_pass`` asks for its dk pass. Needs a CUDA device."""
     out = (_I * 4)()
     suffix = _suffix(kernel)
     lib = _LIBRARY_OF[_entry(kernel)]
     attributes = ("flash_kernel_attributes" if lib == "flash_attention"
                   else "flash_f32_kernel_attributes")
-    err = _kernel(attributes)(_KERNEL_IDS[kernel.removesuffix(suffix)],
-                              _head_dim_of(kernel, head_dim), out)
+    kid = _DK_PASS_ID if dk_pass else _KERNEL_IDS[kernel.removesuffix(suffix)]
+    err = _kernel(attributes)(kid, _head_dim_of(kernel, head_dim), out)
     if err != 0:
         raise RuntimeError(f"kernel attributes of {kernel} failed: "
                            f"{_why(err)}")
@@ -313,6 +332,11 @@ def _padded(tensors, head_dim):
     return [pad_head_dim(t, head_dim) for t in tensors]
 
 
+def _as_f32(*tensors):
+    """bf16_f32: the f32 kernels' inputs, exact copies of bf16 ones."""
+    return [t.float() for t in tensors]
+
+
 def _run(kernel: str, family: str, head_dim: int, device, ptrs, scale,
          causal) -> None:
     """Launches ``kernel`` (``flash_fwd``, ``flash_bwd_dq`` or
@@ -332,6 +356,9 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool):
     BH, S = _check_cuda((q, k, v))
     D = q.shape[-1]
     family, Dk = kernel_plan(q.dtype, D)
+    if family == "bf16_f32":
+        o, lse = flash_fwd(*_as_f32(q, k, v), scale=scale, causal=causal)
+        return o.to(q.dtype), lse
     q, k, v = _padded((q, k, v), Dk)
     o = torch.empty_like(q)
     lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
@@ -350,6 +377,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
     D = q.shape[-1]
     family, Dk = kernel_plan(q.dtype, D)
+    if family == "bf16_f32":
+        dq = flash_bwd_dq(*_as_f32(q, k, v, do), lse, delta, scale=scale,
+                          causal=causal)
+        return dq.to(q.dtype)
     q, k, v, do = _padded((q, k, v, do), Dk)
     dq = torch.empty_like(q)
     _run("flash_bwd_dq", family, Dk, q.device,
@@ -368,6 +399,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
     D = q.shape[-1]
     family, Dk = kernel_plan(q.dtype, D)
+    if family == "bf16_f32":
+        dk, dv = flash_bwd_dkv(*_as_f32(q, k, v, do), lse, delta, scale=scale,
+                               causal=causal)
+        return dk.to(k.dtype), dv.to(v.dtype)
     q, k, v, do = _padded((q, k, v, do), Dk)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -9,10 +9,12 @@ For each ROOT the child process imports ROOT's
 sources into ROOT/build/) and times, at GPT-2-small's attention shape
 (B*H 192, S 1024, D 64, causal), in bf16 and in f32 (TF32 off, as in
 chip_smoke.py), and in bf16 at chip_smoke.py's wide shape (B*H 96, S
-1024, D 128, causal: the bf16_wide kernels), the three kernels of each
-through their wrappers and ``F.scaled_dot_product_attention``'s forward
-and backward in that dtype (the f32 names end in ``_f32``, the wide ones
-in ``_bf16w``).
+1024, D 128, causal: the bf16_wide kernels), and in f32 at chip_smoke.py's
+head-dim-256 shape (B*H 48, S 1024, D 256, causal), the three kernels of
+each through their wrappers and ``F.scaled_dot_product_attention``'s
+forward and backward in that dtype (the f32 names end in ``_f32``, the
+wide ones in ``_bf16w``, the head-dim-256 ones in ``_f32_d256``). A shape
+whose head dim a root's kernels do not take is left out of its run.
 Every root is timed with ``time_ms`` of THIS checkout's chip_smoke.py, so
 two versions of the kernels are compared by one method. The host's own
 time per wrapper call is measured too (the device is left to drain before
@@ -36,7 +38,8 @@ REPO = os.path.dirname(HERE)
 B = 16
 # suffix -> (B*H, S, D, dtype name)
 SHAPES = {"": (192, 1024, 64, "bfloat16"), "_f32": (192, 1024, 64, "float32"),
-          "_bf16w": (96, 1024, 128, "bfloat16")}
+          "_bf16w": (96, 1024, 128, "bfloat16"),
+          "_f32_d256": (48, 1024, 256, "float32")}
 NAMES = [f"{name}{suffix}" for suffix in SHAPES for name in (
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sdpa_fwd", "sdpa_bwd")]
 
@@ -62,8 +65,12 @@ def child(root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     fns = {}
-    for suffix, shape in SHAPES.items():
-        fns.update(functions(torch, F, fa, gen, suffix, *shape))
+    for suffix, (BH, S, D, dtype) in SHAPES.items():
+        try:
+            fa.kernel_plan(getattr(torch, dtype), D)
+        except ValueError:
+            continue  # this root's kernels do not take the head dim
+        fns.update(functions(torch, F, fa, gen, suffix, BH, S, D, dtype))
     out = {"root": root}
     for name, fn in fns.items():
         out[name] = statistics.median(
@@ -126,7 +133,8 @@ def main(roots) -> int:
     for root in dict.fromkeys(roots):
         mine = [r for r in runs if r["root"] == root]
         cells = ", ".join(
-            f"{n} {statistics.median(r[n] for r in mine):.4f} ms" for n in NAMES)
+            f"{n} {statistics.median(r[n] for r in mine):.4f} ms" for n in NAMES
+            if n in mine[0])
         print(f"median of {len(mine)} run(s) of {root}: {cells}", flush=True)
     return 0
 

@@ -132,6 +132,23 @@ def test_bf16_wide_kernels_match_plain(cuda, BH, S, Dh, causal):
                         "flash_bwd_dkv_bf16w": 1}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,Dh,causal", [
+    (2, 129, 129, True), (2, 129, 192, False), (2, 200, 256, True),
+    (2, 129, 256, False), (1, 1000, 256, True), (2, 1, 256, True),
+    (2, 40, 160, True), (3, 1024, 192, True),
+])
+def test_head_dims_129_to_256_run_the_f32_kernels_at_256(cuda, BH, S, Dh,
+                                                          causal, dtype):
+    """Head dims 129 to 256 in both dtypes, padded to 256: the f32 kernels'
+    head-dim-256 instances (bf16 cast to f32 and back), held to the plain
+    versions of the caller's dtype under its bound, and counted under the
+    f32 kernels' names."""
+    launched = _check_all_three(cuda, BH, S, Dh, causal, dtype, S + Dh)
+    assert launched == {"flash_fwd_f32": 1, "flash_bwd_dq_f32": 1,
+                        "flash_bwd_dkv_f32": 1}
+
+
 def test_dq_grid_larger_than_the_card(cuda):
     """More dq blocks than the card holds at once, twice over (two blocks
     an SM): every block's tile is computed, and the launch asks for the
@@ -175,26 +192,42 @@ def test_wgmma_kernel_attributes(cuda, kernel, head_dim, want):
 
 
 @pytest.mark.parametrize("head_dim,smem", [
-    (16, 12288), (32, 24576), (64, 49152), (128, 65536)])
+    (16, 12288), (32, 24576), (64, 49152), (128, 65536), (256, 98304)])
 def test_f32_forward_attributes(cuda, head_dim, smem):
     """The tensor-core f32 forward at each head dim it is built for: its
     dynamic shared memory (the Q tile and a 2-stage ring of K and V
     tiles), no local memory (no spills), and at least the blocks an SM it
-    is built for (3 up to head dim 64, 2 at 128)."""
+    is built for (3 up to head dim 64, 2 at 128, 1 at 256)."""
     attrs = fa.kernel_attributes("flash_fwd_f32", head_dim)
     assert attrs["max_dynamic_smem"] == smem
     assert attrs["local_bytes"] == 0
-    assert attrs["blocks_per_sm"] >= (2 if head_dim == 128 else 3)
+    assert attrs["blocks_per_sm"] >= {128: 2, 256: 1}.get(head_dim, 3)
+
+
+def test_f32_backward_attributes_at_head_dim_256(cuda):
+    """At head dim 256 dq and the two passes of dk/dv (dv, then dk: their
+    accumulators together would pass 255 registers a thread) take 160 KB
+    of shared memory and one block an SM; at 128 dk/dv is one kernel and
+    has no dk pass to ask for."""
+    for kernel, dk_pass, smem in (("flash_bwd_dq_f32", False, 163840),
+                                  ("flash_bwd_dkv_f32", False, 163968),
+                                  ("flash_bwd_dkv_f32", True, 163968)):
+        attrs = fa.kernel_attributes(kernel, 256, dk_pass=dk_pass)
+        assert attrs["max_dynamic_smem"] == smem, (kernel, dk_pass)
+        assert attrs["blocks_per_sm"] == 1 and attrs["registers"] <= 255
+    assert fa.F32_DKV_FUSED_MAX_HEAD_DIM == 128
+    with pytest.raises(RuntimeError):
+        fa.kernel_attributes("flash_bwd_dkv_f32", 128, dk_pass=True)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    """bf16 and f32 above head dim 128, and other dtypes, are refused
+    """bf16 and f32 above head dim 256, and other dtypes, are refused
     before any launch."""
     before = dict(fa.LAUNCHES)
-    q = torch.zeros(2, 64, 129, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dims 1 to 128"):
+    q = torch.zeros(2, 64, 257, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         fa.flash_fwd(q, q, q, scale=1.0, causal=True)
-    q = torch.zeros(2, 64, 256, device=cuda)
+    q = torch.zeros(2, 64, 257, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(q, q, q, scale=1.0, causal=True)
     q = torch.zeros(2, 64, D, dtype=torch.float16, device=cuda)
@@ -370,3 +403,48 @@ def test_world2_thread_ddp_step_on_the_card(cuda):
                            "flash_bwd_dkv": 8}
     for a, b in zip(p0, p1):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_moe_layer_and_gpt2_moe_step_on_the_card(cuda):
+    """apply_moe in f32 on the card equals the CPU's on the same inputs,
+    at a capacity factor that drops pairs; a bf16 GPT-2 with MoE blocks
+    under attention="auto" runs the flash kernels once a layer, reports
+    a finite positive aux loss, and its first step matches reference
+    attention's within chip_smoke.py's limits."""
+    from ray_tpu_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(3)
+    moe_cfg = L.MoEConfig(n_experts=4, top_k=2, capacity_factor=0.5)
+    params = {"wg": torch.randn(64, 4, generator=gen),
+              "w1": torch.randn(4, 64, 128, generator=gen) / 8,
+              "w2": torch.randn(4, 128, 64, generator=gen) / 128 ** 0.5}
+    x = torch.randn(2, 32, 64, generator=gen)
+    out_cpu, aux_cpu = L.apply_moe(params, x, moe_cfg, torch.float32)
+    out, aux = L.apply_moe({k: v.to(cuda) for k, v in params.items()},
+                           x.to(cuda), moe_cfg, torch.float32)
+    torch.testing.assert_close(out.cpu(), out_cpu, atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=0, rtol=1e-6)
+
+    cfg = gpt2.GPT2Config(vocab_size=512, max_seq=128, n_layer=2, n_head=2,
+                          d_model=128, remat=False, moe=L.MoEConfig(
+                              n_experts=4, top_k=2, capacity_factor=1.25))
+    tokens = torch.randint(0, 512, (4, 129), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    metrics = {}
+    for attention in ("reference", "auto"):
+        run_cfg = dataclasses.replace(cfg, attention=attention)
+        opt = ts.default_optimizer(1e-3, warmup_steps=1, total_steps=4)
+        state = ts.make_train_state(
+            lambda g: gpt2.init(g, run_cfg),
+            torch.Generator(device=cuda).manual_seed(0), opt)
+        step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, run_cfg), opt)
+        fa.reset_launch_counts()
+        state, m = step(state, {"tokens": tokens})
+        metrics[attention] = {k: float(m[k]) for k in
+                              ("loss", "grad_norm", "aux_loss")}
+    assert fa.LAUNCHES == {**NO_LAUNCH, "flash_fwd": 2, "flash_bwd_dq": 2,
+                           "flash_bwd_dkv": 2}
+    ref, flash = metrics["reference"], metrics["auto"]
+    assert 0 < flash["aux_loss"] < float("inf")
+    assert abs(flash["loss"] - ref["loss"]) <= 1e-4 * ref["loss"]
+    assert abs(flash["grad_norm"] - ref["grad_norm"]) <= 2e-3 * ref["grad_norm"]

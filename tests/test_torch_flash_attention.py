@@ -125,7 +125,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     bf = torch.zeros(4, 128, 64, dtype=torch.bfloat16)
     assert tfa._check_cuda((bf, bf, bf)) == (4, 128)
     with pytest.raises(ValueError, match="head dim"):
-        tfa._check_cuda((torch.zeros(4, 128, 160, dtype=torch.bfloat16),) * 3)
+        tfa._check_cuda((torch.zeros(4, 128, 257, dtype=torch.bfloat16),) * 3)
     with pytest.raises(ValueError, match="bf16"):
         tfa._check_cuda((bf, bf.float(), bf))
     with pytest.raises(ValueError, match="contiguous"):
@@ -288,10 +288,10 @@ def test_kernel_plan_dispatches_by_dtype_and_head_dim(dtype, Dh, plan):
 
 
 @pytest.mark.parametrize("dtype,Dh,match", [
-    (torch.bfloat16, 129, "bf16 head dims 1 to 128"),
-    (torch.bfloat16, 160, "bf16 head dims 1 to 128"),
-    (torch.float32, 129, "f32 head dims 1 to 128"),
-    (torch.float32, 0, "f32 head dims 1 to 128"),
+    (torch.bfloat16, 257, "bf16 head dims 1 to 256"),
+    (torch.bfloat16, 320, "bf16 head dims 1 to 256"),
+    (torch.float32, 257, "f32 head dims 1 to 256"),
+    (torch.float32, 0, "f32 head dims 1 to 256"),
     (torch.float16, 64, "bf16 or f32"), (torch.float64, 64, "bf16 or f32"),
 ])
 def test_kernel_plan_refuses_what_no_kernel_takes(dtype, Dh, match):

@@ -1,0 +1,134 @@
+"""Head dims 129 to 256 in the port's flash attention
+(ray_tpu_torch.ops.flash_attention): the routes of ``kernel_plan`` and
+what a wrapper computes on the card for them, with each kernel's plain
+version in its place, against the JAX package's Pallas kernels run in
+interpret mode on the same numpy inputs.
+
+On the card, f32 head dims 129-256 run the f32 kernels at head dim 256
+(zero-padded), and bf16 ones run the same kernels on f32 copies, their
+outputs cast back to bf16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import flash_attention as jfa
+from ray_tpu_torch.ops import flash_attention as tfa
+
+BH, S, JAX_BLOCK = 2, 129, 128  # S: one row past a 128-row tile
+# f32: the JAX package's own bounds for its Pallas kernels (sums in
+# another order); bf16: chip_smoke.py's bound, element by element.
+O_ATOL, LSE_ATOL, GRAD_ATOL = 2e-5, 2e-5, 1e-4
+BF16_RTOL, BF16_ATOL_RMS, BF16_FLOOR = 2.0 ** -6, 2.0 ** -3, 1e-5
+CASES = [(Dh, causal) for Dh in (192, 256) for causal in (True, False)]
+
+
+@pytest.fixture(scope="module")
+def pallas_runs():
+    """_flash_fwd and _flash_bwd of the JAX package per (dtype, head dim,
+    causal), on inputs from numpy."""
+    out = {}
+    for dtype in (jnp.float32, jnp.bfloat16):
+        for Dh, causal in CASES:
+            rng = np.random.default_rng(Dh + causal)
+            q, k, v, do = (jnp.asarray(rng.standard_normal((BH, S, Dh),
+                                                           dtype=np.float32),
+                                       dtype=dtype) for _ in range(4))
+            kw = dict(scale=Dh ** -0.5, causal=causal, block_q=JAX_BLOCK,
+                      block_k=JAX_BLOCK, interpret=True)
+            o, lse = jfa._flash_fwd(q, k, v, **kw)
+            dq, dk, dv = jfa._flash_bwd(q, k, v, o, lse, do, **kw)
+            out[(jnp.dtype(dtype).name, Dh, causal)] = {
+                n: np.asarray(x.astype(jnp.float32)) for n, x in dict(
+                    q=q, k=k, v=v, do=do, o=o, lse=lse, dq=dq, dk=dk,
+                    dv=dv).items()}
+    return out
+
+
+def _card_path(q, k, v, do, *, scale, causal):
+    """What the wrappers do on the card at head dims 129-256, with the
+    plain versions in the kernels' place: bf16 cast to f32, every input
+    zero-padded to head dim 256, the f32 kernels there, the outputs
+    sliced back and cast to the caller's dtype. delta = sum(do.o) in f32,
+    as the autograd backward forms it."""
+    dtype, D = q.dtype, q.shape[-1]
+    family, Dk = tfa.kernel_plan(dtype, D)
+    assert Dk == 256 and family == {torch.float32: "f32",
+                                    torch.bfloat16: "bf16_f32"}[dtype]
+    q32, k32, v32, do32 = (tfa.pad_head_dim(x.float(), Dk)
+                           for x in (q, k, v, do))
+    kw = dict(scale=scale, causal=causal)
+    o, lse = tfa.flash_fwd_plain(q32, k32, v32, **kw)
+    o = tfa.unpad_head_dim(o, D).to(dtype)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = tfa.flash_bwd_dq_plain(q32, k32, v32, do32, lse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv_plain(q32, k32, v32, do32, lse, delta, **kw)
+    return (o, lse, *(tfa.unpad_head_dim(x, D).to(dtype) for x in (dq, dk, dv)))
+
+
+def _assert_close_bf16(a, b, what):
+    bound = (BF16_RTOL * np.abs(b) + BF16_ATOL_RMS * np.sqrt(np.mean(b * b))
+             + BF16_FLOOR)
+    worst = float((np.abs(a - b) / bound).max())
+    assert worst <= 1.0, (what, worst)
+
+
+@pytest.mark.parametrize("Dh,causal", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dims_above_128_match_pallas(dtype, Dh, causal, pallas_runs):
+    """o, lse, dq, dk and dv along the card's route against the Pallas
+    kernels on the same inputs: f32 within the JAX package's bounds, bf16
+    within chip_smoke.py's (the f32 route does not round p and ds to bf16
+    before the second products, as the bf16 Pallas kernels do; the
+    difference sits well inside that bound)."""
+    r = pallas_runs[(dtype, Dh, causal)]
+    tdtype = getattr(torch, dtype)
+    q, k, v, do = (torch.tensor(r[n]).to(tdtype) for n in ("q", "k", "v", "do"))
+    got = _card_path(q, k, v, do, scale=Dh ** -0.5, causal=causal)
+    np.testing.assert_allclose(got[1].numpy(), r["lse"], atol=LSE_ATOL)
+    for x, name, atol in zip((got[0], *got[2:]), ("o", "dq", "dk", "dv"),
+                             (O_ATOL, GRAD_ATOL, GRAD_ATOL, GRAD_ATOL)):
+        assert x.dtype == tdtype and x.shape == r[name].shape
+        what = f"{name} {dtype} D={Dh} causal={causal}"
+        if dtype == "float32":
+            np.testing.assert_allclose(x.numpy(), r[name], atol=atol,
+                                       err_msg=what)
+        else:
+            _assert_close_bf16(x.float().numpy(), r[name], what)
+
+
+@pytest.mark.parametrize("dtype,Dh,plan", [
+    (torch.bfloat16, 129, ("bf16_f32", 256)),
+    (torch.bfloat16, 192, ("bf16_f32", 256)),
+    (torch.bfloat16, 256, ("bf16_f32", 256)),
+    (torch.float32, 129, ("f32", 256)), (torch.float32, 200, ("f32", 256)),
+    (torch.float32, 256, ("f32", 256)),
+    # the routes below 129 are unchanged
+    (torch.bfloat16, 128, ("bf16_wide", 128)),
+    (torch.float32, 128, ("f32", 128)),
+])
+def test_kernel_plan_routes_head_dims_up_to_256(dtype, Dh, plan):
+    assert tfa.kernel_plan(dtype, Dh) == plan
+    q = torch.zeros(2, 8, Dh, dtype=dtype)
+    assert tfa._check_cuda((q, q, q)) == (2, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Dh", [257, 512])
+def test_kernel_plan_refuses_head_dims_above_256(dtype, Dh):
+    name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    with pytest.raises(ValueError, match=f"{name} head dims 1 to 256"):
+        tfa.kernel_plan(dtype, Dh)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
+        tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3)
+
+
+def test_bf16_f32_route_counts_under_the_f32_kernels():
+    """bf16_f32 has no counters of its own: its launches are the f32
+    kernels', so the launch counts show that bf16 at head dim 256 reached
+    them."""
+    assert "bf16_f32" not in tfa._SUFFIXES
+    assert all(not n.endswith("bf16_f32") for n in tfa.LAUNCHES)
+    assert {"flash_fwd_f32", "flash_bwd_dq_f32",
+            "flash_bwd_dkv_f32"} <= set(tfa.LAUNCHES)
