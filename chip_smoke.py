@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on failure:
    dynamic shared memory, blocks per SM and local memory a thread (the
    bf16 ones at head dim 64, the f32 ones at each head dim they are built
    for, 256 among them, where the f32 dk/dv runs as a dv pass and a dk
-   pass, two kernels, the bf16_wide ones at 128), failing if a kernel
-   other than the f32 dq and dk/dv spills to local memory;
+   pass, two kernels, the bf16_wide ones at 128, the bf16_d256 forward
+   and dk/dv at 256), failing if a kernel other than the f32 dq and dk/dv
+   spills to local memory;
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
@@ -21,17 +22,17 @@ Phases, each of which exits non-zero on failure:
    not; in bf16 at head dims 96 and 128 (the bf16_wide kernels, padded
    to 128), among them S 129 causal at head dim 128 and the wide shape
    (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of 128);
-   in f32 and in bf16 at head dims 129, 192 and 256 (the f32 kernels at
-   head dim 256, bf16 cast to f32 and back). At the main shape (for
-   bf16_wide the wide one; for head dim 256 B*H 48, S 1024, D 256,
+   in f32 and in bf16 at head dims 129, 192 and 256 (f32: the f32
+   kernels at head dim 256; bf16: the bf16_d256 forward and dk/dv at
+   256, and the f32 dq on bf16 cast to f32 and back). At the main shape
+   (for bf16_wide the wide one; for head dim 256 B*H 48, S 1024, D 256,
    causal: the main shape's operations), times of the kernel, the plain
-   version and
-   the PyTorch library call (SDPA, in the kernel's dtype) beside the
-   bound, with the kernel's TFLOP/s and the share of its bound that it
-   reaches (for f32 the bound of 3xTF32 on the tensor cores and, beside
-   it, of FFMA on the CUDA cores); in bf16 the
-   backward as ``_FlashAttention.backward`` runs it (delta, dq, dk/dv)
-   against SDPA's, and in f32 dq + dk/dv against SDPA's backward;
+   version and the PyTorch library call (SDPA, in the kernel's dtype)
+   beside the bound, with the kernel's TFLOP/s and the share of its bound
+   that it reaches (for f32 the bound of 3xTF32 on the tensor cores and,
+   beside it, of FFMA on the CUDA cores); in bf16 the backward as
+   ``_FlashAttention.backward`` runs it (delta, dq, dk/dv) against
+   SDPA's, and in f32 dq + dk/dv against SDPA's backward;
 3. the main path: GPT-2-small at full width (12 layers, 12 heads, d 768,
    vocab 50304, seq 1024) training at batch 16 through ``make_train_step``
    (2 warm-up and 5 timed steps, weights from a seeded generator), with
@@ -44,8 +45,9 @@ Phases, each of which exits non-zero on failure:
 3b. the tiny configs: gpt2_tiny (head dim 16) under attention="auto" in
    bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels),
    gpt2_tiny with two heads of 128 in bf16 (the bf16_wide kernels), and
-   with one head of 256 in bf16 and in f32 (the f32 kernels at head dim
-   256), 3 steps each, its launch counts exact and its first step held
+   with one head of 256 in bf16 (the bf16_d256 forward and dk/dv, the
+   f32 dq) and in f32 (the f32 kernels at head dim 256), 3 steps each,
+   its launch counts exact and its first step held
    to reference attention (phase 3's limits in bf16, an order tighter in
    f32);
 3c. GPT-2-small-MoE at full width (12 layers, 12 heads, d 768, ff 3072,
@@ -92,9 +94,10 @@ Phases, each of which exits non-zero on failure:
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
 the bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
-config for the bf16_wide ones, the f32 tiny config with a head of 256
-for the f32 kernels' head-dim-256 instances, listed apart as
-``*_f32_d256``), and ``tiny_launches``, ``moe_launches`` and
+config for the bf16_wide ones, the bf16 tiny config with a head of 256
+for the bf16_d256 ones, the f32 tiny config with a head of 256 for the
+f32 kernels' head-dim-256 instances, listed apart as ``*_f32_d256``),
+and ``tiny_launches``, ``moe_launches`` and
 ``gang_launches`` the other runs'; the last line is ``{"ok": true,
 "device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
@@ -187,9 +190,10 @@ TINY_F32_LIMITS = (1e-5, 2e-4, 2.5e-3)  # loss, grad norm, attention leaves
 # of GPT-2-small's attention width in heads of 128 (B*H 16 x 6)
 WIDE_TINY = dict(d_model=256, n_head=2)
 WIDE_SHAPE = (96, 1024, 128)
-# Head dims 129-256, both dtypes, run the f32 kernels at head dim 256:
-# gpt2_tiny with one head of 256 in phase 3b, and in phase 2 B*H 48 (the
-# main shape's operations at four times the head dim)
+# Head dims 129-256 run at head dim 256, f32 on the f32 kernels, bf16 on
+# the bf16_d256 forward and dk/dv and the f32 dq: gpt2_tiny with one head
+# of 256 in phase 3b, and in phase 2 B*H 48 (the main shape's operations
+# at four times the head dim)
 D256_TINY = dict(d_model=256, n_head=1)
 D256_SHAPE = (48, 1024, 256)
 
@@ -210,11 +214,15 @@ CKPT_DIR = "build/chip_smoke_checkpoints"
 REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:29",
             "flash_bwd_dq": "ray_tpu/ops/flash_attention.py:160",
             "flash_bwd_dkv": "ray_tpu/ops/flash_attention.py:212"}
+# bf16_d256 (bf16 head dims 129-256) has a forward and dk/dv; its dq is
+# the f32 kernel's
+D256_BASES = ("flash_fwd", "flash_bwd_dkv")
 KERNELS = [{"name": base + suffix, "replaces": where}
-           for suffix in ("", "_f32", "_bf16w")
-           for base, where in REPLACES.items()]
+           for suffix in ("", "_f32", "_bf16w", "_bf16d256")
+           for base, where in REPLACES.items()
+           if suffix != "_bf16d256" or base in D256_BASES]
 # each kernel's source: the wgmma kernels (bf16 at head dim 64, bf16_wide
-# at 128) and the 3xTF32 mma.sync ones (f32)
+# at 128, bf16_d256 at 256) and the 3xTF32 mma.sync ones (f32)
 WGMMA_CU = "ray_tpu_torch/ops/csrc/flash_attention.cu"
 MMA_SYNC_CU = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"
 SOURCE_OF = {spec["name"]: MMA_SYNC_CU if spec["name"].endswith("_f32")
@@ -225,23 +233,34 @@ NO_LOCAL_MEMORY = [spec["name"] for spec in KERNELS
                    if spec["name"] not in ("flash_bwd_dq_f32",
                                            "flash_bwd_dkv_f32")]
 # the head dims each family's kernels are built for
-HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128, 256), "_bf16w": (128,)}
+HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128, 256), "_bf16w": (128,),
+                "_bf16d256": (256,)}
 # what the kernels' line calls the f32 kernels' head-dim-256 instances
 D256 = "_d256"
 
 
 def family(name: str) -> str:
     """"_f32" for an f32 kernel's name, "_bf16w" for a bf16_wide one's (bf16
-    at head dims 65-128), "" for a bf16 one's."""
-    return next((s for s in ("_f32", "_bf16w") if name.endswith(s)), "")
+    at head dims 65-128), "_bf16d256" for a bf16_d256 one's (129-256), ""
+    for a bf16 one's."""
+    return next((s for s in ("_f32", "_bf16w", "_bf16d256")
+                 if name.endswith(s)), "")
 
 
-def suffix_of(dtype_is_f32: bool, head_dim: int) -> str:
-    """The family of the kernels that take a dtype at a head dim (bf16
-    above 128 runs the f32 kernels)."""
-    if dtype_is_f32 or head_dim > WIDE_SHAPE[2]:
+def suffix_of(base: str, dtype_is_f32: bool, head_dim: int) -> str:
+    """The family of the kernel ``base`` (flash_fwd, flash_bwd_dq or
+    flash_bwd_dkv) that takes a dtype at a head dim (bf16 dq above 128
+    runs the f32 kernel)."""
+    if dtype_is_f32:
         return "_f32"
+    if head_dim > WIDE_SHAPE[2]:
+        return "_bf16d256" if base in D256_BASES else "_f32"
     return "_bf16w" if head_dim > HEAD_DIM else ""
+
+
+def suffixes_of(dtype_is_f32: bool, head_dim: int) -> dict:
+    """{base: family suffix} of the three kernels at a dtype and head dim."""
+    return {base: suffix_of(base, dtype_is_f32, head_dim) for base in REPLACES}
 
 
 def fail(msg: str) -> None:
@@ -411,7 +430,8 @@ def check_kernels(torch, F, fa):
              ("bf16d96", 24, 1000, 96, True, bf16),
              ("bf16d96nc", 8, 129, 96, False, bf16),
              ("bf16d128", 8, 200, 128, False, bf16),
-             # head dims 129-256: the f32 kernels at head dim 256, bf16
+             # head dims 129-256: the f32 kernels at head dim 256; in
+             # bf16 the bf16_d256 forward and dk/dv and the f32 dq, bf16
              # cast to f32 and back
              ("f32d129", 8, 129, 129, True, f32),
              ("f32d192", 8, 1000, 192, False, f32),
@@ -424,7 +444,7 @@ def check_kernels(torch, F, fa):
              ("bf16d256r", 8, 129, 256, True, bf16),
              ("d256", *D256_SHAPE, True, bf16)]
     for label, BH, S, D, causal, dtype in cases:
-        suffix = suffix_of(dtype == f32, D)
+        suffix = suffixes_of(dtype == f32, D)
         q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))
         kw = dict(scale=1.0 / math.sqrt(D), causal=causal)
         o, lse = fa.flash_fwd(q, k, v, **kw)
@@ -436,11 +456,14 @@ def check_kernels(torch, F, fa):
         dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
         torch.cuda.synchronize()
         checks = {
-            "flash_fwd" + suffix: [("o", *close_check(o, o_ref)),
-                                   ("lse", *lse_check(lse, lse_ref))],
-            "flash_bwd_dq" + suffix: [("dq", *close_check(dq, dq_ref))],
-            "flash_bwd_dkv" + suffix: [("dk", *close_check(dk, dk_ref)),
-                                       ("dv", *close_check(dv, dv_ref))],
+            "flash_fwd" + suffix["flash_fwd"]: [
+                ("o", *close_check(o, o_ref)),
+                ("lse", *lse_check(lse, lse_ref))],
+            "flash_bwd_dq" + suffix["flash_bwd_dq"]: [
+                ("dq", *close_check(dq, dq_ref))],
+            "flash_bwd_dkv" + suffix["flash_bwd_dkv"]: [
+                ("dk", *close_check(dk, dk_ref)),
+                ("dv", *close_check(dv, dv_ref))],
         }
         for name, rows in checks.items():
             for what, e, rms, worst, at in rows:
@@ -453,12 +476,16 @@ def check_kernels(torch, F, fa):
                 if not ok:
                     failures.append(f"{name}.{what} ({label})")
         if label in ("main", "wide", "d256"):
-            # head dim 256's times go under their own names, bf16's apart
-            tag = "" if label != "d256" else (
-                D256 if dtype == f32 else D256 + "_bf16")
+            # the f32 kernels' head-dim-256 times go under their own
+            # names, and the bf16 dq's through them apart
+            tags = dict.fromkeys(REPLACES, "")
+            if label == "d256":
+                tags = {base: "" if s == "_bf16d256" else
+                        D256 if dtype == f32 else D256 + "_bf16"
+                        for base, s in suffix.items()}
             results.update(time_kernels(torch, F, fa, suffix, checks,
                                         q, k, v, do, lse_ref, delta, kw,
-                                        tag=tag))
+                                        tags=tags))
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dq_ref, dk, dv
         del dk_ref, dv_ref
         torch.cuda.empty_cache()
@@ -468,12 +495,13 @@ def check_kernels(torch, F, fa):
 
 
 def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
-                 kw, tag=""):
-    """Device times of the three kernels of one family, their plain
-    versions and SDPA in the inputs' dtype, beside the bound (of that
-    dtype); for bf16 also the backward as ``_FlashAttention.backward``
-    runs it, for f32 dq + dk/dv against SDPA's backward. Results go under
-    each kernel's name followed by ``tag``."""
+                 kw, tags):
+    """Device times of the three kernels that take the inputs (``suffix``:
+    {base: family suffix}), their plain versions and SDPA in the inputs'
+    dtype, beside the bound (of that dtype); for bf16 also the backward as
+    ``_FlashAttention.backward`` runs it, for f32 dq + dk/dv against
+    SDPA's backward. Results go under each kernel's name followed by its
+    entry of ``tags``."""
     BH, S, D = q.shape
     causal = kw["causal"]
     fns = {
@@ -500,7 +528,7 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
                "flash_bwd_dkv": sdpa_bwd_ms}
     results = {}
     for base, (kernel_fn, plain_fn) in fns.items():
-        name = base + suffix
+        name, tag = base + suffix[base], tags[base]
         bound_ms, bound_by, flops, nbytes, ffma_ms = attention_bound(
             name, BH, S, causal, D, f32=q.dtype == torch.float32)
         ms = time_ms(torch, kernel_fn, warmup=3, reps=20)
@@ -526,14 +554,16 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
               f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound{also}",
               flush=True)
-    if suffix == "_f32":
-        pair = (results["flash_bwd_dq_f32" + tag]["ms"]
-                + results["flash_bwd_dkv_f32" + tag]["ms"])
-        print(f"time f32 kernels' backward{tag} ({q.dtype}, D={D}): dq + "
-              f"dk/dv {pair:.4f} ms, SDPA's backward in {q.dtype} (dq, dk, "
-              f"dv in one call) {sdpa_bwd_ms:.4f} ms: "
+    dq_name, dkv_name = (base + suffix[base] + tags[base]
+                         for base in ("flash_bwd_dq", "flash_bwd_dkv"))
+    if q.dtype == torch.float32:
+        pair = results[dq_name]["ms"] + results[dkv_name]["ms"]
+        print(f"time f32 kernels' backward{tags['flash_bwd_dq']} ({q.dtype}, "
+              f"D={D}): dq + dk/dv {pair:.4f} ms, SDPA's backward in "
+              f"{q.dtype} (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms: "
               f"{pair / sdpa_bwd_ms:.2f}x SDPA's", flush=True)
-    if suffix:
+        return results
+    if suffix["flash_fwd"] == "_bf16w":
         return results
     # the backward pair as _FlashAttention.backward runs it (delta, dq,
     # dk/dv) against SDPA's whole backward; printed, not gated
@@ -544,11 +574,11 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
     o_det = of.detach()
     delta_ms = time_ms(torch, lambda: (do.float() * o_det.float()).sum(dim=-1),
                        warmup=3, reps=20)
-    print(f"time backward: flash (delta + dq + dk/dv) {flash_bwd_ms:.4f} ms "
-          f"(delta {delta_ms:.4f}, dq {results['flash_bwd_dq']['ms']:.4f}, "
-          f"dk/dv {results['flash_bwd_dkv']['ms']:.4f} alone), SDPA "
-          f"{sdpa_bwd_ms:.4f} ms: {flash_bwd_ms / sdpa_bwd_ms:.2f}x SDPA's",
-          flush=True)
+    print(f"time backward ({q.dtype}, D={D}): flash (delta + dq + dk/dv) "
+          f"{flash_bwd_ms:.4f} ms (delta {delta_ms:.4f}, dq "
+          f"{results[dq_name]['ms']:.4f}, dk/dv {results[dkv_name]['ms']:.4f} "
+          f"alone), SDPA {sdpa_bwd_ms:.4f} ms: "
+          f"{flash_bwd_ms / sdpa_bwd_ms:.2f}x SDPA's", flush=True)
     return results
 
 
@@ -667,7 +697,8 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
 def tiny_configs(torch, fa):
     """gpt2_tiny (head dim 16) under attention="auto" in bf16 and in f32,
     with two heads of 128 in bf16 (the bf16_wide kernels), and with one
-    head of 256 in bf16 and in f32 (the f32 kernels at head dim 256),
+    head of 256 in bf16 (the bf16_d256 forward and dk/dv, the f32 dq) and
+    in f32 (the f32 kernels at head dim 256),
     TINY_STEPS steps each, its first step held to reference attention;
     returns each run's launch counts, set to 0 just before its steps and
     read just after."""
@@ -723,9 +754,10 @@ def tiny_configs(torch, fa):
               f"attention: loss {loss_rel:.2e} (limit {loss_rtol:.0e}), grad "
               f"norm {gn_rel:.2e} (limit {gn_rtol:.0e}); launches {launches}",
               flush=True)
-        suffix = suffix_of(dtype == torch.float32, cfg.d_model // cfg.n_head)
+        ran = {base + s for base, s in suffixes_of(
+            dtype == torch.float32, cfg.d_model // cfg.n_head).items()}
         for name, n in launches.items():
-            want = cfg.n_layer * TINY_STEPS if family(name) == suffix else 0
+            want = cfg.n_layer * TINY_STEPS if name in ran else 0
             if n != want:
                 bad.append(f"{tag}: {name} launched {n} times, expected {want}")
         if not all(math.isfinite(x) for pair in metrics for x in pair):
@@ -1601,23 +1633,25 @@ def main() -> int:
     kernels = []
     # each kernel's count on the path that runs it: the main path for the
     # bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
-    # config for the bf16_wide ones, the f32 tiny config with a head of
-    # 256 for the f32 kernels' head-dim-256 instances (whose bf16 times,
-    # bf16 cast to f32 and back, go beside their own as bf16_*)
+    # config for the bf16_wide ones, the bf16 tiny config with a head of
+    # 256 for the bf16_d256 ones, the f32 tiny config with a head of 256
+    # for the f32 kernels' head-dim-256 instances (the f32 dq's bf16
+    # times, bf16 cast to f32 and back, go beside its own as bf16_*)
     rows = [(spec, spec["name"], {
         "": launches, "_f32": tiny_launches["tiny float32"],
-        "_bf16w": tiny_launches["tiny bfloat16 wide"]}[family(spec["name"])])
-        for spec in KERNELS]
+        "_bf16w": tiny_launches["tiny bfloat16 wide"],
+        "_bf16d256": tiny_launches["tiny bfloat16 d256"],
+    }[family(spec["name"])]) for spec in KERNELS]
     rows += [(spec, spec["name"] + D256, tiny_launches["tiny float32 d256"])
              for spec in KERNELS if family(spec["name"]) == "_f32"]
     for spec, name, path in rows:
         counter = spec["name"]
-        extra = {}
-        if name.endswith(D256):
+        extra = {"head_dim": 256} if name.endswith(D256) else {}
+        if name + "_bf16" in results:
             bf16 = results[name + "_bf16"]
-            extra = {"head_dim": 256, **{f"bf16_{k}": bf16[k] for k in (
+            extra.update({f"bf16_{k}": bf16[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}}
+                "library_ms")})
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE_OF[counter],
                         "replaces": spec["replaces"],

@@ -1,13 +1,14 @@
 // Flash attention for Hopper (sm_90a) in bf16: forward, dq and dk/dv
-// kernels at head dims 64 and 128.
+// kernels at head dims 64 and 128, and a forward and dk/dv at 256.
 //
 // Replaces the three Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel<D>     <- _fwd_kernel      (flash_attention.py:29)
+//   flash_fwd_kernel<D>, flash_fwd_d256_kernel <- _fwd_kernel (:29)
 //   flash_bwd_dq_kernel<D>  <- _bwd_dq_kernel   (flash_attention.py:160)
-//   flash_bwd_dkv_kernel<D> <- _bwd_dkv_kernel  (flash_attention.py:212)
+//   flash_bwd_dkv_kernel<D>, flash_bwd_dkv_d256_kernel <- _bwd_dkv_kernel
+//                                               (flash_attention.py:212)
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] bf16, contiguous, D 64
-// or 128 (the wrapper pads smaller head dims with zero columns); lse and
+// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] bf16, contiguous, D 64,
+// 128 or 256 (the wrapper pads other head dims with zero columns); lse and
 // delta are [BH, S] f32. A ragged S is masked at the tile edges (rows past S
 // load as zeros, columns past S are masked, rows past S are not stored),
 // so nothing is padded in memory.
@@ -20,7 +21,8 @@
 // 96) the bytes and the operations are the same. The kernels must stream
 // their inputs once, keep the S x S scores out of device memory, and keep
 // the tensor cores fed. One design serves all of them (256 threads, two
-// warpgroups):
+// warpgroups; the head-dim-256 kernels, further down, change what a block
+// holds to fit shared memory and registers):
 //   * one block per (128-row tile, b*h): Q rows for the forward and dq,
 //     KV rows for dk/dv; each warpgroup owns 64 rows, the M of one wgmma;
 //   * the block's own tiles (Q; Q and dO; or K and V) are loaded once by
@@ -36,7 +38,7 @@
 //     map [BH, S, D], whose bounds zero-fill rows past S without reading
 //     the next head. The swizzle takes boxes at most 128 bytes wide, one
 //     row of 64 bf16: a [rows, D] tile lands as D / 64 halves [rows, 64],
-//     one box each at columns 0 and 64, half h at h * rows * 128 bytes,
+//     one box each at column 64 h, half h at h * rows * 128 bytes,
 //     each 1024-byte aligned as the swizzle's period needs;
 //   * every product is a wgmma: scores (s = q.k^T and dp = do.v^T; s^T =
 //     k.q^T and dp^T = v.do^T) with both operands in shared memory,
@@ -1007,6 +1009,434 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_frag<D>(dv + (size_t)bh * S * D, dv_acc, krow, S, t);
 }
 
+// ------------------------------------------------ head dim 256
+//
+// bf16 head dims 129-256 (the wrapper pads them to 256) have a forward and
+// a dk/dv of their own; their dq is still the f32 kernel's, on f32 copies.
+// At D 256 a [rows, D] tile lands as four 64-column boxes, box h at
+// h * rows * 128 bytes: k-steps 4h to 4h + 3 of a K-major operand read box
+// h, and an MN-major operand's box h feeds output columns 64h to 64h + 63.
+
+// Forward at D 256: the Q tile alone takes 64 KB and a 64-row K or V tile
+// 32 KB, so flash_fwd_kernel's four stages of K and V (256 KB) do not fit
+// the 227 KB a block may take. K and V get rings of their own, three K
+// stages and two V stages: 1024 + 64 KB + 5 x 32 KB + 11 barriers =
+// 230,488 bytes. A K tile is released as soon as its scores are done and
+// a V tile once p.v of it is, so K is issued two tiles ahead of its use
+// and V one. In registers o takes 128 a thread, s 32 and p 16; with the
+// pipelined p.v all three are live: 202 registers, one block an SM.
+constexpr int kFwd256KStages = 3;
+constexpr int kFwd256VStages = 2;
+
+constexpr int fwd256_smem_bytes() {
+  return 1024 + kBlockM * 256 * 2 +
+         (kFwd256KStages + kFwd256VStages) * kFwdBlockN * 256 * 2 +
+         (1 + 2 * (kFwd256KStages + kFwd256VStages)) * 8;
+}
+
+// Replaces _fwd_kernel (flash_attention.py:29) for bf16 head dims 129-256.
+// Bound at B*H 48, S 1024, D 256, causal: ~30 us by bytes, as at the main
+// shape. The loop is flash_fwd_kernel's (128 Q rows a block, 64-row K/V
+// tiles, o += p.v of tile j - 1 on the tensor cores while the softmax of
+// tile j runs) over the two rings.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      bf16* __restrict__ o, float* __restrict__ lse, int S,
+                      float scale, int causal) {
+  constexpr int D = 256;
+  constexpr int kN = kFwdBlockN;
+  constexpr int kKS = kFwd256KStages, kVS = kFwd256VStages;
+  constexpr int kH = D / kHalfD;
+  constexpr int kQBytes = kBlockM * D * 2;
+  constexpr int kTileBytes = kN * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t sQ = smem_addr(sm);
+  const uint32_t sK = sQ + kQBytes;           // + stage * kTileBytes
+  const uint32_t sV = sK + kKS * kTileBytes;  // + stage * kTileBytes
+  const uint32_t bar_q = sV + kVS * kTileBytes;
+  const uint32_t k_full = bar_q + 8;          // + 8 * stage
+  const uint32_t k_empty = k_full + 8 * kKS;  // + 8 * stage
+  const uint32_t v_full = k_empty + 8 * kKS;  // + 8 * stage
+  const uint32_t v_empty = v_full + 8 * kVS;  // + 8 * stage
+
+  const int q0 = ((S + kBlockM - 1) / kBlockM - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;  // a head's tiles run together, longest first
+  const int n_kv = ((causal ? min(q0 + kBlockM, S) : S) + kN - 1) / kN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kKS; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kWgThreads / 32);
+    }
+    for (int s = 0; s < kVS; ++s) {
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0 is also the producer. At tile j it issues K tile j + 2, once
+  // all eight warps have released tile j + 2 - kKS from that stage, and V
+  // tile j, once they have released tile j - kVS.
+  auto produce = [&](int j) {
+    if (threadIdx.x == 0) {
+      const int jk = j + 2;
+      if (jk < n_kv) {
+        const int s = jk % kKS;
+        mbar_wait(k_empty + 8 * s, ((jk / kKS) & 1) ^ 1);
+        mbar_expect_tx(k_full + 8 * s, kTileBytes);
+        tma_load_tile<D, kN>(sK + s * kTileBytes, &tm_k, k_full + 8 * s,
+                             jk * kN, bh);
+      }
+      if (j < n_kv) {
+        const int s = j % kVS;
+        mbar_wait(v_empty + 8 * s, ((j / kVS) & 1) ^ 1);
+        mbar_expect_tx(v_full + 8 * s, kTileBytes);
+        tma_load_tile<D, kN>(sV + s * kTileBytes, &tm_v, v_full + 8 * s,
+                             j * kN, bh);
+      }
+    }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, kQBytes);
+    tma_load_tile<D, kBlockM>(sQ, &tm_q, bar_q, q0, bh);
+    for (int j = 0; j < 2 && j < n_kv; ++j) {  // K tiles 0 and 1
+      mbar_expect_tx(k_full + 8 * j, kTileBytes);
+      tma_load_tile<D, kN>(sK + j * kTileBytes, &tm_k, k_full + 8 * j,
+                           j * kN, bh);
+    }
+  }
+  produce(0);
+
+  // warpgroup wg owns rows q0 + 64 wg .. + 63 and uses the first n_w KV
+  // tiles (under causal masking the block's last tile may lie wholly in
+  // warpgroup 0's future)
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  const int row = wg_row0 + (warp & 3) * 16 + g;  // and row + 8
+  const int n_w = causal ? (min(wg_row0 + 64, S) + kN - 1) / kN : n_kv;
+  const float scale_log2 = scale * kLog2e;
+  auto masked = [&](int it) {
+    const int k0 = it * kN;
+    return (causal && k0 + kN - 1 > wg_row0) || k0 + kN > S;
+  };
+  auto wait_k = [&](int it) {
+    mbar_wait(k_full + 8 * (it % kKS), (it / kKS) & 1);
+  };
+  auto wait_v = [&](int it) {
+    mbar_wait(v_full + 8 * (it % kVS), (it / kVS) & 1);
+  };
+  auto release_k = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty + 8 * (it % kKS));
+  };
+  auto release_v = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty + 8 * (it % kVS));
+  };
+  auto desc_k = [&](int it) {
+    return sw128_desc(sK + (it % kKS) * kTileBytes);
+  };
+  auto desc_v = [&](int it) {
+    return sw128_desc(sV + (it % kVS) * kTileBytes);
+  };
+  constexpr uint64_t half_q = half_desc(kBlockM), half_kv = half_desc(kN);
+
+  float acc[kH][32];
+#pragma unroll
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float corr[2];
+  float sc[kN / 2];
+  uint32_t pa[kN / 16][4];
+
+  mbar_wait(bar_q, 0);
+  const uint64_t desc_q = sw128_desc(sQ + wg * 64 * kRowBytes);
+  wait_k(0);
+  wgmma_fence();
+  issue_abt<D>(sc, desc_q, half_q, desc_k(0), half_kv);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  release_k(0);
+  softmax_tile<kN>(sc, m, l, corr, masked(0), 0, row, t, S, causal,
+                   scale_log2);
+  pack_all(pa, sc);
+  for (int it = 1; it < n_w; ++it) {
+    produce(it);
+    wait_k(it);
+    wait_v(it - 1);
+    wgmma_fence();
+    issue_abt<D>(sc, desc_q, half_q, desc_k(it), half_kv);
+    wgmma_commit();
+    issue_ab<D, kN>(acc, pa, desc_v(it - 1), half_kv);
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores of tile it
+    fence_regs(sc);
+    release_k(it);
+    softmax_tile<kN>(sc, m, l, corr, masked(it), it * kN, row, t, S, causal,
+                     scale_log2);
+    wgmma_wait<0>();  // p.v of tile it - 1
+    fence_regs(acc);
+    fence_regs(pa);
+    release_v(it - 1);
+    scale_rows(acc, corr);
+    pack_all(pa, sc);
+  }
+  wait_v(n_w - 1);
+  wgmma_fence();
+  issue_ab<D, kN>(acc, pa, desc_v(n_w - 1), half_kv);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release_v(n_w - 1);
+  for (int it = n_w; it < n_kv; ++it) {  // tiles this warpgroup skips
+    produce(it);
+    wait_k(it);
+    release_k(it);
+    wait_v(it);
+    release_v(it);
+  }
+
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+#pragma unroll
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[h][4 * j + 0] /= lc[0];
+      acc[h][4 * j + 1] /= lc[0];
+      acc[h][4 * j + 2] /= lc[1];
+      acc[h][4 * j + 3] /= lc[1];
+    }
+  store_frag<D>(o + (size_t)bh * S * D, acc, row, S, t);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < S)
+        lse[(size_t)bh * S + row + 8 * r] = m[r] * scale + logf(lc[r]);
+  }
+}
+
+// dk/dv at D 256: flash_bwd_dkv_kernel gives each warpgroup dk and dv of
+// its 64 KV rows, 256 registers a thread at D 256 for the accumulators
+// alone. Here a block takes 64 KV rows (K and V, 32 KB each), both
+// warpgroups work on all of them, and Q, dO (64 rows, 32 KB each) with
+// their lse and delta stream through two stages. The four products of a
+// Q tile are split by output: warpgroup 0 computes s^T = k.q^T, p^T and
+// dv += p^T.do, warpgroup 1 dp^T = v.do^T, ds^T = p^T.(dp^T -
+// delta).scale and dk += ds^T.q, each holding one [64, 256] accumulator
+// (128 registers; 208 in all). p^T passes from warpgroup 0 to 1 through
+// shared memory in f32, double-buffered (2 x 16 KB, each thread's 32
+// values at a stride of 128 floats, so a warp's accesses hit 32 banks),
+// with mbarriers for full and empty: 1024 + 64 KB + 128 KB + 1 KB of lse
+// and delta + 32 KB + 9 barriers = 231,496 bytes. Each warpgroup
+// computing the whole s^T and dp^T and half of dk's and dv's columns, as
+// flash_bwd_dkv_kernel does at D 128 for all of them, takes 6 products
+// for 4 and ran 1.27x slower on the card (PERF.md).
+constexpr int kDkv256BlockM = 64;  // KV rows a block
+constexpr int kDkv256Stages = 2;
+
+constexpr int dkv256_smem_bytes() {
+  return 1024 + 2 * kDkv256BlockM * 256 * 2 +
+         2 * kDkv256Stages * kDkvBlockN * 256 * 2 +
+         2 * kDkv256Stages * kDkvBlockN * 4 +
+         2 * kDkvBlockN * kDkv256BlockM * 4 + (1 + 2 * kDkv256Stages + 4) * 8;
+}
+
+// p^T of one Q tile in place of the transposed scores s^T (KV rows krow,
+// krow + 8 x this thread's Q columns), masked elements 0: the first half
+// of dkv_tile. L holds the tile's lse in log2 units.
+__device__ __forceinline__ void p_tile(float (&st)[32], const float* L,
+                                       bool masked, int q0, int krow, int t,
+                                       int S, int causal, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = 8 * j + 2 * t + (i & 1);
+      float p = exp2_ftz(fmaf(st[4 * j + i], scale_log2, -L[c]));
+      if (masked) {
+        const int kr = krow + 8 * (i >> 1);
+        if ((causal && q0 + c < kr) || kr >= S || q0 + c >= S) p = 0.f;
+      }
+      st[4 * j + i] = p;
+    }
+  }
+}
+
+// Replaces _bwd_dkv_kernel (flash_attention.py:212) for bf16 head dims
+// 129-256. Bound at B*H 48, S 1024, D 256, causal: ~52 us by tensor-core
+// operations, as at the main shape. One block per (64-row KV tile, b*h);
+// Q tiles from the diagonal on under causal masking. The producer warp
+// stages lse and delta with plain loads and issues the TMA of Q and dO, as
+// in flash_bwd_dkv_kernel; it is warp 4, the first of warpgroup 1, which
+// runs behind warpgroup 0 and so finds the stage it refills released.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                          float scale, int causal) {
+  constexpr int D = 256;
+  constexpr int kM = kDkv256BlockM;
+  constexpr int kN = kDkvBlockN;
+  constexpr int kStages = kDkv256Stages;
+  constexpr int kKVBytes = kM * D * 2;
+  constexpr int kQBytes = kN * D * 2;
+  constexpr int kProducer = 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t sK = smem_addr(sm);
+  const uint32_t sV = sK + kKVBytes;
+  const uint32_t sQ = sV + kKVBytes;            // + stage * kQBytes
+  const uint32_t sdO = sQ + kStages * kQBytes;  // + stage * kQBytes
+  float* sL = reinterpret_cast<float*>(sm + 2 * kKVBytes +
+                                       2 * kStages * kQBytes);  // [stage][kN]
+  float* sDelta = sL + kStages * kN;                            // [stage][kN]
+  float* sP = sDelta + kStages * kN;  // p^T: [buffer][32][128]
+  const uint32_t bar_kv = smem_addr(sP + 2 * kN * kM);
+  const uint32_t bar_full = bar_kv + 8;               // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 * stage
+  const uint32_t p_full = bar_empty + 8 * kStages;    // + 8 * buffer
+  const uint32_t p_empty = p_full + 16;               // + 8 * buffer
+
+  const int k0 = blockIdx.x * kM;  // KV tile 0 has the most Q tiles
+  const int bh = blockIdx.y;
+  const int qt0 = causal ? k0 / kN : 0;
+  const int n_it = (S + kN - 1) / kN - qt0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);
+      mbar_init(bar_empty + 8 * s, kWgThreads / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(p_full + 8 * b, kWgThreads / 2);
+      mbar_init(p_empty + 8 * b, kWgThreads / 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Q/dO tile j (with its lse and delta) goes into its stage once all eight
+  // warps have released tile j - kStages; it is issued one tile ahead.
+  auto produce = [&](int j) {
+    if (warp != kProducer || j >= n_it) return;
+    const int s = j % kStages;
+    const int q0 = (qt0 + j) * kN;
+    mbar_wait(bar_empty + 8 * s, ((j / kStages) & 1) ^ 1);
+    for (int c = lane; c < kN; c += 32) {
+      const int r = q0 + c;
+      sL[s * kN + c] = r < S ? lse[(size_t)bh * S + r] * kLog2e : 0.f;
+      sDelta[s * kN + c] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+    }
+    if (lane == 0) {
+      mbar_expect_tx(bar_full + 8 * s, 2 * kQBytes);
+      tma_load_tile<D, kN>(sQ + s * kQBytes, &tm_q, bar_full + 8 * s, q0, bh);
+      tma_load_tile<D, kN>(sdO + s * kQBytes, &tm_do, bar_full + 8 * s, q0,
+                           bh);
+    } else {
+      mbar_arrive(bar_full + 8 * s);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_kv, 2 * kKVBytes);
+    tma_load_tile<D, kM>(sK, &tm_k, bar_kv, k0, bh);
+    tma_load_tile<D, kM>(sV, &tm_v, bar_kv, k0, bh);
+  }
+  produce(0);
+
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int krow = k0 + (warp & 3) * 16 + g;  // and krow + 8
+  const float scale_log2 = scale * kLog2e;
+  auto wait_full = [&](int it) {
+    mbar_wait(bar_full + 8 * (it % kStages), (it / kStages) & 1);
+  };
+  auto release = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (it % kStages));
+  };
+  auto masked = [&](int q0) {
+    return (causal && q0 < k0 + kM - 1) || q0 + kN > S || k0 + kM > S;
+  };
+  constexpr uint64_t half_kv = half_desc(kM), half_q = half_desc(kN);
+  mbar_wait(bar_kv, 0);
+  const uint64_t desc_k = sw128_desc(sK), desc_v = sw128_desc(sV);
+
+  const int tw = threadIdx.x & (kWgThreads / 2 - 1);
+  float acc[D / kHalfD][32];  // dv (warpgroup 0) or dk (warpgroup 1)
+#pragma unroll
+  for (int h = 0; h < D / kHalfD; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float sc[32];
+  uint32_t pa[4][4];
+  // s^T = k.q^T (warpgroup 0) or dp^T = v.do^T (warpgroup 1), then
+  // dv += p^T.do or dk += ds^T.q: one code path for both warpgroups,
+  // since ptxas serialises wgmmas issued on divergent paths
+  const uint64_t desc_a = wg == 0 ? desc_k : desc_v;
+  const uint32_t sB = wg == 0 ? sQ : sdO, sC = wg == 0 ? sdO : sQ;
+  for (int it = 0; it < n_it; ++it) {
+    produce(it + 1);
+    wait_full(it);
+    const int s = it % kStages, b = it & 1;
+    const int q0 = (qt0 + it) * kN;
+    float* P = sP + b * kN * kM;  // [32][128]
+    wgmma_fence();
+    issue_abt<D>(sc, desc_a, half_kv, sw128_desc(sB + s * kQBytes), half_q);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (wg == 0) {
+      p_tile(sc, sL + s * kN, masked(q0), q0, krow, t, S, causal,
+             scale_log2);
+      mbar_wait(p_empty + 8 * b, ((it >> 1) & 1) ^ 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) P[i * (kWgThreads / 2) + tw] = sc[i];
+      mbar_arrive(p_full + 8 * b);
+    } else {
+      const float* Dl = sDelta + s * kN;
+      mbar_wait(p_full + 8 * b, (it >> 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * j + 2 * t + (i & 1);
+          sc[4 * j + i] = P[(4 * j + i) * (kWgThreads / 2) + tw] *
+                          (sc[4 * j + i] - Dl[c]) * scale;  // ds^T
+        }
+      mbar_arrive(p_empty + 8 * b);
+    }
+    pack_all(pa, sc);
+    wgmma_fence();
+    issue_ab<D, kN>(acc, pa, sw128_desc(sC + s * kQBytes), half_q);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(it);
+  }
+  store_frag<D>((wg == 0 ? dv : dk) + (size_t)bh * S * D, acc, krow, S, t);
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -1113,8 +1543,51 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+int launch_fwd256(const void* q, const void* k, const void* v, void* o,
+                  void* lse, int bh, int seq, float scale, int causal,
+                  void* stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, bh, seq, 256, kBlockM);
+  if (err == 0) err = make_map(&tk, k, bh, seq, 256, kFwdBlockN);
+  if (err == 0) err = make_map(&tv, v, bh, seq, 256, kFwdBlockN);
+  if (err != 0) return err;
+  constexpr int smem = fwd256_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
+  flash_fwd_d256_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)o, (float*)lse, seq, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv256(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int bh, int seq, float scale, int causal,
+                  void* stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, q, bh, seq, 256, kDkvBlockN);
+  if (err == 0) err = make_map(&tk, k, bh, seq, 256, kDkv256BlockM);
+  if (err == 0) err = make_map(&tv, v, bh, seq, 256, kDkv256BlockM);
+  if (err == 0) err = make_map(&tdo, dout, bh, seq, 256, kDkvBlockN);
+  if (err != 0) return err;
+  constexpr int smem = dkv256_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_d256_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((seq + kDkv256BlockM - 1) / kDkv256BlockM, bh);
+  flash_bwd_dkv_d256_kernel
+      <<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+          tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dk,
+          (bf16*)dv, seq, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 // The forward (0), dk/dv (1) or dq (2) at head dim d and the dynamic shared
-// memory of one block; nullptr for a kernel not built at d.
+// memory of one block; nullptr for a kernel not built at d (at 256 only the
+// forward and dk/dv are).
 const void* kernel_fn(int kernel, int d, int* smem) {
   if (d == 64) {
     switch (kernel) {
@@ -1127,6 +1600,11 @@ const void* kernel_fn(int kernel, int d, int* smem) {
       case 0: *smem = fwd_smem_bytes<128>(); return (const void*)flash_fwd_kernel<128>;
       case 1: *smem = dkv_smem_bytes<128>(); return (const void*)flash_bwd_dkv_kernel<128>;
       case 2: *smem = dq_smem_bytes<128>(); return (const void*)flash_bwd_dq_kernel<128>;
+    }
+  } else if (d == 256) {
+    switch (kernel) {
+      case 0: *smem = fwd256_smem_bytes(); return (const void*)flash_fwd_d256_kernel;
+      case 1: *smem = dkv256_smem_bytes(); return (const void*)flash_bwd_dkv_d256_kernel;
     }
   }
   return nullptr;
@@ -1183,6 +1661,25 @@ int flash_bwd_dkv_bf16w(const void* q, const void* k, const void* v,
   if (d != 128) return -3;
   return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale,
                          causal, stream);
+}
+
+// bf16 at head dim d = 256 (head dims 129-256, padded to it): the forward
+// and dk/dv; -3 for another d
+int flash_fwd_bf16d256(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int seq, int d, float scale,
+                       int causal, void* stream) {
+  if (d != 256) return -3;
+  return launch_fwd256(q, k, v, o, lse, bh, seq, scale, causal, stream);
+}
+
+int flash_bwd_dkv_bf16d256(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int bh,
+                           int seq, int d, float scale, int causal,
+                           void* stream) {
+  if (d != 256) return -3;
+  return launch_dkv256(q, k, v, dout, lse, delta, dk, dv, bh, seq, scale,
+                       causal, stream);
 }
 
 // The dynamic shared memory of one block of the forward (0), dk/dv (1) or

@@ -1,20 +1,21 @@
 """Flash attention, forward and backward, over hand-written Hopper kernels.
 
 Port of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
-there become CUDA kernels, in three families (``kernel_plan``): "bf16"
-for bf16 head dims up to 64 (padded to 64), the wgmma kernels of
-``csrc/flash_attention.cu`` at head dim 64; "bf16_wide" for bf16 head
-dims 65 to 128 (padded to 128), the same file's kernels at head dim 128;
-"f32", the 3xTF32 tensor-core kernels of ``csrc/flash_attention_f32.cu``
-(head dims 16, 32, 64, 128 and 256; others padded up to the next);
-"bf16_f32" for bf16 head dims 129 to 256, which the wrappers cast to f32
-for the f32 kernels at head dim 256 and whose outputs they cast back
-(every bf16 value is exact in f32; the one difference from the bf16
-Pallas kernels is that p and ds are not rounded to bf16 before the
-accumulating products). Each family has a forward with online softmax that writes ``o`` and the row
-logsumexp, a dq kernel and a dk/dv kernel, each recomputing the
-probabilities from the saved logsumexp so that no S x S tensor reaches
-device memory.
+there become CUDA kernels, in families chosen per kernel
+(``kernel_plan``): "bf16" for bf16 head dims up to 64 (padded to 64), the
+wgmma kernels of ``csrc/flash_attention.cu`` at head dim 64; "bf16_wide"
+for bf16 head dims 65 to 128 (padded to 128), the same file's kernels at
+head dim 128; "bf16_d256" for the forward and dk/dv at bf16 head dims 129
+to 256 (padded to 256), the same file's head-dim-256 kernels; "f32", the
+3xTF32 tensor-core kernels of ``csrc/flash_attention_f32.cu`` (head dims
+16, 32, 64, 128 and 256; others padded up to the next); "bf16_f32" for
+the dq at bf16 head dims 129 to 256, which the wrapper casts to f32 for
+the f32 dq at head dim 256 and whose output it casts back (every bf16
+value is exact in f32; the one difference from the bf16 Pallas kernel is
+that ds is not rounded to bf16 before ds.k). The forward uses online
+softmax and writes ``o`` and the row logsumexp; dq and dk/dv recompute
+the probabilities from the saved logsumexp, so that no S x S tensor
+reaches device memory.
 
 Each kernel has a wrapper and a plain PyTorch version of the same
 function with the same cast points (``flash_fwd_plain``,
@@ -38,10 +39,11 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# What each kernel of csrc/flash_attention.cu (bf16, bf16_wide) tiles by,
-# in rows of the [BH, S, D] tensors: the forward and dq take 128 Q rows
-# per block and stream K/V in 64-row tiles; dk/dv takes 128 KV rows per
-# block and streams Q/dO in 64-row tiles. The kernels of
+# What each kernel of csrc/flash_attention.cu (bf16, bf16_wide, bf16_d256)
+# tiles by, in rows of the [BH, S, D] tensors: the forward and dq take 128
+# Q rows per block and stream K/V in 64-row tiles; dk/dv takes 128 KV rows
+# per block (64 at head dim 256) and streams Q/dO in 64-row tiles. The
+# kernels of
 # csrc/flash_attention_f32.cu (f32) take 64 rows of their own axis a
 # block and stream the other in tiles of 32 rows (16 at head dim 128, 8 at
 # 256).
@@ -52,20 +54,24 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 # padded with zero columns up to the next one, which is exact: zero
 # columns add exact zeros to q.k^T and do.v^T, the scale stays the
 # caller's, and the padded columns of the outputs are dropped.
-BF16_HEAD_DIMS = (64, 128)  # 64: family bf16; 128: bf16_wide
+# 64: family bf16; 128: bf16_wide; 256: bf16_d256 (forward and dk/dv)
+BF16_HEAD_DIMS = (64, 128, 256)
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)
-# bf16 above BF16_HEAD_DIMS[-1]: family bf16_f32, the f32 kernels at 256
-BF16_VIA_F32_HEAD_DIM = 256
 # Above this head dim the f32 dk/dv runs as two kernels, a dv pass and a
 # dk pass (their accumulators together would pass 255 registers a
 # thread), launched by one call of its entry and counted as one launch.
 F32_DKV_FUSED_MAX_HEAD_DIM = 128
 # family -> the suffix of its kernels' entry points and launch counters
-# (bf16_f32 launches the f32 kernels and counts under their names)
-_SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "f32": "_f32"}
+# (bf16_f32 launches the f32 dq and counts under its name)
+_SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "bf16_d256": "_bf16d256",
+             "f32": "_f32"}
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the kernels of bf16_d256; at bf16 head dims 129-256 dq is bf16_f32's
+D256_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 
-LAUNCHES = {f"{kernel}{suffix}": 0 for suffix in _SUFFIXES.values()
-            for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+LAUNCHES = {f"{kernel}{suffix}": 0 for family, suffix in _SUFFIXES.items()
+            for kernel in (D256_KERNELS if family == "bf16_d256"
+                           else KERNELS)}
 # rank threads of one gang launch at once: the counts stay exact under it
 _launches_lock = threading.Lock()
 
@@ -141,6 +147,7 @@ _ENTRIES = {
         "flash_fwd_bf16": _FWD, "flash_bwd_dq_bf16": _DQ,
         "flash_bwd_dkv_bf16": _DKV, "flash_fwd_bf16w": _FWD_D,
         "flash_bwd_dq_bf16w": _DQ_D, "flash_bwd_dkv_bf16w": _DKV_D,
+        "flash_fwd_bf16d256": _FWD_D, "flash_bwd_dkv_bf16d256": _DKV_D,
         "flash_dynamic_smem_bytes": [_I, _I],
         "flash_kernel_attributes": _ATTRIBUTES,
     },
@@ -171,14 +178,19 @@ def _kernel(name: str):
     return fn
 
 
-def kernel_plan(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
-    """Which kernel family takes [BH, S, head_dim] tensors of ``dtype``,
-    and the head dim it runs them at: ``("bf16", 64)`` for bf16 with head
-    dim up to 64, ``("bf16_wide", 128)`` for bf16 with head dim 65 to 128,
-    ``("bf16_f32", 256)`` for bf16 with head dim 129 to 256 (cast to f32
-    for the f32 kernels), ``("f32", d)`` for f32 with head dim up to 256,
-    ``d`` the next of ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
-    dims = {torch.bfloat16: (*BF16_HEAD_DIMS, BF16_VIA_F32_HEAD_DIM),
+def kernel_plan(dtype: torch.dtype, head_dim: int,
+                kernel: str = "flash_fwd") -> Tuple[str, int]:
+    """Which kernel family runs ``kernel`` (one of ``KERNELS``, the
+    forward by default) on [BH, S, head_dim] tensors of ``dtype``, and the
+    head dim it runs them at: ``("bf16", 64)`` for bf16 with head dim up to
+    64, ``("bf16_wide", 128)`` for bf16 with head dim 65 to 128,
+    ``("bf16_d256", 256)`` for the forward and dk/dv in bf16 with head dim
+    129 to 256 and ``("bf16_f32", 256)`` for their dq (cast to f32 for the
+    f32 kernel), ``("f32", d)`` for f32 with head dim up to 256, ``d`` the
+    next of ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
+    if kernel not in KERNELS:
+        raise ValueError(f"no kernel {kernel!r}; the kernels are {KERNELS}")
+    dims = {torch.bfloat16: BF16_HEAD_DIMS,
             torch.float32: F32_HEAD_DIMS}.get(dtype)
     if dims is None:
         raise ValueError(f"the CUDA kernels take bf16 or f32 tensors, got "
@@ -188,9 +200,9 @@ def kernel_plan(dtype: torch.dtype, head_dim: int) -> Tuple[str, int]:
         raise ValueError(
             f"the CUDA kernels take {_DTYPE_NAMES[dtype]} head dims 1 to "
             f"{dims[-1]}, got {head_dim}")
-    if dtype == torch.bfloat16 and padded > BF16_HEAD_DIMS[-1]:
-        return "bf16_f32", padded
-    if dtype == torch.bfloat16 and padded > BF16_HEAD_DIMS[0]:
+    if dtype == torch.bfloat16 and padded == BF16_HEAD_DIMS[2]:
+        return ("bf16_d256" if kernel in D256_KERNELS else "bf16_f32"), padded
+    if dtype == torch.bfloat16 and padded == BF16_HEAD_DIMS[1]:
         return "bf16_wide", padded
     return _DTYPE_NAMES[dtype], padded
 
@@ -218,10 +230,11 @@ def _suffix(kernel: str) -> str:
 
 def _head_dim_of(kernel: str, head_dim: Optional[int]) -> int:
     """The head dim a kernel is asked about at: the one given, else 64 for
-    the bf16 family and 128 for bf16_wide (f32 kernels need one)."""
+    the bf16 family, 128 for bf16_wide and 256 for bf16_d256 (f32 kernels
+    need one)."""
     if head_dim is None:
-        head_dim = {"": BF16_HEAD_DIMS[0],
-                    "_bf16w": BF16_HEAD_DIMS[1]}.get(_suffix(kernel))
+        head_dim = dict(zip(("", "_bf16w", "_bf16d256"),
+                            BF16_HEAD_DIMS)).get(_suffix(kernel))
     if head_dim is None:
         raise ValueError(f"{kernel}: give the head dim, one of "
                          f"{F32_HEAD_DIMS}")
@@ -232,7 +245,8 @@ def dynamic_smem_bytes(kernel: str, head_dim: Optional[int] = None) -> int:
     """Dynamic shared memory of one block of a kernel of
     ``csrc/flash_attention.cu``, by its name in ``LAUNCHES`` (``flash_fwd``,
     ``flash_bwd_dq``, ``flash_bwd_dkv`` at head dim 64, the ``_bf16w``
-    ones at 128); builds the kernels if needed."""
+    ones at 128, the ``_bf16d256`` ones at 256); builds the kernels if
+    needed."""
     smem = _kernel("flash_dynamic_smem_bytes")(
         _KERNEL_IDS[kernel.removesuffix(_suffix(kernel))],
         _head_dim_of(kernel, head_dim))
@@ -285,13 +299,13 @@ def _check_cuda(matrices, f32_rows=()):
     if q.dim() != 3:
         raise ValueError(f"expected [BH, S, D] tensors, got shape {tuple(q.shape)}")
     BH, S, D = q.shape
-    family, _ = kernel_plan(q.dtype, D)
+    kernel_plan(q.dtype, D)
     if not 0 < BH <= 65535 or S <= 0:
         raise ValueError(f"unsupported B*H={BH}, S={S}")
     for t in matrices:
         if t.dtype != q.dtype or tuple(t.shape) != (BH, S, D):
-            raise ValueError(f"expected {family} [{BH}, {S}, {D}], got "
-                             f"{t.dtype} {tuple(t.shape)}")
+            raise ValueError(f"expected {_DTYPE_NAMES[q.dtype]} [{BH}, {S}, "
+                             f"{D}], got {t.dtype} {tuple(t.shape)}")
     for t in f32_rows:
         if t.dtype != torch.float32 or tuple(t.shape) != (BH, S):
             raise ValueError(f"expected f32 [{BH}, {S}], got "
@@ -333,15 +347,14 @@ def _padded(tensors, head_dim):
 
 
 def _as_f32(*tensors):
-    """bf16_f32: the f32 kernels' inputs, exact copies of bf16 ones."""
+    """bf16_f32: the f32 kernel's inputs, exact copies of bf16 ones."""
     return [t.float() for t in tensors]
 
 
 def _run(kernel: str, family: str, head_dim: int, device, ptrs, scale,
          causal) -> None:
-    """Launches ``kernel`` (``flash_fwd``, ``flash_bwd_dq`` or
-    ``flash_bwd_dkv``) of ``family``; the f32 and bf16_wide entries also
-    take the head dim they run at."""
+    """Launches ``kernel`` (one of ``KERNELS``) of ``family``; every
+    entry but the bf16 family's also takes the head dim it runs at."""
     counter = kernel + _SUFFIXES[family]
     dims = () if family == "bf16" else (head_dim,)
     _launch(_entry(counter), counter, device, *ptrs, *dims, float(scale),
@@ -355,10 +368,7 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool):
         return flash_fwd_plain(q, k, v, scale=scale, causal=causal)
     BH, S = _check_cuda((q, k, v))
     D = q.shape[-1]
-    family, Dk = kernel_plan(q.dtype, D)
-    if family == "bf16_f32":
-        o, lse = flash_fwd(*_as_f32(q, k, v), scale=scale, causal=causal)
-        return o.to(q.dtype), lse
+    family, Dk = kernel_plan(q.dtype, D, "flash_fwd")
     q, k, v = _padded((q, k, v), Dk)
     o = torch.empty_like(q)
     lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
@@ -376,7 +386,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
                                   causal=causal)
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
     D = q.shape[-1]
-    family, Dk = kernel_plan(q.dtype, D)
+    family, Dk = kernel_plan(q.dtype, D, "flash_bwd_dq")
     if family == "bf16_f32":
         dq = flash_bwd_dq(*_as_f32(q, k, v, do), lse, delta, scale=scale,
                           causal=causal)
@@ -398,11 +408,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
                                    causal=causal)
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
     D = q.shape[-1]
-    family, Dk = kernel_plan(q.dtype, D)
-    if family == "bf16_f32":
-        dk, dv = flash_bwd_dkv(*_as_f32(q, k, v, do), lse, delta, scale=scale,
-                               causal=causal)
-        return dk.to(k.dtype), dv.to(v.dtype)
+    family, Dk = kernel_plan(q.dtype, D, "flash_bwd_dkv")
     q, k, v, do = _padded((q, k, v, do), Dk)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -9,12 +9,15 @@ For each ROOT the child process imports ROOT's
 sources into ROOT/build/) and times, at GPT-2-small's attention shape
 (B*H 192, S 1024, D 64, causal), in bf16 and in f32 (TF32 off, as in
 chip_smoke.py), and in bf16 at chip_smoke.py's wide shape (B*H 96, S
-1024, D 128, causal: the bf16_wide kernels), and in f32 at chip_smoke.py's
-head-dim-256 shape (B*H 48, S 1024, D 256, causal), the three kernels of
-each through their wrappers and ``F.scaled_dot_product_attention``'s
-forward and backward in that dtype (the f32 names end in ``_f32``, the
-wide ones in ``_bf16w``, the head-dim-256 ones in ``_f32_d256``). A shape
-whose head dim a root's kernels do not take is left out of its run.
+1024, D 128, causal: the bf16_wide kernels), and in f32 and in bf16 at
+chip_smoke.py's head-dim-256 shape (B*H 48, S 1024, D 256, causal), the
+three kernels of each through their wrappers and
+``F.scaled_dot_product_attention``'s forward and backward in that dtype.
+The names end in the shape's suffix: ``_f32``, ``_bf16w``, ``_f32_d256``
+and ``_bf16d256`` (bf16 at head dim 256: whatever route the root's
+wrappers take there, the bf16_d256 forward and dk/dv and the f32 dq, or
+in an older root the f32 kernels on bf16 cast to f32). A shape whose head
+dim a root's kernels do not take is left out of its run.
 Every root is timed with ``time_ms`` of THIS checkout's chip_smoke.py, so
 two versions of the kernels are compared by one method. The host's own
 time per wrapper call is measured too (the device is left to drain before
@@ -39,7 +42,8 @@ B = 16
 # suffix -> (B*H, S, D, dtype name)
 SHAPES = {"": (192, 1024, 64, "bfloat16"), "_f32": (192, 1024, 64, "float32"),
           "_bf16w": (96, 1024, 128, "bfloat16"),
-          "_f32_d256": (48, 1024, 256, "float32")}
+          "_f32_d256": (48, 1024, 256, "float32"),
+          "_bf16d256": (48, 1024, 256, "bfloat16")}
 NAMES = [f"{name}{suffix}" for suffix in SHAPES for name in (
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sdpa_fwd", "sdpa_bwd")]
 

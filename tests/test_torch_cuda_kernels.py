@@ -140,13 +140,43 @@ def test_bf16_wide_kernels_match_plain(cuda, BH, S, Dh, causal):
 ])
 def test_head_dims_129_to_256_run_the_f32_kernels_at_256(cuda, BH, S, Dh,
                                                           causal, dtype):
-    """Head dims 129 to 256 in both dtypes, padded to 256: the f32 kernels'
-    head-dim-256 instances (bf16 cast to f32 and back), held to the plain
-    versions of the caller's dtype under its bound, and counted under the
-    f32 kernels' names."""
+    """Head dims 129 to 256 in both dtypes, padded to 256, held to the plain
+    versions of the caller's dtype under its bound. The f32 kernels'
+    head-dim-256 instances run f32 throughout and bf16's dq (bf16 cast to
+    f32 and back, counted under the f32 dq's name); bf16's forward and
+    dk/dv run the bf16_d256 kernels."""
     launched = _check_all_three(cuda, BH, S, Dh, causal, dtype, S + Dh)
-    assert launched == {"flash_fwd_f32": 1, "flash_bwd_dq_f32": 1,
-                        "flash_bwd_dkv_f32": 1}
+    suffix = "_f32" if dtype == torch.float32 else "_bf16d256"
+    assert launched == {"flash_fwd" + suffix: 1, "flash_bwd_dq_f32": 1,
+                        "flash_bwd_dkv" + suffix: 1}
+
+
+@pytest.mark.parametrize("Dh", [129, 192, 256])
+@pytest.mark.parametrize("S", [129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_d256_kernels_match_plain(cuda, Dh, S, causal):
+    """The wgmma forward and dk/dv at head dim 256 (flash_fwd_d256_kernel,
+    flash_bwd_dkv_d256_kernel) on bf16 head dims 129, 192 and 256, a
+    ragged S one row past a 128-row tile and one inside a 64-row tile,
+    both masks, under the bf16 bound."""
+    launched = _check_all_three(cuda, 3, S, Dh, causal, torch.bfloat16,
+                                S + Dh + causal)
+    assert launched == {"flash_fwd_bf16d256": 1, "flash_bwd_dq_f32": 1,
+                        "flash_bwd_dkv_bf16d256": 1}
+
+
+@pytest.mark.parametrize("kernel,smem", [("flash_fwd_bf16d256", 230488),
+                                         ("flash_bwd_dkv_bf16d256", 231496)])
+def test_bf16_d256_kernel_attributes(cuda, kernel, smem):
+    """The head-dim-256 kernels ask for the shared memory their layout
+    needs, within the 232,448 bytes a block may take, hold one block an
+    SM, and spill nothing."""
+    assert fa.dynamic_smem_bytes(kernel) == smem <= 232448
+    _check_all_three(cuda, 2, 200, 256, True, torch.bfloat16, 3)
+    attrs = fa.kernel_attributes(kernel)
+    assert attrs["max_dynamic_smem"] == smem
+    assert attrs["local_bytes"] == 0
+    assert attrs["blocks_per_sm"] == 1 and attrs["registers"] <= 255
 
 
 def test_dq_grid_larger_than_the_card(cuda):

@@ -5,8 +5,9 @@ version in its place, against the JAX package's Pallas kernels run in
 interpret mode on the same numpy inputs.
 
 On the card, f32 head dims 129-256 run the f32 kernels at head dim 256
-(zero-padded), and bf16 ones run the same kernels on f32 copies, their
-outputs cast back to bf16.
+(zero-padded). bf16 ones run the bf16_d256 forward and dk/dv at head dim
+256, which round p and ds to bf16 as the bf16 Pallas kernels do, and the
+f32 dq on f32 copies, its output cast back to bf16.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -48,23 +49,26 @@ def pallas_runs():
 
 def _card_path(q, k, v, do, *, scale, causal):
     """What the wrappers do on the card at head dims 129-256, with the
-    plain versions in the kernels' place: bf16 cast to f32, every input
-    zero-padded to head dim 256, the f32 kernels there, the outputs
-    sliced back and cast to the caller's dtype. delta = sum(do.o) in f32,
-    as the autograd backward forms it."""
+    plain versions in the kernels' place: every input zero-padded to head
+    dim 256; the forward and dk/dv in the caller's dtype, and dq in f32
+    (bf16 cast to f32 for the f32 kernel, its output cast back); the
+    outputs sliced back. delta = sum(do.o) in f32, as the autograd
+    backward forms it."""
     dtype, D = q.dtype, q.shape[-1]
-    family, Dk = tfa.kernel_plan(dtype, D)
-    assert Dk == 256 and family == {torch.float32: "f32",
-                                    torch.bfloat16: "bf16_f32"}[dtype]
-    q32, k32, v32, do32 = (tfa.pad_head_dim(x.float(), Dk)
-                           for x in (q, k, v, do))
+    plans = {kernel: tfa.kernel_plan(dtype, D, kernel)
+             for kernel in tfa.KERNELS}
+    want = {torch.float32: ("f32", "f32", "f32"),
+            torch.bfloat16: ("bf16_d256", "bf16_f32", "bf16_d256")}[dtype]
+    assert [plans[n] for n in tfa.KERNELS] == [(f, 256) for f in want]
+    qp, kp, vp, dop = (tfa.pad_head_dim(x, 256) for x in (q, k, v, do))
     kw = dict(scale=scale, causal=causal)
-    o, lse = tfa.flash_fwd_plain(q32, k32, v32, **kw)
-    o = tfa.unpad_head_dim(o, D).to(dtype)
+    o, lse = tfa.flash_fwd_plain(qp, kp, vp, **kw)
+    o = tfa.unpad_head_dim(o, D)
     delta = (do.float() * o.float()).sum(dim=-1)
-    dq = tfa.flash_bwd_dq_plain(q32, k32, v32, do32, lse, delta, **kw)
-    dk, dv = tfa.flash_bwd_dkv_plain(q32, k32, v32, do32, lse, delta, **kw)
-    return (o, lse, *(tfa.unpad_head_dim(x, D).to(dtype) for x in (dq, dk, dv)))
+    dq = tfa.flash_bwd_dq_plain(qp.float(), kp.float(), vp.float(),
+                                dop.float(), lse, delta, **kw).to(dtype)
+    dk, dv = tfa.flash_bwd_dkv_plain(qp, kp, vp, dop, lse, delta, **kw)
+    return (o, lse, *(tfa.unpad_head_dim(x, D) for x in (dq, dk, dv)))
 
 
 def _assert_close_bf16(a, b, what):
@@ -79,9 +83,9 @@ def _assert_close_bf16(a, b, what):
 def test_head_dims_above_128_match_pallas(dtype, Dh, causal, pallas_runs):
     """o, lse, dq, dk and dv along the card's route against the Pallas
     kernels on the same inputs: f32 within the JAX package's bounds, bf16
-    within chip_smoke.py's (the f32 route does not round p and ds to bf16
-    before the second products, as the bf16 Pallas kernels do; the
-    difference sits well inside that bound)."""
+    within chip_smoke.py's (the bf16 forward and dk/dv round p and ds to
+    bf16 as the bf16 Pallas kernels do; the f32 dq does not round ds, a
+    difference well inside that bound)."""
     r = pallas_runs[(dtype, Dh, causal)]
     tdtype = getattr(torch, dtype)
     q, k, v, do = (torch.tensor(r[n]).to(tdtype) for n in ("q", "k", "v", "do"))
@@ -98,18 +102,23 @@ def test_head_dims_above_128_match_pallas(dtype, Dh, causal, pallas_runs):
             _assert_close_bf16(x.float().numpy(), r[name], what)
 
 
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
 @pytest.mark.parametrize("dtype,Dh,plan", [
-    (torch.bfloat16, 129, ("bf16_f32", 256)),
-    (torch.bfloat16, 192, ("bf16_f32", 256)),
-    (torch.bfloat16, 256, ("bf16_f32", 256)),
+    # bf16: the forward and dk/dv on bf16_d256, dq on the f32 kernel
+    (torch.bfloat16, 129, ("bf16_d256", 256)),
+    (torch.bfloat16, 192, ("bf16_d256", 256)),
+    (torch.bfloat16, 256, ("bf16_d256", 256)),
     (torch.float32, 129, ("f32", 256)), (torch.float32, 200, ("f32", 256)),
     (torch.float32, 256, ("f32", 256)),
     # the routes below 129 are unchanged
     (torch.bfloat16, 128, ("bf16_wide", 128)),
     (torch.float32, 128, ("f32", 128)),
 ])
-def test_kernel_plan_routes_head_dims_up_to_256(dtype, Dh, plan):
-    assert tfa.kernel_plan(dtype, Dh) == plan
+def test_kernel_plan_routes_head_dims_up_to_256(dtype, Dh, plan, kernel):
+    if plan[0] == "bf16_d256" and kernel == "flash_bwd_dq":
+        plan = ("bf16_f32", 256)
+    assert tfa.kernel_plan(dtype, Dh, kernel) == plan
     q = torch.zeros(2, 8, Dh, dtype=dtype)
     assert tfa._check_cuda((q, q, q)) == (2, 8)
 
@@ -126,9 +135,12 @@ def test_kernel_plan_refuses_head_dims_above_256(dtype, Dh):
 
 def test_bf16_f32_route_counts_under_the_f32_kernels():
     """bf16_f32 has no counters of its own: its launches are the f32
-    kernels', so the launch counts show that bf16 at head dim 256 reached
-    them."""
+    dq's, so the launch counts show that bf16 dq at head dim 256 reached
+    it. bf16_d256 counts its forward and dk/dv under names of its own and
+    has no dq counter."""
     assert "bf16_f32" not in tfa._SUFFIXES
     assert all(not n.endswith("bf16_f32") for n in tfa.LAUNCHES)
     assert {"flash_fwd_f32", "flash_bwd_dq_f32",
             "flash_bwd_dkv_f32"} <= set(tfa.LAUNCHES)
+    assert {n for n in tfa.LAUNCHES if n.endswith("_bf16d256")} == {
+        "flash_fwd_bf16d256", "flash_bwd_dkv_bf16d256"}
