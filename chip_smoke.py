@@ -9,10 +9,9 @@ Phases, each of which exits non-zero on failure:
    ``nvcc`` a source, started together), with each kernel's registers,
    dynamic shared memory, blocks per SM and local memory a thread (the
    bf16 ones at head dim 64, the f32 ones at each head dim they are built
-   for, 256 among them, where the f32 dk/dv runs as a dv pass and a dk
-   pass, two kernels, the bf16_wide ones at 128, the bf16_d256 forward
-   and dk/dv at 256), failing if a kernel other than the f32 dq and dk/dv
-   spills to local memory;
+   for, 256 among them, the bf16_wide ones at 128, the bf16_d256 ones at
+   256), failing if a kernel spills to local memory, but the f32 dq and
+   the f32 dk/dv up to head dim 128;
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
@@ -23,9 +22,8 @@ Phases, each of which exits non-zero on failure:
    to 128), among them S 129 causal at head dim 128 and the wide shape
    (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of 128);
    in f32 and in bf16 at head dims 129, 192 and 256 (f32: the f32
-   kernels at head dim 256; bf16: the bf16_d256 forward and dk/dv at
-   256, and the f32 dq on bf16 cast to f32 and back). At the main shape
-   (for bf16_wide the wide one; for head dim 256 B*H 48, S 1024, D 256,
+   kernels at head dim 256; bf16: the bf16_d256 kernels). At the main
+   shape (for bf16_wide the wide one; for head dim 256 B*H 48, S 1024, D 256,
    causal: the main shape's operations), times of the kernel, the plain
    version and the PyTorch library call (SDPA, in the kernel's dtype)
    beside the bound, with the kernel's TFLOP/s and the share of its bound
@@ -45,8 +43,8 @@ Phases, each of which exits non-zero on failure:
 3b. the tiny configs: gpt2_tiny (head dim 16) under attention="auto" in
    bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels),
    gpt2_tiny with two heads of 128 in bf16 (the bf16_wide kernels), and
-   with one head of 256 in bf16 (the bf16_d256 forward and dk/dv, the
-   f32 dq) and in f32 (the f32 kernels at head dim 256), 3 steps each,
+   with one head of 256 in bf16 (the bf16_d256 kernels) and in f32 (the
+   f32 kernels at head dim 256), 3 steps each,
    its launch counts exact and its first step held
    to reference attention (phase 3's limits in bf16, an order tighter in
    f32);
@@ -191,9 +189,9 @@ TINY_F32_LIMITS = (1e-5, 2e-4, 2.5e-3)  # loss, grad norm, attention leaves
 WIDE_TINY = dict(d_model=256, n_head=2)
 WIDE_SHAPE = (96, 1024, 128)
 # Head dims 129-256 run at head dim 256, f32 on the f32 kernels, bf16 on
-# the bf16_d256 forward and dk/dv and the f32 dq: gpt2_tiny with one head
-# of 256 in phase 3b, and in phase 2 B*H 48 (the main shape's operations
-# at four times the head dim)
+# the bf16_d256 kernels: gpt2_tiny with one head of 256 in phase 3b, and
+# in phase 2 B*H 48 (the main shape's operations at four times the head
+# dim)
 D256_TINY = dict(d_model=256, n_head=1)
 D256_SHAPE = (48, 1024, 256)
 
@@ -214,27 +212,25 @@ CKPT_DIR = "build/chip_smoke_checkpoints"
 REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:29",
             "flash_bwd_dq": "ray_tpu/ops/flash_attention.py:160",
             "flash_bwd_dkv": "ray_tpu/ops/flash_attention.py:212"}
-# bf16_d256 (bf16 head dims 129-256) has a forward and dk/dv; its dq is
-# the f32 kernel's
-D256_BASES = ("flash_fwd", "flash_bwd_dkv")
 KERNELS = [{"name": base + suffix, "replaces": where}
            for suffix in ("", "_f32", "_bf16w", "_bf16d256")
-           for base, where in REPLACES.items()
-           if suffix != "_bf16d256" or base in D256_BASES]
+           for base, where in REPLACES.items()]
 # each kernel's source: the wgmma kernels (bf16 at head dim 64, bf16_wide
 # at 128, bf16_d256 at 256) and the 3xTF32 mma.sync ones (f32)
 WGMMA_CU = "ray_tpu_torch/ops/csrc/flash_attention.cu"
 MMA_SYNC_CU = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"
 SOURCE_OF = {spec["name"]: MMA_SYNC_CU if spec["name"].endswith("_f32")
              else WGMMA_CU for spec in KERNELS}
-# kernels that must show no local memory (no spills) at any head dim; the
-# f32 dq and dk/dv spill a little at the 168-register cap of 3 blocks an SM
-NO_LOCAL_MEMORY = [spec["name"] for spec in KERNELS
-                   if spec["name"] not in ("flash_bwd_dq_f32",
-                                           "flash_bwd_dkv_f32")]
 # the head dims each family's kernels are built for
 HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128, 256), "_bf16w": (128,),
                 "_bf16d256": (256,)}
+# the head dims at which a kernel may show local memory (spills); every
+# other kernel and head dim must show none. The f32 dq spills a little at
+# the register caps of 3 blocks an SM and at 256, the f32 dk/dv's kernel
+# of 4 warps at head dims up to 128 (its kernel of 8 warps at 256 must
+# not)
+MAY_SPILL = {"flash_bwd_dq_f32": HEAD_DIMS_OF["_f32"],
+             "flash_bwd_dkv_f32": (16, 32, 64, 128)}
 # what the kernels' line calls the f32 kernels' head-dim-256 instances
 D256 = "_d256"
 
@@ -247,20 +243,14 @@ def family(name: str) -> str:
                  if name.endswith(s)), "")
 
 
-def suffix_of(base: str, dtype_is_f32: bool, head_dim: int) -> str:
-    """The family of the kernel ``base`` (flash_fwd, flash_bwd_dq or
-    flash_bwd_dkv) that takes a dtype at a head dim (bf16 dq above 128
-    runs the f32 kernel)."""
+def suffix_of(dtype_is_f32: bool, head_dim: int) -> str:
+    """The family suffix of the three kernels that take a dtype at a head
+    dim."""
     if dtype_is_f32:
         return "_f32"
     if head_dim > WIDE_SHAPE[2]:
-        return "_bf16d256" if base in D256_BASES else "_f32"
+        return "_bf16d256"
     return "_bf16w" if head_dim > HEAD_DIM else ""
-
-
-def suffixes_of(dtype_is_f32: bool, head_dim: int) -> dict:
-    """{base: family suffix} of the three kernels at a dtype and head dim."""
-    return {base: suffix_of(base, dtype_is_f32, head_dim) for base in REPLACES}
 
 
 def fail(msg: str) -> None:
@@ -296,16 +286,14 @@ def time_ms(torch, fn, *, warmup: int, reps: int) -> float:
 
 
 def attention_bound(kernel: str, BH: int, S: int, causal: bool,
-                    D: int = HEAD_DIM, f32: bool | None = None):
+                    D: int = HEAD_DIM):
     """Least time for the function on the card: the larger of its FLOPs
     over the peak of its type (bf16: the tensor cores; f32: 3xTF32 on the
     tensor cores, f32-accurate) and its bytes (each input read once, each
     output written once) over the HBM rate. Returns (ms, what bounds it,
     FLOPs, bytes, the ms of the FLOPs at the FFMA peak of the CUDA cores
-    for f32, else None). ``f32`` is the inputs' dtype, by default the
-    kernel's (bf16 head dims above 128 run f32 kernels on bf16 inputs)."""
-    if f32 is None:
-        f32 = family(kernel) == "_f32"
+    for f32, else None)."""
+    f32 = family(kernel) == "_f32"
     pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs computed
     mat = BH * S * D * (4 if f32 else 2)  # one [BH, S, D] tensor
     vec = BH * S * 4  # one f32 [BH, S] tensor
@@ -355,26 +343,18 @@ def build_kernels():
         name = spec["name"]
         source = SOURCE_OF[name]
         for D in HEAD_DIMS_OF[family(name)]:
-            # the f32 dk/dv above F32_DKV_FUSED_MAX_HEAD_DIM runs as a dv
-            # pass and a dk pass, two kernels
-            passes = ([("", False)] if name != "flash_bwd_dkv_f32"
-                      or D <= fa.F32_DKV_FUSED_MAX_HEAD_DIM
-                      else [(" (dv pass)", False), (" (dk pass)", True)])
-            for what, dk_pass in passes:
-                attrs = fa.kernel_attributes(name, D, dk_pass=dk_pass)
-                # a wgmma kernel's attributes read the shared memory its
-                # last launch allowed itself; the module knows what it
-                # launches with
-                smem = (fa.dynamic_smem_bytes(name, D) if source == WGMMA_CU
-                        else attrs["max_dynamic_smem"])
-                print(f"  {os.path.basename(source)}: {name}{what} at head "
-                      f"dim {D}: {smem} bytes of dynamic shared memory, "
-                      f"{attrs['registers']} registers, "
-                      f"{attrs['blocks_per_sm']} blocks per SM, "
-                      f"{attrs['local_bytes']} bytes of local memory",
-                      flush=True)
-                if name in NO_LOCAL_MEMORY and attrs["local_bytes"]:
-                    spilled.append(f"{name}{what} at head dim {D}")
+            attrs = fa.kernel_attributes(name, D)
+            # a wgmma kernel's attributes read the shared memory its last
+            # launch allowed itself; the module knows what it launches with
+            smem = (fa.dynamic_smem_bytes(name, D) if source == WGMMA_CU
+                    else attrs["max_dynamic_smem"])
+            print(f"  {os.path.basename(source)}: {name} at head dim {D}: "
+                  f"{smem} bytes of dynamic shared memory, "
+                  f"{attrs['registers']} registers, "
+                  f"{attrs['blocks_per_sm']} blocks per SM, "
+                  f"{attrs['local_bytes']} bytes of local memory", flush=True)
+            if attrs["local_bytes"] and D not in MAY_SPILL.get(name, ()):
+                spilled.append(f"{name} at head dim {D}")
     if spilled:
         fail(f"kernels spill to local memory: {', '.join(spilled)}")
 
@@ -430,9 +410,8 @@ def check_kernels(torch, F, fa):
              ("bf16d96", 24, 1000, 96, True, bf16),
              ("bf16d96nc", 8, 129, 96, False, bf16),
              ("bf16d128", 8, 200, 128, False, bf16),
-             # head dims 129-256: the f32 kernels at head dim 256; in
-             # bf16 the bf16_d256 forward and dk/dv and the f32 dq, bf16
-             # cast to f32 and back
+             # head dims 129-256: the f32 kernels at head dim 256, in
+             # bf16 the bf16_d256 ones
              ("f32d129", 8, 129, 129, True, f32),
              ("f32d192", 8, 1000, 192, False, f32),
              ("f32d256", 8, 1024, 256, False, f32),
@@ -444,7 +423,7 @@ def check_kernels(torch, F, fa):
              ("bf16d256r", 8, 129, 256, True, bf16),
              ("d256", *D256_SHAPE, True, bf16)]
     for label, BH, S, D, causal, dtype in cases:
-        suffix = suffixes_of(dtype == f32, D)
+        suffix = suffix_of(dtype == f32, D)
         q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))
         kw = dict(scale=1.0 / math.sqrt(D), causal=causal)
         o, lse = fa.flash_fwd(q, k, v, **kw)
@@ -456,12 +435,12 @@ def check_kernels(torch, F, fa):
         dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)
         torch.cuda.synchronize()
         checks = {
-            "flash_fwd" + suffix["flash_fwd"]: [
+            "flash_fwd" + suffix: [
                 ("o", *close_check(o, o_ref)),
                 ("lse", *lse_check(lse, lse_ref))],
-            "flash_bwd_dq" + suffix["flash_bwd_dq"]: [
+            "flash_bwd_dq" + suffix: [
                 ("dq", *close_check(dq, dq_ref))],
-            "flash_bwd_dkv" + suffix["flash_bwd_dkv"]: [
+            "flash_bwd_dkv" + suffix: [
                 ("dk", *close_check(dk, dk_ref)),
                 ("dv", *close_check(dv, dv_ref))],
         }
@@ -476,16 +455,12 @@ def check_kernels(torch, F, fa):
                 if not ok:
                     failures.append(f"{name}.{what} ({label})")
         if label in ("main", "wide", "d256"):
-            # the f32 kernels' head-dim-256 times go under their own
-            # names, and the bf16 dq's through them apart
-            tags = dict.fromkeys(REPLACES, "")
-            if label == "d256":
-                tags = {base: "" if s == "_bf16d256" else
-                        D256 if dtype == f32 else D256 + "_bf16"
-                        for base, s in suffix.items()}
+            # the f32 kernels' head-dim-256 times go under names of
+            # their own
+            tag = D256 if label == "d256" and dtype == f32 else ""
             results.update(time_kernels(torch, F, fa, suffix, checks,
                                         q, k, v, do, lse_ref, delta, kw,
-                                        tags=tags))
+                                        tag=tag))
         del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dq_ref, dk, dv
         del dk_ref, dv_ref
         torch.cuda.empty_cache()
@@ -495,13 +470,13 @@ def check_kernels(torch, F, fa):
 
 
 def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
-                 kw, tags):
+                 kw, tag):
     """Device times of the three kernels that take the inputs (``suffix``:
-    {base: family suffix}), their plain versions and SDPA in the inputs'
+    their family's suffix), their plain versions and SDPA in the inputs'
     dtype, beside the bound (of that dtype); for bf16 also the backward as
     ``_FlashAttention.backward`` runs it, for f32 dq + dk/dv against
-    SDPA's backward. Results go under each kernel's name followed by its
-    entry of ``tags``."""
+    SDPA's backward. Results go under each kernel's name followed by
+    ``tag``."""
     BH, S, D = q.shape
     causal = kw["causal"]
     fns = {
@@ -528,9 +503,9 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
                "flash_bwd_dkv": sdpa_bwd_ms}
     results = {}
     for base, (kernel_fn, plain_fn) in fns.items():
-        name, tag = base + suffix[base], tags[base]
+        name = base + suffix
         bound_ms, bound_by, flops, nbytes, ffma_ms = attention_bound(
-            name, BH, S, causal, D, f32=q.dtype == torch.float32)
+            name, BH, S, causal, D)
         ms = time_ms(torch, kernel_fn, warmup=3, reps=20)
         plain_ms = time_ms(torch, plain_fn, warmup=1, reps=5)
         tflops = flops / (ms * 1e-3) / 1e12
@@ -554,16 +529,16 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
               f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound{also}",
               flush=True)
-    dq_name, dkv_name = (base + suffix[base] + tags[base]
+    dq_name, dkv_name = (base + suffix + tag
                          for base in ("flash_bwd_dq", "flash_bwd_dkv"))
     if q.dtype == torch.float32:
         pair = results[dq_name]["ms"] + results[dkv_name]["ms"]
-        print(f"time f32 kernels' backward{tags['flash_bwd_dq']} ({q.dtype}, "
+        print(f"time f32 kernels' backward{tag} ({q.dtype}, "
               f"D={D}): dq + dk/dv {pair:.4f} ms, SDPA's backward in "
               f"{q.dtype} (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms: "
               f"{pair / sdpa_bwd_ms:.2f}x SDPA's", flush=True)
         return results
-    if suffix["flash_fwd"] == "_bf16w":
+    if suffix == "_bf16w":
         return results
     # the backward pair as _FlashAttention.backward runs it (delta, dq,
     # dk/dv) against SDPA's whole backward; printed, not gated
@@ -697,8 +672,8 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
 def tiny_configs(torch, fa):
     """gpt2_tiny (head dim 16) under attention="auto" in bf16 and in f32,
     with two heads of 128 in bf16 (the bf16_wide kernels), and with one
-    head of 256 in bf16 (the bf16_d256 forward and dk/dv, the f32 dq) and
-    in f32 (the f32 kernels at head dim 256),
+    head of 256 in bf16 (the bf16_d256 kernels) and in f32 (the f32
+    kernels at head dim 256),
     TINY_STEPS steps each, its first step held to reference attention;
     returns each run's launch counts, set to 0 just before its steps and
     read just after."""
@@ -754,8 +729,9 @@ def tiny_configs(torch, fa):
               f"attention: loss {loss_rel:.2e} (limit {loss_rtol:.0e}), grad "
               f"norm {gn_rel:.2e} (limit {gn_rtol:.0e}); launches {launches}",
               flush=True)
-        ran = {base + s for base, s in suffixes_of(
-            dtype == torch.float32, cfg.d_model // cfg.n_head).items()}
+        ran = {base + suffix_of(dtype == torch.float32,
+                                cfg.d_model // cfg.n_head)
+               for base in REPLACES}
         for name, n in launches.items():
             want = cfg.n_layer * TINY_STEPS if name in ran else 0
             if n != want:
@@ -1635,8 +1611,7 @@ def main() -> int:
     # bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
     # config for the bf16_wide ones, the bf16 tiny config with a head of
     # 256 for the bf16_d256 ones, the f32 tiny config with a head of 256
-    # for the f32 kernels' head-dim-256 instances (the f32 dq's bf16
-    # times, bf16 cast to f32 and back, go beside its own as bf16_*)
+    # for the f32 kernels' head-dim-256 instances
     rows = [(spec, spec["name"], {
         "": launches, "_f32": tiny_launches["tiny float32"],
         "_bf16w": tiny_launches["tiny bfloat16 wide"],
@@ -1647,11 +1622,6 @@ def main() -> int:
     for spec, name, path in rows:
         counter = spec["name"]
         extra = {"head_dim": 256} if name.endswith(D256) else {}
-        if name + "_bf16" in results:
-            bf16 = results[name + "_bf16"]
-            extra.update({f"bf16_{k}": bf16[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")})
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCE_OF[counter],
                         "replaces": spec["replaces"],

@@ -1,9 +1,10 @@
 // Flash attention for Hopper (sm_90a) in bf16: forward, dq and dk/dv
-// kernels at head dims 64 and 128, and a forward and dk/dv at 256.
+// kernels at head dims 64 and 128, and three of their own at 256.
 //
 // Replaces the three Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel<D>, flash_fwd_d256_kernel <- _fwd_kernel (:29)
-//   flash_bwd_dq_kernel<D>  <- _bwd_dq_kernel   (flash_attention.py:160)
+//   flash_bwd_dq_kernel<D>, flash_bwd_dq_d256_kernel <- _bwd_dq_kernel
+//                                               (flash_attention.py:160)
 //   flash_bwd_dkv_kernel<D>, flash_bwd_dkv_d256_kernel <- _bwd_dkv_kernel
 //                                               (flash_attention.py:212)
 //
@@ -1011,9 +1012,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ------------------------------------------------ head dim 256
 //
-// bf16 head dims 129-256 (the wrapper pads them to 256) have a forward and
-// a dk/dv of their own; their dq is still the f32 kernel's, on f32 copies.
-// At D 256 a [rows, D] tile lands as four 64-column boxes, box h at
+// bf16 head dims 129-256 (the wrapper pads them to 256) have a forward, a
+// dk/dv and a dq of their own (the dq after the dk/dv below). At D 256 a [rows, D] tile lands as four 64-column boxes, box h at
 // h * rows * 128 bytes: k-steps 4h to 4h + 3 of a K-major operand read box
 // h, and an MN-major operand's box h feeds output columns 64h to 64h + 63.
 
@@ -1437,6 +1437,188 @@ flash_bwd_dkv_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_frag<D>((wg == 0 ? dv : dk) + (size_t)bh * S * D, acc, krow, S, t);
 }
 
+// dq at D 256: the Q and dO tiles of 128 rows take 64 KB each, and a
+// 64-row K or V tile 32 KB, so of flash_bwd_dq_kernel's four stages of
+// both only three tiles fit beside them. K and V get rings of their own,
+// two K stages and one V stage: 1024 + 128 KB + 3 x 32 KB + 7 barriers =
+// 230,456 bytes. A K tile is held from its scores to ds.k, the whole of
+// a tile's work, and a V tile only until dp is done, so K gets the second
+// stage: K tile j + 1 loads during all of tile j, and V tile j + 1 from
+// the end of dp (j) on, under ds and ds.k. In registers dq takes 128 a
+// thread, s and dp 32 each and ds 16, one block an SM.
+constexpr int kDq256KStages = 2;
+constexpr int kDq256VStages = 1;
+
+constexpr int dq256_smem_bytes() {
+  return 1024 + 2 * kBlockM * 256 * 2 +
+         (kDq256KStages + kDq256VStages) * kDqBlockN * 256 * 2 +
+         (1 + 2 * (kDq256KStages + kDq256VStages)) * 8;
+}
+
+// Replaces _bwd_dq_kernel (flash_attention.py:160) for bf16 head dims
+// 129-256. Bound at B*H 48, S 1024, D 256, causal: ~39 us by tensor-core
+// operations, as at the main shape. The loop is flash_bwd_dq_kernel's (128
+// Q rows a block, each warpgroup 64 of them; per 64-row K/V tile s = q.k^T
+// and dp = do.v^T, ds = p.(dp - delta).scale packed to bf16, dq += ds.k in
+// f32) over the two rings, with dp issued before s so that V is released
+// as soon as dp is done.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int S, float scale,
+                         int causal) {
+  constexpr int D = 256;
+  constexpr int kN = kDqBlockN;
+  constexpr int kKS = kDq256KStages, kVS = kDq256VStages;
+  constexpr int kH = D / kHalfD;
+  constexpr int kQBytes = kBlockM * D * 2;
+  constexpr int kTileBytes = kN * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t sQ = smem_addr(sm);
+  const uint32_t sdO = sQ + kQBytes;
+  const uint32_t sK = sdO + kQBytes;          // + stage * kTileBytes
+  const uint32_t sV = sK + kKS * kTileBytes;  // + stage * kTileBytes
+  const uint32_t bar_q = sV + kVS * kTileBytes;  // Q and dO
+  const uint32_t k_full = bar_q + 8;             // + 8 * stage
+  const uint32_t k_empty = k_full + 8 * kKS;     // + 8 * stage
+  const uint32_t v_full = k_empty + 8 * kKS;     // + 8 * stage
+  const uint32_t v_empty = v_full + 8 * kVS;     // + 8 * stage
+
+  const int q0 = ((S + kBlockM - 1) / kBlockM - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;  // a head's tiles run together, longest first
+  const int n_kv = ((causal ? min(q0 + kBlockM, S) : S) + kN - 1) / kN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kKS; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kWgThreads / 32);
+    }
+    for (int s = 0; s < kVS; ++s) {
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0 is also the producer: a K tile j goes into its stage once all
+  // eight warps have released tile j - kKS (after its ds.k), issued at the
+  // start of tile j - 1; a V tile j once they have released tile j - kVS
+  // (after its dp), issued after the ds of tile j - 1.
+  auto produce = [&](uint32_t ring, uint32_t full, uint32_t empty,
+                     int stages, const CUtensorMap* map, int j) {
+    if (threadIdx.x == 0 && j < n_kv) {
+      const int s = j % stages;
+      mbar_wait(empty + 8 * s, ((j / stages) & 1) ^ 1);
+      mbar_expect_tx(full + 8 * s, kTileBytes);
+      tma_load_tile<D, kN>(ring + s * kTileBytes, map, full + 8 * s, j * kN,
+                           bh);
+    }
+    __syncwarp();
+  };
+  auto produce_k = [&](int j) { produce(sK, k_full, k_empty, kKS, &tm_k, j); };
+  auto produce_v = [&](int j) { produce(sV, v_full, v_empty, kVS, &tm_v, j); };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, 2 * kQBytes);
+    tma_load_tile<D, kBlockM>(sQ, &tm_q, bar_q, q0, bh);
+    tma_load_tile<D, kBlockM>(sdO, &tm_do, bar_q, q0, bh);
+  }
+  produce_k(0);
+  produce_v(0);
+
+  // warpgroup wg owns rows q0 + 64 wg .. + 63 and uses the first n_w KV
+  // tiles (under causal masking the block's last tile may lie wholly in
+  // warpgroup 0's future)
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  const int row = wg_row0 + (warp & 3) * 16 + g;  // and row + 8
+  const int n_w = causal ? (min(wg_row0 + 64, S) + kN - 1) / kN : n_kv;
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    lse2[h] = r < S ? lse[(size_t)bh * S + r] * kLog2e : 0.f;
+    dl[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+  }
+  auto wait_k = [&](int it) {
+    mbar_wait(k_full + 8 * (it % kKS), (it / kKS) & 1);
+  };
+  auto wait_v = [&](int it) {
+    mbar_wait(v_full + 8 * (it % kVS), (it / kVS) & 1);
+  };
+  auto release_k = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty + 8 * (it % kKS));
+  };
+  auto release_v = [&](int it) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty + 8 * (it % kVS));
+  };
+  auto desc_k = [&](int it) {
+    return sw128_desc(sK + (it % kKS) * kTileBytes);
+  };
+  auto desc_v = [&](int it) {
+    return sw128_desc(sV + (it % kVS) * kTileBytes);
+  };
+  constexpr uint64_t half_q = half_desc(kBlockM), half_kv = half_desc(kN);
+  float acc[kH][32];
+#pragma unroll
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float sc[32], dp[32];
+  uint32_t da[4][4];
+
+  mbar_wait(bar_q, 0);
+  const uint64_t desc_q = sw128_desc(sQ + wg * 64 * kRowBytes);
+  const uint64_t desc_do = sw128_desc(sdO + wg * 64 * kRowBytes);
+  for (int it = 0; it < n_w; ++it) {
+    produce_k(it + 1);
+    wait_k(it);
+    wait_v(it);
+    wgmma_fence();
+    issue_abt<D>(dp, desc_do, half_q, desc_v(it), half_kv);
+    wgmma_commit();
+    issue_abt<D>(sc, desc_q, half_q, desc_k(it), half_kv);
+    wgmma_commit();
+    wgmma_wait<1>();  // dp
+    fence_regs(dp);
+    release_v(it);
+    wgmma_wait<0>();  // s
+    fence_regs(sc);
+    const int k0 = it * kN;
+    const bool masked = (causal && k0 + kN - 1 > wg_row0) || k0 + kN > S;
+    dq_tile(sc, dp, lse2, dl, masked, k0, row, t, S, causal, scale,
+            scale_log2);
+    produce_v(it + 1);
+    pack_all(da, sc);
+    wgmma_fence();
+    issue_ab<D, kN>(acc, da, desc_k(it), half_kv);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release_k(it);
+  }
+  for (int it = n_w; it < n_kv; ++it) {  // tiles this warpgroup skips
+    produce_k(it + 1);
+    wait_k(it);
+    wait_v(it);
+    release_v(it);
+    produce_v(it + 1);
+    release_k(it);
+  }
+  store_frag<D>(dq + (size_t)bh * S * D, acc, row, S, t);
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -1585,9 +1767,30 @@ int launch_dkv256(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+int launch_dq256(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, int bh, int seq, float scale, int causal,
+                 void* stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, q, bh, seq, 256, kBlockM);
+  if (err == 0) err = make_map(&tk, k, bh, seq, 256, kDqBlockN);
+  if (err == 0) err = make_map(&tv, v, bh, seq, 256, kDqBlockN);
+  if (err == 0) err = make_map(&tdo, dout, bh, seq, 256, kBlockM);
+  if (err != 0) return err;
+  constexpr int smem = dq256_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, bh);
+  flash_bwd_dq_d256_kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, seq,
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
 // The forward (0), dk/dv (1) or dq (2) at head dim d and the dynamic shared
-// memory of one block; nullptr for a kernel not built at d (at 256 only the
-// forward and dk/dv are).
+// memory of one block; nullptr for a kernel not built at d.
 const void* kernel_fn(int kernel, int d, int* smem) {
   if (d == 64) {
     switch (kernel) {
@@ -1605,6 +1808,7 @@ const void* kernel_fn(int kernel, int d, int* smem) {
     switch (kernel) {
       case 0: *smem = fwd256_smem_bytes(); return (const void*)flash_fwd_d256_kernel;
       case 1: *smem = dkv256_smem_bytes(); return (const void*)flash_bwd_dkv_d256_kernel;
+      case 2: *smem = dq256_smem_bytes(); return (const void*)flash_bwd_dq_d256_kernel;
     }
   }
   return nullptr;
@@ -1663,13 +1867,22 @@ int flash_bwd_dkv_bf16w(const void* q, const void* k, const void* v,
                          causal, stream);
 }
 
-// bf16 at head dim d = 256 (head dims 129-256, padded to it): the forward
-// and dk/dv; -3 for another d
+// bf16 at head dim d = 256 (head dims 129-256, padded to it); -3 for
+// another d
 int flash_fwd_bf16d256(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int seq, int d, float scale,
                        int causal, void* stream) {
   if (d != 256) return -3;
   return launch_fwd256(q, k, v, o, lse, bh, seq, scale, causal, stream);
+}
+
+int flash_bwd_dq_bf16d256(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int seq, int d,
+                          float scale, int causal, void* stream) {
+  if (d != 256) return -3;
+  return launch_dq256(q, k, v, dout, lse, delta, dq, bh, seq, scale, causal,
+                      stream);
 }
 
 int flash_bwd_dkv_bf16d256(const void* q, const void* k, const void* v,

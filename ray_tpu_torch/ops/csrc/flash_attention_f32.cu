@@ -5,13 +5,13 @@
 // compute for f32 inputs:
 //   flash_fwd_tc_kernel     <- _fwd_kernel      (flash_attention.py:29)
 //   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (flash_attention.py:160)
-//   flash_bwd_dkv_tc_kernel <- _bwd_dkv_kernel  (flash_attention.py:212)
-// Each is a template on the head dim D. Sums, softmax and accumulators are
-// f32, as are o, dq, dk, dv and lse (the Pallas kernels' casts of p and ds
-// to the input type are no-ops in f32). Masked scores are -1e30, as in the
-// Pallas kernels. The bf16 kernels are flash_attention.cu's; bf16 head dims
-// 129-256 come here as f32 (the wrapper casts them: every bf16 value is
-// exact in f32).
+//   flash_bwd_dkv_tc_kernel, flash_bwd_dkv_d256_tc_kernel
+//                           <- _bwd_dkv_kernel  (flash_attention.py:212)
+// Each but the last is a template on the head dim D. Sums, softmax and
+// accumulators are f32, as are o, dq, dk, dv and lse (the Pallas kernels'
+// casts of p and ds to the input type are no-ops in f32). Masked scores
+// are -1e30, as in the Pallas kernels. The bf16 kernels, at every head
+// dim, are flash_attention.cu's.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] f32, contiguous and
 // 16-byte aligned; lse and delta are [BH, S] f32. D is 16, 32, 64, 128 or
@@ -36,10 +36,12 @@
 // own axis (Q rows for the forward and dq, KV rows for dk/dv), 4 warps of
 // 16 rows each. The other axis streams in tiles of 32 rows (16 at D 128, 8
 // at D 256) through a 2-stage cp.async ring, so the next tile loads under this one's
-// products. Tiles sit in shared memory as raw f32, rows unpadded and
-// XOR-swizzled so that all three fragment reads below are free of bank
-// conflicts; each fragment is split into big and small as it is read, in
-// integer and FMA operations. Every product is mma.sync.m16n8k8 tf32:
+// products (dk/dv at D 256 has a kernel of its own, with 8 warps that
+// split its products by output: flash_bwd_dkv_d256_tc_kernel, below).
+// Tiles sit in shared memory as raw f32, rows unpadded and XOR-swizzled
+// so that all three fragment reads below are free of bank conflicts; each
+// fragment is split into big and small as it is read, in integer and FMA
+// operations. Every product is mma.sync.m16n8k8 tf32:
 // scores (q.k^T, do.v^T, or k.q^T, v.do^T in dk/dv) contract over D with
 // the columns d, d + 1 of a pair read at once; the softmax, masks,
 // exp(s - lse) and ds = p (dp - delta) scale happen in registers in the
@@ -95,17 +97,6 @@ constexpr int kStreamRows = D >= 256 ? 8 : D >= 128 ? 16 : 32;
 // and at 1 under the cap of 255 a thread.
 template <int D>
 constexpr int kMinBlocks = D >= 256 ? 1 : D >= 128 ? 2 : 3;
-
-// dk and dv of a 16 x D output a warp take D / 2 accumulator registers a
-// thread each: 256 together at D 256, past the cap. There dk/dv runs as
-// two passes, two kernels launched one after the other: a dv pass (p,
-// then p^T.do) and a dk pass (p and dp, then ds^T.q), each recomputing
-// the scores it needs, 5 products for the fused kernel's 4. One kernel
-// with the two passes on two grid z-slices ran 4.66 ms against the two
-// launches' 3.80 at B*H 48, S 1024, causal (PERF.md): its registers
-// are the union of both passes', and it spilled 368 bytes a thread.
-template <int D>
-constexpr bool kDkvSplit = D > 128;
 
 // Where element (r, c) of a [rows, D] f32 tile sits in shared memory, in
 // 4-byte words. Rows are unpadded; each row's words are XOR-swizzled by
@@ -165,13 +156,13 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows [r0, r0 + kRows) of one head's [seq, D] matrix into a swizzled
 // tile, 16 bytes a copy; rows past seq are zero-filled.
-template <int D, int kRows>
+template <int D, int kRows, int kThreads = kTcThreads>
 __device__ __forceinline__ void load_tile_async(uint32_t* dst,
                                                 const float* src, int r0,
                                                 int seq) {
   using L = Layout<D>;
   constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kTcThreads) {
+  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, ch = i % kChunks;
     const bool valid = r0 + r < seq;
     cp_async16(dst + L::chunk(r, ch),
@@ -180,9 +171,10 @@ __device__ __forceinline__ void load_tile_async(uint32_t* dst,
 }
 
 // Entries [r0, r0 + n) of one head's [seq] f32 row vector; past seq as 0.
+template <int kThreads = kTcThreads>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
                                                 int r0, int n, int seq) {
-  for (int i = threadIdx.x; i < n; i += kTcThreads) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
     const bool valid = r0 + i < seq;
     cp_async4(dst + i, src + (valid ? r0 + i : 0), valid);
   }
@@ -570,11 +562,7 @@ constexpr int dkv_tc_smem_bytes() {
          2 * 2 * kStreamRows<D> * 4;
 }
 
-// What a dk/dv kernel computes: both (kDkDv), or one pass of the split
-// (kDkvSplit).
-constexpr int kDkOnly = 1, kDvOnly = 2, kDkDv = 3;
-
-template <int D, int kOut>
+template <int D>
 __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
     flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -584,7 +572,6 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
                             const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv,
                             int seq, float scale, int causal) {
-  constexpr bool kDk = kOut & kDkOnly, kDv = kOut & kDvOnly;
   constexpr int BN = kStreamRows<D>, NT = BN / 8;
   extern __shared__ __align__(16) uint32_t tc_smem[];
   uint32_t* sk = tc_smem;
@@ -610,14 +597,11 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
   load_rows_async(rows + BN, delta + rbase, q_begin, BN, seq);
   cp_async_commit();
 
-  float dk_acc[kDk ? D / 8 : 1][4], dv_acc[kDv ? D / 8 : 1][4];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (kDk) dk_acc[n][e] = 0.f;
-      if constexpr (kDv) dv_acc[n][e] = 0.f;
-    }
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int q0 = q_begin + j * BN;
@@ -645,7 +629,7 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
       // transposed scores: rows are the warp's KV rows, columns Q rows
       float p[NT][4], ds[NT][4];
       tile_scores<D, NT, false>(p, sk, sq, wr);
-      if constexpr (kDk) tile_scores<D, NT, true>(ds, sv, sdo, wr);
+      tile_scores<D, NT, true>(ds, sv, sdo, wr);
       // only a tile past S or across the diagonal has masked entries (KV
       // rows past S are never stored, so they need no mask)
       const bool edge = q0 + BN > seq || (causal && q0 < k0 + wr + 15);
@@ -657,11 +641,11 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
                     col = k0 + wr + g + 8 * (e >> 1);
           float pe = exp2f(fmaf(p[n][e], scale2, -slse[a] * kLog2e));
           if (edge && (row >= seq || (causal && col > row))) pe = 0.f;
-          if constexpr (kDk) ds[n][e] = pe * (ds[n][e] - sdelta[a]) * scale;
+          ds[n][e] = pe * (ds[n][e] - sdelta[a]) * scale;
           p[n][e] = pe;
         }
-      if constexpr (kDv) accumulate<D, NT>(dv_acc, p, sdo);  // dv += p^T . do
-      if constexpr (kDk) accumulate<D, NT>(dk_acc, ds, sq);  // dk += ds^T . q
+      accumulate<D, NT>(dv_acc, p, sdo);  // dv += p^T . do
+      accumulate<D, NT>(dk_acc, ds, sq);  // dk += ds^T . q
     }
     __syncthreads();  // this stage is read: the next load may refill it
   }
@@ -672,9 +656,163 @@ __global__ void __launch_bounds__(kTcThreads, kMinBlocks<D>)
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const size_t at = base + (size_t)row * D + 8 * n + 2 * t4;
-      if constexpr (kDk) store2(dk + at, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
-      if constexpr (kDv) store2(dv + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      store2(dk + at, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+      store2(dv + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
+  }
+}
+
+// dk/dv at D 256: dk and dv of a 16 x 256 output a warp take 128
+// accumulator registers a thread each, 256 together, past the cap of 255,
+// so flash_bwd_dkv_tc_kernel's warp cannot hold both. Here a block of 8
+// warps takes 64 KV rows, K and V resident (64 KB each), and splits the
+// four products of a Q tile by output, as flash_bwd_dkv_d256_kernel of
+// flash_attention.cu does with its warpgroups. Warp w < 4 computes
+// s^T = k.q^T of its 16 KV rows, p^T and dv += p^T.do; warp w + 4, on the
+// same rows, dp^T = v.do^T, ds^T = p^T.(dp^T - delta).scale and
+// dk += ds^T.q, each warp with one 16 x 256 accumulator. p^T passes from
+// warp w to warp w + 4 through shared memory: the two warps' fragments of
+// a 16 x kDkv256Rows score tile sit on the same lanes, so each lane writes
+// its values at [pair][i][lane] and the lane of the same number reads
+// them back (a warp's 32 accesses of one i hit 32 banks), with a named
+// barrier of the pair's 64 threads between (bar.arrive by the writer,
+// bar.sync by the reader). 4 products a Q tile for the two passes' 5,
+// eight warps an SM for four, and one launch. The Q/dO ring holds 2
+// stages of kDkv256Rows rows: 1 __syncthreads a tile, after the tile has
+// landed, guards both the ring and the exchange. 16-row Q tiles would
+// halve the barriers and the A fragments' reads of the scores, but
+// spilled 108 bytes a thread at the cap of 255 registers; 8 rows spill
+// nothing.
+constexpr int kDkv256Rows = 8;
+constexpr int kDkv256Threads = 2 * kTcThreads;
+
+constexpr int dkv256_tc_smem_bytes() {
+  return (2 * kTile + 2 * 2 * kDkv256Rows) * 256 * 4 +
+         2 * 2 * kDkv256Rows * 4 + kTcWarps * 16 * kDkv256Rows * 4;
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Replaces _bwd_dkv_kernel (flash_attention.py:212) for f32 head dims
+// 129-256. Bound at B*H 48, S 1024, D 256, causal: 0.313 ms by 3xTF32
+// operations (four products per tile pair), as at the main shape.
+__global__ void __launch_bounds__(kDkv256Threads, 1)
+    flash_bwd_dkv_d256_tc_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 float* __restrict__ dk,
+                                 float* __restrict__ dv, int seq,
+                                 float scale, int causal) {
+  constexpr int D = 256, BN = kDkv256Rows, NT = BN / 8;
+  constexpr int kThreads = kDkv256Threads;
+  extern __shared__ __align__(16) uint32_t tc_smem[];
+  uint32_t* sk = tc_smem;
+  uint32_t* sv = sk + kTile * D;
+  uint32_t* ring = sv + kTile * D;  // [stage][q, do][BN rows]
+  float* rows = reinterpret_cast<float*>(ring + 2 * 2 * BN * D);
+  // rows: [stage][lse, delta][BN]
+  float* xp = rows + 2 * 2 * BN;  // p^T: [pair][NT * 4][32 lanes]
+  const int k0 = blockIdx.x * kTile;  // the longest column runs come first
+  const size_t base = (size_t)blockIdx.y * seq * D;
+  const size_t rbase = (size_t)blockIdx.y * seq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp % kTcWarps;  // warps pair and pair + 4: one KV slab
+  const bool dv_warp = warp < kTcWarps;
+  const int wr = pair * 16;  // the pair's KV rows in the tile
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  float* x_slot = xp + pair * NT * 4 * 32 + lane;  // + 32 i
+
+  // Q tiles wholly before this KV tile see none of it under causal masking
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = (seq - q_begin + BN - 1) / BN;
+  auto load_stage = [&](int j) {
+    const int q0 = q_begin + j * BN;
+    uint32_t* st = ring + (j & 1) * 2 * BN * D;
+    float* r = rows + (j & 1) * 2 * BN;
+    load_tile_async<D, BN, kThreads>(st, q + base, q0, seq);
+    load_tile_async<D, BN, kThreads>(st + BN * D, dout + base, q0, seq);
+    load_rows_async<kThreads>(r, lse + rbase, q0, BN, seq);
+    load_rows_async<kThreads>(r + BN, delta + rbase, q0, BN, seq);
+  };
+  load_tile_async<D, kTile, kThreads>(sk, k + base, k0, seq);
+  load_tile_async<D, kTile, kThreads>(sv, v + base, k0, seq);
+  load_stage(0);
+  cp_async_commit();
+
+  float acc[D / 8][4];  // dv (warps 0-3) or dk (warps 4-7)
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = q_begin + j * BN;
+    cp_async_wait<0>();  // tile j, issued under tile j - 1
+    // tile j is visible to all, and all are done with tile j - 1: its
+    // stage may be refilled and the exchange rewritten
+    __syncthreads();
+    if (j + 1 < n_tiles) {
+      load_stage(j + 1);
+      cp_async_commit();
+    }
+    const uint32_t* sq = ring + (j & 1) * 2 * BN * D;
+    const uint32_t* sdo = sq + BN * D;
+    const float* slse = rows + (j & 1) * 2 * BN;
+    const float* sdelta = slse + BN;
+    // under causal masking a Q tile wholly before the pair's rows adds
+    // nothing; both warps of a pair skip it, so neither waits on the other
+    if (causal && q0 + BN - 1 < k0 + wr) continue;
+    // only a tile past S or across the diagonal has masked entries (KV
+    // rows past S are never stored, so they need no mask)
+    const bool edge = q0 + BN > seq || (causal && q0 < k0 + wr + 15);
+    float x[NT][4];  // transposed: rows are the pair's KV rows, columns Q
+    if (dv_warp) {
+      tile_scores<D, NT, false>(x, sk, sq, wr);  // s^T = k . q^T
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int a = 8 * n + 2 * t4 + (e & 1), row = q0 + a,
+                    col = k0 + wr + g + 8 * (e >> 1);
+          float pe = exp2f(fmaf(x[n][e], scale2, -slse[a] * kLog2e));
+          if (edge && (row >= seq || (causal && col > row))) pe = 0.f;
+          x[n][e] = pe;
+          x_slot[32 * (4 * n + e)] = pe;
+        }
+      named_arrive(1 + pair, 64);
+      accumulate<D, NT>(acc, x, sdo);  // dv += p^T . do
+    } else {
+      tile_scores<D, NT, true>(x, sv, sdo, wr);  // dp^T = v . do^T
+      named_sync(1 + pair, 64);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int a = 8 * n + 2 * t4 + (e & 1);
+          x[n][e] = x_slot[32 * (4 * n + e)] * (x[n][e] - sdelta[a]) * scale;
+        }
+      accumulate<D, NT>(acc, x, sq);  // dk += ds^T . q
+    }
+  }
+  float* out = dv_warp ? dv : dk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + wr + g + 8 * h;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(out + base + (size_t)row * D + 8 * n + 2 * t4, acc[n][2 * h],
+             acc[n][2 * h + 1]);
   }
 }
 
@@ -694,27 +832,25 @@ int with_head_dim(int d, F f) {
   }
 }
 
-// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu; where
-// dk/dv is split, 1 is its dv pass and 3 its dk pass) at head dim D and
-// its dynamic shared memory; nullptr for another kernel id.
+// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) at head
+// dim D, its dynamic shared memory and its threads a block; nullptr for
+// another kernel id.
 template <int D>
-const void* kernel_fn(int kernel, int* smem) {
+const void* kernel_fn(int kernel, int* smem, int* threads) {
+  *threads = kTcThreads;
   switch (kernel) {
     case 0:
       *smem = fwd_tc_smem_bytes<D>();
       return (const void*)flash_fwd_tc_kernel<D>;
     case 1:
-      *smem = dkv_tc_smem_bytes<D>();
-      if constexpr (kDkvSplit<D>)
-        return (const void*)flash_bwd_dkv_tc_kernel<D, kDvOnly>;
-      else
-        return (const void*)flash_bwd_dkv_tc_kernel<D, kDkDv>;
-    case 3:
-      *smem = dkv_tc_smem_bytes<D>();
-      if constexpr (kDkvSplit<D>)
-        return (const void*)flash_bwd_dkv_tc_kernel<D, kDkOnly>;
-      else
-        return nullptr;
+      if constexpr (D == 256) {
+        *smem = dkv256_tc_smem_bytes();
+        *threads = kDkv256Threads;
+        return (const void*)flash_bwd_dkv_d256_tc_kernel;
+      } else {
+        *smem = dkv_tc_smem_bytes<D>();
+        return (const void*)flash_bwd_dkv_tc_kernel<D>;
+      }
     case 2:
       *smem = dq_tc_smem_bytes<D>();
       return (const void*)flash_bwd_dq_tc_kernel<D>;
@@ -724,8 +860,8 @@ const void* kernel_fn(int kernel, int* smem) {
 
 // Raises the kernel's dynamic shared-memory limit to what it launches with.
 template <int D>
-cudaError_t prepare(int kernel, int* smem) {
-  const void* fn = kernel_fn<D>(kernel, smem);
+cudaError_t prepare(int kernel, int* smem, int* threads) {
+  const void* fn = kernel_fn<D>(kernel, smem, threads);
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               *smem);
 }
@@ -735,11 +871,11 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* stream) {
   return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    int smem;
-    const cudaError_t e = prepare<D>(0, &smem);
+    int smem, threads;
+    const cudaError_t e = prepare<D>(0, &smem, &threads);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
+    flash_fwd_tc_kernel<D><<<grid, threads, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         (float*)lse, seq, scale, causal);
     return (int)cudaGetLastError();
@@ -751,12 +887,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               int d, float scale, int causal, void* stream) {
   return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    int smem;
-    const cudaError_t e = prepare<D>(2, &smem);
+    int smem, threads;
+    const cudaError_t e = prepare<D>(2, &smem, &threads);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
     flash_bwd_dq_tc_kernel<D>
-        <<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
+        <<<grid, threads, smem, (cudaStream_t)stream>>>(
             (const float*)q, (const float*)k, (const float*)v,
             (const float*)dout, (const float*)lse, (const float*)delta,
             (float*)dq, seq, scale, causal);
@@ -769,24 +905,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int seq, int d, float scale, int causal, void* stream) {
   return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    const int smem = dkv_tc_smem_bytes<D>();
+    int smem, threads;
+    const cudaError_t e = prepare<D>(1, &smem, &threads);
+    if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    auto run = [&](auto fn) {
-      cudaError_t e = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      fn<<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
-          (const float*)q, (const float*)k, (const float*)v,
-          (const float*)dout, (const float*)lse, (const float*)delta,
-          (float*)dk, (float*)dv, seq, scale, causal);
-      return (int)cudaGetLastError();
-    };
-    if constexpr (kDkvSplit<D>) {
-      const int e = run(flash_bwd_dkv_tc_kernel<D, kDvOnly>);
-      return e != 0 ? e : run(flash_bwd_dkv_tc_kernel<D, kDkOnly>);
-    } else {
-      return run(flash_bwd_dkv_tc_kernel<D, kDkDv>);
-    }
+    auto fn = [] {
+      if constexpr (D == 256)
+        return flash_bwd_dkv_d256_tc_kernel;
+      else
+        return flash_bwd_dkv_tc_kernel<D>;
+    }();
+    fn<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+        (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, seq,
+        scale, causal);
+    return (int)cudaGetLastError();
   });
 }
 
@@ -817,16 +950,15 @@ int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                     causal, stream);
 }
 
-// Of the forward (0), dk/dv (1; its dv pass where it is split) or dq (2),
-// or the dk pass of a split dk/dv (3), at head dim d: out[0] registers a
-// thread, out[1] its dynamic shared memory, out[2] the blocks that one SM
-// holds at once with it, out[3] its local memory a thread in bytes
+// Of the forward (0), dk/dv (1) or dq (2) at head dim d: out[0] registers
+// a thread, out[1] its dynamic shared memory, out[2] the blocks that one
+// SM holds at once with it, out[3] its local memory a thread in bytes
 // (spills). Returns a cudaError_t, or -3 for another kernel or head dim.
 int flash_f32_kernel_attributes(int kernel, int d, int* out) {
   return with_head_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    int smem;
-    const void* fn = kernel_fn<D>(kernel, &smem);
+    int smem, threads;
+    const void* fn = kernel_fn<D>(kernel, &smem, &threads);
     if (fn == nullptr) return -3;
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, fn);
@@ -834,10 +966,10 @@ int flash_f32_kernel_attributes(int kernel, int d, int* out) {
     out[0] = attr.numRegs;
     out[1] = smem;
     out[3] = (int)attr.localSizeBytes;
-    e = prepare<D>(kernel, &smem);
+    e = prepare<D>(kernel, &smem, &threads);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn,
-                                                        kTcThreads, smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads,
+                                                        smem);
     return (int)e;
   });
 }

@@ -5,14 +5,12 @@ there become CUDA kernels, in families chosen per kernel
 (``kernel_plan``): "bf16" for bf16 head dims up to 64 (padded to 64), the
 wgmma kernels of ``csrc/flash_attention.cu`` at head dim 64; "bf16_wide"
 for bf16 head dims 65 to 128 (padded to 128), the same file's kernels at
-head dim 128; "bf16_d256" for the forward and dk/dv at bf16 head dims 129
-to 256 (padded to 256), the same file's head-dim-256 kernels; "f32", the
-3xTF32 tensor-core kernels of ``csrc/flash_attention_f32.cu`` (head dims
-16, 32, 64, 128 and 256; others padded up to the next); "bf16_f32" for
-the dq at bf16 head dims 129 to 256, which the wrapper casts to f32 for
-the f32 dq at head dim 256 and whose output it casts back (every bf16
-value is exact in f32; the one difference from the bf16 Pallas kernel is
-that ds is not rounded to bf16 before ds.k). The forward uses online
+head dim 128; "bf16_d256" for bf16 head dims 129 to 256 (padded to 256),
+the same file's head-dim-256 kernels; "f32", the 3xTF32 tensor-core
+kernels of ``csrc/flash_attention_f32.cu`` (head dims 16, 32, 64, 128 and
+256; others padded up to the next). Every bf16 kernel rounds p and ds to
+bf16 before the products that take them, as the bf16 Pallas kernels
+do. The forward uses online
 softmax and writes ``o`` and the row logsumexp; dq and dk/dv recompute
 the probabilities from the saved logsumexp, so that no S x S tensor
 reaches device memory.
@@ -43,10 +41,9 @@ NEG_INF = -1e30
 # tiles by, in rows of the [BH, S, D] tensors: the forward and dq take 128
 # Q rows per block and stream K/V in 64-row tiles; dk/dv takes 128 KV rows
 # per block (64 at head dim 256) and streams Q/dO in 64-row tiles. The
-# kernels of
-# csrc/flash_attention_f32.cu (f32) take 64 rows of their own axis a
-# block and stream the other in tiles of 32 rows (16 at head dim 128, 8 at
-# 256).
+# kernels of csrc/flash_attention_f32.cu (f32) take 64 rows of their own
+# axis a block and stream the other in tiles of 32 rows (16 at head dim
+# 128, 8 at 256).
 FWD_BLOCK_Q, FWD_BLOCK_K = 128, 64
 DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64
 DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
@@ -54,24 +51,17 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 # padded with zero columns up to the next one, which is exact: zero
 # columns add exact zeros to q.k^T and do.v^T, the scale stays the
 # caller's, and the padded columns of the outputs are dropped.
-# 64: family bf16; 128: bf16_wide; 256: bf16_d256 (forward and dk/dv)
 BF16_HEAD_DIMS = (64, 128, 256)
+_BF16_FAMILIES = dict(zip(BF16_HEAD_DIMS, ("bf16", "bf16_wide", "bf16_d256")))
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)
-# Above this head dim the f32 dk/dv runs as two kernels, a dv pass and a
-# dk pass (their accumulators together would pass 255 registers a
-# thread), launched by one call of its entry and counted as one launch.
-F32_DKV_FUSED_MAX_HEAD_DIM = 128
 # family -> the suffix of its kernels' entry points and launch counters
-# (bf16_f32 launches the f32 dq and counts under its name)
 _SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "bf16_d256": "_bf16d256",
              "f32": "_f32"}
+# each family has all three
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# the kernels of bf16_d256; at bf16 head dims 129-256 dq is bf16_f32's
-D256_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 
-LAUNCHES = {f"{kernel}{suffix}": 0 for family, suffix in _SUFFIXES.items()
-            for kernel in (D256_KERNELS if family == "bf16_d256"
-                           else KERNELS)}
+LAUNCHES = {f"{kernel}{suffix}": 0 for suffix in _SUFFIXES.values()
+            for kernel in KERNELS}
 # rank threads of one gang launch at once: the counts stay exact under it
 _launches_lock = threading.Lock()
 
@@ -147,7 +137,8 @@ _ENTRIES = {
         "flash_fwd_bf16": _FWD, "flash_bwd_dq_bf16": _DQ,
         "flash_bwd_dkv_bf16": _DKV, "flash_fwd_bf16w": _FWD_D,
         "flash_bwd_dq_bf16w": _DQ_D, "flash_bwd_dkv_bf16w": _DKV_D,
-        "flash_fwd_bf16d256": _FWD_D, "flash_bwd_dkv_bf16d256": _DKV_D,
+        "flash_fwd_bf16d256": _FWD_D, "flash_bwd_dq_bf16d256": _DQ_D,
+        "flash_bwd_dkv_bf16d256": _DKV_D,
         "flash_dynamic_smem_bytes": [_I, _I],
         "flash_kernel_attributes": _ATTRIBUTES,
     },
@@ -160,7 +151,6 @@ _ENTRIES = {
 _LIBRARY_OF = {entry: lib for lib, entries in _ENTRIES.items()
                for entry in entries}
 _KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}
-_DK_PASS_ID = 3  # the dk pass of the split f32 dk/dv (1 is its dv pass)
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
@@ -184,10 +174,10 @@ def kernel_plan(dtype: torch.dtype, head_dim: int,
     forward by default) on [BH, S, head_dim] tensors of ``dtype``, and the
     head dim it runs them at: ``("bf16", 64)`` for bf16 with head dim up to
     64, ``("bf16_wide", 128)`` for bf16 with head dim 65 to 128,
-    ``("bf16_d256", 256)`` for the forward and dk/dv in bf16 with head dim
-    129 to 256 and ``("bf16_f32", 256)`` for their dq (cast to f32 for the
-    f32 kernel), ``("f32", d)`` for f32 with head dim up to 256, ``d`` the
-    next of ``F32_HEAD_DIMS``. Raises on what no kernel takes."""
+    ``("bf16_d256", 256)`` for bf16 with head dim 129 to 256, ``("f32",
+    d)`` for f32 with head dim up to 256, ``d`` the next of
+    ``F32_HEAD_DIMS``: the same for each kernel. Raises on what no kernel
+    takes."""
     if kernel not in KERNELS:
         raise ValueError(f"no kernel {kernel!r}; the kernels are {KERNELS}")
     dims = {torch.bfloat16: BF16_HEAD_DIMS,
@@ -200,11 +190,9 @@ def kernel_plan(dtype: torch.dtype, head_dim: int,
         raise ValueError(
             f"the CUDA kernels take {_DTYPE_NAMES[dtype]} head dims 1 to "
             f"{dims[-1]}, got {head_dim}")
-    if dtype == torch.bfloat16 and padded == BF16_HEAD_DIMS[2]:
-        return ("bf16_d256" if kernel in D256_KERNELS else "bf16_f32"), padded
-    if dtype == torch.bfloat16 and padded == BF16_HEAD_DIMS[1]:
-        return "bf16_wide", padded
-    return _DTYPE_NAMES[dtype], padded
+    if dtype == torch.bfloat16:
+        return _BF16_FAMILIES[padded], padded
+    return "f32", padded
 
 
 def pad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -255,8 +243,7 @@ def dynamic_smem_bytes(kernel: str, head_dim: Optional[int] = None) -> int:
     return smem
 
 
-def kernel_attributes(kernel: str, head_dim: Optional[int] = None, *,
-                      dk_pass: bool = False) -> dict:
+def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
     """What the CUDA runtime reports of one kernel: ``registers`` a thread,
     ``max_dynamic_smem``, ``blocks_per_sm`` (blocks one SM holds at once at
     the shared memory it launches with) and ``local_bytes`` (local memory
@@ -264,16 +251,14 @@ def kernel_attributes(kernel: str, head_dim: Optional[int] = None, *,
     kernel is asked for at one of ``F32_HEAD_DIMS`` (``head_dim``). For a
     kernel of ``csrc/flash_attention.cu`` ``max_dynamic_smem`` is what its
     last launch allowed itself, for the others the dynamic shared memory of
-    their launches. Where the f32 dk/dv runs as two passes (head dims above
-    ``F32_DKV_FUSED_MAX_HEAD_DIM``), ``flash_bwd_dkv_f32`` is its dv pass,
-    and ``dk_pass`` asks for its dk pass. Needs a CUDA device."""
+    their launches. Needs a CUDA device."""
     out = (_I * 4)()
     suffix = _suffix(kernel)
     lib = _LIBRARY_OF[_entry(kernel)]
     attributes = ("flash_kernel_attributes" if lib == "flash_attention"
                   else "flash_f32_kernel_attributes")
-    kid = _DK_PASS_ID if dk_pass else _KERNEL_IDS[kernel.removesuffix(suffix)]
-    err = _kernel(attributes)(kid, _head_dim_of(kernel, head_dim), out)
+    err = _kernel(attributes)(_KERNEL_IDS[kernel.removesuffix(suffix)],
+                              _head_dim_of(kernel, head_dim), out)
     if err != 0:
         raise RuntimeError(f"kernel attributes of {kernel} failed: "
                            f"{_why(err)}")
@@ -346,11 +331,6 @@ def _padded(tensors, head_dim):
     return [pad_head_dim(t, head_dim) for t in tensors]
 
 
-def _as_f32(*tensors):
-    """bf16_f32: the f32 kernel's inputs, exact copies of bf16 ones."""
-    return [t.float() for t in tensors]
-
-
 def _run(kernel: str, family: str, head_dim: int, device, ptrs, scale,
          causal) -> None:
     """Launches ``kernel`` (one of ``KERNELS``) of ``family``; every
@@ -387,10 +367,6 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
     D = q.shape[-1]
     family, Dk = kernel_plan(q.dtype, D, "flash_bwd_dq")
-    if family == "bf16_f32":
-        dq = flash_bwd_dq(*_as_f32(q, k, v, do), lse, delta, scale=scale,
-                          causal=causal)
-        return dq.to(q.dtype)
     q, k, v, do = _padded((q, k, v, do), Dk)
     dq = torch.empty_like(q)
     _run("flash_bwd_dq", family, Dk, q.device,

@@ -15,9 +15,9 @@ three kernels of each through their wrappers and
 ``F.scaled_dot_product_attention``'s forward and backward in that dtype.
 The names end in the shape's suffix: ``_f32``, ``_bf16w``, ``_f32_d256``
 and ``_bf16d256`` (bf16 at head dim 256: whatever route the root's
-wrappers take there, the bf16_d256 forward and dk/dv and the f32 dq, or
-in an older root the f32 kernels on bf16 cast to f32). A shape whose head
-dim a root's kernels do not take is left out of its run.
+wrappers take there, the bf16_d256 kernels, or in an older root the f32
+dq on bf16 cast to f32 beside them). A shape whose head dim a root's
+kernels do not take is left out of its run.
 Every root is timed with ``time_ms`` of THIS checkout's chip_smoke.py, so
 two versions of the kernels are compared by one method. The host's own
 time per wrapper call is measured too (the device is left to drain before

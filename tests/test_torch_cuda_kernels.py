@@ -138,16 +138,15 @@ def test_bf16_wide_kernels_match_plain(cuda, BH, S, Dh, causal):
     (2, 129, 256, False), (1, 1000, 256, True), (2, 1, 256, True),
     (2, 40, 160, True), (3, 1024, 192, True),
 ])
-def test_head_dims_129_to_256_run_the_f32_kernels_at_256(cuda, BH, S, Dh,
-                                                          causal, dtype):
+def test_head_dims_129_to_256_run_their_dtype_kernels_at_256(
+        cuda, BH, S, Dh, causal, dtype):
     """Head dims 129 to 256 in both dtypes, padded to 256, held to the plain
-    versions of the caller's dtype under its bound. The f32 kernels'
-    head-dim-256 instances run f32 throughout and bf16's dq (bf16 cast to
-    f32 and back, counted under the f32 dq's name); bf16's forward and
-    dk/dv run the bf16_d256 kernels."""
+    versions of the caller's dtype under its bound: f32 runs the f32
+    kernels' head-dim-256 instances, bf16 the three bf16_d256 kernels, and
+    no bf16 input reaches an f32 kernel."""
     launched = _check_all_three(cuda, BH, S, Dh, causal, dtype, S + Dh)
     suffix = "_f32" if dtype == torch.float32 else "_bf16d256"
-    assert launched == {"flash_fwd" + suffix: 1, "flash_bwd_dq_f32": 1,
+    assert launched == {"flash_fwd" + suffix: 1, "flash_bwd_dq" + suffix: 1,
                         "flash_bwd_dkv" + suffix: 1}
 
 
@@ -155,18 +154,20 @@ def test_head_dims_129_to_256_run_the_f32_kernels_at_256(cuda, BH, S, Dh,
 @pytest.mark.parametrize("S", [129, 1000])
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_d256_kernels_match_plain(cuda, Dh, S, causal):
-    """The wgmma forward and dk/dv at head dim 256 (flash_fwd_d256_kernel,
+    """The wgmma forward, dq and dk/dv at head dim 256
+    (flash_fwd_d256_kernel, flash_bwd_dq_d256_kernel,
     flash_bwd_dkv_d256_kernel) on bf16 head dims 129, 192 and 256, a
     ragged S one row past a 128-row tile and one inside a 64-row tile,
     both masks, under the bf16 bound."""
     launched = _check_all_three(cuda, 3, S, Dh, causal, torch.bfloat16,
                                 S + Dh + causal)
-    assert launched == {"flash_fwd_bf16d256": 1, "flash_bwd_dq_f32": 1,
+    assert launched == {"flash_fwd_bf16d256": 1, "flash_bwd_dq_bf16d256": 1,
                         "flash_bwd_dkv_bf16d256": 1}
 
 
 @pytest.mark.parametrize("kernel,smem", [("flash_fwd_bf16d256", 230488),
-                                         ("flash_bwd_dkv_bf16d256", 231496)])
+                                         ("flash_bwd_dkv_bf16d256", 231496),
+                                         ("flash_bwd_dq_bf16d256", 230456)])
 def test_bf16_d256_kernel_attributes(cuda, kernel, smem):
     """The head-dim-256 kernels ask for the shared memory their layout
     needs, within the 232,448 bytes a block may take, hold one block an
@@ -235,19 +236,15 @@ def test_f32_forward_attributes(cuda, head_dim, smem):
 
 
 def test_f32_backward_attributes_at_head_dim_256(cuda):
-    """At head dim 256 dq and the two passes of dk/dv (dv, then dk: their
-    accumulators together would pass 255 registers a thread) take 160 KB
-    of shared memory and one block an SM; at 128 dk/dv is one kernel and
-    has no dk pass to ask for."""
-    for kernel, dk_pass, smem in (("flash_bwd_dq_f32", False, 163840),
-                                  ("flash_bwd_dkv_f32", False, 163968),
-                                  ("flash_bwd_dkv_f32", True, 163968)):
-        attrs = fa.kernel_attributes(kernel, 256, dk_pass=dk_pass)
-        assert attrs["max_dynamic_smem"] == smem, (kernel, dk_pass)
+    """At head dim 256 dq takes 160 KB of shared memory and dk/dv, one
+    kernel of 8 warps (4 hold dv, 4 dk), 166,016 bytes: one block an SM
+    each, and dk/dv spills nothing."""
+    for kernel, smem in (("flash_bwd_dq_f32", 163840),
+                         ("flash_bwd_dkv_f32", 166016)):
+        attrs = fa.kernel_attributes(kernel, 256)
+        assert attrs["max_dynamic_smem"] == smem, kernel
         assert attrs["blocks_per_sm"] == 1 and attrs["registers"] <= 255
-    assert fa.F32_DKV_FUSED_MAX_HEAD_DIM == 128
-    with pytest.raises(RuntimeError):
-        fa.kernel_attributes("flash_bwd_dkv_f32", 128, dk_pass=True)
+    assert fa.kernel_attributes("flash_bwd_dkv_f32", 256)["local_bytes"] == 0
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

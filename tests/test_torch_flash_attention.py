@@ -118,8 +118,7 @@ def test_cpu_tensors_launch_no_kernel():
     assert set(tfa.LAUNCHES.values()) == {0}
     assert sorted(tfa.LAUNCHES) == sorted(
         [f"{n}{s}" for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-         for s in ("", "_f32", "_bf16w")]
-        + ["flash_fwd_bf16d256", "flash_bwd_dkv_bf16d256"])
+         for s in ("", "_f32", "_bf16w", "_bf16d256")])
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():

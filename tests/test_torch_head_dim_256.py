@@ -5,9 +5,8 @@ version in its place, against the JAX package's Pallas kernels run in
 interpret mode on the same numpy inputs.
 
 On the card, f32 head dims 129-256 run the f32 kernels at head dim 256
-(zero-padded). bf16 ones run the bf16_d256 forward and dk/dv at head dim
-256, which round p and ds to bf16 as the bf16 Pallas kernels do, and the
-f32 dq on f32 copies, its output cast back to bf16.
+(zero-padded). bf16 ones run the bf16_d256 forward, dq and dk/dv at head
+dim 256, which round p and ds to bf16 as the bf16 Pallas kernels do.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -50,23 +49,20 @@ def pallas_runs():
 def _card_path(q, k, v, do, *, scale, causal):
     """What the wrappers do on the card at head dims 129-256, with the
     plain versions in the kernels' place: every input zero-padded to head
-    dim 256; the forward and dk/dv in the caller's dtype, and dq in f32
-    (bf16 cast to f32 for the f32 kernel, its output cast back); the
-    outputs sliced back. delta = sum(do.o) in f32, as the autograd
-    backward forms it."""
+    dim 256; the forward, dq and dk/dv in the caller's dtype (in bf16 dq
+    rounds ds to bf16 before ds.k, as _bwd_dq_kernel does); the outputs
+    sliced back. delta = sum(do.o) in f32, as the autograd backward forms
+    it."""
     dtype, D = q.dtype, q.shape[-1]
-    plans = {kernel: tfa.kernel_plan(dtype, D, kernel)
-             for kernel in tfa.KERNELS}
-    want = {torch.float32: ("f32", "f32", "f32"),
-            torch.bfloat16: ("bf16_d256", "bf16_f32", "bf16_d256")}[dtype]
-    assert [plans[n] for n in tfa.KERNELS] == [(f, 256) for f in want]
+    family = {torch.float32: "f32", torch.bfloat16: "bf16_d256"}[dtype]
+    assert [tfa.kernel_plan(dtype, D, kernel) for kernel in tfa.KERNELS
+            ] == [(family, 256)] * 3
     qp, kp, vp, dop = (tfa.pad_head_dim(x, 256) for x in (q, k, v, do))
     kw = dict(scale=scale, causal=causal)
     o, lse = tfa.flash_fwd_plain(qp, kp, vp, **kw)
     o = tfa.unpad_head_dim(o, D)
     delta = (do.float() * o.float()).sum(dim=-1)
-    dq = tfa.flash_bwd_dq_plain(qp.float(), kp.float(), vp.float(),
-                                dop.float(), lse, delta, **kw).to(dtype)
+    dq = tfa.flash_bwd_dq_plain(qp, kp, vp, dop, lse, delta, **kw)
     dk, dv = tfa.flash_bwd_dkv_plain(qp, kp, vp, dop, lse, delta, **kw)
     return (o, lse, *(tfa.unpad_head_dim(x, D) for x in (dq, dk, dv)))
 
@@ -83,9 +79,8 @@ def _assert_close_bf16(a, b, what):
 def test_head_dims_above_128_match_pallas(dtype, Dh, causal, pallas_runs):
     """o, lse, dq, dk and dv along the card's route against the Pallas
     kernels on the same inputs: f32 within the JAX package's bounds, bf16
-    within chip_smoke.py's (the bf16 forward and dk/dv round p and ds to
-    bf16 as the bf16 Pallas kernels do; the f32 dq does not round ds, a
-    difference well inside that bound)."""
+    within chip_smoke.py's (the bf16 forward, dq and dk/dv round p and ds
+    to bf16 as the bf16 Pallas kernels do)."""
     r = pallas_runs[(dtype, Dh, causal)]
     tdtype = getattr(torch, dtype)
     q, k, v, do = (torch.tensor(r[n]).to(tdtype) for n in ("q", "k", "v", "do"))
@@ -105,7 +100,7 @@ def test_head_dims_above_128_match_pallas(dtype, Dh, causal, pallas_runs):
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"])
 @pytest.mark.parametrize("dtype,Dh,plan", [
-    # bf16: the forward and dk/dv on bf16_d256, dq on the f32 kernel
+    # bf16: all three on bf16_d256
     (torch.bfloat16, 129, ("bf16_d256", 256)),
     (torch.bfloat16, 192, ("bf16_d256", 256)),
     (torch.bfloat16, 256, ("bf16_d256", 256)),
@@ -116,8 +111,6 @@ def test_head_dims_above_128_match_pallas(dtype, Dh, causal, pallas_runs):
     (torch.float32, 128, ("f32", 128)),
 ])
 def test_kernel_plan_routes_head_dims_up_to_256(dtype, Dh, plan, kernel):
-    if plan[0] == "bf16_d256" and kernel == "flash_bwd_dq":
-        plan = ("bf16_f32", 256)
     assert tfa.kernel_plan(dtype, Dh, kernel) == plan
     q = torch.zeros(2, 8, Dh, dtype=dtype)
     assert tfa._check_cuda((q, q, q)) == (2, 8)
@@ -133,14 +126,24 @@ def test_kernel_plan_refuses_head_dims_above_256(dtype, Dh):
         tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3)
 
 
-def test_bf16_f32_route_counts_under_the_f32_kernels():
-    """bf16_f32 has no counters of its own: its launches are the f32
-    dq's, so the launch counts show that bf16 dq at head dim 256 reached
-    it. bf16_d256 counts its forward and dk/dv under names of its own and
-    has no dq counter."""
+def test_bf16_f32_route_counts_under_the_f32_kernels(monkeypatch):
+    """No bf16 route runs the f32 kernels any more (the bf16_f32 family,
+    the bf16 dq at head dims 129-256 on f32 copies, is gone): bf16_d256
+    counts all three of its kernels under names of its own, and a bf16
+    head-dim-256 backward launches none of the f32 entries."""
     assert "bf16_f32" not in tfa._SUFFIXES
+    assert not hasattr(tfa, "_as_f32")
     assert all(not n.endswith("bf16_f32") for n in tfa.LAUNCHES)
-    assert {"flash_fwd_f32", "flash_bwd_dq_f32",
-            "flash_bwd_dkv_f32"} <= set(tfa.LAUNCHES)
     assert {n for n in tfa.LAUNCHES if n.endswith("_bf16d256")} == {
-        "flash_fwd_bf16d256", "flash_bwd_dkv_bf16d256"}
+        "flash_fwd_bf16d256", "flash_bwd_dq_bf16d256",
+        "flash_bwd_dkv_bf16d256"}
+    monkeypatch.setattr(tfa, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(tfa, "_launch", lambda entry, counter, device, *a:
+                        tfa._count_launch(counter))
+    monkeypatch.setattr(tfa, "LAUNCHES", dict.fromkeys(tfa.LAUNCHES, 0))
+    x = torch.zeros(2, 40, 192, dtype=torch.bfloat16)
+    rows = torch.zeros(2, 40)
+    tfa.flash_bwd_dq(x, x, x, x, rows, rows, scale=1.0, causal=True)
+    tfa.flash_bwd_dkv(x, x, x, x, rows, rows, scale=1.0, causal=True)
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+        "flash_bwd_dq_bf16d256": 1, "flash_bwd_dkv_bf16d256": 1}

@@ -1,6 +1,6 @@
-"""The head-dim-256 plumbing of the wgmma kernels (flash_fwd_d256_kernel
-and flash_bwd_dkv_d256_kernel of ray_tpu_torch/ops/csrc/flash_attention.cu),
-known without a card.
+"""The head-dim-256 plumbing of the wgmma kernels (flash_fwd_d256_kernel,
+flash_bwd_dkv_d256_kernel and flash_bwd_dq_d256_kernel of
+ray_tpu_torch/ops/csrc/flash_attention.cu), known without a card.
 
 At head dim 256 a [rows, 256] tile lands as four 128-byte-swizzled boxes
 [rows, 64], box h at h * rows * 128 bytes; a K-major operand's k-steps
@@ -8,8 +8,9 @@ At head dim 256 a [rows, 256] tile lands as four 128-byte-swizzled boxes
 columns 64h to 64h + 63. The numpy model of shared memory, TMA's swizzle
 and wgmma's descriptors is tests/test_torch_wgmma_layout.py's; here it is
 driven at the head-dim-256 kernels' tile shapes and stage offsets, with
-their constants read from the source, and the two kernels' shared memory
-is checked against the 232,448 bytes a block may take.
+their constants read from the source, and the kernels' shared memory is
+checked against the 232,448 bytes a block may take (the dq kernel's
+products are tests/test_torch_wgmma_dq_d256.py's).
 """
 import re
 
@@ -35,6 +36,7 @@ def _const(name):
 
 K_STAGES, V_STAGES = _const("kFwd256KStages"), _const("kFwd256VStages")
 DKV_ROWS, DKV_STAGES = _const("kDkv256BlockM"), _const("kDkv256Stages")
+DQ_K_STAGES, DQ_V_STAGES = _const("kDq256KStages"), _const("kDq256VStages")
 
 
 def issue_abt(smem, desc_a, half_a, rows_a, desc_b, half_b, rows_b):
@@ -73,6 +75,7 @@ def issue_ab(smem, a, desc_b, half_b, cols):
 def test_the_head_dim_256_constants():
     assert (K_STAGES, V_STAGES) == (3, 2)
     assert (DKV_ROWS, DKV_STAGES) == (64, 2)
+    assert (DQ_K_STAGES, DQ_V_STAGES) == (2, 1)
     assert C["kBlockM"] == 128 and C["kFwdBlockN"] == C["kDkvBlockN"] == 64
 
 
@@ -179,29 +182,31 @@ def test_p_exchange_layout():
 
 
 def test_head_dim_256_shared_memory_fits_one_block():
-    """fwd256_smem_bytes() and dkv256_smem_bytes() as the source computes
-    them fit the 227 KB a block may take; flash_fwd_kernel's four K/V
-    stages at head dim 256 would not."""
+    """fwd256_smem_bytes(), dkv256_smem_bytes() and dq256_smem_bytes() as
+    the source computes them fit the 227 KB a block may take;
+    flash_fwd_kernel's four K/V stages at head dim 256 would not, nor would
+    flash_bwd_dq_kernel's."""
     def body(fn):
         return re.search(rf"constexpr int {fn}\(\) \{{\s*return ([^;]+);",
                          SRC).group(1)
 
     env = {**C, "kFwd256KStages": K_STAGES, "kFwd256VStages": V_STAGES,
-           "kDkv256BlockM": DKV_ROWS, "kDkv256Stages": DKV_STAGES}
-    fwd, dkv = (_cu_int_expr(body(fn), env)
-                for fn in ("fwd256_smem_bytes", "dkv256_smem_bytes"))
-    assert (fwd, dkv) == (230488, 231496)
-    assert max(fwd, dkv) <= MAX_SMEM
-    four_stages = _cu_int_expr(
-        body("fwd_smem_bytes").replace("D", "256"),
-        {**C, "kFwdStages": _const("kFwdStages")})
-    assert four_stages > MAX_SMEM
+           "kDkv256BlockM": DKV_ROWS, "kDkv256Stages": DKV_STAGES,
+           "kDq256KStages": DQ_K_STAGES, "kDq256VStages": DQ_V_STAGES}
+    fwd, dkv, dq = (_cu_int_expr(body(fn), env) for fn in (
+        "fwd256_smem_bytes", "dkv256_smem_bytes", "dq256_smem_bytes"))
+    assert (fwd, dkv, dq) == (230488, 231496, 230456)
+    assert max(fwd, dkv, dq) <= MAX_SMEM
+    for fn in ("fwd_smem_bytes", "dq_smem_bytes"):
+        four_stages = _cu_int_expr(re.sub(r"\bD\b", "256", body(fn)),
+                                   {**C, "kFwdStages": _const("kFwdStages")})
+        assert four_stages > MAX_SMEM, fn
 
 
 def test_bf16_head_dim_256_launches_its_entries(monkeypatch):
-    """bf16 head dim 200: the forward and dk/dv launch the bf16_d256
+    """bf16 head dim 200: the forward, dq and dk/dv launch the bf16_d256
     entries of flash_attention.cu at head dim 256 with the arguments they
-    take, dq the f32 entry of flash_attention_f32.cu on f32 copies."""
+    take."""
     calls = []
     monkeypatch.setattr(tfa, "_on_cpu", lambda *t: False)
     monkeypatch.setattr(tfa, "_launch", lambda entry, counter, device, *args:
@@ -217,7 +222,7 @@ def test_bf16_head_dim_256_launches_its_entries(monkeypatch):
     assert o.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert [(e, c, tfa._LIBRARY_OF[e]) for e, c, _ in calls] == [
         ("flash_fwd_bf16d256", "flash_fwd_bf16d256", "flash_attention"),
-        ("flash_bwd_dq_f32", "flash_bwd_dq_f32", "flash_attention_f32"),
+        ("flash_bwd_dq_bf16d256", "flash_bwd_dq_bf16d256", "flash_attention"),
         ("flash_bwd_dkv_bf16d256", "flash_bwd_dkv_bf16d256",
          "flash_attention")]
     for entry, _, args in calls:
@@ -227,8 +232,10 @@ def test_bf16_head_dim_256_launches_its_entries(monkeypatch):
         assert args[-3] == D
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd_bf16d256",
-                                    "flash_bwd_dkv_bf16d256"])
-def test_bf16_d256_kernels_are_asked_about_at_256(kernel):
+@pytest.mark.parametrize("kernel,kid", [("flash_fwd_bf16d256", 0),
+                                        ("flash_bwd_dkv_bf16d256", 1),
+                                        ("flash_bwd_dq_bf16d256", 2)])
+def test_bf16_d256_kernels_are_asked_about_at_256(kernel, kid):
     assert tfa._head_dim_of(kernel, None) == D
-    assert tfa._KERNEL_IDS[kernel.removesuffix(tfa._suffix(kernel))] in (0, 1)
+    assert tfa._KERNEL_IDS[kernel.removesuffix(tfa._suffix(kernel))] == kid
+    assert tfa._LIBRARY_OF[tfa._entry(kernel)] == "flash_attention"
