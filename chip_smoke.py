@@ -11,7 +11,7 @@ Phases, each of which exits non-zero on failure:
    bf16 ones at head dim 64, the f32 ones at each head dim they are built
    for, 256 among them, the bf16_wide ones at 128, the bf16_d256 ones at
    256), failing if a kernel spills to local memory, but the f32 dq and
-   the f32 dk/dv up to head dim 128;
+   the f32 dk/dv up to head dim 128 (at 256 none may);
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
@@ -22,7 +22,9 @@ Phases, each of which exits non-zero on failure:
    to 128), among them S 129 causal at head dim 128 and the wide shape
    (B*H 96, S 1024, D 128, causal: GPT-2-small's width in heads of 128);
    in f32 and in bf16 at head dims 129, 192 and 256 (f32: the f32
-   kernels at head dim 256; bf16: the bf16_d256 kernels). At the main
+   kernels at head dim 256; bf16: the bf16_d256 kernels); in float16 at
+   head dims 64 and 256, which run the f32 kernels on f32 copies (held to
+   the plain versions in float16 under the bf16 bound). At the main
    shape (for bf16_wide the wide one; for head dim 256 B*H 48, S 1024, D 256,
    causal: the main shape's operations), times of the kernel, the plain
    version and the PyTorch library call (SDPA, in the kernel's dtype)
@@ -225,11 +227,10 @@ SOURCE_OF = {spec["name"]: MMA_SYNC_CU if spec["name"].endswith("_f32")
 HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128, 256), "_bf16w": (128,),
                 "_bf16d256": (256,)}
 # the head dims at which a kernel may show local memory (spills); every
-# other kernel and head dim must show none. The f32 dq spills a little at
-# the register caps of 3 blocks an SM and at 256, the f32 dk/dv's kernel
-# of 4 warps at head dims up to 128 (its kernel of 8 warps at 256 must
-# not)
-MAY_SPILL = {"flash_bwd_dq_f32": HEAD_DIMS_OF["_f32"],
+# other kernel and head dim must show none. The f32 dq and dk/dv
+# templates spill a little at the register caps of 3 blocks an SM, up to
+# head dim 128; head dim 256's own kernels must not
+MAY_SPILL = {"flash_bwd_dq_f32": (16, 32, 64, 128),
              "flash_bwd_dkv_f32": (16, 32, 64, 128)}
 # what the kernels' line calls the f32 kernels' head-dim-256 instances
 D256 = "_d256"
@@ -243,10 +244,10 @@ def family(name: str) -> str:
                  if name.endswith(s)), "")
 
 
-def suffix_of(dtype_is_f32: bool, head_dim: int) -> str:
+def suffix_of(on_f32_kernels: bool, head_dim: int) -> str:
     """The family suffix of the three kernels that take a dtype at a head
-    dim."""
-    if dtype_is_f32:
+    dim (``on_f32_kernels``: f32, or float16 through the f32 kernels)."""
+    if on_f32_kernels:
         return "_f32"
     if head_dim > WIDE_SHAPE[2]:
         return "_bf16d256"
@@ -421,9 +422,12 @@ def check_kernels(torch, F, fa):
              ("bf16d192", 8, 129, 192, False, bf16),
              ("bf16d256", 8, 1024, 256, False, bf16),
              ("bf16d256r", 8, 129, 256, True, bf16),
-             ("d256", *D256_SHAPE, True, bf16)]
+             ("d256", *D256_SHAPE, True, bf16),
+             # float16: the f32 kernels on f32 copies, outputs cast back
+             ("f16", 24, 1000, 64, True, torch.float16),
+             ("f16d256", 8, 129, 256, False, torch.float16)]
     for label, BH, S, D, causal, dtype in cases:
-        suffix = suffix_of(dtype == f32, D)
+        suffix = suffix_of(dtype != bf16, D)
         q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))
         kw = dict(scale=1.0 / math.sqrt(D), causal=causal)
         o, lse = fa.flash_fwd(q, k, v, **kw)

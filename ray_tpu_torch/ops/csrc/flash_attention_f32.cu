@@ -3,11 +3,14 @@
 //
 // They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
 // compute for f32 inputs:
-//   flash_fwd_tc_kernel     <- _fwd_kernel      (flash_attention.py:29)
-//   flash_bwd_dq_tc_kernel  <- _bwd_dq_kernel   (flash_attention.py:160)
+//   flash_fwd_tc_kernel, flash_fwd_d256_tc_kernel
+//                           <- _fwd_kernel      (flash_attention.py:29)
+//   flash_bwd_dq_tc_kernel, flash_bwd_dq_d256_tc_kernel
+//                           <- _bwd_dq_kernel   (flash_attention.py:160)
 //   flash_bwd_dkv_tc_kernel, flash_bwd_dkv_d256_tc_kernel
 //                           <- _bwd_dkv_kernel  (flash_attention.py:212)
-// Each but the last is a template on the head dim D. Sums, softmax and
+// The first of each pair is a template on the head dim D (16-128), the
+// second is head dim 256's. Sums, softmax and
 // accumulators are f32, as are o, dq, dk, dv and lse (the Pallas kernels'
 // casts of p and ds to the input type are no-ops in f32). Masked scores
 // are -1e30, as in the Pallas kernels. The bf16 kernels, at every head
@@ -32,12 +35,13 @@
 // reaches ~310 TFLOP/s of TF32 on the card (scripts/mma_sync_rate.py),
 // ~103.
 //
-// One design serves all three: one 128-thread block a 64-row tile of its
-// own axis (Q rows for the forward and dq, KV rows for dk/dv), 4 warps of
-// 16 rows each. The other axis streams in tiles of 32 rows (16 at D 128, 8
-// at D 256) through a 2-stage cp.async ring, so the next tile loads under this one's
-// products (dk/dv at D 256 has a kernel of its own, with 8 warps that
-// split its products by output: flash_bwd_dkv_d256_tc_kernel, below).
+// One design serves the templates: one 128-thread block a 64-row tile of
+// its own axis (Q rows for the forward and dq, KV rows for dk/dv), 4 warps
+// of 16 rows each. The other axis streams in tiles of 32 rows (16 at D
+// 128) through a 2-stage cp.async ring, so the next tile loads under this
+// one's products. Head dim 256 has kernels of its own, further down: dk/dv
+// with 8 warps that split its products by output, the forward and dq on
+// wgmma with a warpgroup that splits each K and V tile once for the block.
 // Tiles sit in shared memory as raw f32, rows unpadded and XOR-swizzled
 // so that all three fragment reads below are free of bank conflicts; each
 // fragment is split into big and small as it is read, in integer and FMA
@@ -88,15 +92,13 @@ constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
 
 // Rows of a streamed tile (the other axis): 32, 16 at D 128, where the
-// accumulators of a 16 x 128 output a warp take 64 registers each, and 8
-// at D 256, where they take 128.
+// accumulators of a 16 x 128 output a warp take 64 registers each.
 template <int D>
-constexpr int kStreamRows = D >= 256 ? 8 : D >= 128 ? 16 : 32;
+constexpr int kStreamRows = D >= 128 ? 16 : 32;
 
-// Blocks an SM is built for: registers stay under 65,536 / (128 x this),
-// and at 1 under the cap of 255 a thread.
+// Blocks an SM is built for: registers stay under 65,536 / (128 x this).
 template <int D>
-constexpr int kMinBlocks = D >= 256 ? 1 : D >= 128 ? 2 : 3;
+constexpr int kMinBlocks = D >= 128 ? 2 : 3;
 
 // Where element (r, c) of a [rows, D] f32 tile sits in shared memory, in
 // 4-byte words. Rows are unpadded; each row's words are XOR-swizzled by
@@ -816,6 +818,900 @@ __global__ void __launch_bounds__(kDkv256Threads, 1)
   }
 }
 
+// ------------------------------------------- head dim 256 on wgmma
+//
+// The forward and dq at D 256 (flash_fwd_d256_tc_kernel,
+// flash_bwd_dq_d256_tc_kernel). The templates above spend ~1,500
+// instructions a warp a tile there on fragment loads and big/small splits
+// around 192 mma.sync, at ~0.3 IPC, each of four warps splitting the same
+// K and V fragments again. Here the products are wgmma and each K and V
+// element is split once a block. A block is two warpgroups: warpgroup 0,
+// the consumer, owns 64 Q rows and issues every product; warpgroup 1, the
+// producer, streams kD256Rows-row K and V tiles from device memory into
+// registers (two tiles ahead), splits each element into big and small,
+// and writes both into a single shared-memory stage for each of K and V,
+// guarded by mbarriers (full: all 128 producer threads have written the
+// tile and fenced it for the async proxy; empty: the consumer's four
+// warps are done with it).
+//
+// tf32 wgmma reads shared-memory operands K-major only (the transpose bits
+// exist for 16-bit types alone), so each product takes the form whose B
+// operand is K-major as it lies in shared memory:
+//   * s = q.k^T and dp = do.v^T, m64n16k8, B = the split K or V tile:
+//     eight 128-byte-swizzled slabs of 32 columns, each the tile's 16 big
+//     rows then its 16 small ones, the byte geometry of a bf16 tile's 64
+//     columns in flash_attention.cu (a k-step of 8 tf32 is 32 bytes, as
+//     one of 16 bf16). a_frag takes columns c, c + 1 of a k-step (c = 8 kk
+//     + 2 t) as k indices t, t + 4, so every split tile holds column 8 kk
+//     + o at k position (o >> 1) | ((o & 1) << 2) (split_at). The forward
+//     splits Q into shared memory the same way when it starts (split_q)
+//     and takes A from there (scores_ss); dq has no room for Q and dO both
+//     split, keeps them raw (Layout<256>) and loads and splits A per
+//     k-step in registers (scores_rs), at ~4x the cost a k-step;
+//   * the consumer writes p or ds split into shared memory as [64 Q rows,
+//     16 KV] (one 128-byte row a Q row, half of it used; x_at). The forward
+//     takes o += p.v with both operands there (accumulate_pv, m64n32k8 a
+//     chunk of 32 head-dim columns): A = p, B = v^T, which its producer
+//     writes transposed, [256 rows, 16 KV] in 64-byte rows and the 64-byte
+//     swizzle (vt_at). dq has no room for K both ways and takes dq^T +=
+//     k^T.ds^T (accumulate_t, m64n32k8 a 64-row block of the head dim and
+//     32 Q columns): A = k^T read by each thread from the split K tile
+//     (already big and small), B = ds; dq^T sits transposed in registers
+//     (a thread holds 16 Q columns of it) and is stored so (store_t).
+// The order of accumulation is the templates': big.big and the small
+// terms in accumulators of their own, dp's big.big restarting from 0 every
+// two k-steps, and every tile's o or dq product from 0 in two temporaries
+// a block half, added to the output in f32.
+//
+// Registers of a consumer thread: o or dq^T 128; in the forward's scores s
+// and its two small terms 24; in dq's, s or dp 8, the small terms 8, dp's
+// restart parts 16 and two buffers of A fragments 16; in the accumulating
+// products big and small 16 + 16 (the forward's two chunks in flight, 64)
+// and dq's A fragments 16. dq still meets the cap of 255, so its consumer
+// keeps dp (while s is taken) and its rows' lse and delta in shared memory
+// (kDqStash). Shared memory: forward 1024 (alignment) + Q split 128 KB +
+// K split 32 KB + V transposed 32 KB + p split 16 KB + 4 barriers =
+// 214,048 bytes; dq 1024 + Q and dO 128 KB + K and V split 64 KB + ds
+// split 16 KB + the stash 6 KB + 4 barriers = 220,192 bytes: one block an
+// SM.
+
+constexpr int kD256Threads = 2 * kTcThreads;  // two warpgroups: consumer,
+                                              // then producer
+constexpr int kD256Rows = 16;                 // KV rows of a streamed tile
+constexpr int kSlabCols = 32;                 // f32 columns of a 128-byte row
+// A split K or V tile: eight slabs of 32 columns, each [2 kD256Rows rows,
+// 128 bytes], the tile's big rows then its small ones (kSmallWords on).
+constexpr int kSlabBytes = 2 * kD256Rows * 128;
+constexpr int kSmallWords = kD256Rows * kSlabCols;
+constexpr int kKvTileBytes = 8 * kSlabBytes;
+// One half (big or small) of the forward's split Q tile: eight slabs of
+// [kTile rows, 128 bytes].
+constexpr int kQSlabBytes = kTile * 128;
+constexpr int kQSplitBytes = 8 * kQSlabBytes;
+// one half (big or small) of a split [kTile, kD256Rows] p or ds tile (a
+// 128-byte row a Q row)
+constexpr int kXSplitBytes = kTile * 128;
+
+// The forward's V tile, transposed: [256 head-dim rows, kD256Rows KV
+// columns] a half, 64-byte rows in the 64-byte swizzle (vt_at), big then
+// small (kVtSmallWords on).
+constexpr int kVtSmallWords = 256 * kD256Rows;
+
+constexpr int fwd256_tc_smem_bytes() {
+  return 1024 + 2 * kQSplitBytes + kKvTileBytes + 2 * kVtSmallWords * 4 +
+         2 * kXSplitBytes + 4 * 8;
+}
+
+// dq's per-thread stash: each consumer thread's dp while s is taken, and
+// its rows' lse and delta, one word a value at a stride of kTcThreads
+constexpr int kDqStash = 12;
+
+constexpr int dq256_tc_smem_bytes() {
+  return 1024 + 2 * kTile * 256 * 4 + 2 * kKvTileBytes + 2 * kXSplitBytes +
+         kDqStash * kTcThreads * 4 + 4 * 8;
+}
+
+// Hopper building blocks, as in flash_attention.cu
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1024 bytes, the period of the
+// 128-byte swizzle.
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the barrier has completed the phase of the given parity; a
+// wait that never ends traps after 2^26 failed polls, so that a fault in
+// the pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// Makes this thread's shared-memory writes visible to wgmma (the async
+// proxy); a barrier after it makes them visible to the other threads' too.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving register reads of an accumulator before
+// the wait for the asynchronous wgmma that writes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: 8-row groups
+// 1024 bytes apart, 14-bit start address in 16-byte units, layout type 1 =
+// 128-byte swizzle; a K-major k-step (8 tf32, 32 bytes) is +2.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64 x 16] (+)= A.B in TF32: A one k-step's fragments in registers
+// (mma.sync's m16n8k8 tf32 A layout, a 16-row slab a warp), B [16 of N, 8
+// of K] read K-major through a descriptor; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// wgmma shared-memory descriptor of a tile of 64-byte rows in the 64-byte
+// swizzle (layout type 2): 8-row groups 512 bytes apart; a K-major k-step
+// (8 tf32, 32 bytes) is +2.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// d[64 x 32] (+)= A.B in TF32, both read K-major from shared memory.
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 16] (+)= A.B in TF32, A [64, 8 of K] and B [16 of N, 8 of K] both
+// read K-major from shared memory through descriptors.
+__device__ __forceinline__ void wgmma_ss_tf32_n16(float (&d)[8], uint64_t da,
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 32] (+)= A.B in TF32, as wgmma_tf32_n16 with 32 columns.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// Word of element (r, c) of a split tile whose slabs hold kRows rows: a K
+// or V tile (the default: r < kD256Rows a row's big half and kD256Rows +
+// r its small half) or one half of the forward's Q tile (kTile rows). Slab
+// c / 32 at kRows * 128 bytes, row r at 128 bytes, k-step (c % 32) / 8 at
+// 32 bytes, column o = c % 8 at k position (o >> 1) | ((o & 1) << 2)
+// (a_frag's order), the 16-byte chunks XORed by r % 8 (the swizzle).
+template <int kRows = 2 * kD256Rows>
+__device__ __forceinline__ int split_at(int r, int c) {
+  const int f = (c & 24) | ((c >> 1) & 3) | ((c & 1) << 2);
+  return (c >> 5) * (kRows * kSlabCols) + r * kSlabCols +
+         (((f >> 2) ^ (r & 7)) << 2) + (f & 3);
+}
+
+// Word of element (row, col) of one half of a split [kTile, kD256Rows] p
+// or ds tile: row at 128 bytes, col in natural order, the 16-byte chunks
+// XORed by row % 8.
+__device__ __forceinline__ int x_at(int row, int col) {
+  return row * kSlabCols + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
+// Word of element (d, kv) of one half of the forward's transposed V tile:
+// row d at 64 bytes, kv in natural order, the 16-byte chunks XORed by
+// (d / 2) % 4 (the 64-byte swizzle: address bits 4-5 ^= bits 7-8).
+__device__ __forceinline__ int vt_at(int d, int kv) {
+  return d * kD256Rows + (((kv >> 2) ^ ((d >> 1) & 3)) << 2) + (kv & 3);
+}
+
+// The producer's share of a K or V tile: thread i of warpgroup 1 takes row
+// i % 16, columns 8 (i / 16 + 8 u) to + 7 for u < 4, so that the eight
+// lanes of a quarter warp write eight rows of one column group, eight
+// distinct chunks of the swizzle.
+struct RawTile {
+  float4 x[4][2];
+};
+
+// This thread's share of rows [r0, r0 + kD256Rows) of one head's [seq,
+// 256] matrix; rows past seq as zeros.
+__device__ __forceinline__ void load_raw(RawTile& t, const float* src,
+                                         int r0, int seq, int i) {
+  const int r = i & 15;
+  const bool valid = r0 + r < seq;
+  const float4* row =
+      reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * 256);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c4 = 2 * ((i >> 4) + 8 * u);  // the column group's float4
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      t.x[u][h] = valid ? __ldg(row + c4 + h) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Splits the share into big and small and writes them to one stage (big at
+// big, small kSmallWords on): k positions 0-3 of a column group take its
+// columns 0, 2, 4, 6, positions 4-7 columns 1, 3, 5, 7.
+__device__ __forceinline__ void store_split(uint32_t* big, const RawTile& t,
+                                            int i) {
+  uint32_t* small = big + kSmallWords;
+  const int r = i & 15;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c0 = 8 * ((i >> 4) + 8 * u);
+    const float4 a = t.x[u][0], b = t.x[u][1];
+    const float lo[4] = {a.x, a.z, b.x, b.z}, hi[4] = {a.y, a.w, b.y, b.w};
+    const Tf32<4> fl = split(lo), fh = split(hi);
+    const int at_lo = split_at(r, c0), at_hi = split_at(r, c0 + 1);
+    *reinterpret_cast<uint4*>(big + at_lo) =
+        make_uint4(fl.big[0], fl.big[1], fl.big[2], fl.big[3]);
+    *reinterpret_cast<uint4*>(big + at_hi) =
+        make_uint4(fh.big[0], fh.big[1], fh.big[2], fh.big[3]);
+    *reinterpret_cast<uint4*>(small + at_lo) =
+        make_uint4(fl.small[0], fl.small[1], fl.small[2], fl.small[3]);
+    *reinterpret_cast<uint4*>(small + at_hi) =
+        make_uint4(fh.small[0], fh.small[1], fh.small[2], fh.small[3]);
+  }
+}
+
+// As store_split, into the forward's transposed V tile: element (row r,
+// column c) at vt_at(c, r), one word at a time.
+__device__ __forceinline__ void store_split_t(uint32_t* big, const RawTile& t,
+                                              int i) {
+  const int r = i & 15;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c0 = 8 * ((i >> 4) + 8 * u);
+    const float x[8] = {t.x[u][0].x, t.x[u][0].y, t.x[u][0].z, t.x[u][0].w,
+                        t.x[u][1].x, t.x[u][1].y, t.x[u][1].z, t.x[u][1].w};
+    const Tf32<8> f = split(x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int at = vt_at(c0 + e, r);
+      big[at] = f.big[e];
+      big[kVtSmallWords + at] = f.small[e];
+    }
+  }
+}
+
+// The forward's Q tile, rows [q0, q0 + kTile) of one head's [seq, 256]
+// matrix (rows past seq as zeros), split into big (at big) and small
+// (kQSplitBytes on), by all threads of the block: thread i takes row i %
+// 64 and column groups i / 64 + 4 u, so the eight lanes of a quarter warp
+// write eight rows of one group.
+__device__ __forceinline__ void split_q(uint32_t* big, const float* src,
+                                        int q0, int seq) {
+  uint32_t* small = big + kQSplitBytes / 4;
+  const int r = threadIdx.x & 63;
+  const bool valid = q0 + r < seq;
+  const float4* row =
+      reinterpret_cast<const float4*>(src + (size_t)(q0 + r) * 256);
+#pragma unroll 2
+  for (int u = 0; u < 8; ++u) {
+    const int c0 = 8 * ((threadIdx.x >> 6) + 4 * u);
+    const float4 a = valid ? __ldg(row + c0 / 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 b =
+        valid ? __ldg(row + c0 / 4 + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float lo[4] = {a.x, a.z, b.x, b.z}, hi[4] = {a.y, a.w, b.y, b.w};
+    const Tf32<4> fl = split(lo), fh = split(hi);
+    const int at_lo = split_at<kTile>(r, c0), at_hi = split_at<kTile>(r, c0 + 1);
+    *reinterpret_cast<uint4*>(big + at_lo) =
+        make_uint4(fl.big[0], fl.big[1], fl.big[2], fl.big[3]);
+    *reinterpret_cast<uint4*>(big + at_hi) =
+        make_uint4(fh.big[0], fh.big[1], fh.big[2], fh.big[3]);
+    *reinterpret_cast<uint4*>(small + at_lo) =
+        make_uint4(fl.small[0], fl.small[1], fl.small[2], fl.small[3]);
+    *reinterpret_cast<uint4*>(small + at_hi) =
+        make_uint4(fh.small[0], fh.small[1], fh.small[2], fh.small[3]);
+  }
+}
+
+// Warpgroup 1: for each tile j, the first operand's tile (K in the
+// forward, V in dq) then the second's (transposed with kSecondT: the
+// forward's V) go into their stages once the consumer has released the
+// tile before (a stage's full barrier at bars, its empty one at bars +
+// 8). The rows of the next two tiles of each are
+// in flight in registers (a0/b0 even tiles, a1/b1 odd ones): tile j + 2
+// loads right after tile j is stored, so a load has two of the
+// consumer's tiles to land.
+template <bool kSecondT>
+__device__ __forceinline__ void produce_d256(const float* first,
+                                             const float* second,
+                                             uint32_t* s_first,
+                                             uint32_t* s_second,
+                                             uint32_t first_bars,
+                                             uint32_t second_bars,
+                                             int n_tiles, int seq) {
+  const int i = threadIdx.x - kTcThreads;
+  RawTile a0, b0, a1, b1;
+  load_raw(a0, first, 0, seq, i);
+  load_raw(b0, second, 0, seq, i);
+  load_raw(a1, first, kD256Rows, seq, i);
+  load_raw(b1, second, kD256Rows, seq, i);
+  auto step = [&](RawTile& a, RawTile& b, int j) {
+    const uint32_t parity = (j & 1) ^ 1;  // tile j - 1's release
+    mbar_wait(first_bars + 8, parity);
+    store_split(s_first, a, i);
+    fence_proxy_async();
+    mbar_arrive(first_bars);
+    if (j + 2 < n_tiles) load_raw(a, first, (j + 2) * kD256Rows, seq, i);
+    mbar_wait(second_bars + 8, parity);
+    if constexpr (kSecondT)
+      store_split_t(s_second, b, i);
+    else
+      store_split(s_second, b, i);
+    fence_proxy_async();
+    mbar_arrive(second_bars);
+    if (j + 2 < n_tiles) load_raw(b, second, (j + 2) * kD256Rows, seq, i);
+  };
+  for (int j = 0; j < n_tiles; j += 2) {
+    step(a0, b0, j);
+    if (j + 1 < n_tiles) step(a1, b1, j + 1);
+  }
+}
+
+// x, which the compiler may not treat as known: the shared-memory
+// addresses derived from it are recomputed in each tile instead of being
+// hoisted out of the tile loop into registers the products need.
+template <typename T>
+__device__ __forceinline__ T opaque(T x) {
+  if constexpr (sizeof(T) == 8)
+    asm volatile("" : "+l"(x));
+  else
+    asm volatile("" : "+r"(x));
+  return x;
+}
+
+// A consumer warp's release of a stage (its empty barrier at bars + 8).
+__device__ __forceinline__ void release_stage(uint32_t bars) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bars + 8);
+}
+
+// s[64 x kD256Rows] = a.b^T of the consumer warpgroup, contracted over D
+// = 256 as 3xTF32, with a from registers (dq, whose Q and dO cannot both
+// sit in shared memory split): a the raw [64, 256] Q or dO tile
+// (Layout<256>), whose fragments are loaded and split a k-step at a time
+// into two buffers, a buffer rewritten only once the k-step that read it
+// is done (wgmma_wait<1> before the next k-step's loads; two k-steps a
+// buffer ran 4% faster but spilled at the cap of 255 registers); b the
+// split K or V tile at shared address sb, its big rows and its small ones
+// kSmallWords on. big.big and the small terms accumulate apart; with
+// kRestart (dp) big.big restarts from 0 every two k-steps (pair p into
+// part[p % 2]), each pair's part added to s in f32 once its k-steps are
+// done. The addresses pass through opaque() each k-step, so that they are
+// computed where they are used.
+template <bool kRestart>
+__device__ __forceinline__ void scores_rs(float (&s)[8], const uint32_t* a,
+                                          uint32_t sb) {
+  using L = Layout<256>;
+  constexpr int kSteps = 256 / 8;
+  const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  const int t4 = threadIdx.x & 3;
+  float small[8], part[2][8];
+  Tf32<4> fa[2];
+  auto add_pair = [&](int pair) {
+    fence_regs(part[pair & 1]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] += part[pair & 1][e];
+  };
+  if constexpr (kRestart) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const int b = kk & 1;
+    if (kk >= 2) {
+      wgmma_wait<1>();  // k-step kk - 2, which read buffer b, is done
+      // and so is pair kk / 2 - 2, whose part pair kk / 2 is about to reuse
+      if constexpr (kRestart) {
+        if ((kk & 1) == 0 && kk >= 4) add_pair((kk >> 1) - 2);
+      }
+    }
+    fa[b] = a_frag<L>(opaque(a), row, 8 * kk + 2 * t4);
+    const uint32_t at = opaque(sb) + (kk >> 2) * kSlabBytes + (kk & 3) * 32;
+    const uint64_t big = sw128_desc(at),
+                   sml = sw128_desc(at + kSmallWords * 4);
+    wgmma_fence();
+    if constexpr (kRestart)
+      wgmma_tf32_n16(part[(kk >> 1) & 1], fa[b].big, big, kk & 1);
+    else
+      wgmma_tf32_n16(s, fa[b].big, big, kk);
+    wgmma_tf32_n16(small, fa[b].big, sml, kk);
+    wgmma_tf32_n16(small, fa[b].small, big, 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(small);
+  if constexpr (kRestart) {
+    add_pair(kSteps / 2 - 2);
+    add_pair(kSteps / 2 - 1);
+  } else {
+    fence_regs(s);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s[e] += small[e];
+}
+
+// s[64 x kD256Rows] = q.k^T of the consumer warpgroup over D = 256 as
+// 3xTF32 with both operands split in shared memory (the forward): q's big
+// half at sq, its small half kQSplitBytes on; k the split K tile at sk,
+// its small rows kSmallWords on. With no register operand nothing waits
+// between products: the 96 issue back to back, in three chains (big.big,
+// big.small, small.big) added in f32 at the end. The addresses pass
+// through opaque() each k-step, as in scores_rs.
+__device__ __forceinline__ void scores_ss(float (&s)[8], uint32_t sq,
+                                          uint32_t sk) {
+  float bs[8], sb[8];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 256 / 8; ++kk) {
+    const uint32_t qa = opaque(sq) + (kk >> 2) * kQSlabBytes + (kk & 3) * 32;
+    const uint32_t ka = opaque(sk) + (kk >> 2) * kSlabBytes + (kk & 3) * 32;
+    const uint64_t qb = sw128_desc(qa), qs = sw128_desc(qa + kQSplitBytes);
+    const uint64_t kb = sw128_desc(ka), ks = sw128_desc(ka + kSmallWords * 4);
+    wgmma_ss_tf32_n16(s, qb, kb, kk);
+    wgmma_ss_tf32_n16(bs, qb, ks, kk);
+    wgmma_ss_tf32_n16(sb, qs, kb, kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(bs);
+  fence_regs(sb);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s[e] += bs[e] + sb[e];
+}
+
+// acc^T[256 x 64] of the consumer warpgroup += x^T.p^T over a tile's
+// kD256Rows KV rows, as 3xTF32: x the split K or V tile at sx (words), read
+// as the A operand x^T, already big and small, at each 64-row block mb of
+// the head dim; p the split [64, kD256Rows] p or ds tile at shared address
+// sp, the B operand. A block's product goes in two halves of 32 Q columns
+// nh (m64n32k8), each from 0 with big.big and the small terms apart in
+// 16 + 16 temporaries (64-column halves would take 32 + 32, past what the
+// 128 accumulator registers leave), and epi(acc[mb], nh, big, small) adds
+// it in f32.
+template <typename Epi>
+__device__ __forceinline__ void accumulate_t(float (&acc)[4][32],
+                                             const uint32_t* sx, uint32_t sp,
+                                             Epi epi) {
+  const int w16 = (threadIdx.x >> 5) * 16, g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int mb = 0; mb < 4; ++mb) {
+    // A fragments of x^T: rows d, d + 8 of the block (head-dim columns of
+    // x), k indices t, t + 4 of k-step ks (KV rows 8 ks + t, + 4)
+    const uint32_t* x = opaque(sx);
+    const int d = 64 * mb + w16 + g;
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int r = 8 * ks + t4;
+      const int at[4] = {split_at(r, d), split_at(r, d + 8),
+                         split_at(r + 4, d), split_at(r + 4, d + 8)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ab[ks][e] = x[at[e]];
+        as[ks][e] = x[kSmallWords + at[e]];
+      }
+    }
+#pragma unroll
+    for (int nh = 0; nh < 2; ++nh) {
+      // B: Q rows 32 nh on, 4096 bytes a half
+      const uint32_t pa = opaque(sp) + 4096 * nh;
+      const uint64_t pb = sw128_desc(pa), ps = sw128_desc(pa + kXSplitBytes);
+      float big[16], small[16];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        wgmma_tf32_n32(big, ab[ks], pb + 2 * ks, ks);
+        wgmma_tf32_n32(small, ab[ks], ps + 2 * ks, ks);
+        wgmma_tf32_n32(small, as[ks], pb + 2 * ks, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(big);
+      fence_regs(small);
+      epi(acc[mb], nh, big, small);
+    }
+  }
+}
+
+// Writes this thread's 8 values of a [64, kD256Rows] tile in the scores'
+// layout (rows wr + g, + 8; columns 8 n + 2 t, + 1), split, into the p or
+// ds tile at x (big; small kXSplitBytes on).
+__device__ __forceinline__ void store_x(uint32_t* x, const float (&v)[8]) {
+  const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float pair[2] = {v[4 * n + 2 * h], v[4 * n + 2 * h + 1]};
+      const Tf32<2> f = split(pair);
+      const int at = x_at(row + 8 * h, 8 * n + 2 * t4);
+      *reinterpret_cast<uint2*>(x + at) = make_uint2(f.big[0], f.big[1]);
+      *reinterpret_cast<uint2*>(x + kXSplitBytes / 4 + at) =
+          make_uint2(f.small[0], f.small[1]);
+    }
+}
+
+// Stores acc^T (dq^T) into rows q0 + col of a head's [seq, 256] out, this
+// thread's head-dim rows 64 mb + wr + g, + 8 and Q columns col = 8 j + 2 t,
+// + 1; rows past seq are not stored.
+__device__ __forceinline__ void store_t(float* out, const float (&acc)[4][32],
+                                        int q0, int seq) {
+  const int w16 = (threadIdx.x >> 5) * 16, g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = 8 * j + 2 * t4 + c;
+      if (q0 + col >= seq) continue;
+      float* dst = out + (size_t)(q0 + col) * 256 + w16 + g;
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          dst[64 * mb + 8 * h] = acc[mb][4 * j + 2 * h + c];
+        }
+    }
+}
+
+// o[64 x 256] of the consumer warpgroup = o.corr + p.v over a tile's
+// kD256Rows KV rows, as 3xTF32 with both operands in shared memory: A = p,
+// the split [64, kD256Rows] tile at sp (K-major, x_at); B = v^T, the
+// transposed split V tile at svt (K-major, vt_at). o goes in eight chunks
+// of 32 head-dim columns (m64n32k8), each from 0 with big.big and the
+// small terms apart, a chunk issued before the one before it is waited
+// for and added: o[c] = o[c].corr + (big + small), rows g and g + 8.
+__device__ __forceinline__ void accumulate_pv(float (&o)[8][16], uint32_t sp,
+                                              uint32_t svt,
+                                              const float (&corr)[2]) {
+  float big[2][16], small[2][16];
+  auto issue = [&](int c) {
+    const uint64_t pb = sw128_desc(opaque(sp)),
+                   ps = sw128_desc(opaque(sp) + kXSplitBytes);
+    const uint32_t vt = opaque(svt) + 32 * 64 * c;  // rows 32 c on
+    const uint64_t vb = sw64_desc(vt), vs = sw64_desc(vt + 4 * kVtSmallWords);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kD256Rows / 8; ++ks) {
+      wgmma_ss_tf32_n32(big[c & 1], pb + 2 * ks, vb + 2 * ks, ks);
+      wgmma_ss_tf32_n32(small[c & 1], pb + 2 * ks, vs + 2 * ks, ks);
+      wgmma_ss_tf32_n32(small[c & 1], ps + 2 * ks, vb + 2 * ks, 1);
+    }
+    wgmma_commit();
+  };
+  auto add = [&](int c) {
+    fence_regs(big[c & 1]);
+    fence_regs(small[c & 1]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      o[c][i] = o[c][i] * corr[(i >> 1) & 1] + (big[c & 1][i] + small[c & 1][i]);
+  };
+  issue(0);
+#pragma unroll
+  for (int c = 1; c < 8; ++c) {
+    issue(c);
+    wgmma_wait<1>();  // chunk c - 1
+    add(c - 1);
+  }
+  wgmma_wait<0>();
+  add(7);
+}
+
+// Replaces _fwd_kernel (flash_attention.py:29) for f32 head dims 129-256.
+// Bound at B*H 48, S 1024, D 256, causal: 0.156 ms by 3xTF32 operations
+// (two products per tile pair). The whole block splits its Q tile into
+// shared memory first. Per KV tile the consumer takes s = q.k^T, releases
+// K, runs the online softmax of its 64 rows in the scores' layout (m and
+// l as in flash_fwd_tc_kernel), writes p split, then o = o.corr + p.v
+// (accumulate_pv) and releases V. At the end o = acc / max(l, 1e-30) and
+// lse = m scale + log(l), as _fwd_kernel writes them.
+__global__ void __launch_bounds__(kD256Threads, 1)
+    flash_fwd_d256_tc_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ o, float* __restrict__ lse,
+                             int seq, float scale, int causal) {
+  constexpr int D = 256, BN = kD256Rows;
+  extern __shared__ uint8_t d256_smem[];
+  uint32_t* sq = reinterpret_cast<uint32_t*>(align_1024(d256_smem));
+  uint32_t* sk = sq + 2 * kQSplitBytes / 4;  // Q split: big, then small
+  uint32_t* svt = sk + kKvTileBytes / 4;     // split K, then V transposed
+  uint32_t* sp = svt + 2 * kVtSmallWords;    // p: big, then small
+  const uint32_t k_bars = smem_addr(sp + 2 * kXSplitBytes / 4);  // full, empty
+  const uint32_t v_bars = k_bars + 16;
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * kTile;
+  const size_t base = (size_t)blockIdx.y * seq * D;
+  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(k_bars, kTcThreads);
+    mbar_init(k_bars + 8, kTcWarps);
+    mbar_init(v_bars, kTcThreads);
+    mbar_init(v_bars + 8, kTcWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  split_q(sq, q + base, q0, seq);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x >= kTcThreads) {
+    produce_d256<true>(k + base, v + base, sk, svt, k_bars, v_bars, n_tiles,
+                       seq);
+    return;
+  }
+
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  const uint32_t sq_at = smem_addr(sq), sk_at = smem_addr(sk);
+  const uint32_t svt_at = smem_addr(svt), sp_at = smem_addr(sp);
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float acc[8][16];                 // o, 32 head-dim columns a chunk
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[c][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    float s[8];
+    mbar_wait(k_bars, j & 1);
+    scores_ss(s, opaque(sq_at), opaque(sk_at));
+    release_stage(k_bars);
+    // only a tile past S or across the diagonal has masked entries
+    const bool edge = k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int h = (i >> 1) & 1, row = q0 + wr + g + 8 * h,
+                col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (edge && (col >= seq || (causal && col > row))) s[i] = kNegInf;
+      mx[h] = fmaxf(mx[h], s[i]);
+    }
+    float corr[2], ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      corr[h] = exp2f((m[h] - mx[h]) * scale2);
+      m[h] = mx[h];
+      ms[h] = mx[h] * scale2;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[i] = exp2f(fmaf(s[i], scale2, -ms[(i >> 1) & 1]));  // p
+      sum[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+    store_x(sp, s);
+    fence_proxy_async();
+    named_sync(1, kTcThreads);  // p is written
+    mbar_wait(v_bars, j & 1);
+    accumulate_pv(acc, sp_at, svt_at, corr);
+    release_stage(v_bars);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    const float lc = fmaxf(quad_sum(l[h]), 1e-30f);
+    if (row >= seq) continue;
+    if (t4 == 0) lse[(size_t)blockIdx.y * seq + row] = m[h] * scale + logf(lc);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        store2(o + base + (size_t)row * D + 32 * c + 8 * jj + 2 * t4,
+               acc[c][4 * jj + 2 * h] / lc, acc[c][4 * jj + 2 * h + 1] / lc);
+  }
+}
+
+// Replaces _bwd_dq_kernel (flash_attention.py:160) for f32 head dims
+// 129-256. Bound at B*H 48, S 1024, D 256, causal: 0.2345 ms by 3xTF32
+// operations (three products per tile pair). Per KV tile the consumer
+// takes dp = do.v^T first and releases V, so that the producer refills V
+// under the rest of the tile, then s = q.k^T, ds = p.(dp - delta).scale
+// with p recomputed from lse, writes ds split, and dq^T += k^T.ds^T from
+// the same K stage, then releases K.
+__global__ void __launch_bounds__(kD256Threads, 1)
+    flash_bwd_dq_d256_tc_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dq, int seq, float scale,
+                                int causal) {
+  constexpr int D = 256, BN = kD256Rows;
+  extern __shared__ uint8_t d256_smem[];
+  uint32_t* sq = reinterpret_cast<uint32_t*>(align_1024(d256_smem));
+  uint32_t* sdo = sq + kTile * D;
+  uint32_t* sk = sdo + kTile * D;          // split K
+  uint32_t* sv = sk + kKvTileBytes / 4;    // split V
+  uint32_t* sds = sv + kKvTileBytes / 4;   // ds: big, then small
+  float* stash = reinterpret_cast<float*>(sds + 2 * kXSplitBytes / 4);
+  const uint32_t k_bars = smem_addr(stash + kDqStash * kTcThreads);
+  const uint32_t v_bars = k_bars + 16;
+  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * kTile;
+  const size_t base = (size_t)blockIdx.y * seq * D;
+  const size_t rbase = (size_t)blockIdx.y * seq;
+  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(k_bars, kTcThreads);
+    mbar_init(k_bars + 8, kTcWarps);
+    mbar_init(v_bars, kTcThreads);
+    mbar_init(v_bars + 8, kTcWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  load_tile_async<D, kTile, kD256Threads>(sq, q + base, q0, seq);
+  load_tile_async<D, kTile, kD256Threads>(sdo, dout + base, q0, seq);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (threadIdx.x >= kTcThreads) {
+    produce_d256<false>(v + base, k + base, sv, sk, v_bars, k_bars, n_tiles,
+                        seq);
+    return;
+  }
+
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  // p = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
+  const float scale2 = scale * kLog2e;
+  // The consumer is at the cap of 255 registers: its rows' lse and delta
+  // wait in the stash (values 8-11), and so does dp (0-7) while s is
+  // taken; each thread reads back only what it wrote.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    stash[(8 + h) * kTcThreads + threadIdx.x] =
+        row < seq ? lse[rbase + row] * kLog2e : 0.f;
+    stash[(10 + h) * kTcThreads + threadIdx.x] =
+        row < seq ? delta[rbase + row] : 0.f;
+  }
+  // the shared-memory tiles, by word, from one opaque() base a tile
+  constexpr int kDoW = kTile * D, kKW = 2 * kTile * D;
+  constexpr int kVW = kKW + kKvTileBytes / 4, kDsW = kVW + kKvTileBytes / 4;
+  constexpr int kStashW = kDsW + 2 * kXSplitBytes / 4;
+  float acc[4][32];  // dq^T
+#pragma unroll
+  for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mb][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    float s[8];
+    const uint32_t* t = opaque(sq);
+    const uint32_t t_at = smem_addr(t);
+    float* st = reinterpret_cast<float*>(const_cast<uint32_t*>(t) + kStashW) +
+                threadIdx.x;
+    mbar_wait(v_bars, j & 1);
+    scores_rs<true>(s, t + kDoW, t_at + 4 * kVW);  // dp
+    release_stage(v_bars);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st[i * kTcThreads] = s[i];
+    mbar_wait(k_bars, j & 1);
+    scores_rs<false>(s, t, t_at + 4 * kKW);
+    // only a tile past S or across the diagonal has masked entries
+    const bool edge = k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int h = (i >> 1) & 1, row = q0 + wr + g + 8 * h,
+                col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float p = exp2f(fmaf(s[i], scale2, -st[(8 + h) * kTcThreads]));
+      if (edge && (col >= seq || (causal && col > row))) p = 0.f;
+      s[i] = p * (st[i * kTcThreads] - st[(10 + h) * kTcThreads]) *
+             scale;  // ds
+    }
+    store_x(const_cast<uint32_t*>(t) + kDsW, s);
+    fence_proxy_async();
+    named_sync(1, kTcThreads);  // ds is written
+    accumulate_t(acc, t + kKW, t_at + 4 * kDsW,
+                 [](float (&a)[32], int nh, const float (&big)[16],
+                    const float (&small)[16]) {
+#pragma unroll
+                   for (int k = 0; k < 16; ++k)
+                     a[16 * nh + k] += big[k] + small[k];
+                 });
+    release_stage(k_bars);
+  }
+  // base again, from an opaque() head index, so that it is not held in
+  // registers through the loop
+  store_t(dq + (size_t)opaque(blockIdx.y) * seq * D, acc, q0, seq);
+}
+
 // -------------------------------------------------------------- launching
 
 // f(std::integral_constant<int, D>) for a head dim the kernels are built
@@ -833,27 +1729,38 @@ int with_head_dim(int d, F f) {
 }
 
 // The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) at head
-// dim D, its dynamic shared memory and its threads a block; nullptr for
-// another kernel id.
+// dim D (head dim 256's own kernels at 256), its dynamic shared memory and
+// its threads a block; nullptr for another kernel id.
 template <int D>
 const void* kernel_fn(int kernel, int* smem, int* threads) {
   *threads = kTcThreads;
-  switch (kernel) {
-    case 0:
-      *smem = fwd_tc_smem_bytes<D>();
-      return (const void*)flash_fwd_tc_kernel<D>;
-    case 1:
-      if constexpr (D == 256) {
+  if constexpr (D == 256) {
+    switch (kernel) {
+      case 0:
+        *smem = fwd256_tc_smem_bytes();
+        *threads = kD256Threads;
+        return (const void*)flash_fwd_d256_tc_kernel;
+      case 1:
         *smem = dkv256_tc_smem_bytes();
         *threads = kDkv256Threads;
         return (const void*)flash_bwd_dkv_d256_tc_kernel;
-      } else {
+      case 2:
+        *smem = dq256_tc_smem_bytes();
+        *threads = kD256Threads;
+        return (const void*)flash_bwd_dq_d256_tc_kernel;
+    }
+  } else {
+    switch (kernel) {
+      case 0:
+        *smem = fwd_tc_smem_bytes<D>();
+        return (const void*)flash_fwd_tc_kernel<D>;
+      case 1:
         *smem = dkv_tc_smem_bytes<D>();
         return (const void*)flash_bwd_dkv_tc_kernel<D>;
-      }
-    case 2:
-      *smem = dq_tc_smem_bytes<D>();
-      return (const void*)flash_bwd_dq_tc_kernel<D>;
+      case 2:
+        *smem = dq_tc_smem_bytes<D>();
+        return (const void*)flash_bwd_dq_tc_kernel<D>;
+    }
   }
   return nullptr;
 }
@@ -875,7 +1782,13 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
     const cudaError_t e = prepare<D>(0, &smem, &threads);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    flash_fwd_tc_kernel<D><<<grid, threads, smem, (cudaStream_t)stream>>>(
+    auto fn = [] {
+      if constexpr (D == 256)
+        return flash_fwd_d256_tc_kernel;
+      else
+        return flash_fwd_tc_kernel<D>;
+    }();
+    fn<<<grid, threads, smem, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o,
         (float*)lse, seq, scale, causal);
     return (int)cudaGetLastError();
@@ -891,11 +1804,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     const cudaError_t e = prepare<D>(2, &smem, &threads);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((seq + kTile - 1) / kTile, bh);
-    flash_bwd_dq_tc_kernel<D>
-        <<<grid, threads, smem, (cudaStream_t)stream>>>(
-            (const float*)q, (const float*)k, (const float*)v,
-            (const float*)dout, (const float*)lse, (const float*)delta,
-            (float*)dq, seq, scale, causal);
+    auto fn = [] {
+      if constexpr (D == 256)
+        return flash_bwd_dq_d256_tc_kernel;
+      else
+        return flash_bwd_dq_tc_kernel<D>;
+    }();
+    fn<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+        (const float*)lse, (const float*)delta, (float*)dq, seq, scale,
+        causal);
     return (int)cudaGetLastError();
   });
 }

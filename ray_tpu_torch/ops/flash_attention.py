@@ -8,9 +8,10 @@ for bf16 head dims 65 to 128 (padded to 128), the same file's kernels at
 head dim 128; "bf16_d256" for bf16 head dims 129 to 256 (padded to 256),
 the same file's head-dim-256 kernels; "f32", the 3xTF32 tensor-core
 kernels of ``csrc/flash_attention_f32.cu`` (head dims 16, 32, 64, 128 and
-256; others padded up to the next). Every bf16 kernel rounds p and ds to
-bf16 before the products that take them, as the bf16 Pallas kernels
-do. The forward uses online
+256; others padded up to the next); "f16_f32", float16 through the same
+f32 kernels on f32 copies, the outputs cast back to float16. Every bf16
+kernel rounds p and ds to bf16 before the products that take them, as
+the bf16 Pallas kernels do. The forward uses online
 softmax and writes ``o`` and the row logsumexp; dq and dk/dv recompute
 the probabilities from the saved logsumexp, so that no S x S tensor
 reaches device memory.
@@ -55,8 +56,9 @@ BF16_HEAD_DIMS = (64, 128, 256)
 _BF16_FAMILIES = dict(zip(BF16_HEAD_DIMS, ("bf16", "bf16_wide", "bf16_d256")))
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)
 # family -> the suffix of its kernels' entry points and launch counters
+# (float16 runs the f32 kernels)
 _SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "bf16_d256": "_bf16d256",
-             "f32": "_f32"}
+             "f32": "_f32", "f16_f32": "_f32"}
 # each family has all three
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -151,7 +153,8 @@ _ENTRIES = {
 _LIBRARY_OF = {entry: lib for lib, entries in _ENTRIES.items()
                for entry in entries}
 _KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dkv": 1, "flash_bwd_dq": 2}
-_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32",
+                torch.float16: "f16"}
 
 
 def _entry(counter: str) -> str:
@@ -176,15 +179,18 @@ def kernel_plan(dtype: torch.dtype, head_dim: int,
     64, ``("bf16_wide", 128)`` for bf16 with head dim 65 to 128,
     ``("bf16_d256", 256)`` for bf16 with head dim 129 to 256, ``("f32",
     d)`` for f32 with head dim up to 256, ``d`` the next of
-    ``F32_HEAD_DIMS``: the same for each kernel. Raises on what no kernel
-    takes."""
+    ``F32_HEAD_DIMS``, and ``("f16_f32", d)`` for float16 likewise (the
+    f32 kernels on f32 copies): the same for each kernel. Raises on what
+    no kernel takes: another dtype, or a head dim above 256, which no
+    kernel instance holds (a 64-row f32 accumulator of 320 columns would
+    take 160 registers a thread)."""
     if kernel not in KERNELS:
         raise ValueError(f"no kernel {kernel!r}; the kernels are {KERNELS}")
-    dims = {torch.bfloat16: BF16_HEAD_DIMS,
-            torch.float32: F32_HEAD_DIMS}.get(dtype)
+    dims = {torch.bfloat16: BF16_HEAD_DIMS, torch.float32: F32_HEAD_DIMS,
+            torch.float16: F32_HEAD_DIMS}.get(dtype)
     if dims is None:
-        raise ValueError(f"the CUDA kernels take bf16 or f32 tensors, got "
-                         f"{dtype}")
+        raise ValueError(f"the CUDA kernels take bf16 or f32 tensors (f16 "
+                         f"through the f32 kernels), got {dtype}")
     padded = next((d for d in dims if head_dim <= d), None)
     if head_dim < 1 or padded is None:
         raise ValueError(
@@ -192,7 +198,7 @@ def kernel_plan(dtype: torch.dtype, head_dim: int,
             f"{dims[-1]}, got {head_dim}")
     if dtype == torch.bfloat16:
         return _BF16_FAMILIES[padded], padded
-    return "f32", padded
+    return ("f16_f32" if dtype == torch.float16 else "f32"), padded
 
 
 def pad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -327,8 +333,18 @@ def _count_launch(counter: str) -> None:
         LAUNCHES[counter] += 1
 
 
-def _padded(tensors, head_dim):
+def _kernel_inputs(family: str, tensors, head_dim: int):
+    """The tensors as ``family``'s kernels take them: f32 copies for
+    "f16_f32", padded to ``head_dim``."""
+    if family == "f16_f32":
+        tensors = [t.float() for t in tensors]
     return [pad_head_dim(t, head_dim) for t in tensors]
+
+
+def _kernel_output(x: torch.Tensor, head_dim: int, dtype: torch.dtype):
+    """A kernel's output unpadded to ``head_dim``, in the caller's
+    ``dtype`` (float16 from the f32 kernels)."""
+    return unpad_head_dim(x, head_dim).to(dtype)
 
 
 def _run(kernel: str, family: str, head_dim: int, device, ptrs, scale,
@@ -348,14 +364,15 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool):
         return flash_fwd_plain(q, k, v, scale=scale, causal=causal)
     BH, S = _check_cuda((q, k, v))
     D = q.shape[-1]
-    family, Dk = kernel_plan(q.dtype, D, "flash_fwd")
-    q, k, v = _padded((q, k, v), Dk)
+    dtype = q.dtype
+    family, Dk = kernel_plan(dtype, D, "flash_fwd")
+    q, k, v = _kernel_inputs(family, (q, k, v), Dk)
     o = torch.empty_like(q)
     lse = torch.empty(BH, S, dtype=torch.float32, device=q.device)
     _run("flash_fwd", family, Dk, q.device,
          (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
           lse.data_ptr(), BH, S), scale, causal)
-    return unpad_head_dim(o, D), lse
+    return _kernel_output(o, D, dtype), lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
@@ -366,14 +383,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
                                   causal=causal)
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
     D = q.shape[-1]
-    family, Dk = kernel_plan(q.dtype, D, "flash_bwd_dq")
-    q, k, v, do = _padded((q, k, v, do), Dk)
+    dtype = q.dtype
+    family, Dk = kernel_plan(dtype, D, "flash_bwd_dq")
+    q, k, v, do = _kernel_inputs(family, (q, k, v, do), Dk)
     dq = torch.empty_like(q)
     _run("flash_bwd_dq", family, Dk, q.device,
          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, S),
          scale, causal)
-    return unpad_head_dim(dq, D)
+    return _kernel_output(dq, D, dtype)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
@@ -384,15 +402,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
                                    causal=causal)
     BH, S = _check_cuda((q, k, v, do), (lse, delta))
     D = q.shape[-1]
-    family, Dk = kernel_plan(q.dtype, D, "flash_bwd_dkv")
-    q, k, v, do = _padded((q, k, v, do), Dk)
+    dtype = q.dtype
+    family, Dk = kernel_plan(dtype, D, "flash_bwd_dkv")
+    q, k, v, do = _kernel_inputs(family, (q, k, v, do), Dk)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _run("flash_bwd_dkv", family, Dk, q.device,
          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
           lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
           BH, S), scale, causal)
-    return unpad_head_dim(dk, D), unpad_head_dim(dv, D)
+    return _kernel_output(dk, D, dtype), _kernel_output(dv, D, dtype)
 
 
 # --------------------------------------------------------------- autograd

@@ -23,6 +23,12 @@ two versions of the kernels are compared by one method. The host's own
 time per wrapper call is measured too (the device is left to drain before
 each such loop, so it is the host's work alone).
 
+The f32 kernels at head dim 256 are flash_attention_f32.cu's
+flash_fwd_d256_tc_kernel and flash_bwd_dq_d256_tc_kernel (3xTF32 on
+wgmma) and flash_bwd_dkv_d256_tc_kernel, under ``_f32_d256``.
+``FLASH_AB_SHAPES`` (suffixes, comma-separated, "" for the bf16 main
+shape) times those shapes alone.
+
 Prints the card's name and power limit, one JSON line per run, and the
 median over the runs of each root. Needs one CUDA device.
 """
@@ -69,7 +75,10 @@ def child(root: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     fns = {}
+    only = os.environ.get("FLASH_AB_SHAPES")
     for suffix, (BH, S, D, dtype) in SHAPES.items():
+        if only is not None and suffix not in only.split(","):
+            continue
         try:
             fa.kernel_plan(getattr(torch, dtype), D)
         except ValueError:
@@ -80,6 +89,8 @@ def child(root: str) -> None:
         out[name] = statistics.median(
             smoke.time_ms(torch, fn, warmup=3, reps=30) for _ in range(3))
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if name not in fns:
+            continue
         fns[name]()
         torch.cuda.synchronize()
         t0 = time.perf_counter()

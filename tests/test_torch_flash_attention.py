@@ -292,7 +292,8 @@ def test_kernel_plan_dispatches_by_dtype_and_head_dim(dtype, Dh, plan):
     (torch.bfloat16, 320, "bf16 head dims 1 to 256"),
     (torch.float32, 257, "f32 head dims 1 to 256"),
     (torch.float32, 0, "f32 head dims 1 to 256"),
-    (torch.float16, 64, "bf16 or f32"), (torch.float64, 64, "bf16 or f32"),
+    (torch.float16, 320, "f16 head dims 1 to 256"),
+    (torch.float64, 64, "bf16 or f32"),
 ])
 def test_kernel_plan_refuses_what_no_kernel_takes(dtype, Dh, match):
     with pytest.raises(ValueError, match=match):

@@ -27,6 +27,15 @@ the tile's p.v (3xTF32, from 0) added, rounded; at the end o / max(l,
 1e-30) and lse = m scale + log(l). o built so stays within a quarter of
 the f32 bound against f64 and against the Pallas _fwd_kernel (interpret
 mode), lse within chip_smoke.py's 2e-5; one TF32 pass breaks the bound.
+
+At head dim 256 the forward and dq run on wgmma (flash_fwd_d256_tc_kernel,
+flash_bwd_dq_d256_tc_kernel) with 16-row K/V tiles: dq's s and dp
+contract over 32 MMAs of 8 as above, the forward's s with big.big,
+big.small and small.big in three chains added in f32 at the end; o and dq
+take each tile's product (two MMAs over its 16 KV rows; dq as dq^T, the
+same sums) from 0 and add it in f32, rounded; dk/dv
+(flash_bwd_dkv_d256_tc_kernel) takes 8-row Q tiles. The same bounds hold
+there.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +50,9 @@ F32_FLOOR = 1e-6
 LSE_ABS_TOL = 2e-5
 BH, S, D, SEED = 2, 129, 64, 0
 TILE = 32  # rows of a streamed tile at head dim 64
+# head dim 256: the wgmma forward and dq stream 16-row K/V tiles, the
+# dk/dv kernel 8-row Q tiles
+D256, TILE256, DKV256_TILE = 256, 16, 8
 MMA_K = 8  # products an MMA sums
 
 
@@ -107,31 +119,54 @@ def product(a, b, mode, restart=False):
     return big + (part + small)
 
 
-def accumulate(a, b, mode):
-    """sum over the shared axis in TILE-row tiles, each tile's product
+def scores_three_chains(a, b, mode):
+    """a.b as scores_ss of the head-dim-256 forward takes it: big.big,
+    big.small and small.big each in a chain of its own, added in f32 at
+    the end."""
+    if mode != "3xtf32":
+        return product(a, b, mode)
+    big_a, big_b = tf32_rna(a), tf32_rna(b)
+    small_a, small_b = tf32_trunc(a - big_a), tf32_trunc(b - big_b)
+    zero = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    bb, bs, sb = zero, zero, zero
+    for k0 in range(0, a.shape[-1], MMA_K):
+        ba, sa = big_a[..., k0:k0 + MMA_K], small_a[..., k0:k0 + MMA_K]
+        bbk, sbk = big_b[..., k0:k0 + MMA_K, :], small_b[..., k0:k0 + MMA_K, :]
+        bb = mma_sum(ba, bbk, bb)
+        bs = mma_sum(ba, sbk, bs)
+        sb = mma_sum(sa, bbk, sb)
+    return bb + (bs + sb)
+
+
+def accumulate(a, b, mode, tile=TILE):
+    """sum over the shared axis in ``tile``-row tiles, each tile's product
     from 0 and added in f32, rounded (in "one_accumulator", the whole
     axis into one accumulator, as before the kernels kept them apart)."""
     if mode == "one_accumulator":
         return product(a, b, mode)
     acc = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
-    for t0 in range(0, a.shape[-1], TILE):
-        acc = acc + product(a[..., t0:t0 + TILE], b[..., t0:t0 + TILE, :],
+    for t0 in range(0, a.shape[-1], tile):
+        acc = acc + product(a[..., t0:t0 + tile], b[..., t0:t0 + tile, :],
                             mode)
     return acc
 
 
-def backward(q, k, v, do, lse, delta, mode, scale, causal):
-    """dq, dk, dv as the kernels compute them, products by ``mode``."""
+def backward(q, k, v, do, lse, delta, mode, scale, causal, tiles=(TILE,
+                                                                  TILE),
+             scores=product):
+    """dq, dk, dv as the kernels compute them, products by ``mode``;
+    ``tiles``: the rows of dq's K/V tiles and of dk/dv's Q tiles;
+    ``scores``: how s and dp are taken."""
     mask = np.tril(np.ones((S, S), bool)) if causal else np.ones((S, S), bool)
     kt, vt = np.swapaxes(k, 1, 2), np.swapaxes(v, 1, 2)
-    s = product(q, kt, mode)
-    dp = product(do, vt, mode, restart=True)
+    s = scores(q, kt, mode)
+    dp = scores(do, vt, mode, restart=True)
     p = np.where(mask, np.exp(s * np.float32(scale) - lse[..., None]),
                  np.float32(0)).astype(np.float32)
     ds = (p * (dp - delta[..., None]) * np.float32(scale)).astype(np.float32)
-    dq = accumulate(ds, k, mode)
-    dv = accumulate(np.swapaxes(p, 1, 2), do, mode)
-    dk = accumulate(np.swapaxes(ds, 1, 2), q, mode)
+    dq = accumulate(ds, k, mode, tiles[0])
+    dv = accumulate(np.swapaxes(p, 1, 2), do, mode, tiles[1])
+    dk = accumulate(np.swapaxes(ds, 1, 2), q, mode, tiles[1])
     return dq, dk, dv
 
 
@@ -213,36 +248,35 @@ LOG2E = np.float32(1.4426950408889634)
 NEG_INF = np.float32(-1e30)
 
 
-def forward(q, k, v, mode, scale, causal):
+def forward(q, k, v, mode, scale, causal, tile=TILE, scores=product):
     """o and lse as the forward kernel computes them, products by
-    ``mode``: TILE-row K/V tiles, the online max and sum in f32."""
+    ``mode``: ``tile``-row K/V tiles, the online max and sum in f32;
+    ``scores``: how s is taken."""
     mask = np.tril(np.ones((S, S), bool)) if causal else np.ones((S, S), bool)
     scale2 = np.float32(scale) * LOG2E
     m = np.full((BH, S), NEG_INF, np.float32)  # running max of raw scores
     l = np.zeros((BH, S), np.float32)
-    acc = np.zeros((BH, S, D), np.float32)
-    for t0 in range(0, S, TILE):
-        kt = np.swapaxes(k[:, t0:t0 + TILE], 1, 2)
-        s = np.where(mask[:, t0:t0 + TILE], product(q, kt, mode), NEG_INF)
+    acc = np.zeros(q.shape, np.float32)
+    for t0 in range(0, S, tile):
+        kt = np.swapaxes(k[:, t0:t0 + tile], 1, 2)
+        s = np.where(mask[:, t0:t0 + tile], scores(q, kt, mode), NEG_INF)
         m_new = np.maximum(m, s.max(-1))
         corr = np.exp2((m - m_new) * scale2)
         p = np.exp2(s * scale2 - (m_new * scale2)[..., None])
         l = l * corr + p.sum(-1, dtype=np.float32)
-        acc = acc * corr[..., None] + product(p, v[:, t0:t0 + TILE], mode)
+        acc = acc * corr[..., None] + product(p, v[:, t0:t0 + tile], mode)
         m = m_new
     lc = np.maximum(l, np.float32(1e-30))
     return acc / lc[..., None], m * np.float32(scale) + np.log(lc)
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["causal", "full"])
-def fwd_case(request):
+def _fwd_shares(causal, head_dim, tile, scores=product):
     """Per mode, o's worst element over the f32 bound against f64 and
     against the Pallas forward, and lse's largest error against f64."""
-    causal = request.param
     rng = np.random.default_rng(SEED + 1)
-    q, k, v = (rng.standard_normal((BH, S, D), dtype=np.float32)
+    q, k, v = (rng.standard_normal((BH, S, head_dim), dtype=np.float32)
                for _ in range(3))
-    scale = D ** -0.5
+    scale = head_dim ** -0.5
     q64, k64, v64 = (x.astype(np.float64) for x in (q, k, v))
     mask = np.tril(np.ones((S, S), bool)) if causal else np.ones((S, S), bool)
     s64 = np.where(mask, q64 @ np.swapaxes(k64, 1, 2) * scale, -np.inf)
@@ -255,11 +289,16 @@ def fwd_case(request):
     o_pl = np.asarray(o_pl).astype(np.float64)
     out = {}
     for mode in ("3xtf32", "1xtf32"):
-        o, lse = forward(q, k, v, mode, scale, causal)
+        o, lse = forward(q, k, v, mode, scale, causal, tile, scores)
         out[mode] = {"f64": worst_share(o, o64),
                      "pallas": worst_share(o, o_pl),
                      "lse": float(np.abs(lse - lse64).max())}
     return out
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["causal", "full"])
+def fwd_case(request):
+    return _fwd_shares(request.param, D, TILE)
 
 
 def test_forward_3xtf32_is_within_a_quarter_of_the_f32_bound(fwd_case):
@@ -274,3 +313,46 @@ def test_forward_3xtf32_is_within_a_quarter_of_the_f32_bound(fwd_case):
 def test_forward_one_tf32_pass_is_not_f32(fwd_case):
     """big.big alone, one TF32 pass, breaks the f32 bound on o."""
     assert fwd_case["1xtf32"]["f64"] > 1.0, fwd_case["1xtf32"]
+
+
+# ------------------------------------------------------------ head dim 256
+@pytest.fixture(scope="module", params=[True, False], ids=["causal", "full"])
+def case256(request):
+    """dq, dk, dv at head dim 256 with its kernels' tiles, per mode."""
+    causal = request.param
+    rng = np.random.default_rng(SEED + 2)
+    q, k, v, do = (rng.standard_normal((BH, S, D256), dtype=np.float32)
+                   for _ in range(4))
+    scale = D256 ** -0.5
+    lse, delta, want = reference(q, k, v, do, scale, causal)
+    shares = {}
+    for mode in ("3xtf32", "1xtf32"):
+        got = backward(q, k, v, do, lse.astype(np.float32),
+                       delta.astype(np.float32), mode, scale, causal,
+                       tiles=(TILE256, DKV256_TILE))
+        shares[mode] = [worst_share(g, w) for g, w in zip(got, want)]
+    return shares
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["causal", "full"])
+def fwd_case256(request):
+    return _fwd_shares(request.param, D256, TILE256, scores_three_chains)
+
+
+def test_d256_3xtf32_is_within_a_quarter_of_the_f32_bound(case256):
+    """dq (16-row K/V tiles, dp's restart every two of its 32 MMAs), dk and
+    dv (8-row Q tiles) at head dim 256 against f64: within a quarter of the
+    card's f32 bound; one TF32 pass is not."""
+    assert max(case256["3xtf32"]) <= 0.25, case256["3xtf32"]
+    assert max(case256["1xtf32"]) > 1.0, case256["1xtf32"]
+
+
+def test_d256_forward_3xtf32_is_within_a_quarter_of_the_f32_bound(
+        fwd_case256):
+    """The head-dim-256 forward's o (16-row K/V tiles, each tile's p.v from
+    0, o = o.corr + it) against f64 and the Pallas forward within a quarter
+    of the f32 bound, lse within 2e-5; one TF32 pass breaks the bound."""
+    got = fwd_case256["3xtf32"]
+    assert got["f64"] <= 0.25 and got["pallas"] <= 0.25, got
+    assert got["lse"] <= LSE_ABS_TOL, got
+    assert fwd_case256["1xtf32"]["f64"] > 1.0, fwd_case256["1xtf32"]
