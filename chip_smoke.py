@@ -14,7 +14,8 @@ Phases, each of which exits non-zero on failure:
    the f32 dk/dv up to head dim 128 (at 256 none may);
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
-   causal), the gang's (B*H 96, phase 4), two ragged S (1000, and 129:
+   causal), the gang's (B*H 96, phase 4), one microbatch of phase 6a's
+   stages (B*H 48), two ragged S (1000, and 129:
    one row past a 128-row tile), a non-causal case and head dims 16 and
    32 (zero-padded to 64); in f32 at the main shape and at head dims 16
    (gpt2_tiny's), 32 and 128 (S 1000 causal among them), causal and
@@ -89,7 +90,20 @@ Phases, each of which exits non-zero on failure:
    shard flipped, restore falls back to the older generation and renames
    the bad one ``.quarantined``. It prints the snapshot, background write,
    harvest wait and restore times and the bytes a shard, and deletes its
-   ~3 GB directory (``CKPT_DIR``, under ``build/``) at the end.
+   ~3 GB directory (``CKPT_DIR``, under ``build/``) at the end;
+6. the pipeline: GPT-2-small at full width on phase 3's weights and
+   batch (16, in 4 microbatches, bf16), its ranks threads of this process
+   with their ``pp`` and ``sp`` gloo groups (``parallel/mesh.py``), each
+   on its own CUDA stream: 6a at pp 2 (two stages of 6 blocks, flash
+   attention in the stages; 2 warm-up and 3 timed steps) and 6b at pp 2 x
+   sp 2 (four ranks of 512 tokens, ring attention; 1 warm-up and 2 timed
+   steps). Each run's first step (the loss, the global grad norm and the
+   attention leaves' grads reassembled from the stages) is held to the
+   one-card step on the same weights and batch with reference attention
+   by phase 3's limits; the launch counts are exact (6a: 48 of each bf16
+   kernel a step, 6b: none). It prints the step ms and tokens/s beside
+   the card, each rank's resident params and moments, and the card's
+   peak memory.
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
@@ -97,8 +111,9 @@ the bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
 config for the bf16_wide ones, the bf16 tiny config with a head of 256
 for the bf16_d256 ones, the f32 tiny config with a head of 256 for the
 f32 kernels' head-dim-256 instances, listed apart as ``*_f32_d256``),
-and ``tiny_launches``, ``moe_launches`` and
-``gang_launches`` the other runs'; the last line is ``{"ok": true,
+and ``tiny_launches``, ``moe_launches``,
+``gang_launches`` and ``pipeline_launches`` the other runs'; the last
+line is ``{"ok": true,
 "device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
 non-zero and prints no result.
@@ -205,6 +220,16 @@ D256_SHAPE = (48, 1024, 256)
 MOE_BATCH = 8
 MOE_ORACLE_TOKENS = (2, 16)
 MOE_ORACLE_ATOL = 1e-5
+
+# Phase 6, the pipeline: GPT-2-small at full width on batch PIPE_BATCH
+# (phase 3's weights and tokens) in PIPE_MICROBATCHES microbatches, the
+# ranks threads as in phase 4: 6a at pp 2 (flash attention in the
+# stages), 6b at pp 2 x sp 2 (ring attention). Each run's first step is
+# held to the one-card step with reference attention by phase 3's limits.
+PIPE_BATCH = 16
+PIPE_MICROBATCHES = 4
+# (name, pp, sp, warm-up steps, timed steps)
+PIPE_RUNS = (("pp2", 2, 1, 2, 3), ("pp2sp2", 2, 2, 1, 2))
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
@@ -392,6 +417,9 @@ def check_kernels(torch, F, fa):
     results, failures = {}, []
     cases = [("main", 192, 1024, 64, True, bf16),
              ("gang", GANG_BATCH * 12, 1024, 64, True, bf16),
+             # one microbatch of phase 6a's stages
+             ("pipe", PIPE_BATCH // PIPE_MICROBATCHES * 12, 1024, 64, True,
+              bf16),
              ("ragged", 24, 1000, 64, True, bf16),
              ("ragged129", 24, 129, 64, True, bf16),
              ("noncausal", 24, 1024, 64, False, bf16),
@@ -1001,33 +1029,22 @@ def profile_step(torch, step, state, batch, step_ms, tag="profile"):
         print(f"{tag}:   {e.self_device_time_total / 1e3:8.2f} ms  "
               f"x{e.count:<4d} {e.key} {str(e.input_shapes)[:90]}")
 
-def run_ranks(torch, world: int, fn):
-    """``fn(rank, group)`` on ``world`` rank threads of this process, each
-    on a CUDA stream of its own and holding its own gloo group
-    (``train_dp_r<rank>``) over one in-memory store, so no port is bound.
-    Returns the results in rank order; a rank's error is raised here, and
-    a rank still running after GANG_JOIN_S fails the script."""
-    import torch.distributed as dist
-    from ray_tpu_torch.util import collective as col
-
-    store = dist.HashStore()
+def _rank_threads(torch, world: int, body):
+    """``body(rank)`` on ``world`` threads of this process, each on a CUDA
+    stream of its own. Returns the results in rank order; a rank's error
+    is raised here, and a rank still running after GANG_JOIN_S fails the
+    script."""
     results, errors = [None] * world, [None] * world
 
-    def body(rank):
-        group = f"train_dp_r{rank}"
+    def run(rank):
         try:
-            col.init_collective_group(world, rank, group_name=group,
-                                      store=store, timeout_s=GANG_OP_TIMEOUT_S)
-            try:
-                with torch.cuda.stream(torch.cuda.Stream()):
-                    results[rank] = fn(rank, group)
-                    torch.cuda.current_stream().synchronize()
-            finally:
-                col.destroy_collective_group(group)
+            with torch.cuda.stream(torch.cuda.Stream()):
+                results[rank] = body(rank)
+                torch.cuda.current_stream().synchronize()
         except BaseException as e:  # raised on the main thread below
             errors[rank] = e
 
-    threads = [threading.Thread(target=body, args=(r,), daemon=True)
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
                for r in range(world)]
     for t in threads:
         t.start()
@@ -1035,11 +1052,52 @@ def run_ranks(torch, world: int, fn):
     for t in threads:
         t.join(max(0.0, deadline - time.monotonic()))
     if any(t.is_alive() for t in threads):
-        fail(f"gang rank threads still running after {GANG_JOIN_S} s")
+        fail(f"rank threads still running after {GANG_JOIN_S} s")
     for e in errors:
         if e is not None:
             raise e
     return results
+
+
+def run_ranks(torch, world: int, fn):
+    """``fn(rank, group)`` on ``world`` rank threads, each holding its own
+    gloo group (``train_dp_r<rank>``) over one in-memory store, so no port
+    is bound."""
+    import torch.distributed as dist
+    from ray_tpu_torch.util import collective as col
+
+    store = dist.HashStore()
+
+    def body(rank):
+        group = f"train_dp_r{rank}"
+        col.init_collective_group(world, rank, group_name=group,
+                                  store=store, timeout_s=GANG_OP_TIMEOUT_S)
+        try:
+            return fn(rank, group)
+        finally:
+            col.destroy_collective_group(group)
+
+    return _rank_threads(torch, world, body)
+
+
+def run_mesh(torch, config, fn):
+    """``fn(layout)`` on one rank thread for each rank of ``config`` (a
+    ``parallel.mesh.MeshConfig``), each holding its ``pp`` and ``sp``
+    groups over one in-memory store."""
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import mesh
+
+    store = dist.HashStore()
+
+    def body(rank):
+        layout = mesh.init_rank_layout(config, rank, store=store,
+                                       name="pipe", timeout_s=GANG_OP_TIMEOUT_S)
+        try:
+            return fn(layout)
+        finally:
+            mesh.destroy_rank_layout(layout)
+
+    return _rank_threads(torch, config.world_size, body)
 
 
 def same_bits(torch, a_leaves, b_leaves) -> bool:
@@ -1586,6 +1644,189 @@ def checkpoints(torch, card: str):
         fail(f"checkpoints: {'; '.join(bad)}")
 
 
+def pipeline(torch, fa, card: str):
+    """Phase 6: GPT-2-small's pipelined step on rank threads, at pp 2 and
+    at pp 2 x sp 2 (PIPE_RUNS). Each run's first step (loss, global grad
+    norm, the attention leaves' grads reassembled from the stages) is held
+    to the one-card step on the same weights and batch with reference
+    attention; then its warm-up and timed steps run with the launch
+    counters set to 0 just before and read just after, and each rank's
+    seconds inside each collective op summed. Returns each run's
+    counts."""
+    from ray_tpu_torch import convert
+    from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
+                                             tree_unflatten)
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    from ray_tpu_torch.parallel.train_step import (default_optimizer,
+                                                   global_norm,
+                                                   make_pipelined_train_step,
+                                                   make_train_state,
+                                                   pipelined_global_norm)
+    from ray_tpu_torch.train import ddp
+    from ray_tpu_torch.util import collective as col
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(gpt2.gpt2_small(), remat=False)
+    S, M = cfg.max_seq, PIPE_MICROBATCHES
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_BATCH, S + 1),
+                           device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": tokens}
+    params = gpt2.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+    # the yardstick: the one-card step with reference attention
+    ref_cfg = dataclasses.replace(cfg, attention="reference")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    ref_loss, _ = gpt2.loss_fn(params, batch, ref_cfg)
+    ref_grads = tree_unflatten(params, torch.autograd.grad(ref_loss, leaves))
+    ref_loss, ref_norm = float(ref_loss.detach()), float(global_norm(ref_grads))
+    ref_attn = ref_grads["blocks"]["attn"]
+    del ref_grads, leaves
+    params = tree_map(lambda p: p.detach(), params)
+    torch.cuda.empty_cache()
+
+    def optimizer():
+        return default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+
+    def rank_state(lay):
+        stage = convert.stage_params(params, lay.pp_rank, lay.pp)
+        return make_train_state(lambda g: stage, None, optimizer())
+
+    # seconds a rank thread spends inside each collective op over the
+    # timed steps (a recv's wait for its peer's compute included): the
+    # stages' hops, the ring's, the loss's broadcast, the norm's and the
+    # loss's scalar allreduces, and the shared and block grads' sums
+    comm_ops = {"send": (col, "send"), "recv": (col, "recv"),
+                "ring hops": (col, "sendrecv"),
+                "broadcast": (col, "broadcast"),
+                "allreduce": (col, "allreduce"),
+                "grad sums": (ddp, "sync_gradients")}
+    originals = {op: getattr(*where) for op, where in comm_ops.items()}
+    parts = threading.local()
+
+    def timed_op(op, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                acc = getattr(parts, "acc", None)
+                if acc is not None:
+                    acc[op] += time.perf_counter() - t0
+        return run
+
+    launches, bad = {}, []
+    for name, pp, sp, warmup, timed in PIPE_RUNS:
+        config = MeshConfig(pp=pp, sp=sp)
+
+        def first_step(lay):
+            state = rank_state(lay)
+            (_, m), grads = gpt2.value_and_grad_pipelined(
+                state.params, batch, cfg, lay, n_microbatches=M)
+            attn = grads["blocks"]["attn"] if lay.sp_rank == 0 else None
+            return (lay, float(m["loss"]),
+                    float(pipelined_global_norm(grads, lay)), attn)
+
+        ranks = run_mesh(torch, config, first_step)
+        losses = {r[1] for r in ranks}
+        norms = {r[2] for r in ranks}
+        stages = sorted((r for r in ranks if r[0].sp_rank == 0),
+                        key=lambda r: r[0].pp_rank)
+        attn_rel = {n: float((torch.cat([r[3][n] for r in stages])
+                              - ref_attn[n]).norm() / ref_attn[n].norm())
+                    for n in sorted(ref_attn)}
+        loss, norm = ranks[0][1], ranks[0][2]
+        loss_rel = abs(loss - ref_loss) / ref_loss
+        gn_rel = abs(norm - ref_norm) / ref_norm
+        print(f"pipeline {name}: first step against the one-card step with "
+              f"reference attention: loss {loss:.6f} / {ref_loss:.6f}, "
+              f"relative {loss_rel:.2e} (limit {LOSS_RTOL:.0e}); grad norm "
+              f"{norm:.6f} / {ref_norm:.6f}, {gn_rel:.2e} (limit "
+              f"{GRAD_NORM_RTOL:.0e}); ||g_pipe - g_one|| / ||g_one|| of the "
+              f"attention leaves "
+              + ", ".join(f"{n} {r:.3e}" for n, r in attn_rel.items())
+              + f" (limit {ATTN_GRAD_RTOL:.1e})", flush=True)
+        if len(losses) != 1 or len(norms) != 1:
+            bad.append(f"{name}: the ranks disagree on the loss or the norm: "
+                       f"{sorted(losses)}, {sorted(norms)}")
+        if not loss_rel <= LOSS_RTOL:
+            bad.append(f"{name}: first-step loss")
+        if not gn_rel <= GRAD_NORM_RTOL:
+            bad.append(f"{name}: first-step grad norm")
+        bad += [f"{name}: grad of {n}" for n, r in attn_rel.items()
+                if not r <= ATTN_GRAD_RTOL]
+        del ranks, stages
+        torch.cuda.empty_cache()
+
+        def steps(lay):
+            state = rank_state(lay)
+            step = make_pipelined_train_step(cfg, optimizer(), lay,
+                                             n_microbatches=M)
+            out = []
+            for i in range(warmup + timed):
+                if i == warmup:
+                    torch.cuda.current_stream().synchronize()
+                    parts.acc = dict.fromkeys(comm_ops, 0.0)
+                    t0 = time.perf_counter()
+                state, m = step(state, batch)
+                out.append(float(m["loss"]))
+            torch.cuda.current_stream().synchronize()
+            dt, comm, parts.acc = time.perf_counter() - t0, parts.acc, None
+            resident = sum(t.numel() * t.element_size() for t in
+                           tree_leaves(state.params)
+                           + tree_leaves(state.opt_state["mu"])
+                           + tree_leaves(state.opt_state["nu"]))
+            return lay, out, dt / timed, resident, {
+                op: v / timed for op, v in comm.items()}
+
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        for op, (module, attr) in comm_ops.items():
+            setattr(module, attr, timed_op(op, originals[op]))
+        try:
+            ranks = run_mesh(torch, config, steps)
+        finally:
+            for op, (module, attr) in comm_ops.items():
+                setattr(module, attr, originals[op])
+        launches[name] = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for lay, losses, dt, resident, comm in ranks:
+            print(f"pipeline {name}: rank {lay.rank} (stage {lay.pp_rank}, "
+                  f"shard {lay.sp_rank}): losses {losses}, step "
+                  f"{dt * 1e3:.1f} ms, of which in "
+                  + ", ".join(f"{op} {v * 1e3:.1f}" for op, v in comm.items())
+                  + f" ms (waits for peers included), the rest "
+                  f"{(dt - sum(comm.values())) * 1e3:.1f} ms; its params and "
+                  f"Adam moments {resident / 2**30:.2f} GiB", flush=True)
+            if not all(math.isfinite(x) for x in losses):
+                bad.append(f"{name}: non-finite loss on rank {lay.rank}")
+        step_s = max(r[2] for r in ranks)
+        print(f"pipeline {name}: {card}: GPT-2-small, batch {PIPE_BATCH} in "
+              f"{M} microbatches, seq {S}, pp {pp} x sp {sp} rank threads on "
+              f"one card: step {step_s * 1e3:.1f} ms (the slowest rank), "
+              f"{PIPE_BATCH * S / step_s:.0f} tokens/s, peak memory of the "
+              f"card {peak / 2**30:.2f} GiB for all {config.world_size} ranks "
+              f"together (they share one allocator: a rank's own peak is "
+              f"not separable) ({warmup} warm-up and {timed} timed steps)",
+              flush=True)
+        per_step = (cfg.n_layer * M) if sp == 1 else 0
+        for kernel, n in launches[name].items():
+            want = 0 if family(kernel) else per_step * (warmup + timed)
+            print(f"pipeline {name}: {kernel} launched {n} times "
+                  f"(expected {want})")
+            if n != want:
+                bad.append(f"{name}: {kernel} launched {n} times, "
+                           f"expected {want}")
+        del ranks
+        torch.cuda.empty_cache()
+    del params, ref_attn
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"pipeline: {'; '.join(bad)}")
+    return launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1609,6 +1850,7 @@ def main() -> int:
     moe_launches = moe(torch, fa, card)
     gang_launches = gang(torch, fa, card)
     checkpoints(torch, card)
+    pipeline_launches = pipeline(torch, fa, card)
 
     kernels = []
     # each kernel's count on the path that runs it: the main path for the
@@ -1635,6 +1877,9 @@ def main() -> int:
                         "moe_launches": moe_launches[counter],
                         "gang_launches": {run: counts[counter] for run, counts
                                           in gang_launches.items()},
+                        "pipeline_launches": {
+                            run: counts[counter] for run, counts
+                            in pipeline_launches.items()},
                         **results[name], **extra})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

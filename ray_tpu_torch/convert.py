@@ -3,7 +3,10 @@
 Both packages hold GPT-2's parameters as the same nested dict: the same
 keys, shapes and dtypes as ``ray_tpu.models.gpt2.init`` (stacked
 ``[L, ...]`` block leaves, ``wq [d, h, k]``, ``wo [h, k, d]``, f32), so a
-leaf crosses as it is, with no transpose.
+leaf crosses as it is, with no transpose. ``stage_params`` cuts such a
+tree into one pipeline stage's, as the JAX package's pipelined forward
+splits the block leaves as ``[pp, L / pp, ...]``; ``join_stages`` puts the
+stages back together.
 """
 from __future__ import annotations
 
@@ -40,3 +43,32 @@ def params_to_numpy(tree):
         return t.numpy()
 
     return tree_map(leaf_to_numpy, tree)
+
+
+def stage_params(params, pp_rank: int, pp: int):
+    """Stage ``pp_rank`` of ``pp``'s tree: its ``[L / pp, ...]`` slice of
+    every block leaf and the embedding and final LayerNorm whole, each a
+    copy of its own (the ranks update their trees in place)."""
+    L = params["blocks"]["ln1"]["scale"].shape[0]
+    if L % pp:
+        raise ValueError(f"n_layer={L} not divisible by pp={pp}")
+    per = L // pp
+    out = {k: tree_map(lambda t: t.detach().clone(), v)
+           for k, v in params.items() if k != "blocks"}
+    out["blocks"] = tree_map(
+        lambda t: t[pp_rank * per:(pp_rank + 1) * per].detach().clone(),
+        params["blocks"])
+    return out
+
+
+def join_stages(stages):
+    """The whole model's tree from the stages' trees in stage order: the
+    block leaves concatenated, the other leaves from stage 0."""
+    def cat(parts):
+        if isinstance(parts[0], dict):
+            return {k: cat([p[k] for p in parts]) for k in sorted(parts[0])}
+        return torch.cat(parts)
+
+    out = dict(stages[0])
+    out["blocks"] = cat([s["blocks"] for s in stages])
+    return out

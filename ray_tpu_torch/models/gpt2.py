@@ -1,25 +1,40 @@
-"""GPT-2 family. Port of ``ray_tpu/models/gpt2.py`` (non-pipelined).
+"""GPT-2 family. Port of ``ray_tpu/models/gpt2.py``.
 
 Parameters are the JAX package's tree: stacked ``[n_layer, ...]`` block
 leaves, f32, with bf16 compute. The forward loops over the stacked
 leaves; ``remat`` maps to ``torch.utils.checkpoint``. Architecture: learned
 positional embeddings, pre-LN blocks, GELU MLP, tied LM head; with
 ``moe`` set, every block's MLP is the routed MoE layer and the forward
-returns its aux loss, averaged over the layers. The pipelined forward
-and the sharding specs come in later slices.
+returns its aux loss, averaged over the layers.
+
+The pipelined forward (``forward_pipelined``) runs on every rank of a
+``pp`` x ``sp`` layout (``parallel/mesh.py``), each holding its stage's
+``[n_layer / pp, ...]`` slice of the block leaves and the whole embedding
+and final LayerNorm (``convert.stage_params``). Stage 0 embeds, the block
+stack runs under GPipe (``parallel/pipeline.py``) and the last stage
+unembeds; at ``sp`` > 1 each rank holds a contiguous shard of the
+sequence and attention is ``"ring_local"``. Its gradient is a schedule,
+not autograd through the collectives: ``value_and_grad_pipelined``, or
+``PipelinedForward.backward``. The sharding specs come with the mesh
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch._private.tree import tree_map
+from ray_tpu_torch._private.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.models import layers as L
+from ray_tpu_torch.parallel.pipeline import (gpipe_local, microbatch,
+                                             stack_stage_params, unmicrobatch)
+from ray_tpu_torch.parallel.ring_attention import shard_bounds
+from ray_tpu_torch.train import ddp
+from ray_tpu_torch.util import collective as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,12 +137,15 @@ def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
     return "flash" if device.type == "cuda" else "reference"
 
 
-def _block_apply(block, x, cfg: GPT2Config, impl: str):
-    """(the block's output, its MoE aux loss, or None without MoE)."""
+def _block_apply(block, x, cfg: GPT2Config, impl: str, sp_group=None,
+                 tape=None):
+    """(the block's output, its MoE aux loss, or None without MoE).
+    ``sp_group`` and ``tape``: ``"ring_local"``'s (``apply_attention``)."""
     cd = cfg.dtype
     h = L.layer_norm(x, block["ln1"]["scale"], block["ln1"]["bias"])
     x = x + L.apply_attention(block["attn"], h, causal=True, impl=impl,
-                              compute_dtype=cd)
+                              compute_dtype=cd, sp_group=sp_group,
+                              tape=tape)
     h = L.layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"])
     if cfg.moe:
         m, aux = L.apply_moe(block["moe"], h, cfg.moe, compute_dtype=cd)
@@ -135,11 +153,13 @@ def _block_apply(block, x, cfg: GPT2Config, impl: str):
     return x + L.apply_mlp(block["mlp"], h, compute_dtype=cd), None
 
 
-def embed(params, tokens, cfg: GPT2Config):
+def embed(params, tokens, cfg: GPT2Config, position_offset: int = 0):
     """Token + position embedding, cast to the compute dtype: the residual
-    stream is bf16 by default."""
+    stream is bf16 by default. ``tokens`` sit at positions
+    ``position_offset`` on (a shard of the sequence)."""
     S = tokens.shape[1]
-    x = F.embedding(tokens.long(), params["wte"]) + params["wpe"][:S]
+    wpe = params["wpe"][position_offset:position_offset + S]
+    x = F.embedding(tokens.long(), params["wte"]) + wpe
     return x.to(cfg.dtype)
 
 
@@ -194,15 +214,188 @@ def forward(params, tokens, cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor
     return logits, aux / cfg.n_layer
 
 
-def loss_fn(params, batch, cfg: GPT2Config):
-    """batch: {"tokens" [B, S+1] integer}. Next-token cross-entropy,
-    computed as logsumexp(logits) - logits[target] without materializing
-    log_softmax."""
-    tokens = batch["tokens"][:, :-1]
-    targets = batch["tokens"][:, 1:]
-    logits, aux = forward(params, tokens, cfg)
+def _token_losses(logits, targets):
+    """-log p(target) = logsumexp(logits) - logits[target], without
+    materializing log_softmax."""
     lse = torch.logsumexp(logits, dim=-1)
     tl = logits.gather(-1, targets.long().unsqueeze(-1)).squeeze(-1)
-    loss = (lse - tl).mean()
+    return lse - tl
+
+
+def _metrics(loss, aux, cfg: GPT2Config):
     total = loss + cfg.aux_loss_weight * aux
     return total, {"loss": loss, "aux_loss": aux, "total_loss": total}
+
+
+def loss_fn(params, batch, cfg: GPT2Config, layout=None, *,
+            pipelined: bool = False, n_microbatches: int = 4):
+    """batch: {"tokens" [B, S+1] integer}. Next-token cross-entropy.
+
+    ``pipelined``: the loss of ``forward_pipelined`` on ``layout``, every
+    rank given the whole batch and returning the same values. It runs
+    without gradients; the pipelined gradient is
+    ``value_and_grad_pipelined``'s, a schedule rather than autograd."""
+    tokens = batch["tokens"][:, :-1]
+    targets = batch["tokens"][:, 1:]
+    if pipelined:
+        with torch.no_grad():
+            fwd = forward_pipelined(params, tokens, cfg, layout,
+                                    n_microbatches=n_microbatches)
+            loss = _pipelined_loss(fwd, targets, layout)[0]
+        return _metrics(loss, fwd.aux, cfg)
+    logits, aux = forward(params, tokens, cfg)
+    return _metrics(_token_losses(logits, targets).mean(), aux, cfg)
+
+
+# --------------------------------------------------------------- pipelined
+@dataclasses.dataclass
+class PipelinedForward:
+    """One rank's part of ``forward_pipelined``. ``logits``: ``[B,
+    S_local, V]`` f32 for this rank's shard of the sequence on the last
+    stage, attached to the graph of the unembed; None on the other
+    stages. ``aux``: 0 (MoE is refused). ``backward(value)``, called once
+    on every rank with, on the last stage, the scalar this rank
+    differentiates (its part of the loss, computed from ``logits``) and
+    None elsewhere, returns the gradient of the sum over the last stage's
+    ranks of their values, with respect to this rank's parameters: a
+    tree like them, already summed over the ``pp`` and ``sp`` groups
+    where JAX's ``psum`` transposes sum it (the embedding and final
+    LayerNorm over both, the block leaves over ``sp``)."""
+
+    logits: Optional[torch.Tensor]
+    aux: torch.Tensor
+    backward: Callable
+
+
+def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
+                      n_microbatches: int = 4) -> PipelinedForward:
+    """Pipeline-parallel forward on one rank of ``layout`` (a
+    ``parallel.mesh.RankLayout``). ``params``: this rank's stage tree
+    (``convert.stage_params``). ``tokens`` ``[B, S]``: the whole batch,
+    the same on every rank; the rank takes its shard of the sequence.
+
+    Embed runs on stage 0 (``wpe`` at the shard's global positions), the
+    blocks as GPipe over ``n_microbatches`` and the ``pp`` group, and the
+    unembed on the last stage. Attention in the stages is
+    ``"ring_local"`` at sp > 1, else ``_resolve_attention``'s (flash on a
+    CUDA device). Refuses what the JAX twin refuses (``n_layer`` not
+    divisible by pp, MoE), and ``remat`` at sp > 1, whose recompute would
+    run the ring inside autograd's backward."""
+    n_pp = layout.pp
+    if cfg.n_layer % n_pp:
+        raise ValueError(f"n_layer={cfg.n_layer} not divisible by pp={n_pp}")
+    if cfg.moe is not None:
+        # the GPipe carry is activations only: the MoE aux loss would be
+        # dropped without a signal, as the JAX twin says
+        raise NotImplementedError(
+            "pipelined forward does not yet propagate the MoE aux loss; "
+            "use pp=1 with MoE or a dense (non-MoE) config with pp>1")
+    impl = ("ring_local" if layout.sp > 1
+            else _resolve_attention(cfg, tokens.device))
+    if impl == "ring_local" and cfg.remat:
+        raise NotImplementedError(
+            "remat with sp > 1 would recompute the ring inside autograd's "
+            "backward; pass remat=False")
+    per_stage = cfg.n_layer // n_pp
+    lead = params["blocks"]["ln1"]["scale"].shape[0]
+    if lead != per_stage:
+        raise ValueError(f"params hold {lead} blocks; a stage of pp={n_pp} "
+                         f"holds {per_stage} (convert.stage_params)")
+    grad = torch.is_grad_enabled()
+    # each layer's leaves apart, so that each autograd segment of a stage
+    # ends at its own layer's leaves
+    layers = {f"{i:04d}": tree_map(
+        lambda leaf: leaf[i].detach().requires_grad_(grad),
+        params["blocks"]) for i in range(per_stage)}
+
+    def stage_fn(stage_layers, x, tape):
+        for key in sorted(stage_layers):
+            x = tape.cut(x)
+            if cfg.remat:
+                x, _ = checkpoint(_block_apply, stage_layers[key], x, cfg,
+                                  impl, use_reentrant=False)
+            else:
+                x, _ = _block_apply(stage_layers[key], x, cfg, impl,
+                                    layout.sp_group, tape)
+        return x
+
+    lo, hi = shard_bounds(tokens.shape[1], layout.sp, layout.sp_rank)
+    x = mb = None
+    if layout.is_first_stage:
+        x = embed(params, tokens[:, lo:hi], cfg, position_offset=lo)
+        mb = microbatch(x, n_microbatches)
+    run = gpipe_local(stage_fn, layers, mb, group=layout.pp_group,
+                      n_microbatches=n_microbatches, replicate=False)
+    y = logits = None
+    if layout.is_last_stage:
+        y = unmicrobatch(run.outputs).requires_grad_(grad)
+        logits = unembed(params, y, cfg)
+
+    def backward(value):
+        shared = {k: params[k] for k in ("ln_f", "wpe", "wte")}
+        leaves = tree_leaves(shared)
+        totals = [torch.zeros_like(p) for p in leaves]
+
+        def add(got):
+            for i, g in enumerate(got):
+                if g is not None:
+                    totals[i] += g
+
+        g_mb = None
+        if layout.is_last_stage:
+            g_y, *got = torch.autograd.grad(value, [y] + leaves,
+                                            allow_unused=True)
+            add(got)
+            g_mb = microbatch(g_y, n_microbatches)
+        g_mb, layer_grads = run.backward(g_mb)
+        if layout.is_first_stage:
+            add(torch.autograd.grad(x, leaves, unmicrobatch(g_mb),
+                                    allow_unused=True))
+        # the embedding's and the unembedding's parts live on different
+        # stages and the sequence's shards on different sp ranks: sum
+        # them, as the transposes of JAX's psums do; the block leaves are
+        # replicated over sp, their grads partial sums over its shards
+        out = tree_unflatten(shared, totals)
+        for group in (layout.pp_group, layout.sp_group):
+            out = ddp.sync_gradients(out, group, mode="allreduce")
+        out["blocks"] = ddp.sync_gradients(
+            stack_stage_params([layer_grads[k] for k in sorted(layer_grads)]),
+            layout.sp_group, mode="allreduce")
+        return out
+
+    return PipelinedForward(logits, torch.zeros((), device=tokens.device),
+                            backward)
+
+
+def _pipelined_loss(fwd: PipelinedForward, targets, layout):
+    """(the mean token loss over the whole batch and sequence, on every
+    rank; this rank's part of it, attached to the logits, on the last
+    stage, else None). The shards' parts are summed over ``sp`` and the
+    sum broadcast from the last stage over ``pp``."""
+    B, S = targets.shape
+    part = None
+    value = torch.zeros((), dtype=torch.float32)
+    if layout.is_last_stage:
+        lo, hi = shard_bounds(S, layout.sp, layout.sp_rank)
+        part = _token_losses(fwd.logits, targets[:, lo:hi]).sum() / (B * S)
+        value = part.detach()
+        if layout.sp > 1:
+            value = col.allreduce(value, layout.sp_group)
+    if layout.pp > 1:
+        value = col.broadcast(value, layout.pp - 1, layout.pp_group)
+    return value.to(targets.device), part
+
+
+def value_and_grad_pipelined(params, batch, cfg: GPT2Config, layout, *,
+                             n_microbatches: int = 4):
+    """The pipelined twin of ``jax.value_and_grad(loss_fn, has_aux=True)``
+    with ``pipelined=True``: ((total, metrics), grads) on every rank of
+    ``layout``, the values the same on every rank and ``grads`` a tree
+    like this rank's ``params`` (``PipelinedForward.backward``)."""
+    tokens = batch["tokens"][:, :-1]
+    targets = batch["tokens"][:, 1:]
+    fwd = forward_pipelined(params, tokens, cfg, layout,
+                            n_microbatches=n_microbatches)
+    loss, part = _pipelined_loss(fwd, targets, layout)
+    grads = fwd.backward(part)
+    return _metrics(loss, fwd.aux, cfg), grads

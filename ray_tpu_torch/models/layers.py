@@ -6,7 +6,8 @@ default with f32 params and accumulators. The memory-lean custom VJPs
 (``layer_norm``, the MLP) are ``torch.autograd.Function``s that save the
 same residuals as the JAX rules. The routed MoE layer (``apply_moe``)
 mirrors the JAX package's dense-dispatch einsums; expert parallelism
-comes with the mesh slice.
+comes with the mesh slice. ``apply_attention``'s ``"ring_local"`` runs
+the per-shard ring over a rank's ``sp`` group inside a pipeline stage.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.flash_attention import flash_attention
-from ray_tpu_torch.parallel.ring_attention import reference_attention
+from ray_tpu_torch.parallel.ring_attention import (reference_attention,
+                                                   ring_attention_stage)
 
 Params = Dict[str, Any]
 
@@ -94,10 +96,14 @@ def init_attention(generator, d_model, n_head, dtype=torch.float32, *,
 
 def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
                     impl: str = "reference",
-                    compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D]. impl: "reference" (plain PyTorch) or
-    "flash" (the Hopper kernels on CUDA tensors). The q/k/v/o projections
-    are plain matmuls in the compute dtype."""
+                    compute_dtype=torch.bfloat16, sp_group: str = None,
+                    tape=None) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D]. impl: "reference" (plain PyTorch),
+    "flash" (the Hopper kernels on CUDA tensors) or "ring_local" (x is
+    this rank's shard of the sequence and attention runs around the ring
+    of ``sp_group``; with gradients, only inside a pipeline stage, on its
+    ``tape``: see ``parallel.ring_attention.ring_attention_stage``). The
+    q/k/v/o projections are plain matmuls in the compute dtype."""
     cd = compute_dtype
     B, S, D = x.shape
     _, H, K = params["wq"].shape
@@ -111,9 +117,12 @@ def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
         o = flash_attention(q, k, v, causal=causal)
     elif impl == "reference":
         o = reference_attention(q, k, v, causal=causal)
+    elif impl == "ring_local":
+        o = ring_attention_stage(q, k, v, group=sp_group, tape=tape,
+                                 causal=causal)
     else:
-        raise ValueError(f"attention impl {impl!r} is not ported; "
-                         f"use 'flash' or 'reference'")
+        raise ValueError(f"attention impl {impl!r} is not ported; use "
+                         f"'flash', 'reference' or 'ring_local'")
     out = o.to(cd).reshape(B, S, H * K) @ params["wo"].to(cd).reshape(H * K, D)
     return out.to(x.dtype)
 

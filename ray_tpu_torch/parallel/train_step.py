@@ -14,6 +14,11 @@ parameters and moments into the tensors it is given, and a step returns a
 ``host_grad_sync`` (a grad step, the hook, then the update on the synced
 grads) and ``host_optimizer`` (a ``train.ddp.ZeroOptimizer`` owns the
 sync and the update). The state-bytes gauges are not ported.
+
+``make_pipelined_train_step`` is GPT-2's step on one rank of a ``pp`` x
+``sp`` layout: the pipelined gradient, the global norm over every stage,
+and each rank's update of its own leaves, which is the whole model's
+update restricted to them.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch._private.tree import tree_leaves, tree_map, tree_unflatten
+from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.util import collective as col
 
 
 @dataclasses.dataclass
@@ -34,10 +41,13 @@ class TrainState:
     opt_state: Any
 
 
+def _sum_of_squares(tree) -> torch.Tensor:
+    return sum(torch.sum(x.float() * x.float()) for x in tree_leaves(tree))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(x.float() * x.float())
-                          for x in tree_leaves(tree)))
+    return torch.sqrt(_sum_of_squares(tree))
 
 
 def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int,
@@ -218,6 +228,40 @@ def make_train_step(loss_fn: Callable[[Any, Any], tuple],
         if host_grad_sync is not None:
             grads = host_grad_sync(grads)
         metrics["grad_norm"] = global_norm(grads)
+        opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                     metrics["grad_norm"])
+        return (TrainState(step=state.step + 1, params=state.params,
+                           opt_state=opt_state), metrics)
+
+    return step
+
+
+def pipelined_global_norm(grads, layout) -> torch.Tensor:
+    """The whole model's gradient norm from one rank's grads on a pipeline
+    ``layout``: the squares of the stage's block grads summed over the
+    ``pp`` group, plus the shared leaves' (the same on every rank) once."""
+    blocks = _sum_of_squares(grads["blocks"])
+    if layout.pp > 1:
+        blocks = col.allreduce(blocks, layout.pp_group).to(blocks.device)
+    shared = _sum_of_squares({k: v for k, v in grads.items()
+                              if k != "blocks"})
+    return torch.sqrt(blocks + shared)
+
+
+def make_pipelined_train_step(cfg, optimizer: ClipAdamW, layout,
+                              n_microbatches: int = 4):
+    """GPT-2's train step on one rank of ``layout`` (a
+    ``parallel.mesh.RankLayout``), whose state holds this rank's stage
+    tree (``convert.stage_params``). Returns step(state, batch) ->
+    (state, metrics) with ``make_train_step``'s metrics, the same on every
+    rank; ``grad_norm`` is the whole model's, which the update clips by.
+    Every rank is given the whole batch."""
+
+    def step(state: TrainState, batch):
+        (_, metrics), grads = gpt2.value_and_grad_pipelined(
+            state.params, batch, cfg, layout, n_microbatches=n_microbatches)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = pipelined_global_norm(grads, layout)
         opt_state = optimizer.update(grads, state.opt_state, state.params,
                                      metrics["grad_norm"])
         return (TrainState(step=state.step + 1, params=state.params,

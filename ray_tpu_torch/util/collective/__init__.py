@@ -7,12 +7,17 @@ from ray_tpu_torch.util.collective.collective import (  # noqa: F401
     allgather_async,
     allreduce,
     allreduce_async,
+    barrier,
+    broadcast,
     destroy_collective_group,
     get_collective_group_size,
     get_rank,
     init_collective_group,
     is_group_initialized,
+    recv,
     reducescatter,
     reducescatter_async,
+    send,
+    sendrecv,
     supports_async,
 )

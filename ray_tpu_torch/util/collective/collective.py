@@ -1,6 +1,6 @@
 """Named collective groups over gloo. The twin of the part of
-``ray_tpu/util/collective/collective.py`` (``:434-640``) that the
-data-parallel gang calls.
+``ray_tpu/util/collective/collective.py`` (``:434-705``) that the
+data-parallel gang and the pipeline call.
 
 ``init_collective_group`` builds a ``torch.distributed.ProcessGroupGloo``
 of its own over a ``Store`` and registers it under ``group_name``. It
@@ -14,6 +14,15 @@ Ops move host tensors: a CUDA tensor or a numpy array is copied to a
 contiguous CPU tensor first. ``allreduce`` reduces in place and returns
 the tensor, as the reference's NCCL op does. Every op has a timeout,
 30 s unless the group was made with another.
+
+Point to point: ``send`` and ``recv`` pair in order on each channel
+(sender, receiver). A message is a small header (dtype and shape) and its
+payload, each under a gloo tag of its own drawn from the channel's
+sequence, so ``recv`` returns the tensor without being told its shape, as
+the reference's does. gloo's send completes only once the peer has posted
+the matching receive, so a ``send`` blocks until then; ``sendrecv`` is one
+hop of a ring (every member sends to one peer and receives from another
+at once), which a blocking send before a receive would deadlock.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "product": dist.ReduceOp.PRODUCT,
 
 class _Group:
     __slots__ = ("name", "world_size", "rank", "pg", "timeout_s",
-                 "completions")
+                 "completions", "p2p_seq")
 
     def __init__(self, name, world_size, rank, pg, timeout_s):
         self.name = name
@@ -44,6 +53,14 @@ class _Group:
         self.pg = pg
         self.timeout_s = timeout_s
         self.completions = CompletionQueue(name)
+        self.p2p_seq = {}  # (sender, receiver) -> messages so far
+
+    def p2p_tag(self, src: int, dst: int) -> int:
+        """The header's tag of the channel's next message; its payload's
+        is one more."""
+        seq = self.p2p_seq.get((src, dst), 0)
+        self.p2p_seq[(src, dst)] = seq + 1
+        return 2 * (seq % (1 << 29))
 
     def submit(self, op: str, work, value) -> CollectiveHandle:
         return self.completions.put(
@@ -216,3 +233,87 @@ def allgather_object(obj, group_name: str = "default") -> list:
     parts = allgather(padded, group_name)
     return [pickle.loads(part[:int(n)].numpy().tobytes())
             for part, n in zip(parts, sizes)]
+
+
+def broadcast(tensor, src_rank: int = 0, group_name: str = "default"):
+    """Every rank's copy of ``src_rank``'s tensor, returned as a host
+    tensor; the other ranks pass a tensor of its shape and dtype."""
+    g = _get(group_name)
+    arr = _host(tensor)
+    opts = dist.BroadcastOptions()
+    opts.rootRank = src_rank
+    return g.submit("broadcast", g.pg.broadcast([arr], opts), arr).result()
+
+
+def barrier(group_name: str = "default") -> None:
+    """Returns when every rank of the group has called it."""
+    g = _get(group_name)
+    g.submit("barrier", g.pg.barrier(dist.BarrierOptions()), None).result()
+
+
+# ------------------------------------------------------- point to point
+_WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+                torch.int64, torch.int32, torch.int16, torch.int8,
+                torch.uint8, torch.bool)
+_MAX_DIMS = 8
+_NO_WIRE = ("the quantized wire (wire_dtype) is not ported yet: see "
+            "ROADMAP Queue 1, 'left out of earlier slices'")
+
+
+def _start_send(g: _Group, tensor, dst_rank: int) -> list:
+    arr = _host(tensor)
+    if arr.dtype not in _WIRE_DTYPES or arr.dim() > _MAX_DIMS:
+        raise ValueError(f"send takes up to {_MAX_DIMS} dims of "
+                         f"{_WIRE_DTYPES}; got {arr.dtype} {tuple(arr.shape)}")
+    header = torch.zeros(2 + _MAX_DIMS, dtype=torch.int64)
+    header[0] = _WIRE_DTYPES.index(arr.dtype)
+    header[1] = arr.dim()
+    header[2:2 + arr.dim()] = torch.tensor(arr.shape, dtype=torch.int64)
+    tag = g.p2p_tag(g.rank, dst_rank)
+    # the tensors stay referenced by this list until the sends complete
+    return [(g.pg.send([header], dst_rank, tag), header),
+            (g.pg.send([arr], dst_rank, tag + 1), arr)]
+
+
+def _wait(works) -> None:
+    """gloo fails a send or receive after the group's timeout."""
+    for work, _ in works:
+        work.wait()
+
+
+def _recv(g: _Group, src_rank: int) -> torch.Tensor:
+    tag = g.p2p_tag(src_rank, g.rank)
+    header = torch.empty(2 + _MAX_DIMS, dtype=torch.int64)
+    g.pg.recv([header], src_rank, tag).wait()
+    code, ndim = int(header[0]), int(header[1])
+    out = torch.empty(header[2:2 + ndim].tolist(), dtype=_WIRE_DTYPES[code])
+    g.pg.recv([out], src_rank, tag + 1).wait()
+    return out
+
+
+def send(tensor, dst_rank: int, group_name: str = "default",
+         wire_dtype: str | None = None) -> None:
+    """Send ``tensor`` to ``dst_rank``; returns once that rank has
+    received it, or raises after the group's timeout. ``wire_dtype``
+    (the reference's quantized hop) is not ported."""
+    if wire_dtype is not None:
+        raise NotImplementedError(_NO_WIRE)
+    g = _get(group_name)
+    _wait(_start_send(g, tensor, dst_rank))
+
+
+def recv(src_rank: int, group_name: str = "default") -> torch.Tensor:
+    """The next tensor ``src_rank`` sends this rank, as a host tensor of
+    the sent shape and dtype; raises after the group's timeout."""
+    return _recv(_get(group_name), src_rank)
+
+
+def sendrecv(tensor, dst_rank: int, src_rank: int,
+             group_name: str = "default") -> torch.Tensor:
+    """One hop of a ring: send ``tensor`` to ``dst_rank`` while receiving
+    the next tensor from ``src_rank``; returns the received one."""
+    g = _get(group_name)
+    works = _start_send(g, tensor, dst_rank)
+    out = _recv(g, src_rank)
+    _wait(works)
+    return out
