@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on failure:
    dynamic shared memory, blocks per SM and local memory a thread (the
    bf16 ones at head dim 64, the f32 ones at each head dim they are built
    for, 256 among them, the bf16_wide ones at 128, the bf16_d256 ones at
-   256), failing if a kernel spills to local memory, but the f32 dq and
-   the f32 dk/dv up to head dim 128 (at 256 none may);
+   256, the split-head-dim ones, which serve every head dim above 256, at
+   512), failing if a kernel spills to local memory, but the f32 dq and
+   the f32 dk/dv up to head dim 128 (at 256 and above none may);
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
    causal), the gang's (B*H 96, phase 4), one microbatch of phase 6a's
@@ -25,9 +26,13 @@ Phases, each of which exits non-zero on failure:
    in f32 and in bf16 at head dims 129, 192 and 256 (f32: the f32
    kernels at head dim 256; bf16: the bf16_d256 kernels); in float16 at
    head dims 64 and 256, which run the f32 kernels on f32 copies (held to
-   the plain versions in float16 under the bf16 bound). At the main
+   the plain versions in float16 under the bf16 bound); in f32 and in
+   bf16 at head dims 300 (padded to 320), 320 (B*H 8) and 512 (B*H 24),
+   S 1024 causal and not and S 129 (the split-head-dim kernels), and in
+   float16 at 320. At the main
    shape (for bf16_wide the wide one; for head dim 256 B*H 48, S 1024, D 256,
-   causal: the main shape's operations), times of the kernel, the plain
+   causal: the main shape's operations; above 256 B*H 24, S 1024, D 512,
+   causal), times of the kernel, the plain
    version and the PyTorch library call (SDPA, in the kernel's dtype)
    beside the bound, with the kernel's TFLOP/s and the share of its bound
    that it reaches (for f32 the bound of 3xTF32 on the tensor cores and,
@@ -47,7 +52,8 @@ Phases, each of which exits non-zero on failure:
    bf16 (the bf16 kernels, padded) and in f32 (the f32 kernels),
    gpt2_tiny with two heads of 128 in bf16 (the bf16_wide kernels), and
    with one head of 256 in bf16 (the bf16_d256 kernels) and in f32 (the
-   f32 kernels at head dim 256), 3 steps each,
+   f32 kernels at head dim 256), and with one head of 320 in bf16 and in
+   f32 (the split-head-dim kernels), 3 steps each,
    its launch counts exact and its first step held
    to reference attention (phase 3's limits in bf16, an order tighter in
    f32);
@@ -95,21 +101,26 @@ Phases, each of which exits non-zero on failure:
    batch (16, in 4 microbatches, bf16), its ranks threads of this process
    with their ``pp`` and ``sp`` gloo groups (``parallel/mesh.py``), each
    on its own CUDA stream: 6a at pp 2 (two stages of 6 blocks, flash
-   attention in the stages; 2 warm-up and 3 timed steps) and 6b at pp 2 x
+   attention in the stages; 2 warm-up and 3 timed steps), 6b at pp 2 x
    sp 2 (four ranks of 512 tokens, ring attention; 1 warm-up and 2 timed
-   steps). Each run's first step (the loss, the global grad norm and the
-   attention leaves' grads reassembled from the stages) is held to the
-   one-card step on the same weights and batch with reference attention
-   by phase 3's limits; the launch counts are exact (6a: 48 of each bf16
-   kernel a step, 6b: none). It prints the step ms and tokens/s beside
-   the card, each rank's resident params and moments, and the card's
+   steps) and 6c at dp 2 x pp 2 (two replicas of 8 rows, each in 4
+   microbatches of 2, their grads and metrics averaged over dp; 1
+   warm-up and 2 timed steps). Each run's first step (the loss, the
+   global grad norm and the attention leaves' grads reassembled from
+   replica 0's stages) is held to the one-card step on the same weights
+   and batch with reference attention by phase 3's limits; the launch
+   counts are exact (6a: 48 of each bf16 kernel a step, 6b: none, 6c:
+   96); 6c's replicas end with bit-equal params. It prints the step ms
+   and tokens/s beside the card, each rank's ms in each collective (the
+   dp sync among them), its resident params and moments, and the card's
    peak memory.
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
 the bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
 config for the bf16_wide ones, the bf16 tiny config with a head of 256
-for the bf16_d256 ones, the f32 tiny config with a head of 256 for the
+for the bf16_d256 ones, the tiny configs with a head of 320 for the
+split-head-dim ones, the f32 tiny config with a head of 256 for the
 f32 kernels' head-dim-256 instances, listed apart as ``*_f32_d256``),
 and ``tiny_launches``, ``moe_launches``,
 ``gang_launches`` and ``pipeline_launches`` the other runs'; the last
@@ -211,6 +222,12 @@ WIDE_SHAPE = (96, 1024, 128)
 # dim)
 D256_TINY = dict(d_model=256, n_head=1)
 D256_SHAPE = (48, 1024, 256)
+# Head dims above 256 run the split-head-dim kernels (bf16_dsplit,
+# f32_dsplit; float16 on f32 copies), at the head dim padded to a multiple
+# of 64: gpt2_tiny with one head of 320 in phase 3b, and in phase 2 head
+# dims 320 (B*H 8) and 512 (B*H 24), timed at DSPLIT_SHAPE, causal
+D320_TINY = dict(d_model=320, n_head=1)
+DSPLIT_SHAPE = (24, 1024, 512)
 
 # Phase 3c, GPT-2-small-MoE: batch 8, where the dense dispatch tensors
 # [B, S, E, C] (C = 2560) take 168 M elements, 335 MB in bf16, each; the
@@ -228,8 +245,10 @@ MOE_ORACLE_ATOL = 1e-5
 # held to the one-card step with reference attention by phase 3's limits.
 PIPE_BATCH = 16
 PIPE_MICROBATCHES = 4
-# (name, pp, sp, warm-up steps, timed steps)
-PIPE_RUNS = (("pp2", 2, 1, 2, 3), ("pp2sp2", 2, 2, 1, 2))
+# (name, dp, pp, sp, warm-up steps, timed steps): 6a, 6b, and 6c at dp 2
+# x pp 2, each replica's 8 rows as 4 microbatches of 2
+PIPE_RUNS = (("pp2", 1, 2, 1, 2, 3), ("pp2sp2", 1, 2, 2, 1, 2),
+             ("dp2pp2", 2, 2, 1, 1, 2))
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
@@ -239,18 +258,23 @@ CKPT_DIR = "build/chip_smoke_checkpoints"
 REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:29",
             "flash_bwd_dq": "ray_tpu/ops/flash_attention.py:160",
             "flash_bwd_dkv": "ray_tpu/ops/flash_attention.py:212"}
-KERNELS = [{"name": base + suffix, "replaces": where}
-           for suffix in ("", "_f32", "_bf16w", "_bf16d256")
-           for base, where in REPLACES.items()]
-# each kernel's source: the wgmma kernels (bf16 at head dim 64, bf16_wide
-# at 128, bf16_d256 at 256) and the 3xTF32 mma.sync ones (f32)
+# each family's kernels' source, by suffix: the wgmma kernels (bf16 at
+# head dim 64, bf16_wide at 128, bf16_d256 at 256), the 3xTF32 mma.sync
+# ones (f32) and the split-head-dim ones (bf16_dsplit, f32_dsplit: head
+# dims above 256)
 WGMMA_CU = "ray_tpu_torch/ops/csrc/flash_attention.cu"
 MMA_SYNC_CU = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"
-SOURCE_OF = {spec["name"]: MMA_SYNC_CU if spec["name"].endswith("_f32")
-             else WGMMA_CU for spec in KERNELS}
-# the head dims each family's kernels are built for
+DSPLIT_CU = "ray_tpu_torch/ops/csrc/flash_attention_dsplit.cu"
+SOURCES = {"": WGMMA_CU, "_f32": MMA_SYNC_CU, "_bf16w": WGMMA_CU,
+           "_bf16d256": WGMMA_CU, "_bf16ds": DSPLIT_CU, "_f32ds": DSPLIT_CU}
+KERNELS = [{"name": base + suffix, "replaces": where}
+           for suffix in SOURCES for base, where in REPLACES.items()]
+SOURCE_OF = {base + suffix: source for suffix, source in SOURCES.items()
+             for base in REPLACES}
+# the head dims each family's kernels are built for (one split-head-dim
+# kernel serves every head dim above 256: asked for at 512)
 HEAD_DIMS_OF = {"": (64,), "_f32": (16, 32, 64, 128, 256), "_bf16w": (128,),
-                "_bf16d256": (256,)}
+                "_bf16d256": (256,), "_bf16ds": (512,), "_f32ds": (512,)}
 # the head dims at which a kernel may show local memory (spills); every
 # other kernel and head dim must show none. The f32 dq and dk/dv
 # templates spill a little at the register caps of 3 blocks an SM, up to
@@ -263,15 +287,18 @@ D256 = "_d256"
 
 def family(name: str) -> str:
     """"_f32" for an f32 kernel's name, "_bf16w" for a bf16_wide one's (bf16
-    at head dims 65-128), "_bf16d256" for a bf16_d256 one's (129-256), ""
+    at head dims 65-128), "_bf16d256" for a bf16_d256 one's (129-256),
+    "_bf16ds" and "_f32ds" for the split-head-dim ones (above 256), ""
     for a bf16 one's."""
-    return next((s for s in ("_f32", "_bf16w", "_bf16d256")
-                 if name.endswith(s)), "")
+    return next((s for s in ("_f32", "_bf16w", "_bf16d256", "_bf16ds",
+                             "_f32ds") if name.endswith(s)), "")
 
 
 def suffix_of(on_f32_kernels: bool, head_dim: int) -> str:
     """The family suffix of the three kernels that take a dtype at a head
     dim (``on_f32_kernels``: f32, or float16 through the f32 kernels)."""
+    if head_dim > D256_SHAPE[2]:
+        return "_f32ds" if on_f32_kernels else "_bf16ds"
     if on_f32_kernels:
         return "_f32"
     if head_dim > WIDE_SHAPE[2]:
@@ -319,7 +346,7 @@ def attention_bound(kernel: str, BH: int, S: int, causal: bool,
     output written once) over the HBM rate. Returns (ms, what bounds it,
     FLOPs, bytes, the ms of the FLOPs at the FFMA peak of the CUDA cores
     for f32, else None)."""
-    f32 = family(kernel) == "_f32"
+    f32 = family(kernel) in ("_f32", "_f32ds")
     pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs computed
     mat = BH * S * D * (4 if f32 else 2)  # one [BH, S, D] tensor
     vec = BH * S * 4  # one f32 [BH, S] tensor
@@ -453,7 +480,20 @@ def check_kernels(torch, F, fa):
              ("d256", *D256_SHAPE, True, bf16),
              # float16: the f32 kernels on f32 copies, outputs cast back
              ("f16", 24, 1000, 64, True, torch.float16),
-             ("f16d256", 8, 129, 256, False, torch.float16)]
+             ("f16d256", 8, 129, 256, False, torch.float16),
+             # head dims above 256: the split-head-dim kernels, padded to
+             # a multiple of 64 (300 to 320), float16 on f32 copies
+             ("f32d320", 8, 1024, 320, True, f32),
+             ("f32d320nc", 8, 1024, 320, False, f32),
+             ("f32d512nc", 24, 1024, 512, False, f32),
+             ("f32d300r", 8, 129, 300, True, f32),
+             ("dsplit", *DSPLIT_SHAPE, True, f32),
+             ("bf16d320", 8, 1024, 320, True, bf16),
+             ("bf16d320nc", 8, 1024, 320, False, bf16),
+             ("bf16d512nc", 24, 1024, 512, False, bf16),
+             ("bf16d300r", 8, 129, 300, False, bf16),
+             ("dsplit", *DSPLIT_SHAPE, True, bf16),
+             ("f16d320", 8, 129, 320, True, torch.float16)]
     for label, BH, S, D, causal, dtype in cases:
         suffix = suffix_of(dtype != bf16, D)
         q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))
@@ -486,7 +526,7 @@ def check_kernels(torch, F, fa):
                       f"its bound{where} {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     failures.append(f"{name}.{what} ({label})")
-        if label in ("main", "wide", "d256"):
+        if label in ("main", "wide", "d256", "dsplit"):
             # the f32 kernels' head-dim-256 times go under names of
             # their own
             tag = D256 if label == "d256" and dtype == f32 else ""
@@ -521,7 +561,8 @@ def time_kernels(torch, F, fa, suffix, checks, q, k, v, do, lse_ref, delta,
             lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw),
             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, **kw)),
     }
-    B, H = 16, BH // 16
+    B = math.gcd(BH, 16)
+    H = BH // B
     q4, k4, v4 = (x.view(B, H, S, D).detach().requires_grad_(True)
                   for x in (q, k, v))
     sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -703,9 +744,10 @@ def check_attention_grads(torch, gpt2, params, batch, ref_cfg, cfg, *,
 
 def tiny_configs(torch, fa):
     """gpt2_tiny (head dim 16) under attention="auto" in bf16 and in f32,
-    with two heads of 128 in bf16 (the bf16_wide kernels), and with one
-    head of 256 in bf16 (the bf16_d256 kernels) and in f32 (the f32
-    kernels at head dim 256),
+    with two heads of 128 in bf16 (the bf16_wide kernels), with one head
+    of 256 in bf16 (the bf16_d256 kernels) and in f32 (the f32 kernels at
+    head dim 256), and with one head of 320 in bf16 and in f32 (the
+    split-head-dim kernels),
     TINY_STEPS steps each, its first step held to reference attention;
     returns each run's launch counts, set to 0 just before its steps and
     read just after."""
@@ -726,7 +768,9 @@ def tiny_configs(torch, fa):
             (torch.float32, {}, "", TINY_F32_LIMITS),
             (torch.bfloat16, WIDE_TINY, " wide", bf16_limits),
             (torch.bfloat16, D256_TINY, " d256", bf16_limits),
-            (torch.float32, D256_TINY, " d256", TINY_F32_LIMITS)):
+            (torch.float32, D256_TINY, " d256", TINY_F32_LIMITS),
+            (torch.bfloat16, D320_TINY, " d320", bf16_limits),
+            (torch.float32, D320_TINY, " d320", TINY_F32_LIMITS)):
         tag = f"tiny {str(dtype).removeprefix('torch.')}{name}"
         cfg = dataclasses.replace(base, dtype=dtype, **widths)
         ref_cfg = dataclasses.replace(cfg, attention="reference")
@@ -1645,18 +1689,20 @@ def checkpoints(torch, card: str):
 
 
 def pipeline(torch, fa, card: str):
-    """Phase 6: GPT-2-small's pipelined step on rank threads, at pp 2 and
-    at pp 2 x sp 2 (PIPE_RUNS). Each run's first step (loss, global grad
-    norm, the attention leaves' grads reassembled from the stages) is held
-    to the one-card step on the same weights and batch with reference
-    attention; then its warm-up and timed steps run with the launch
-    counters set to 0 just before and read just after, and each rank's
-    seconds inside each collective op summed. Returns each run's
-    counts."""
+    """Phase 6: GPT-2-small's pipelined step on rank threads, at pp 2, at
+    pp 2 x sp 2 and at dp 2 x pp 2 (PIPE_RUNS). Each run's first step
+    (loss, global grad norm, the attention leaves' grads reassembled from
+    the stages of replica 0) is held to the one-card step on the same
+    weights and batch with reference attention; then its warm-up and
+    timed steps run with the launch counters set to 0 just before and read
+    just after, and each rank's seconds inside each collective op summed;
+    at dp 2 the replicas' stage params must end bit-equal. Returns each
+    run's counts."""
     from ray_tpu_torch import convert
     from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
                                              tree_unflatten)
     from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
     from ray_tpu_torch.parallel.mesh import MeshConfig
     from ray_tpu_torch.parallel.train_step import (default_optimizer,
                                                    global_norm,
@@ -1696,42 +1742,50 @@ def pipeline(torch, fa, card: str):
     # seconds a rank thread spends inside each collective op over the
     # timed steps (a recv's wait for its peer's compute included): the
     # stages' hops, the ring's, the loss's broadcast, the norm's and the
-    # loss's scalar allreduces, and the shared and block grads' sums
+    # loss's scalar allreduces, the shared and block grads' sums over pp
+    # and sp, and the average over dp of the grads and metrics (an op
+    # called inside another counts in the outer one only)
     comm_ops = {"send": (col, "send"), "recv": (col, "recv"),
                 "ring hops": (col, "sendrecv"),
                 "broadcast": (col, "broadcast"),
                 "allreduce": (col, "allreduce"),
-                "grad sums": (ddp, "sync_gradients")}
+                "grad sums": (ddp, "sync_gradients"),
+                "dp sync": (ts, "sync_over_dp")}
     originals = {op: getattr(*where) for op, where in comm_ops.items()}
     parts = threading.local()
 
     def timed_op(op, fn):
         def run(*args, **kw):
+            if getattr(parts, "inside", False):
+                return fn(*args, **kw)
+            parts.inside = True
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kw)
             finally:
+                parts.inside = False
                 acc = getattr(parts, "acc", None)
                 if acc is not None:
                     acc[op] += time.perf_counter() - t0
         return run
 
     launches, bad = {}, []
-    for name, pp, sp, warmup, timed in PIPE_RUNS:
-        config = MeshConfig(pp=pp, sp=sp)
+    for name, dp, pp, sp, warmup, timed in PIPE_RUNS:
+        config = MeshConfig(dp=dp, pp=pp, sp=sp)
 
         def first_step(lay):
             state = rank_state(lay)
-            (_, m), grads = gpt2.value_and_grad_pipelined(
-                state.params, batch, cfg, lay, n_microbatches=M)
-            attn = grads["blocks"]["attn"] if lay.sp_rank == 0 else None
+            m, grads = ts.pipelined_grads(state.params, batch, cfg, lay,
+                                          n_microbatches=M)
+            attn = (grads["blocks"]["attn"]
+                    if lay.sp_rank == 0 and lay.dp_rank == 0 else None)
             return (lay, float(m["loss"]),
                     float(pipelined_global_norm(grads, lay)), attn)
 
         ranks = run_mesh(torch, config, first_step)
         losses = {r[1] for r in ranks}
         norms = {r[2] for r in ranks}
-        stages = sorted((r for r in ranks if r[0].sp_rank == 0),
+        stages = sorted((r for r in ranks if r[3] is not None),
                         key=lambda r: r[0].pp_rank)
         attn_rel = {n: float((torch.cat([r[3][n] for r in stages])
                               - ref_attn[n]).norm() / ref_attn[n].norm())
@@ -1778,7 +1832,8 @@ def pipeline(torch, fa, card: str):
                            + tree_leaves(state.opt_state["mu"])
                            + tree_leaves(state.opt_state["nu"]))
             return lay, out, dt / timed, resident, {
-                op: v / timed for op, v in comm.items()}
+                op: v / timed for op, v in comm.items()}, (
+                    tree_leaves(state.params) if dp > 1 else None)
 
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
@@ -1791,9 +1846,23 @@ def pipeline(torch, fa, card: str):
                 setattr(module, attr, originals[op])
         launches[name] = dict(fa.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        for lay, losses, dt, resident, comm in ranks:
-            print(f"pipeline {name}: rank {lay.rank} (stage {lay.pp_rank}, "
-                  f"shard {lay.sp_rank}): losses {losses}, step "
+        if dp > 1:
+            # the replicas of each (stage, shard) hold the same params
+            for lay, *_, leaves in ranks:
+                twin = next(r for r in ranks if r[0].dp_rank == 0
+                            and r[0].pp_rank == lay.pp_rank
+                            and r[0].sp_rank == lay.sp_rank)
+                same = same_bits(torch, leaves, twin[-1])
+                print(f"pipeline {name}: rank {lay.rank}'s params after the "
+                      f"timed steps {'bit-equal to' if same else 'DIFFER from'}"
+                      f" replica 0's (rank {twin[0].rank})", flush=True)
+                if not same:
+                    bad.append(f"{name}: rank {lay.rank}'s params differ from "
+                               f"replica 0's")
+        for lay, losses, dt, resident, comm, _ in ranks:
+            print(f"pipeline {name}: rank {lay.rank} (replica {lay.dp_rank}, "
+                  f"stage {lay.pp_rank}, shard {lay.sp_rank}): losses "
+                  f"{losses}, step "
                   f"{dt * 1e3:.1f} ms, of which in "
                   + ", ".join(f"{op} {v * 1e3:.1f}" for op, v in comm.items())
                   + f" ms (waits for peers included), the rest "
@@ -1803,14 +1872,17 @@ def pipeline(torch, fa, card: str):
                 bad.append(f"{name}: non-finite loss on rank {lay.rank}")
         step_s = max(r[2] for r in ranks)
         print(f"pipeline {name}: {card}: GPT-2-small, batch {PIPE_BATCH} in "
-              f"{M} microbatches, seq {S}, pp {pp} x sp {sp} rank threads on "
+              f"{M} microbatches a replica, seq {S}, dp {dp} x pp {pp} x sp "
+              f"{sp} rank threads on "
               f"one card: step {step_s * 1e3:.1f} ms (the slowest rank), "
               f"{PIPE_BATCH * S / step_s:.0f} tokens/s, peak memory of the "
               f"card {peak / 2**30:.2f} GiB for all {config.world_size} ranks "
               f"together (they share one allocator: a rank's own peak is "
               f"not separable) ({warmup} warm-up and {timed} timed steps)",
               flush=True)
-        per_step = (cfg.n_layer * M) if sp == 1 else 0
+        # each replica's stages launch each bf16 kernel once a layer and
+        # microbatch; ring attention (sp > 1) none
+        per_step = dp * cfg.n_layer * M if sp == 1 else 0
         for kernel, n in launches[name].items():
             want = 0 if family(kernel) else per_step * (warmup + timed)
             print(f"pipeline {name}: {kernel} launched {n} times "
@@ -1857,11 +1929,14 @@ def main() -> int:
     # bf16 kernels, the f32 tiny config for the f32 ones, the wide tiny
     # config for the bf16_wide ones, the bf16 tiny config with a head of
     # 256 for the bf16_d256 ones, the f32 tiny config with a head of 256
-    # for the f32 kernels' head-dim-256 instances
+    # for the f32 kernels' head-dim-256 instances, the tiny configs with a
+    # head of 320 for the split-head-dim ones
     rows = [(spec, spec["name"], {
         "": launches, "_f32": tiny_launches["tiny float32"],
         "_bf16w": tiny_launches["tiny bfloat16 wide"],
         "_bf16d256": tiny_launches["tiny bfloat16 d256"],
+        "_bf16ds": tiny_launches["tiny bfloat16 d320"],
+        "_f32ds": tiny_launches["tiny float32 d320"],
     }[family(spec["name"])]) for spec in KERNELS]
     rows += [(spec, spec["name"] + D256, tiny_launches["tiny float32 d256"])
              for spec in KERNELS if family(spec["name"]) == "_f32"]

@@ -129,9 +129,10 @@ def init(generator: torch.Generator, cfg: GPT2Config, device: DeviceLike = None)
 def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
     """``"auto"`` is ``"flash"`` on a CUDA device and ``"reference"``
     elsewhere, as ``ray_tpu``'s is ``"flash"`` on a TPU. The hand-written
-    kernels take bf16 and f32 up to head dim 256 (smaller head dims
-    padded, ``gpt2_tiny``'s 16 among them; bf16 above 128 cast to f32);
-    their wrappers refuse anything else before a launch."""
+    kernels take bf16, f32 and float16 at any head dim (padded up to the
+    head dim a kernel is built for, ``gpt2_tiny``'s 16 among them; above
+    256 the split-head-dim kernels); their wrappers refuse anything else
+    before a launch."""
     if cfg.attention != "auto":
         return cfg.attention
     return "flash" if device.type == "cuda" else "reference"
@@ -232,7 +233,8 @@ def loss_fn(params, batch, cfg: GPT2Config, layout=None, *,
     """batch: {"tokens" [B, S+1] integer}. Next-token cross-entropy.
 
     ``pipelined``: the loss of ``forward_pipelined`` on ``layout``, every
-    rank given the whole batch and returning the same values. It runs
+    rank of a ``dp`` replica given the replica's rows (the whole batch at
+    dp 1) and returning the same values. It runs
     without gradients; the pipelined gradient is
     ``value_and_grad_pipelined``'s, a schedule rather than autograd."""
     tokens = batch["tokens"][:, :-1]
@@ -271,8 +273,10 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
                       n_microbatches: int = 4) -> PipelinedForward:
     """Pipeline-parallel forward on one rank of ``layout`` (a
     ``parallel.mesh.RankLayout``). ``params``: this rank's stage tree
-    (``convert.stage_params``). ``tokens`` ``[B, S]``: the whole batch,
-    the same on every rank; the rank takes its shard of the sequence.
+    (``convert.stage_params``). ``tokens`` ``[B, S]``: the rows of the
+    rank's ``dp`` replica (the whole batch at dp 1; ``train_step.dp_rows``),
+    the same on every rank of the replica; the rank takes its shard of the
+    sequence. The groups it runs over (``pp``, ``sp``) are its replica's.
 
     Embed runs on stage 0 (``wpe`` at the shard's global positions), the
     blocks as GPipe over ``n_microbatches`` and the ``pp`` group, and the
@@ -390,8 +394,10 @@ def value_and_grad_pipelined(params, batch, cfg: GPT2Config, layout, *,
                              n_microbatches: int = 4):
     """The pipelined twin of ``jax.value_and_grad(loss_fn, has_aux=True)``
     with ``pipelined=True``: ((total, metrics), grads) on every rank of
-    ``layout``, the values the same on every rank and ``grads`` a tree
-    like this rank's ``params`` (``PipelinedForward.backward``)."""
+    ``layout`` for ``batch``, the rows of its ``dp`` replica; the values
+    the same on every rank of the replica and ``grads`` a tree like this
+    rank's ``params`` (``PipelinedForward.backward``). Averaging over
+    ``dp`` is ``train_step.pipelined_grads``'s."""
     tokens = batch["tokens"][:, :-1]
     targets = batch["tokens"][:, 1:]
     fwd = forward_pipelined(params, tokens, cfg, layout,

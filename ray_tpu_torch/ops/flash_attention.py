@@ -9,9 +9,13 @@ head dim 128; "bf16_d256" for bf16 head dims 129 to 256 (padded to 256),
 the same file's head-dim-256 kernels; "f32", the 3xTF32 tensor-core
 kernels of ``csrc/flash_attention_f32.cu`` (head dims 16, 32, 64, 128 and
 256; others padded up to the next); "f16_f32", float16 through the same
-f32 kernels on f32 copies, the outputs cast back to float16. Every bf16
-kernel rounds p and ds to bf16 before the products that take them, as
-the bf16 Pallas kernels do. The forward uses online
+f32 kernels on f32 copies, the outputs cast back to float16. Head dims
+above 256 (padded to a multiple of 64) run the kernels of
+``csrc/flash_attention_dsplit.cu``, in which each block computes one
+64-column chunk of the output and the scores over the whole head dim:
+"bf16_dsplit" and "f32_dsplit", and "f16_f32_dsplit" (float16 on f32
+copies). Every bf16 kernel rounds p and ds to bf16 before the products
+that take them, as the bf16 Pallas kernels do. The forward uses online
 softmax and writes ``o`` and the row logsumexp; dq and dk/dv recompute
 the probabilities from the saved logsumexp, so that no S x S tensor
 reaches device memory.
@@ -55,10 +59,19 @@ DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64
 BF16_HEAD_DIMS = (64, 128, 256)
 _BF16_FAMILIES = dict(zip(BF16_HEAD_DIMS, ("bf16", "bf16_wide", "bf16_d256")))
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)
+# Above 256 every dtype runs the split-head-dim kernels, at the head dim
+# padded up to a multiple of DSPLIT_CHUNK (the columns of a block's output)
+DSPLIT_CHUNK = 64
+_DSPLIT_FAMILIES = {torch.bfloat16: "bf16_dsplit",
+                    torch.float32: "f32_dsplit",
+                    torch.float16: "f16_f32_dsplit"}
 # family -> the suffix of its kernels' entry points and launch counters
 # (float16 runs the f32 kernels)
 _SUFFIXES = {"bf16": "", "bf16_wide": "_bf16w", "bf16_d256": "_bf16d256",
-             "f32": "_f32", "f16_f32": "_f32"}
+             "f32": "_f32", "f16_f32": "_f32", "bf16_dsplit": "_bf16ds",
+             "f32_dsplit": "_f32ds", "f16_f32_dsplit": "_f32ds"}
+# the families that run on f32 copies of float16 inputs
+_ON_F32_COPIES = ("f16_f32", "f16_f32_dsplit")
 # each family has all three
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -149,6 +162,12 @@ _ENTRIES = {
         "flash_bwd_dkv_f32": _DKV_D,
         "flash_f32_kernel_attributes": _ATTRIBUTES,
     },
+    "flash_attention_dsplit": {
+        "flash_fwd_bf16ds": _FWD_D, "flash_bwd_dq_bf16ds": _DQ_D,
+        "flash_bwd_dkv_bf16ds": _DKV_D, "flash_fwd_f32ds": _FWD_D,
+        "flash_bwd_dq_f32ds": _DQ_D, "flash_bwd_dkv_f32ds": _DKV_D,
+        "flash_dsplit_kernel_attributes": _ATTRIBUTES,
+    },
 }
 _LIBRARY_OF = {entry: lib for lib, entries in _ENTRIES.items()
                for entry in entries}
@@ -180,10 +199,11 @@ def kernel_plan(dtype: torch.dtype, head_dim: int,
     ``("bf16_d256", 256)`` for bf16 with head dim 129 to 256, ``("f32",
     d)`` for f32 with head dim up to 256, ``d`` the next of
     ``F32_HEAD_DIMS``, and ``("f16_f32", d)`` for float16 likewise (the
-    f32 kernels on f32 copies): the same for each kernel. Raises on what
-    no kernel takes: another dtype, or a head dim above 256, which no
-    kernel instance holds (a 64-row f32 accumulator of 320 columns would
-    take 160 registers a thread)."""
+    f32 kernels on f32 copies); above 256, ``("bf16_dsplit", d)``,
+    ``("f32_dsplit", d)`` or ``("f16_f32_dsplit", d)``, ``d`` the head dim
+    rounded up to a multiple of ``DSPLIT_CHUNK``, with no upper limit: the
+    same for each kernel. Raises on what no kernel takes: another dtype,
+    or a head dim below 1."""
     if kernel not in KERNELS:
         raise ValueError(f"no kernel {kernel!r}; the kernels are {KERNELS}")
     dims = {torch.bfloat16: BF16_HEAD_DIMS, torch.float32: F32_HEAD_DIMS,
@@ -191,11 +211,13 @@ def kernel_plan(dtype: torch.dtype, head_dim: int,
     if dims is None:
         raise ValueError(f"the CUDA kernels take bf16 or f32 tensors (f16 "
                          f"through the f32 kernels), got {dtype}")
-    padded = next((d for d in dims if head_dim <= d), None)
-    if head_dim < 1 or padded is None:
-        raise ValueError(
-            f"the CUDA kernels take {_DTYPE_NAMES[dtype]} head dims 1 to "
-            f"{dims[-1]}, got {head_dim}")
+    if head_dim < 1:
+        raise ValueError(f"the CUDA kernels take {_DTYPE_NAMES[dtype]} head "
+                         f"dims of 1 and more, got {head_dim}")
+    if head_dim > dims[-1]:
+        return (_DSPLIT_FAMILIES[dtype],
+                -(-head_dim // DSPLIT_CHUNK) * DSPLIT_CHUNK)
+    padded = next(d for d in dims if head_dim <= d)
     if dtype == torch.bfloat16:
         return _BF16_FAMILIES[padded], padded
     return ("f16_f32" if dtype == torch.float16 else "f32"), padded
@@ -254,17 +276,24 @@ def kernel_attributes(kernel: str, head_dim: Optional[int] = None) -> dict:
     ``max_dynamic_smem``, ``blocks_per_sm`` (blocks one SM holds at once at
     the shared memory it launches with) and ``local_bytes`` (local memory
     a thread: ptxas's spills). ``kernel`` is a name of ``LAUNCHES``; an f32
-    kernel is asked for at one of ``F32_HEAD_DIMS`` (``head_dim``). For a
+    kernel is asked for at one of ``F32_HEAD_DIMS`` (``head_dim``), a
+    split-head-dim one at any (one kernel serves them all). For a
     kernel of ``csrc/flash_attention.cu`` ``max_dynamic_smem`` is what its
     last launch allowed itself, for the others the dynamic shared memory of
     their launches. Needs a CUDA device."""
     out = (_I * 4)()
     suffix = _suffix(kernel)
     lib = _LIBRARY_OF[_entry(kernel)]
-    attributes = ("flash_kernel_attributes" if lib == "flash_attention"
-                  else "flash_f32_kernel_attributes")
-    err = _kernel(attributes)(_KERNEL_IDS[kernel.removesuffix(suffix)],
-                              _head_dim_of(kernel, head_dim), out)
+    kernel_id = _KERNEL_IDS[kernel.removesuffix(suffix)]
+    if lib == "flash_attention_dsplit":
+        # one kernel a dtype serves every head dim
+        err = _kernel("flash_dsplit_kernel_attributes")(
+            kernel_id, int(suffix == "_bf16ds"), out)
+    else:
+        attributes = ("flash_kernel_attributes" if lib == "flash_attention"
+                      else "flash_f32_kernel_attributes")
+        err = _kernel(attributes)(kernel_id, _head_dim_of(kernel, head_dim),
+                                  out)
     if err != 0:
         raise RuntimeError(f"kernel attributes of {kernel} failed: "
                            f"{_why(err)}")
@@ -335,8 +364,8 @@ def _count_launch(counter: str) -> None:
 
 def _kernel_inputs(family: str, tensors, head_dim: int):
     """The tensors as ``family``'s kernels take them: f32 copies for
-    "f16_f32", padded to ``head_dim``."""
-    if family == "f16_f32":
+    the float16 families, padded to ``head_dim``."""
+    if family in _ON_F32_COPIES:
         tensors = [t.float() for t in tensors]
     return [pad_head_dim(t, head_dim) for t in tensors]
 

@@ -1,40 +1,48 @@
-"""Per-rank layout of the pipeline (``pp``) and sequence (``sp``) axes.
-The start of the twin of ``ray_tpu/parallel/mesh.py`` (``MeshConfig``,
-``:38``).
+"""Per-rank layout of the data (``dp``), pipeline (``pp``) and sequence
+(``sp``) axes. The twin of ``ray_tpu/parallel/mesh.py``'s ``MeshConfig``,
+``AXIS_ORDER``, ``balanced_factorization``, ``mesh_shape_summary`` and
+``validate_mesh_for_model``.
 
 The JAX package builds one ``Mesh`` over every device and lets a
 ``shard_map`` name its axes. The port runs each rank as a thread or a
 process of its own, so a rank gets its coordinates on the mesh and one
-gloo group per axis: the ranks that share its ``sp`` coordinate form its
-``pp`` group, and the ranks that share its ``pp`` coordinate its ``sp``
-group. The groups are built here, over one ``torch.distributed.Store``
-that every rank shares, each under a store prefix of its own. torch's
+gloo group per axis: the ranks that differ from it in that axis's
+coordinate alone. The groups are built here, over one
+``torch.distributed.Store`` that every rank shares, each under a store
+prefix that names the axis and every other coordinate. torch's
 ``DeviceMesh`` is not used: it builds its sub-groups from the one default
 process group of a process, and the port's ranks may be threads of one
 process (ROADMAP, ground rules).
 
 Ranks are numbered as the JAX mesh orders its devices, slowest axis
-first (dp, pp, ep, sp, tp): with ``dp``, ``ep`` and ``tp`` at 1, rank =
-pp_rank * sp + sp_rank.
+first (``AXIS_ORDER``: dp, pp, ep, sp, tp): with ``ep`` and ``tp`` at 1,
+rank = (dp_rank * pp + pp_rank) * sp + sp_rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Dict, List, Sequence
 
 import torch.distributed as dist
 
 from ray_tpu_torch.util import collective as col
 from ray_tpu_torch.util.collective.collective import DEFAULT_TIMEOUT_S
 
-_NOT_PORTED = ("the port's layout has the pp and sp axes only; {axis}={size} "
-               "waits for mesh SPMD (ROADMAP Queue 1 item 2)")
+# Canonical axis order, slowest- to fastest-varying, as the JAX package's.
+AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
+# the axes a rank layout holds groups for, in AXIS_ORDER
+LAYOUT_AXES = ("dp", "pp", "sp")
+
+_NOT_PORTED = ("the port's layout has the dp, pp and sp axes only; "
+               "{axis}={size} waits for mesh SPMD (ROADMAP Queue 1 item 2)")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """How many ways each axis splits the work. Only ``pp`` and ``sp`` are
-    ported; each size is given, the JAX package's -1 (absorb the rest) is
-    not."""
+    """How many ways each axis splits the work. ``dp``, ``pp`` and ``sp``
+    are ported; ``ep`` and ``tp`` stay 1. Any one axis may be -1, which
+    ``resolved`` turns into what the others leave of a device count."""
 
     dp: int = 1
     pp: int = 1
@@ -43,19 +51,88 @@ class MeshConfig:
     tp: int = 1
 
     def __post_init__(self):
-        for axis in ("dp", "ep", "tp"):
+        for axis in ("ep", "tp"):
             size = getattr(self, axis)
-            if size != 1:
+            if size not in (1, -1):
                 raise NotImplementedError(
                     _NOT_PORTED.format(axis=axis, size=size))
-        for axis in ("pp", "sp"):
-            if getattr(self, axis) < 1:
-                raise ValueError(f"{axis}={getattr(self, axis)}: the port's "
-                                 f"axis sizes are given, each at least 1")
+        for axis in AXIS_ORDER:
+            size = getattr(self, axis)
+            if size < 1 and size != -1:
+                raise ValueError(f"{axis}={size}: an axis size is at least "
+                                 f"1, or -1 to absorb the rest")
+
+    def resolved(self, n_devices: int) -> "MeshConfig":
+        """The config with its -1 axis (at most one) sized so that the
+        axes multiply to ``n_devices``; raises if they cannot."""
+        sizes = self.axis_sizes()
+        wild = [a for a, s in sizes.items() if s == -1]
+        if len(wild) > 1:
+            raise ValueError("At most one mesh axis may be -1")
+        fixed = math.prod(s for s in sizes.values() if s != -1)
+        if wild:
+            if n_devices % fixed:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes {sizes}")
+            sizes[wild[0]] = n_devices // fixed
+        elif fixed != n_devices:
+            raise ValueError(
+                f"Mesh {sizes} needs {fixed} devices but {n_devices} present")
+        return MeshConfig(**sizes)
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return {a: getattr(self, a) for a in AXIS_ORDER}
 
     @property
     def world_size(self) -> int:
-        return self.pp * self.sp
+        sizes = self.axis_sizes()
+        if -1 in sizes.values():
+            raise ValueError(f"{sizes} has an axis at -1: resolve it first "
+                             f"(MeshConfig.resolved)")
+        return math.prod(sizes.values())
+
+
+def balanced_factorization(n: int, axes: Sequence[str]) -> Dict[str, int]:
+    """Split n devices over ``axes`` as evenly as possible: factors of 2
+    round-robin over the axes, an odd remainder to the first."""
+    sizes = {a: 1 for a in axes}
+    remaining = n
+    axes = list(axes)
+    i = 0
+    while remaining % 2 == 0 and remaining > 1:
+        sizes[axes[i % len(axes)]] *= 2
+        remaining //= 2
+        i += 1
+    if remaining > 1:
+        sizes[axes[0]] *= remaining
+    return sizes
+
+
+def _shape(mesh) -> Dict[str, int]:
+    """The axis sizes of a ``MeshConfig`` or a ``RankLayout``."""
+    config = getattr(mesh, "config", mesh)
+    return config.axis_sizes()
+
+
+def mesh_shape_summary(mesh) -> str:
+    """``dp=2xpp=2x...`` over every axis of a ``MeshConfig`` or a
+    ``RankLayout``, as the JAX package prints a ``Mesh``'s shape."""
+    return "x".join(f"{k}={v}" for k, v in _shape(mesh).items())
+
+
+def validate_mesh_for_model(mesh, *, n_heads: int,
+                            n_layers: int) -> List[str]:
+    """The problems of running a model of ``n_heads`` heads and
+    ``n_layers`` layers on a ``MeshConfig`` or ``RankLayout``, as
+    readable lines; none when it fits."""
+    problems = []
+    shape = _shape(mesh)
+    if n_heads % shape["tp"] != 0:
+        problems.append(f"n_heads={n_heads} not divisible by tp={shape['tp']}")
+    if n_layers % shape["pp"] != 0:
+        problems.append(f"n_layers={n_layers} not divisible by "
+                        f"pp={shape['pp']}")
+    return problems
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +141,16 @@ class RankLayout:
 
     config: MeshConfig
     rank: int
+    dp_rank: int
     pp_rank: int
     sp_rank: int
+    dp_group: str
     pp_group: str
     sp_group: str
+
+    @property
+    def dp(self) -> int:
+        return self.config.dp
 
     @property
     def pp(self) -> int:
@@ -87,36 +170,44 @@ class RankLayout:
 
 
 def coordinates(config: MeshConfig, rank: int):
-    """(pp_rank, sp_rank) of a global rank."""
+    """(dp_rank, pp_rank, sp_rank) of a global rank."""
     if not 0 <= rank < config.world_size:
         raise ValueError(f"rank {rank} out of range for a mesh of "
                          f"{config.world_size}")
-    return divmod(rank, config.sp)
+    rest, sp_rank = divmod(rank, config.sp)
+    dp_rank, pp_rank = divmod(rest, config.pp)
+    return dp_rank, pp_rank, sp_rank
 
 
 def init_rank_layout(config: MeshConfig, rank: int, *, store,
                      name: str = "mesh",
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> RankLayout:
-    """Join ``rank`` into its ``pp`` group and then its ``sp`` group over
-    ``store``; returns when every member of both has joined, or raises
-    after ``timeout_s``. Group names carry ``name`` and the global rank,
+    """Join ``rank`` into its ``dp``, ``pp`` and ``sp`` groups over
+    ``store``, in that order; returns when every member of all three has
+    joined, or raises after ``timeout_s``. A group's store prefix names
+    its axis and the rank's coordinates on the other two, so no two
+    groups share a key; group names carry ``name`` and the global rank,
     so the ranks of one mesh may share a process."""
-    pp_rank, sp_rank = coordinates(config, rank)
-    pp_group = f"{name}_pp{sp_rank}_r{rank}"
-    sp_group = f"{name}_sp{pp_rank}_r{rank}"
-    col.init_collective_group(
-        config.pp, pp_rank, group_name=pp_group, timeout_s=timeout_s,
-        store=dist.PrefixStore(f"{name}/pp{sp_rank}", store))
+    coords = dict(zip(LAYOUT_AXES, coordinates(config, rank)))
+    groups = {}
     try:
-        col.init_collective_group(
-            config.sp, sp_rank, group_name=sp_group, timeout_s=timeout_s,
-            store=dist.PrefixStore(f"{name}/sp{pp_rank}", store))
+        for axis in LAYOUT_AXES:
+            others = "_".join(f"{a}{coords[a]}" for a in LAYOUT_AXES
+                              if a != axis)
+            group = f"{name}_{axis}_{others}_r{rank}"
+            col.init_collective_group(
+                getattr(config, axis), coords[axis], group_name=group,
+                timeout_s=timeout_s,
+                store=dist.PrefixStore(f"{name}/{axis}/{others}", store))
+            groups[axis] = group
     except BaseException:
-        col.destroy_collective_group(pp_group)
+        for group in groups.values():
+            col.destroy_collective_group(group)
         raise
-    return RankLayout(config, rank, pp_rank, sp_rank, pp_group, sp_group)
+    return RankLayout(config, rank, coords["dp"], coords["pp"], coords["sp"],
+                      groups["dp"], groups["pp"], groups["sp"])
 
 
 def destroy_rank_layout(layout: RankLayout) -> None:
-    col.destroy_collective_group(layout.pp_group)
-    col.destroy_collective_group(layout.sp_group)
+    for group in (layout.dp_group, layout.pp_group, layout.sp_group):
+        col.destroy_collective_group(group)

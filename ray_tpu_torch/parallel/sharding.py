@@ -1,7 +1,8 @@
 """Gradient-bucket plumbing for the data-parallel gang. Port of the bucket
-half of ``ray_tpu/parallel/sharding.py`` (``:86-264``); the mesh half
-(logical-axis rules, ``named_sharding``, ``constrain``) comes with mesh
-SPMD.
+half of ``ray_tpu/parallel/sharding.py`` (``:86-264``) and of its
+``axis_size`` (``:267``), over the port's mesh layouts; the rest of the
+mesh half (logical-axis rules, ``named_sharding``, ``constrain``) comes
+with mesh SPMD.
 
 A grad tree is flattened in sorted-key order (jax's dict order), its
 leaves are planned into size-targeted buckets, and each bucket is packed
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+from typing import Optional
 
 import torch
 
@@ -191,3 +193,12 @@ def reslice_spans(elems: int, old_world: int, new_world: int,
         if lo < hi:
             spans.append((old_rank, lo - old_lo, hi - old_lo))
     return spans
+
+
+def axis_size(mesh, axis: Optional[str]) -> int:
+    """How many ways ``axis`` splits the work on ``mesh``, a
+    ``parallel.mesh.MeshConfig`` or ``RankLayout``: 1 for None or an axis
+    of size 1."""
+    if axis is None:
+        return 1
+    return getattr(mesh, "config", mesh).axis_sizes().get(axis, 1)

@@ -15,10 +15,12 @@ parameters and moments into the tensors it is given, and a step returns a
 grads) and ``host_optimizer`` (a ``train.ddp.ZeroOptimizer`` owns the
 sync and the update). The state-bytes gauges are not ported.
 
-``make_pipelined_train_step`` is GPT-2's step on one rank of a ``pp`` x
-``sp`` layout: the pipelined gradient, the global norm over every stage,
-and each rank's update of its own leaves, which is the whole model's
-update restricted to them.
+``make_pipelined_train_step`` is GPT-2's step on one rank of a ``dp`` x
+``pp`` x ``sp`` layout: the rank's replica takes its rows of the batch
+(``dp_rows``), the pipelined gradient is averaged over the ``dp`` group
+with the metrics (``pipelined_grads``), then the global norm over every
+stage and each rank's update of its own leaves, which is the whole
+model's update restricted to them.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch._private.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.train import ddp
 from ray_tpu_torch.util import collective as col
 
 
@@ -248,6 +251,53 @@ def pipelined_global_norm(grads, layout) -> torch.Tensor:
     return torch.sqrt(blocks + shared)
 
 
+def dp_rows(batch, layout, n_microbatches: int):
+    """This rank's replica's rows of the global ``batch``: the ``dp_rank``-th
+    of ``dp`` contiguous blocks of B / dp rows, as ``P("dp")`` cuts the
+    batch on the JAX mesh; its microbatches are cut from them. Raises
+    unless B divides into dp x ``n_microbatches``."""
+    B = batch["tokens"].shape[0]
+    if B % (layout.dp * n_microbatches):
+        raise ValueError(
+            f"batch {B} does not divide into dp={layout.dp} replicas of "
+            f"{n_microbatches} microbatches each")
+    if layout.dp == 1:
+        return batch
+    rows = B // layout.dp
+    lo = layout.dp_rank * rows
+    return {k: v[lo:lo + rows] for k, v in batch.items()}
+
+
+def sync_over_dp(grads, metrics, layout):
+    """(grads, metrics) averaged over the ``dp`` group: every leaf by
+    ``ddp.sync_gradients``, the metrics as one allreduce. At dp 1, as
+    given. Runs on the rank's thread, outside autograd."""
+    if layout.dp == 1:
+        return grads, metrics
+    grads = ddp.sync_gradients(grads, layout.dp_group, average=True,
+                               mode="allreduce")
+    names = sorted(metrics)
+    values = torch.stack([metrics[k].detach().float() for k in names])
+    values = col.allreduce(values, layout.dp_group).to(values.device)
+    values = values / layout.dp
+    return grads, {k: values[i] for i, k in enumerate(names)}
+
+
+def pipelined_grads(params, batch, cfg, layout, n_microbatches: int = 4):
+    """(metrics, grads) of GPT-2's loss on the global ``batch`` at one rank
+    of ``layout``: the replica's rows (``dp_rows``) through
+    ``gpt2.value_and_grad_pipelined``, then the grads and metrics averaged
+    over ``dp`` (``sync_over_dp``), so that every rank holds its stage's
+    share of the whole batch's gradient and every rank the same
+    metrics."""
+    (_, metrics), grads = gpt2.value_and_grad_pipelined(
+        params, dp_rows(batch, layout, n_microbatches), cfg, layout,
+        n_microbatches=n_microbatches)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    grads, metrics = sync_over_dp(grads, metrics, layout)
+    return metrics, grads
+
+
 def make_pipelined_train_step(cfg, optimizer: ClipAdamW, layout,
                               n_microbatches: int = 4):
     """GPT-2's train step on one rank of ``layout`` (a
@@ -255,12 +305,12 @@ def make_pipelined_train_step(cfg, optimizer: ClipAdamW, layout,
     tree (``convert.stage_params``). Returns step(state, batch) ->
     (state, metrics) with ``make_train_step``'s metrics, the same on every
     rank; ``grad_norm`` is the whole model's, which the update clips by.
-    Every rank is given the whole batch."""
+    Every rank is given the whole batch and takes its replica's rows
+    (``pipelined_grads``)."""
 
     def step(state: TrainState, batch):
-        (_, metrics), grads = gpt2.value_and_grad_pipelined(
-            state.params, batch, cfg, layout, n_microbatches=n_microbatches)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics, grads = pipelined_grads(state.params, batch, cfg, layout,
+                                         n_microbatches)
         metrics["grad_norm"] = pipelined_global_norm(grads, layout)
         opt_state = optimizer.update(grads, state.opt_state, state.params,
                                      metrics["grad_norm"])

@@ -25,7 +25,9 @@ each such loop, so it is the host's work alone).
 
 The f32 kernels at head dim 256 are flash_attention_f32.cu's
 flash_fwd_d256_tc_kernel and flash_bwd_dq_d256_tc_kernel (3xTF32 on
-wgmma) and flash_bwd_dkv_d256_tc_kernel, under ``_f32_d256``.
+wgmma) and flash_bwd_dkv_d256_tc_kernel, under ``_f32_d256``. Head dim
+512 (B*H 24, chip_smoke.py's DSPLIT_SHAPE) times the split-head-dim
+kernels of flash_attention_dsplit.cu, under ``_f32ds`` and ``_bf16ds``.
 ``FLASH_AB_SHAPES`` (suffixes, comma-separated, "" for the bf16 main
 shape) times those shapes alone.
 
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -49,7 +52,9 @@ B = 16
 SHAPES = {"": (192, 1024, 64, "bfloat16"), "_f32": (192, 1024, 64, "float32"),
           "_bf16w": (96, 1024, 128, "bfloat16"),
           "_f32_d256": (48, 1024, 256, "float32"),
-          "_bf16d256": (48, 1024, 256, "bfloat16")}
+          "_bf16d256": (48, 1024, 256, "bfloat16"),
+          "_f32ds": (24, 1024, 512, "float32"),
+          "_bf16ds": (24, 1024, 512, "bfloat16")}
 NAMES = [f"{name}{suffix}" for suffix in SHAPES for name in (
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sdpa_fwd", "sdpa_bwd")]
 
@@ -109,11 +114,12 @@ def functions(torch, F, fa, gen, suffix, BH, S, D, dtype):
                    .to(getattr(torch, dtype)) for _ in range(4))
     o_ref, lse = fa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o_ref.float()).sum(dim=-1)
-    q4, k4, v4 = (x.view(B, BH // B, S, D).detach().requires_grad_(True)
+    b = math.gcd(BH, B)
+    q4, k4, v4 = (x.view(b, BH // b, S, D).detach().requires_grad_(True)
                   for x in (q, k, v))
     out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                           scale=kw["scale"])
-    do4 = do.view(B, BH // B, S, D)
+    do4 = do.view(b, BH // b, S, D)
     fns = {
         "flash_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),

@@ -251,22 +251,43 @@ def test_f32_backward_attributes_at_head_dim_256(cuda):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    """bf16, f32 and f16 above head dim 256, and other dtypes, are refused
+    """A head dim of 0 in bf16, f32 or f16, and other dtypes, are refused
     before any launch."""
     before = dict(fa.LAUNCHES)
-    q = torch.zeros(2, 64, 257, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        fa.flash_fwd(q, q, q, scale=1.0, causal=True)
-    q = torch.zeros(2, 64, 257, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_fwd(q, q, q, scale=1.0, causal=True)
-    q = torch.zeros(2, 64, 320, dtype=torch.float16, device=cuda)
-    with pytest.raises(ValueError, match="f16 head dims 1 to 256"):
-        fa.flash_fwd(q, q, q, scale=1.0, causal=True)
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        q = torch.zeros(2, 64, 0, dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="head dims of 1 and more"):
+            fa.flash_fwd(q, q, q, scale=1.0, causal=True)
     q = torch.zeros(2, 64, D, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="bf16 or f32"):
         fa.flash_fwd(q, q, q, scale=1.0, causal=True)
     assert fa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("BH,S,Dh,causal", [
+    (2, 129, 320, True), (2, 1000, 300, False), (1, 200, 512, True),
+    (1, 129, 1000, False),
+])
+def test_head_dims_above_256_run_the_dsplit_kernels(cuda, dtype, BH, S, Dh,
+                                                   causal):
+    """Above head dim 256 each dtype runs its split-head-dim kernels at the
+    head dim padded to a multiple of 64, within the plain versions' bound
+    of its dtype."""
+    launched = _check_all_three(cuda, BH, S, Dh, causal, dtype, seed=Dh)
+    suffix = "_bf16ds" if dtype == torch.bfloat16 else "_f32ds"
+    assert launched == {k + suffix: 1 for k in fa.KERNELS}
+
+
+@pytest.mark.parametrize("kernel", [k + s for s in ("_bf16ds", "_f32ds")
+                                    for k in fa.KERNELS])
+def test_dsplit_kernel_attributes(cuda, kernel):
+    """One kernel a dtype serves every head dim above 256, whatever head
+    dim it is asked at; none spills."""
+    attrs = fa.kernel_attributes(kernel)
+    assert attrs == fa.kernel_attributes(kernel, 1024)
+    assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 2
+    assert attrs["max_dynamic_smem"] <= 232448 // 2
 
 
 @pytest.mark.parametrize("BH,S,Dh,causal", [

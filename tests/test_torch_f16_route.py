@@ -7,9 +7,9 @@ float16. Here the route's plumbing is checked with the launch replaced by
 a record, and its arithmetic with the f32 kernels' plain versions in
 their place, against ``ray_tpu``'s ``flash_attention`` in float16 (Pallas
 in interpret mode), forward and gradients; the CPU path (the plain
-versions in float16) is held to the same reference. Head dims above 256
-stay refused: ``ray_tpu`` computes one at a tiny shape, and the port's
-``kernel_plan`` raises, naming the limit.
+versions in float16) is held to the same reference. Above head dim 256
+every dtype runs the split-head-dim kernels (float16 on f32 copies), and
+the port's route at head dim 320 is held to ``ray_tpu``'s in each dtype.
 """
 import jax
 import jax.numpy as jnp
@@ -142,17 +142,45 @@ def test_the_route_launches_the_f32_kernels_on_f32_copies(monkeypatch, D, Dk):
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
                                    torch.bfloat16])
-def test_head_dims_above_256_stay_refused_against_the_reference(dtype):
+def test_head_dim_320_matches_the_reference(dtype):
     """The reference computes head dim 320 (interpret mode, a tiny shape);
-    the port's kernel_plan refuses it for every dtype, naming the limit of
-    256: no kernel instance holds a 64-row f32 accumulator 320 wide."""
+    the port's route for it, the split-head-dim family of the dtype at
+    320 with the plain versions in the kernels' place, gives the same o
+    and gradients of sum(o * ct): f32 within the JAX package's bounds,
+    float16 within this file's, bf16 within chip_smoke.py's."""
+    jdtype = {torch.float16: jnp.float16, torch.float32: jnp.float32,
+              torch.bfloat16: jnp.bfloat16}[dtype]
     rng = np.random.default_rng(320)
-    q, k, v = (jnp.asarray(rng.standard_normal((1, 16, 1, 320),
-                                               dtype=np.float32))
-               for _ in range(3))
-    o = jfa.flash_attention(q, k, v, causal=True, block_q=16, block_k=16,
-                            interpret=True)
-    assert o.shape == (1, 16, 1, 320) and np.isfinite(np.asarray(o)).all()
+    q, k, v, ct = (rng.standard_normal((1, 16, 1, 320), dtype=np.float32)
+                   for _ in range(4))
+    args = [jnp.asarray(x, dtype=jdtype) for x in (q, k, v)]
+    o, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(
+        q, k, v, causal=True, block_q=16, block_k=16, interpret=True), *args)
+    want = [np.asarray(x.astype(jnp.float32))
+            for x in (o, *vjp(jnp.asarray(ct, dtype=jdtype)))]
+    assert want[0].shape == (1, 16, 1, 320) and np.isfinite(want[0]).all()
+
     for kernel in tfa.KERNELS:
-        with pytest.raises(ValueError, match="head dims 1 to 256, got 320"):
-            tfa.kernel_plan(dtype, 320, kernel)
+        family, Dk = tfa.kernel_plan(dtype, 320, kernel)
+        assert family.endswith("_dsplit") and Dk == 320
+    qb, kb, vb, ctb = (torch.from_numpy(x).to(dtype).reshape(1, 16, 320)
+                       for x in (q, k, v, ct))
+    qf, kf, vf, ctf = tfa._kernel_inputs(family, (qb, kb, vb, ctb), Dk)
+    kw = dict(scale=320 ** -0.5, causal=True)
+    o, lse = tfa.flash_fwd_plain(qf, kf, vf, **kw)
+    o = tfa._kernel_output(o, 320, dtype)
+    delta = (ctb.float() * o.float()).sum(dim=-1)
+    dq = tfa.flash_bwd_dq_plain(qf, kf, vf, ctf, lse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv_plain(qf, kf, vf, ctf, lse, delta, **kw)
+    got = [tfa._kernel_output(x, 320, dtype) for x in (dq, dk, dv)]
+    for name, g, w in zip(("o", "dq", "dk", "dv"), (o, *got), want):
+        assert g.dtype == dtype, name
+        g = g.float().reshape(w.shape).numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, w, atol=1e-4, err_msg=name)
+        elif dtype == torch.float16:
+            assert _worst(g, w) <= 1.0, (name, _worst(g, w))
+        else:
+            bound = (2.0 ** -6 * np.abs(w) + 2.0 ** -3 * np.sqrt(
+                np.mean(w * w)) + 1e-5)
+            assert (np.abs(g - w) / bound).max() <= 1.0, name

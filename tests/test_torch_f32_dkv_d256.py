@@ -18,8 +18,10 @@ import pytest
 
 from ray_tpu_torch.ops import flash_attention as tfa
 
-SRC = (Path(tfa.__file__).resolve().parent / "csrc" /
-       "flash_attention_f32.cu").read_text()
+# the f32 kernels' source: flash_attention_f32.cu after the shared 3xTF32
+# helpers it includes (tf32_mma.cuh: the tile constants among them)
+SRC = "".join((Path(tfa.__file__).resolve().parent / "csrc" / name).read_text()
+              for name in ("tf32_mma.cuh", "flash_attention_f32.cu"))
 KERNEL = SRC[SRC.index("flash_bwd_dkv_d256_tc_kernel(const float*"):]
 KERNEL = KERNEL[:KERNEL.index("\n}\n")]
 MAX_SMEM = 232448  # bytes of shared memory a block may take on an H100

@@ -118,14 +118,14 @@ def test_cpu_tensors_launch_no_kernel():
     assert set(tfa.LAUNCHES.values()) == {0}
     assert sorted(tfa.LAUNCHES) == sorted(
         [f"{n}{s}" for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-         for s in ("", "_f32", "_bf16w", "_bf16d256")])
+         for s in ("", "_f32", "_bf16w", "_bf16d256", "_bf16ds", "_f32ds")])
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     bf = torch.zeros(4, 128, 64, dtype=torch.bfloat16)
     assert tfa._check_cuda((bf, bf, bf)) == (4, 128)
     with pytest.raises(ValueError, match="head dim"):
-        tfa._check_cuda((torch.zeros(4, 128, 257, dtype=torch.bfloat16),) * 3)
+        tfa._check_cuda((torch.zeros(4, 128, 0, dtype=torch.bfloat16),) * 3)
     with pytest.raises(ValueError, match="bf16"):
         tfa._check_cuda((bf, bf.float(), bf))
     with pytest.raises(ValueError, match="contiguous"):
@@ -288,11 +288,7 @@ def test_kernel_plan_dispatches_by_dtype_and_head_dim(dtype, Dh, plan):
 
 
 @pytest.mark.parametrize("dtype,Dh,match", [
-    (torch.bfloat16, 257, "bf16 head dims 1 to 256"),
-    (torch.bfloat16, 320, "bf16 head dims 1 to 256"),
-    (torch.float32, 257, "f32 head dims 1 to 256"),
-    (torch.float32, 0, "f32 head dims 1 to 256"),
-    (torch.float16, 320, "f16 head dims 1 to 256"),
+    (torch.float32, 0, "f32 head dims of 1 and more, got 0"),
     (torch.float64, 64, "bf16 or f32"),
 ])
 def test_kernel_plan_refuses_what_no_kernel_takes(dtype, Dh, match):
@@ -300,6 +296,22 @@ def test_kernel_plan_refuses_what_no_kernel_takes(dtype, Dh, match):
         tfa.kernel_plan(dtype, Dh)
     with pytest.raises(ValueError):
         tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3)
+
+
+@pytest.mark.parametrize("dtype,Dh,plan", [
+    (torch.bfloat16, 257, ("bf16_dsplit", 320)),
+    (torch.bfloat16, 320, ("bf16_dsplit", 320)),
+    (torch.float32, 257, ("f32_dsplit", 320)),
+    (torch.float16, 320, ("f16_f32_dsplit", 320)),
+])
+def test_kernel_plan_routes_head_dims_above_256_to_the_dsplit_kernels(
+        dtype, Dh, plan):
+    """Above 256 every dtype runs the split-head-dim kernels at the head
+    dim padded to a multiple of 64, which the wrappers' checks take."""
+    for kernel in tfa.KERNELS:
+        assert tfa.kernel_plan(dtype, Dh, kernel) == plan
+    assert tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3) == (
+        2, 8)
 
 
 # ------------------------------------------ bf16 at head dims 65 to 128

@@ -193,13 +193,14 @@ def test_auto_attention_is_flash_on_the_card(cfg, device, expect):
 def test_explicit_flash_still_refuses_what_the_kernels_do_not_take():
     """"flash", explicit or from "auto" on the card, reaches the kernel
     wrapper's checks, which refuse before any launch what no kernel
-    takes: bf16, f32 and f16 above head dim 256, and other dtypes.
-    gpt2_tiny's head dim 16, bf16 head dims 65-256, f32 configs and f16
-    (through the f32 kernels) are taken."""
+    takes: a head dim of 0 and other dtypes. gpt2_tiny's head dim 16,
+    bf16 head dims 65-256, f32 configs, f16 (through the f32 kernels) and
+    every dtype above head dim 256 (the split-head-dim kernels) are
+    taken."""
     from ray_tpu_torch.ops import flash_attention as fa
 
-    for D, dtype in ((257, torch.bfloat16), (320, torch.float32),
-                     (320, torch.float16), (64, torch.float64)):
+    for D, dtype in ((0, torch.bfloat16), (0, torch.float32),
+                     (0, torch.float16), (64, torch.float64)):
         q = torch.zeros(2, 8, D, dtype=dtype)
         with pytest.raises(ValueError, match="head dim|bf16 or f32"):
             fa._check_cuda((q, q, q))
@@ -207,6 +208,8 @@ def test_explicit_flash_still_refuses_what_the_kernels_do_not_take():
                      (128, torch.bfloat16), (192, torch.bfloat16),
                      (256, torch.bfloat16), (64, torch.float32),
                      (16, torch.float32), (256, torch.float32),
-                     (64, torch.float16), (256, torch.float16)):
+                     (64, torch.float16), (256, torch.float16),
+                     (257, torch.bfloat16), (320, torch.float32),
+                     (320, torch.float16)):
         q = torch.zeros(2, 8, D, dtype=dtype)
         assert fa._check_cuda((q, q, q)) == (2, 8)

@@ -8,6 +8,8 @@ On the card, f32 head dims 129-256 run the f32 kernels at head dim 256
 (zero-padded). bf16 ones run the bf16_d256 forward, dq and dk/dv at head
 dim 256, which round p and ds to bf16 as the bf16 Pallas kernels do.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,26 +26,22 @@ BF16_RTOL, BF16_ATOL_RMS, BF16_FLOOR = 2.0 ** -6, 2.0 ** -3, 1e-5
 CASES = [(Dh, causal) for Dh in (192, 256) for causal in (True, False)]
 
 
-@pytest.fixture(scope="module")
-def pallas_runs():
-    """_flash_fwd and _flash_bwd of the JAX package per (dtype, head dim,
-    causal), on inputs from numpy."""
-    out = {}
-    for dtype in (jnp.float32, jnp.bfloat16):
-        for Dh, causal in CASES:
-            rng = np.random.default_rng(Dh + causal)
-            q, k, v, do = (jnp.asarray(rng.standard_normal((BH, S, Dh),
-                                                           dtype=np.float32),
-                                       dtype=dtype) for _ in range(4))
-            kw = dict(scale=Dh ** -0.5, causal=causal, block_q=JAX_BLOCK,
-                      block_k=JAX_BLOCK, interpret=True)
-            o, lse = jfa._flash_fwd(q, k, v, **kw)
-            dq, dk, dv = jfa._flash_bwd(q, k, v, o, lse, do, **kw)
-            out[(jnp.dtype(dtype).name, Dh, causal)] = {
-                n: np.asarray(x.astype(jnp.float32)) for n, x in dict(
-                    q=q, k=k, v=v, do=do, o=o, lse=lse, dq=dq, dk=dk,
-                    dv=dv).items()}
-    return out
+@functools.lru_cache(maxsize=None)
+def _pallas_run(dtype, Dh, causal):
+    """_flash_fwd and _flash_bwd of the JAX package for one (dtype, head
+    dim, causal) on inputs from numpy, made by the first case that asks
+    for it (the bf16 and f32 cases of a head dim share nothing), so no
+    case's setup carries the others' runs."""
+    rng = np.random.default_rng(Dh + causal)
+    q, k, v, do = (jnp.asarray(rng.standard_normal((BH, S, Dh),
+                                                   dtype=np.float32),
+                               dtype=dtype) for _ in range(4))
+    kw = dict(scale=Dh ** -0.5, causal=causal, block_q=JAX_BLOCK,
+              block_k=JAX_BLOCK, interpret=True)
+    o, lse = jfa._flash_fwd(q, k, v, **kw)
+    dq, dk, dv = jfa._flash_bwd(q, k, v, o, lse, do, **kw)
+    return {n: np.asarray(x.astype(jnp.float32)) for n, x in dict(
+        q=q, k=k, v=v, do=do, o=o, lse=lse, dq=dq, dk=dk, dv=dv).items()}
 
 
 def _card_path(q, k, v, do, *, scale, causal):
@@ -76,12 +74,12 @@ def _assert_close_bf16(a, b, what):
 
 @pytest.mark.parametrize("Dh,causal", CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_head_dims_above_128_match_pallas(dtype, Dh, causal, pallas_runs):
+def test_head_dims_above_128_match_pallas(dtype, Dh, causal):
     """o, lse, dq, dk and dv along the card's route against the Pallas
     kernels on the same inputs: f32 within the JAX package's bounds, bf16
     within chip_smoke.py's (the bf16 forward, dq and dk/dv round p and ds
     to bf16 as the bf16 Pallas kernels do)."""
-    r = pallas_runs[(dtype, Dh, causal)]
+    r = _pallas_run(dtype, Dh, causal)
     tdtype = getattr(torch, dtype)
     q, k, v, do = (torch.tensor(r[n]).to(tdtype) for n in ("q", "k", "v", "do"))
     got = _card_path(q, k, v, do, scale=Dh ** -0.5, causal=causal)
@@ -118,12 +116,15 @@ def test_kernel_plan_routes_head_dims_up_to_256(dtype, Dh, plan, kernel):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("Dh", [257, 512])
-def test_kernel_plan_refuses_head_dims_above_256(dtype, Dh):
-    name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
-    with pytest.raises(ValueError, match=f"{name} head dims 1 to 256"):
-        tfa.kernel_plan(dtype, Dh)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3)
+def test_kernel_plan_routes_head_dims_above_256_past_these_kernels(dtype,
+                                                                    Dh):
+    """Past 256 the head-dim-256 kernels give way to the split-head-dim
+    ones (tests/test_torch_head_dim_above_256.py), at the head dim padded
+    to a multiple of 64."""
+    family = {torch.bfloat16: "bf16_dsplit", torch.float32: "f32_dsplit"}
+    assert tfa.kernel_plan(dtype, Dh) == (family[dtype], -(-Dh // 64) * 64)
+    assert tfa._check_cuda((torch.zeros(2, 8, Dh, dtype=dtype),) * 3) == (
+        2, 8)
 
 
 def test_bf16_f32_route_counts_under_the_f32_kernels(monkeypatch):

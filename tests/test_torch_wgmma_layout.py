@@ -110,7 +110,8 @@ def test_bf16_wide_forward_and_dkv_left_the_f32_library():
     f32_src = (CSRC / "flash_attention_f32.cu").read_text()
     assert "__nv_bfloat16" not in f32_src and "cuda_bf16.h" not in f32_src
     assert "flash_fwd_simt_kernel" not in f32_src
-    assert set(f32_entries) | set(wgmma_entries) >= {
+    assert set(f32_entries) | set(wgmma_entries) | set(
+        _c_entries("flash_attention_dsplit")) >= {
         tfa._entry(c) for c in tfa.LAUNCHES}
 
 
