@@ -487,13 +487,23 @@ def check_kernels(torch, F, fa):
              ("f32d320nc", 8, 1024, 320, False, f32),
              ("f32d512nc", 24, 1024, 512, False, f32),
              ("f32d300r", 8, 129, 300, True, f32),
+             # f32's dq and dk/dv above 256 take 256-column chunks: a
+             # narrow last one (384), a head dim padded to 576 (520) and
+             # four chunks (1000, padded to 1024)
+             ("f32d384", 8, 1024, 384, True, f32),
+             ("f32d384nc", 8, 129, 384, False, f32),
+             ("f32d520", 8, 129, 520, True, f32),
+             ("f32d576nc", 8, 1024, 576, False, f32),
+             ("f32d1000", 2, 1024, 1000, True, f32),
+             ("f32d1000nc", 2, 129, 1000, False, f32),
              ("dsplit", *DSPLIT_SHAPE, True, f32),
              ("bf16d320", 8, 1024, 320, True, bf16),
              ("bf16d320nc", 8, 1024, 320, False, bf16),
              ("bf16d512nc", 24, 1024, 512, False, bf16),
              ("bf16d300r", 8, 129, 300, False, bf16),
              ("dsplit", *DSPLIT_SHAPE, True, bf16),
-             ("f16d320", 8, 129, 320, True, torch.float16)]
+             ("f16d320", 8, 129, 320, True, torch.float16),
+             ("f16d520nc", 4, 1024, 520, False, torch.float16)]
     for label, BH, S, D, causal, dtype in cases:
         suffix = suffix_of(dtype != bf16, D)
         q, k, v, do = (rand(BH, S, D, dtype) for _ in range(4))

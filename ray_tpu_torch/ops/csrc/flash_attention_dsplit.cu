@@ -1,16 +1,21 @@
 // Flash attention for Hopper (sm_90a) at head dims above 256: forward, dq
-// and dk/dv, each block computing one 64-column chunk of its output's head
-// dim, in bf16 and in f32.
+// and dk/dv, each block computing one chunk of its output's head dim, in
+// bf16 and in f32.
 //
 // They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
 // compute, at any head dim:
 //   flash_fwd_dsplit_kernel      <- _fwd_kernel      (flash_attention.py:29)
-//   flash_bwd_dq_dsplit_kernel   <- _bwd_dq_kernel   (flash_attention.py:160)
-//   flash_bwd_dkv_dsplit_kernel  <- _bwd_dkv_kernel  (flash_attention.py:212)
-// each a template on the input type T (bf16 or f32). Sums, the softmax and
-// lse are f32; o, dq, dk and dv are written in T. In bf16, p (forward and
-// dv) and ds (dq and dk) are rounded to bf16 before the products that take
-// them, as the bf16 Pallas kernels cast them (flash_attention.py:196-199).
+//   flash_bwd_dq_dsplit_kernel,  <- _bwd_dq_kernel   (flash_attention.py:160)
+//   flash_bwd_dq_ws_kernel
+//   flash_bwd_dkv_dsplit_kernel, <- _bwd_dkv_kernel  (flash_attention.py:212)
+//   flash_bwd_dkv_ws_kernel
+// The *_dsplit kernels are templates on the input type T (the forward in
+// bf16 and f32, dq and dk/dv in bf16); the *_ws kernels are f32's dq and
+// dk/dv, on wgmma (further down, with their own notes). Sums, the softmax
+// and lse are f32; o, dq, dk and dv are written in T. In bf16, p (forward
+// and dv) and ds (dq and dk) are rounded to bf16 before the products that
+// take them, as the bf16 Pallas kernels cast them (flash_attention.py:196-
+// 199).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] in T, contiguous and
 // 16-byte aligned, D a multiple of 64 (the wrapper pads any other head dim
@@ -22,37 +27,43 @@
 // accumulator in registers, which at D 320 would take 160 registers a
 // thread for one 64-row tile of 4 warps, and no limit on D would hold. Here
 // a block owns a 64-row tile of its own axis (Q rows for the forward and
-// dq, KV rows for dk/dv) and one 64-column chunk of the output (grid z),
-// so its accumulators are 16 x 64 a warp (dk/dv: two) at every D. The
-// scores still contract over the whole head dim, so a block streams q and
-// k (and do and v) through shared memory in 64-column steps, summing each
-// step's product into s, and only then takes the softmax, the mask and
-// the accumulating product with its own chunk's columns. Every chunk's
-// block computes s in the same order, so the chunks of a row see the same
-// p bit for bit, and lse is written by chunk 0's block only. The price is
-// that the scores are computed once for each of the D / 64 chunks: a
-// forward does (D / 64 + 1) products of a tile pair where one block with
-// the whole row would do 2, dq 2 D / 64 + 1 for 3, dk/dv 2 D / 64 + 2 for
-// 4 (at D 512: 9 / 2, 17 / 3 and 18 / 4 times the work). No kernel holds
-// more than a 64-column step of any row, so shared memory does not grow
-// with D either.
+// dq, KV rows for dk/dv) and one chunk of the output's columns (grid z),
+// so its accumulators do not grow with D. The scores still contract over
+// the whole head dim, so a block streams q and k (and do and v) through
+// shared memory in 64-column steps, summing each step's product into s,
+// and only then takes the softmax, the mask and the accumulating product
+// with its own chunk's columns. Every chunk's block computes s in the same
+// order, so the chunks of a row see the same p bit for bit, and lse is
+// written by chunk 0's block only. The price is that the scores are
+// computed once for each chunk. The mma.sync templates take 64-column
+// chunks: a forward does (D / 64 + 1) products of a tile pair where one
+// block with the whole row would do 2, dq 2 D / 64 + 1 for 3, dk/dv 2 D /
+// 64 + 2 for 4 (at D 512: 9 / 2, 17 / 3 and 18 / 4 times the work). The f32
+// dq and dk/dv take 256-column chunks, dk/dv in a dv block and a dk block
+// (at D 512: 5 / 3 and 8 / 4). No kernel holds more than a 64-column step
+// of any row of the scores' operands, so shared memory does not grow with
+// D either.
 //
-// Products: mma.sync on tiles loaded by cp.async into a two-stage ring,
-// so that the next step's loads run under this step's products. In f32
-// every product is 3xTF32 m16n8k8 on tiles in tf32_mma.cuh's layout, as
-// in flash_attention_f32.cu, and every 64-column step's product starts
-// from 0 and is added to s in f32. In bf16 every product is m16n8k16 on
-// raw bf16 tiles (fragments by ldmatrix, .trans for the accumulating
-// product's B) with f32 sums, p and ds packed to bf16 as its A operand.
+// Products of the templates: mma.sync on tiles loaded by cp.async into a
+// two-stage ring, so that the next step's loads run under this step's
+// products. In f32 every product is 3xTF32 m16n8k8 on tiles in
+// tf32_mma.cuh's layout, as in flash_attention_f32.cu, and every 64-column
+// step's product starts from 0 and is added to s in f32. In bf16 every
+// product is m16n8k16 on raw bf16 tiles (fragments by ldmatrix, .trans for
+// the accumulating product's B) with f32 sums, p and ds packed to bf16 as
+// its A operand.
 //
 // What bounds them on an H100: at B*H 24, S 1024, D 512, causal the
 // forward's two products are 25.8 GFLOP (bf16: 0.026 ms at 989 TFLOP/s;
 // f32: 0.156 ms at 3xTF32's 165) against 101 MB of traffic in bf16 (0.030
-// ms), so the bf16 forward is bound by bytes and the rest by operations;
-// the recomputed scores above are work the bound does not count. What
-// holds them far from it is traffic from L2: a 64-column step reads a
-// 64-row tile of the block's own axis again for every tile of the other
-// axis and every chunk, for a few products a warp (PERF.md).
+// ms), so the bf16 forward is bound by bytes and the rest by operations
+// (f32 dq 0.2345 ms, dk/dv 0.3127); the recomputed scores above are work
+// the bound does not count. What holds the templates far from it is
+// traffic from L2: a 64-column step reads a 64-row tile of the block's own
+// axis again for every tile of the other axis and every chunk, for a few
+// products a warp (PERF.md). The f32 dq and dk/dv on wgmma split each
+// operand once for each use and take every product from shared memory;
+// what bounds them on the card is their producer's loads (their note).
 //
 // The host entry points return cudaGetLastError() right after the launch,
 // or -3 for a head dim that is not a positive multiple of 64.
@@ -61,7 +72,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tf32_mma.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -71,15 +85,16 @@ using CL = Layout<kChunk>;  // a 64-column step or chunk of a tile
 // Rows of the other axis a step streams: each step reads the block's
 // own 64-row tile again, so more rows a step mean less traffic, up to
 // what the registers hold without spilling. bf16: 128 for the forward,
-// 64 for dq and dk/dv, which hold two score tiles; f32, whose 3xTF32
-// scores take three accumulators: 32, 32 and 16.
+// 64 for dq and dk/dv, which hold two score tiles; the f32 forward, whose
+// 3xTF32 scores take three accumulators: 32. (f32's dq and dk/dv are the
+// wgmma kernels further down.)
 constexpr bool kBf16(int bytes) { return bytes == 2; }
 template <typename T>
 constexpr int kFwdRows = kBf16(sizeof(T)) ? 128 : 32;
 template <typename T>
-constexpr int kDqRows = kBf16(sizeof(T)) ? 64 : 32;
+constexpr int kDqRows = 64;
 template <typename T>
-constexpr int kDkvRows = kBf16(sizeof(T)) ? 64 : 16;
+constexpr int kDkvRows = 64;
 
 // 4-byte words of one 64-column row of a tile in shared memory
 template <typename T>
@@ -392,10 +407,10 @@ constexpr int dq_smem_bytes() {
   return (2 * kDqStage<T> + 2 * kDqRows<T> * kRowWords<T>) * 4;
 }
 
-// Replaces _bwd_dq_kernel for head dims above 256. Per K/V tile: s = q.k^T
-// and dp = do.v^T over all of D, p = exp(s scale - lse), ds = p (dp -
-// delta) scale, rounded to k's type, then dq[:, chunk] += ds.k[:, chunk].
-// grid (Q tiles, BH, D / 64).
+// Replaces _bwd_dq_kernel for bf16 head dims above 256. Per K/V tile: s =
+// q.k^T and dp = do.v^T over all of D, p = exp(s scale - lse), ds = p (dp
+// - delta) scale, rounded to k's type, then dq[:, chunk] += ds.k[:,
+// chunk]. grid (Q tiles, BH, D / 64).
 template <typename T>
 __global__ void __launch_bounds__(kTcThreads, 2)
     flash_bwd_dq_dsplit_kernel(const T* __restrict__ q,
@@ -406,6 +421,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
                                const float* __restrict__ delta,
                                T* __restrict__ dq, int seq, int D,
                                float scale, int causal) {
+  static_assert(sizeof(T) == 2, "f32 runs flash_bwd_dq_ws_kernel");
   constexpr int BN = kDqRows<T>, NT = BN / 8;
   constexpr int W = kRowWords<T>;  // words a tile row
   extern __shared__ __align__(16) uint32_t ds_smem[];
@@ -519,7 +535,7 @@ constexpr int dkv_smem_bytes() {
   return (2 * kDkvStage<T> + 2 * kDkvOut<T> + 2 * 2 * kDkvRows<T>) * 4;
 }
 
-// Replaces _bwd_dkv_kernel for head dims above 256. Per Q tile, in
+// Replaces _bwd_dkv_kernel for bf16 head dims above 256. Per Q tile, in
 // transposed scores (rows the warp's KV rows, columns Q rows): s^T = k.q^T
 // and dp^T = v.do^T over all of D, p^T from lse, ds^T = p^T (dp^T -
 // delta) scale; then dv[:, chunk] += p^T.do[:, chunk] (p in do's type) and
@@ -535,6 +551,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
                                 const float* __restrict__ delta,
                                 T* __restrict__ dk, T* __restrict__ dv,
                                 int seq, int D, float scale, int causal) {
+  static_assert(sizeof(T) == 2, "f32 runs flash_bwd_dkv_ws_kernel");
   constexpr int BN = kDkvRows<T>, NT = BN / 8;
   constexpr int W = kRowWords<T>;  // words a tile row
   extern __shared__ __align__(16) uint32_t ds_smem[];
@@ -644,22 +661,662 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
+// ------------------------------------------- f32 dq and dk/dv on wgmma
+//
+// flash_bwd_dq_ws_kernel and flash_bwd_dkv_ws_kernel: the f32 backward
+// above head dim 256 (and float16's, on f32 copies). A block is two
+// warpgroups, as in flash_attention_f32.cu's head-dim-256 kernels:
+// warpgroup 0, the consumer, owns a 64-row tile of its own axis (Q for dq,
+// KV for dk/dv) and one 256-column chunk of one output, and issues every
+// product as 3xTF32 wgmma with both operands split in shared memory;
+// warpgroup 1, the producer, reads the operands from device memory and
+// writes them split into big and small where the consumer's descriptors
+// read them, so no element is split twice for one use. Per tile of
+// kWsRows rows of the other axis the consumer takes the score products
+// over all of D in 64-column steps, each step a stage of a ring (the
+// block's own 64 rows and the tile's kWsRows rows of one step, split),
+// then p and ds in registers, writes them split as a [64, kWsRows] tile,
+// and adds its product with the tile's rows of the chunk, which the
+// producer writes transposed ([256 columns, kWsRows], K-major for wgmma,
+// whose tf32 operands have no transpose bit).
+//
+//   dq:  dp = do.v^T (own dO, other V), then s = q.k^T, p from lse,
+//        ds = p (dp - delta) scale, dq[:, chunk] += ds.k[:, chunk].
+//   dv:  s^T = k.q^T (own K, other Q), p^T from lse, dv[:, chunk] +=
+//        p^T.do[:, chunk].
+//   dk:  s^T and p^T as dv's, then dp^T = v.do^T, ds^T = p^T (dp^T -
+//        delta) scale, dk[:, chunk] += ds^T.q[:, chunk].
+// dk/dv's grid has a dv block and a dk block for each chunk, side by side.
+//
+// Why these widths: the scores are computed once for each chunk of the
+// output, so a chunk as wide as the registers allow cuts the recompute of
+// the mma.sync kernels' 64-column chunks. A consumer thread holds its 64 x
+// 256 output (128 registers) and, while it takes a score product, the
+// sum, the small terms' chain and the step's part of a 64 x kWsRows tile
+// (16 registers each at kWsRows 32; 64 rows would take 96 and did not
+// fit). At D 512 dq does (2 D / 256 + 1) / 3 = 1.67x the products of a
+// whole-row kernel, against 5.7x at 64 columns; dk/dv (dv 1 product + its
+// accumulation, dk 2 + its) 2 (1.5 + 2.5) / 4 = 2x, against 4.5x, and 25%
+// fewer of the producer's loads than one block with dk and dv of 128
+// columns each (3.19 against 3.86 ms on the card). A last chunk past D is
+// computed on zero columns and not stored.
+//
+// What bounds them: the producer. It reads the block's own 64 rows again
+// for every kWsRows rows of the other axis (two thirds of its loads), and
+// on the card its loads, not the tensor cores or shared memory, set the
+// pace: without them (zeros written instead) dq ran 1.45 and dk/dv 2.65
+// ms, with them the consumer waits on full stages most of its time
+// (PERF.md). Loads that skip L1, deeper register prefetch, L2 bulk
+// prefetch and a 2-block cluster that wrote each stage into both blocks
+// through distributed shared memory all ran no faster or slower; the own
+// tile's loads with L2's evict-last priority, and a grid with the chunks
+// fastest, so that a tile's chunks read the same steps at once, ran 9% and
+// 10-18% faster.
+//
+// Order of the sums: every step's big.big product goes from 0 into a
+// part of its own and is added to the score in f32 when the step is done;
+// the small terms (big.small, small.big) chain across all steps and are
+// added last. The accumulating products go from 0 into a temporary,
+// big.big and then the small terms, each added to the output in f32.
+// Every chunk's block computes the scores in this one order with the same
+// instructions, so every chunk sees the same p bit for bit.
+//
+// The ring: a stage's full barrier counts the producer's 128 threads (each
+// writes, fences for the async proxy, arrives), its empty one the
+// consumer's 4 warps (each arrives once its wgmmas that read the stage are
+// done). The transposed chunk has a single buffer with barriers of its
+// own. The producer runs one item ahead in registers (an item is a stage
+// or a transposed chunk; it loads item k + 1 before it waits to store item
+// k), in the consumer's order: the first product's steps, the chunk with
+// the tile's lse and delta (dk/dv), the second product's steps. Shared
+// memory, both kernels: 1024 (alignment) + 3 stages of 48 KB + the chunk
+// 64 KB + the p or ds tile 16 KB + lse and delta 256 + 8 barriers =
+// 230,720 bytes: one block an SM.
+
+constexpr int kWsThreads = 2 * kTcThreads;  // consumer, then producer
+constexpr int kWsRows = 32;                 // rows of the other axis a tile
+constexpr int kOutCols = 256;               // output columns a block takes
+// A split step ([rows, 64 columns]) takes two slabs of [rows, 128 bytes] a
+// half (step_at); a stage is the block's own 64 rows, big then small, then
+// the other axis' kWsRows rows, big then small.
+constexpr int kOwnHalfBytes = kTile * kChunk * 4;
+constexpr int kOtherHalfBytes = kWsRows * kChunk * 4;
+constexpr int kStageBytes = 2 * kOwnHalfBytes + 2 * kOtherHalfBytes;
+constexpr int kStages = 3;
+// Output columns of one accumulating product (its wgmma's N, m64n32k8):
+// 64-column pieces spilled at the cap of 255 registers, 16-column ones ran
+// 5% slower.
+constexpr int kPieceCols = 32;
+
+// Both kernels: the ring, the transposed chunk (big, small), the p or ds
+// tile (big, small), the tile's lse and delta, the barriers.
+constexpr int ws_smem_bytes() {
+  return 1024 + kStages * kStageBytes + 2 * kOutCols * 128 +
+         2 * kXSplitBytes + 2 * kWsRows * 4 + 2 * (kStages + 1) * 8;
+}
+
+// Word of element (r, c) of one half of a split step of kRows rows: slab
+// c / 32, then x_at's row of 128 bytes (the 128-byte swizzle).
+template <int kRows>
+__device__ __forceinline__ int step_at(int r, int c) {
+  return (c >> 5) * kRows * kSlabCols + x_at(r, c & 31);
+}
+
+// The descriptor of k-step kk (8 columns) of a split step half of kRows
+// rows at shared address a.
+template <int kRows>
+__device__ __forceinline__ uint64_t step_desc(uint32_t a, int kk) {
+  return sw128_desc(a + (kk >> 2) * kRows * 128 + (kk & 3) * 32);
+}
+
+// The producer's registers of one item.
+struct WsRaw {
+  float4 x[16];
+  float row;  // dk/dv: the lse or delta value this thread loads
+};
+
+__device__ __forceinline__ float4 ldg4(const float* p, bool valid) {
+  return valid ? __ldg(reinterpret_cast<const float4*>(p))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// L2's evict-last priority as a cache-policy operand (CUTLASS's
+// CacheHintSm90::EVICT_LAST): the block's own tile, read again for every
+// tile of the other axis, stays in L2 while the streamed tiles pass (dq
+// 9% faster on the card).
+constexpr uint64_t kEvictLast = 0x14F0000000000000ull;
+
+__device__ __forceinline__ float4 ldg4h(const float* p, bool valid,
+                                        uint64_t policy) {
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid)
+    asm volatile(
+        "ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+        : "l"(p), "l"(policy));
+  return r;
+}
+
+// Producer thread i's share of a stage: rows own0 + i / 16 + 8 u of own (u
+// < 8) and o0 + i / 16 + 8 u of other (u < 4), columns 64 c + 4 (i % 16)
+// to + 3 (a half warp reads a row's 256 bytes); rows past seq as zeros.
+__device__ __forceinline__ void load_stage(WsRaw& t, const float* own,
+                                           int own0, const float* other,
+                                           int o0, int c, int seq, int D,
+                                           int i) {
+  const int r = i >> 4, col = c * kChunk + 4 * (i & 15);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int row = own0 + r + 8 * u;
+    t.x[u] = ldg4h(own + (size_t)row * D + col, row < seq, kEvictLast);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int row = o0 + r + 8 * u;
+    t.x[8 + u] = ldg4(other + (size_t)row * D + col, row < seq);
+  }
+}
+
+__device__ __forceinline__ void store_split4(uint32_t* big, uint32_t* small,
+                                             float4 v) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+  const Tf32<4> f = split(x);
+  *reinterpret_cast<uint4*>(big) =
+      make_uint4(f.big[0], f.big[1], f.big[2], f.big[3]);
+  *reinterpret_cast<uint4*>(small) =
+      make_uint4(f.small[0], f.small[1], f.small[2], f.small[3]);
+}
+
+// Writes the share split into the stage at st: four columns a 16-byte
+// chunk, the eight lanes of a quarter warp on eight chunks of one row.
+__device__ __forceinline__ void store_stage(uint32_t* st, const WsRaw& t,
+                                            int i) {
+  const int r = i >> 4, col = 4 * (i & 15);
+  uint32_t* other = st + 2 * kOwnHalfBytes / 4;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int at = step_at<kTile>(r + 8 * u, col);
+    store_split4(st + at, st + kOwnHalfBytes / 4 + at, t.x[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int at = step_at<kWsRows>(r + 8 * u, col);
+    store_split4(other + at, other + kOtherHalfBytes / 4 + at, t.x[8 + u]);
+  }
+}
+
+// Producer thread i's share of a chunk to transpose: row r0 + i % 32 of
+// src, columns c0 + 8 (i / 32 + 4 u) to + 7 (u < kOutCols / 32) into x[2
+// u] and x[2 u + 1]; rows past seq and columns past D as zeros.
+__device__ __forceinline__ void load_chunk_t(WsRaw& t, const float* src,
+                                             int r0, int c0, int seq, int D,
+                                             int i) {
+  const int row = r0 + (i & 31);
+#pragma unroll
+  for (int u = 0; u < kOutCols / 32; ++u) {
+    const int col = c0 + 8 * ((i >> 5) + 4 * u);
+    const bool valid = row < seq && col < D;
+    const float* p = src + (size_t)row * D + col;
+    t.x[2 * u] = ldg4(p, valid);
+    t.x[2 * u + 1] = ldg4(p + 4, valid);
+  }
+}
+
+// Writes the share split and transposed into a [kOutCols, kWsRows] tile at
+// big (small kOutCols * kSlabCols words on): element (row r, column c) at
+// x_at(c, r), so a warp's 32 rows fill one 128-byte row, one bank each.
+__device__ __forceinline__ void store_chunk_t(uint32_t* big, const WsRaw& t,
+                                              int i) {
+  const int r = i & 31;
+  uint32_t* small = big + kOutCols * kSlabCols;
+#pragma unroll
+  for (int u = 0; u < kOutCols / 32; ++u) {
+    const int c = 8 * ((i >> 5) + 4 * u);
+    const float4 a = t.x[2 * u], b = t.x[2 * u + 1];
+    const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const Tf32<8> f = split(x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int w = x_at(c + e, r);
+      big[w] = f.big[e];
+      small[w] = f.small[e];
+    }
+  }
+}
+
+// What a block's producer streams: a head's [seq, D] matrices (the first
+// and the second score product's own and other operands; the matrix whose
+// chunk goes transposed: dq K, dv dO, dk Q), the [seq] lse and delta that
+// go beside the chunk (dv lse, dk both, dq neither: null), and the tiles:
+// how many score products (phases: dv 1, dq and dk 2), the own tile's
+// first row, the other axis' first row and tiles, the steps, the chunk's
+// first column.
+struct WsJob {
+  const float *own1, *other1, *own2, *other2, *chunk, *lse, *delta;
+  int phases, own0, o_begin, n_tiles, n_steps, c0, seq, D;
+};
+
+// Warpgroup 1. Items in the consumer's order, for each tile j of the other
+// axis: the first product's n steps, the transposed chunk with its rows'
+// lse and delta, the second product's n steps. Stage idx of the ring goes
+// into slot idx % kStages (full barrier at bars + 16 slot, empty one 8 on);
+// the chunk into its own buffer (barriers at bars + 16 kStages). Item k +
+// 1 loads into registers before item k waits for its buffer (two items
+// ahead ran no faster).
+__device__ __forceinline__ void ws_produce(const WsJob& job, uint32_t* ring,
+                                           uint32_t* chunk, float* rows,
+                                           uint32_t bars) {
+  const int i = threadIdx.x - kTcThreads;
+  const int n = job.n_steps, per = job.phases * n + 1;
+  const int total = job.n_tiles * per;
+  auto load = [&](WsRaw& t, int k) {
+    const int j = k / per, s = k - j * per;
+    const int o0 = job.o_begin + j * kWsRows;
+    if (s == n) {
+      load_chunk_t(t, job.chunk, o0, job.c0, job.seq, job.D, i);
+      const float* r = i < kWsRows ? job.lse : job.delta;
+      const int row = o0 + (i & 31);
+      t.row = i < 2 * kWsRows && r != nullptr && row < job.seq
+                  ? __ldg(r + row)
+                  : 0.f;
+    } else if (s < n) {
+      load_stage(t, job.own1, job.own0, job.other1, o0, s, job.seq, job.D, i);
+    } else {
+      load_stage(t, job.own2, job.own0, job.other2, o0, s - n - 1, job.seq,
+                 job.D, i);
+    }
+  };
+  auto store = [&](const WsRaw& t, int k) {
+    const int j = k / per, s = k - j * per;
+    if (s == n) {
+      const uint32_t cb = bars + 16 * kStages;
+      mbar_wait(cb + 8, (j & 1) ^ 1);  // chunk j - 1 released
+      store_chunk_t(chunk, t, i);
+      if (i < 2 * kWsRows) rows[i] = t.row;
+      fence_proxy_async();
+      mbar_arrive(cb);
+    } else {
+      const int idx = job.phases * n * j + (s < n ? s : s - 1);
+      const int slot = idx % kStages;
+      const uint32_t sb = bars + 16 * slot;
+      mbar_wait(sb + 8, ((idx / kStages) & 1) ^ 1);  // use idx - kStages
+      store_stage(ring + slot * (kStageBytes / 4), t, i);
+      fence_proxy_async();
+      mbar_arrive(sb);
+    }
+  };
+  WsRaw a, b;
+  load(a, 0);
+  for (int k = 0; k < total; k += 2) {
+    if (k + 1 < total) load(b, k + 1);
+    store(a, k);
+    if (k + 1 < total) {
+      if (k + 2 < total) load(a, k + 2);
+      store(b, k + 1);
+    }
+  }
+}
+
+// s[64 x kWsRows] of the consumer warpgroup = own.other^T over the n
+// stages from ring index idx on (the ring at shared address ring, its
+// barriers at bars; n may be 0), as 3xTF32 wgmma m64n32k8, every operand
+// split in shared memory: per k-step big.big into the step's part,
+// big.small and small.big into the small chain. Each step is one wgmma
+// group, waited for whole before its part is added to s in f32 and its
+// stage released: a part read after wgmma_wait<1>, with the next stage's
+// mbarrier wait between, made ptxas serialize every wgmma, and a second
+// part in flight spilled at the cap of 255 registers.
+__device__ __forceinline__ void ws_scores(float (&s)[16], uint32_t ring,
+                                          uint32_t bars, int idx, int n) {
+  float part[16], small[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s[e] = small[e] = 0.f;
+  for (int step = 0; step < n; ++step) {
+    const int at = idx + step, slot = at % kStages;
+    mbar_wait(bars + 16 * slot, (at / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 8; ++kk) {
+      // the addresses through opaque() each k-step, so that they are
+      // computed where they are used, not held in registers
+      const uint32_t a = opaque(ring) + slot * kStageBytes;
+      const uint32_t b = a + 2 * kOwnHalfBytes;
+      const uint64_t ab = step_desc<kTile>(a, kk),
+                     as = step_desc<kTile>(a + kOwnHalfBytes, kk);
+      const uint64_t bb = step_desc<kWsRows>(b, kk),
+                     bs = step_desc<kWsRows>(b + kOtherHalfBytes, kk);
+      wgmma_ss_tf32_n32(part, ab, bb, kk);
+      wgmma_ss_tf32_n32(small, ab, bs, step | kk);
+      wgmma_ss_tf32_n32(small, as, bb, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] += part[e];
+    release_stage(bars + 16 * slot);
+  }
+  fence_regs(small);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s[e] += small[e];
+}
+
+// acc[64 x kPieceCols] += x.t over kWsRows as 3xTF32 wgmma: A the split
+// [64, kWsRows] p or ds tile at shared address sx (small kXSplitBytes on),
+// B kPieceCols rows of a split transposed chunk at st (small `small` bytes
+// on). big.big from 0 in a temporary, waited for and added to acc in f32,
+// then the small terms likewise: one temporary beside the outputs, where
+// big and small at once spilled at the cap of 255 registers.
+__device__ __forceinline__ void ws_accumulate(float (&acc)[kPieceCols / 2],
+                                              uint32_t sx, uint32_t st,
+                                              int small) {
+  float tmp[kPieceCols / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kWsRows / 8; ++ks) {
+    const uint32_t x = opaque(sx), t = opaque(st);
+    wgmma_ss_tf32_n32(tmp, sw128_desc(x + 32 * ks),
+                      sw128_desc(t + 32 * ks), ks);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(tmp);
+#pragma unroll
+  for (int e = 0; e < kPieceCols / 2; ++e) acc[e] += tmp[e];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kWsRows / 8; ++ks) {
+    const uint32_t x = opaque(sx), t = opaque(st);
+    wgmma_ss_tf32_n32(tmp, sw128_desc(x + 32 * ks),
+                      sw128_desc(t + small + 32 * ks), ks);
+    wgmma_ss_tf32_n32(tmp, sw128_desc(x + kXSplitBytes + 32 * ks),
+                      sw128_desc(t + 32 * ks), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(tmp);
+#pragma unroll
+  for (int e = 0; e < kPieceCols / 2; ++e) acc[e] += tmp[e];
+}
+
+// Stores a consumer thread's [64, kPieceCols kPieces] output, rows r0 +
+// wr + g (+ 8), columns c0 + kPieceCols pc + 8 (e / 4) + 2 t (+ 1): what
+// lies in [0, seq) x [0, D).
+template <int kPieces>
+__device__ __forceinline__ void ws_store(
+    float* out, const float (&acc)[kPieces][kPieceCols / 2], int r0, int c0,
+    int seq, int D) {
+  const int wr = (threadIdx.x >> 5) * 16, g = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int pc = 0; pc < kPieces; ++pc)
+#pragma unroll
+    for (int e = 0; e < kPieceCols / 2; e += 2) {
+      const int row = r0 + wr + g + 8 * ((e >> 1) & 1);
+      const int col = c0 + kPieceCols * pc + 8 * (e >> 2) + 2 * t4;
+      if (row < seq && col < D)
+        store2(out + (size_t)row * D + col, acc[pc][e], acc[pc][e + 1]);
+    }
+}
+
+// Value e of a consumer thread's [64, kWsRows] score tile (the scores'
+// layout), kept raw at its word of one half of a p or ds tile (x_at, as
+// store_x writes it): stash_x writes them all, unstash_x reads one back.
+__device__ __forceinline__ int x_word(int e) {
+  const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  return x_at(row + 8 * ((e >> 1) & 1), 8 * (e >> 2) + 2 * (threadIdx.x & 3) +
+                                            (e & 1));
+}
+
+__device__ __forceinline__ void stash_x(uint32_t* x, const float (&v)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) x[x_word(e)] = __float_as_uint(v[e]);
+}
+
+__device__ __forceinline__ float unstash_x(const uint32_t* x, int e) {
+  return __uint_as_float(x[x_word(e)]);
+}
+
+// The ring's kStages barrier pairs, then the chunk's.
+__device__ __forceinline__ void ws_init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= kStages; ++s) {
+      mbar_init(bars + 16 * s, kTcThreads);
+      mbar_init(bars + 16 * s + 8, kTcWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Replaces _bwd_dq_kernel (flash_attention.py:160) for f32 head dims above
+// 256. Per KV tile of kWsRows rows: dp = do.v^T, s = q.k^T, ds = p (dp -
+// delta) scale with p = exp(s scale - lse), written split, then dq[:,
+// chunk] += ds.k[:, chunk].
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_ws_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int seq, int D,
+                           float scale, int causal) {
+  extern __shared__ uint8_t ws_smem[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(align_1024(ws_smem));
+  uint32_t* kt = ring + kStages * kStageBytes / 4;  // K^T: big, small
+  uint32_t* sds = kt + 2 * kOutCols * kSlabCols;    // ds: big, small
+  float* rows = reinterpret_cast<float*>(sds + 2 * kXSplitBytes / 4);
+  const uint32_t bars = smem_addr(rows + 2 * kWsRows);
+  const uint32_t kt_bars = bars + 16 * kStages;
+  // grid (chunks, Q tiles, BH): the chunks of a tile run side by side and
+  // read the same steps, from L2
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * kTile, c0 = blockIdx.x * kOutCols;
+  const size_t base = (size_t)blockIdx.z * seq * D;
+  const int n = D / kChunk;
+  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
+  const int n_tiles = (kv_end + kWsRows - 1) / kWsRows;
+  ws_init_bars(bars);
+  if (threadIdx.x >= kTcThreads) {
+    const WsJob job{dout + base, v + base, q + base, k + base, k + base,
+                    nullptr,     nullptr,  2,        q0,       0,
+                    n_tiles,     n,        c0,       seq,      D};
+    ws_produce(job, ring, kt, rows, bars);
+    return;
+  }
+
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  // p = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
+  const float scale2 = scale * kLog2e;
+  const size_t rbase = (size_t)blockIdx.z * seq;
+  float lse2[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    lse2[h] = row < seq ? lse[rbase + row] * kLog2e : 0.f;
+    delta_r[h] = row < seq ? delta[rbase + row] : 0.f;
+  }
+  const uint32_t ring_at = smem_addr(ring), kt_at = smem_addr(kt);
+  const uint32_t ds_at = smem_addr(sds);
+  float acc[kOutCols / kPieceCols][kPieceCols / 2];
+#pragma unroll
+  for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+#pragma unroll
+    for (int e = 0; e < kPieceCols / 2; ++e) acc[pc][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kWsRows;
+    float s[16];
+    ws_scores(s, ring_at, bars, 2 * n * j, n);  // dp
+    // dp waits in the ds tile's words while s is taken (the registers are
+    // at the cap), each thread's values where it writes its ds
+    stash_x(sds, s);
+    ws_scores(s, ring_at, bars, 2 * n * j + n, n);
+    // only a tile past S or across the diagonal has masked entries
+    const bool edge =
+        k0 + kWsRows > seq || (causal && k0 + kWsRows - 1 > q0 + wr);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int h = (e >> 1) & 1, row = q0 + wr + g + 8 * h,
+                col = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+      float p = exp2f(fmaf(s[e], scale2, -lse2[h]));
+      if (edge && (col >= seq || (causal && col > row))) p = 0.f;
+      s[e] = p * (unstash_x(sds, e) - delta_r[h]) * scale;  // ds
+    }
+    store_x<kWsRows>(sds, s);
+    fence_proxy_async();
+    named_sync(1, kTcThreads);  // ds is written
+    mbar_wait(kt_bars, j & 1);
+#pragma unroll
+    for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+      ws_accumulate(acc[pc], ds_at, opaque(kt_at) + pc * kPieceCols * 128,
+                    kOutCols * 128);
+    release_stage(kt_bars);
+  }
+  ws_store(dq + (size_t)opaque(blockIdx.z) * seq * D, acc, q0, c0, seq, D);
+}
+
+// Replaces _bwd_dkv_kernel (flash_attention.py:212) for f32 head dims above
+// 256, as two kinds of block: of each pair of blocks in grid x, the first
+// computes dv's chunk, the second dk's. Per Q tile of kWsRows rows, in
+// transposed scores (rows the block's KV rows, columns Q rows): s^T =
+// k.q^T and p^T from lse; a dv block then adds dv[:, chunk] += p^T.do[:,
+// chunk]; a dk block takes dp^T = v.do^T, ds^T = p^T (dp^T - delta) scale
+// and adds dk[:, chunk] += ds^T.q[:, chunk]. Each block holds one 64 x 256
+// output; the dv block skips dp^T (a product of zero steps).
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_ws_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int seq, int D, float scale, int causal) {
+  extern __shared__ uint8_t ws_smem[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(align_1024(ws_smem));
+  uint32_t* ch = ring + kStages * kStageBytes / 4;  // dO^T or Q^T: big, small
+  uint32_t* sx = ch + 2 * kOutCols * kSlabCols;     // p^T or ds^T
+  float* rows = reinterpret_cast<float*>(sx + 2 * kXSplitBytes / 4);
+  // rows: the Q tile's lse, then its delta
+  const uint32_t bars = smem_addr(rows + 2 * kWsRows);
+  const uint32_t ch_bars = bars + 16 * kStages;
+  // grid (2 chunks, KV tiles, BH), as dq's; the longest column runs first
+  const bool dk_block = blockIdx.x & 1;
+  const int k0 = blockIdx.y * kTile;
+  const int c0 = (blockIdx.x >> 1) * kOutCols;
+  const size_t base = (size_t)blockIdx.z * seq * D;
+  const size_t rbase = (size_t)blockIdx.z * seq;
+  const int n = D / kChunk, phases = dk_block ? 2 : 1;
+  // Q tiles wholly before this KV tile see none of it under causal masking
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = (seq - q_begin + kWsRows - 1) / kWsRows;
+  ws_init_bars(bars);
+  if (threadIdx.x >= kTcThreads) {
+    const WsJob job{k + base,
+                    q + base,
+                    v + base,
+                    dout + base,
+                    (dk_block ? q : dout) + base,
+                    lse + rbase,
+                    dk_block ? delta + rbase : nullptr,
+                    phases,
+                    k0,
+                    q_begin,
+                    n_tiles,
+                    n,
+                    c0,
+                    seq,
+                    D};
+    ws_produce(job, ring, ch, rows, bars);
+    return;
+  }
+
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's KV rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  const uint32_t ring_at = smem_addr(ring), ch_at = smem_addr(ch);
+  const uint32_t x_at_ = smem_addr(sx);
+  float acc[kOutCols / kPieceCols][kPieceCols / 2];
+#pragma unroll
+  for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+#pragma unroll
+    for (int e = 0; e < kPieceCols / 2; ++e) acc[pc][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = q_begin + j * kWsRows;
+    float x[16];
+    ws_scores(x, ring_at, bars, phases * n * j, n);  // s^T
+    mbar_wait(ch_bars, j & 1);  // the tile's chunk, lse and delta
+    // only a tile past S or across the diagonal has masked entries (KV
+    // rows past S are never stored, so they need no mask)
+    const bool edge = q0 + kWsRows > seq || (causal && q0 < k0 + wr + 15);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int a = 8 * (e >> 2) + 2 * t4 + (e & 1), row = q0 + a,
+                col = k0 + wr + g + 8 * ((e >> 1) & 1);
+      float p = exp2f(fmaf(x[e], scale2, -rows[a] * kLog2e));
+      if (edge && (row >= seq || (causal && col > row))) p = 0.f;
+      x[e] = p;
+    }
+    // p^T waits in its tile's words while a dk block takes dp^T
+    stash_x(sx, x);
+    ws_scores(x, ring_at, bars, phases * n * j + n, dk_block ? n : 0);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float p = unstash_x(sx, e);
+      const float dlt = rows[kWsRows + 8 * (e >> 2) + 2 * t4 + (e & 1)];
+      x[e] = dk_block ? p * (x[e] - dlt) * scale : p;  // ds^T or p^T
+    }
+    store_x<kWsRows>(sx, x);
+    fence_proxy_async();
+    named_sync(1, kTcThreads);  // p^T or ds^T is written
+#pragma unroll
+    for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+      ws_accumulate(acc[pc], x_at_, opaque(ch_at) + pc * kPieceCols * 128,
+                    kOutCols * 128);
+    release_stage(ch_bars);
+  }
+  ws_store((dk_block ? dk : dv) + base, acc, k0, c0, seq, D);
+}
+
 // -------------------------------------------------------------- launching
 
-// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) for T
-// and its dynamic shared memory; nullptr for another kernel id.
+// The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) for T,
+// its dynamic shared memory, its threads a block and the output columns a
+// block takes (grid z); nullptr for another kernel id. f32's dq and dk/dv
+// are the wgmma kernels, the rest the 64-column mma.sync templates.
 template <typename T>
-const void* kernel_fn(int kernel, int* smem) {
+const void* kernel_fn(int kernel, int* smem, int* threads, int* cols) {
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  *threads = kTcThreads;
+  *cols = kChunk;
   switch (kernel) {
     case 0:
       *smem = fwd_smem_bytes<T>();
       return (const void*)flash_fwd_dsplit_kernel<T>;
     case 1:
-      *smem = dkv_smem_bytes<T>();
-      return (const void*)flash_bwd_dkv_dsplit_kernel<T>;
+      if constexpr (kF32) {
+        *smem = ws_smem_bytes();
+        *threads = kWsThreads;
+        *cols = kOutCols;
+        return (const void*)flash_bwd_dkv_ws_kernel;
+      } else {
+        *smem = dkv_smem_bytes<T>();
+        return (const void*)flash_bwd_dkv_dsplit_kernel<T>;
+      }
     case 2:
-      *smem = dq_smem_bytes<T>();
-      return (const void*)flash_bwd_dq_dsplit_kernel<T>;
+      if constexpr (kF32) {
+        *smem = ws_smem_bytes();
+        *threads = kWsThreads;
+        *cols = kOutCols;
+        return (const void*)flash_bwd_dq_ws_kernel;
+      } else {
+        *smem = dq_smem_bytes<T>();
+        return (const void*)flash_bwd_dq_dsplit_kernel<T>;
+      }
   }
   return nullptr;
 }
@@ -667,26 +1324,34 @@ const void* kernel_fn(int kernel, int* smem) {
 // Raises the kernel's dynamic shared-memory limit to what it launches
 // with; -3 for a head dim that is not a positive multiple of 64.
 template <typename T>
-int prepare(int kernel, int d, int* smem) {
+int prepare(int kernel, int d, int* smem, int* threads, int* cols) {
   if (d <= 0 || d % kChunk) return -3;
-  const void* fn = kernel_fn<T>(kernel, smem);
+  const void* fn = kernel_fn<T>(kernel, smem, threads, cols);
   return (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
-dim3 grid_of(int bh, int seq, int d) {
-  return dim3((seq + kTile - 1) / kTile, bh, d / kChunk);
+// (tiles of the own axis, BH, chunks) for the mma.sync templates,
+// (chunks, tiles, BH) for f32's dq and dk/dv on wgmma, whose dk/dv takes
+// two blocks a chunk (dv's, dk's)
+template <typename T>
+dim3 grid_of(int kernel, int bh, int seq, int d, int cols) {
+  const int tiles = (seq + kTile - 1) / kTile, chunks = (d + cols - 1) / cols;
+  if (std::is_same_v<T, float> && kernel != 0)
+    return dim3(kernel == 1 ? 2 * chunks : chunks, tiles, bh);
+  return dim3(tiles, bh, chunks);
 }
 
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int seq, int d, float scale, int causal,
                void* stream) {
-  int smem;
-  const int e = prepare<T>(0, d, &smem);
+  int smem, threads, cols;
+  const int e = prepare<T>(0, d, &smem, &threads, &cols);
   if (e != 0) return e;
   flash_fwd_dsplit_kernel<T>
-      <<<grid_of(bh, seq, d), kTcThreads, smem, (cudaStream_t)stream>>>(
+      <<<grid_of<T>(0, bh, seq, d, cols), threads, smem,
+          (cudaStream_t)stream>>>(
           (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, seq, d,
           scale, causal);
   return (int)cudaGetLastError();
@@ -696,14 +1361,19 @@ template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int seq,
               int d, float scale, int causal, void* stream) {
-  int smem;
-  const int e = prepare<T>(2, d, &smem);
+  int smem, threads, cols;
+  const int e = prepare<T>(2, d, &smem, &threads, &cols);
   if (e != 0) return e;
-  flash_bwd_dq_dsplit_kernel<T>
-      <<<grid_of(bh, seq, d), kTcThreads, smem, (cudaStream_t)stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-          (const float*)lse, (const float*)delta, (T*)dq, seq, d, scale,
-          causal);
+  auto fn = [] {
+    if constexpr (std::is_same_v<T, float>)
+      return flash_bwd_dq_ws_kernel;
+    else
+      return flash_bwd_dq_dsplit_kernel<T>;
+  }();
+  fn<<<grid_of<T>(2, bh, seq, d, cols), threads, smem,
+        (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq, seq, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -711,21 +1381,27 @@ template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int seq, int d, float scale, int causal, void* stream) {
-  int smem;
-  const int e = prepare<T>(1, d, &smem);
+  int smem, threads, cols;
+  const int e = prepare<T>(1, d, &smem, &threads, &cols);
   if (e != 0) return e;
-  flash_bwd_dkv_dsplit_kernel<T>
-      <<<grid_of(bh, seq, d), kTcThreads, smem, (cudaStream_t)stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-          (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, seq, d,
-          scale, causal);
+  auto fn = [] {
+    if constexpr (std::is_same_v<T, float>)
+      return flash_bwd_dkv_ws_kernel;
+    else
+      return flash_bwd_dkv_dsplit_kernel<T>;
+  }();
+  fn<<<grid_of<T>(1, bh, seq, d, cols), threads, smem,
+        (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, seq, d, scale,
+      causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int attributes(int kernel, int* out) {
-  int smem;
-  const void* fn = kernel_fn<T>(kernel, &smem);
+  int smem, threads, cols;
+  const void* fn = kernel_fn<T>(kernel, &smem, &threads, &cols);
   if (fn == nullptr) return -3;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
@@ -733,10 +1409,10 @@ int attributes(int kernel, int* out) {
   out[0] = attr.numRegs;
   out[1] = smem;
   out[3] = (int)attr.localSizeBytes;
-  const int p = prepare<T>(kernel, kChunk, &smem);
+  const int p = prepare<T>(kernel, kChunk, &smem, &threads, &cols);
   if (p != 0) return p;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[2], fn, kTcThreads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn,
+                                                           threads, smem);
 }
 
 }  // namespace

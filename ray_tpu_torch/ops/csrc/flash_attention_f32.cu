@@ -66,6 +66,7 @@
 #include <type_traits>
 
 #include "tf32_mma.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -434,14 +435,6 @@ constexpr int dkv256_tc_smem_bytes() {
          2 * 2 * kDkv256Rows * 4 + kTcWarps * 16 * kDkv256Rows * 4;
 }
 
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
 // Replaces _bwd_dkv_kernel (flash_attention.py:212) for f32 head dims
 // 129-256. Bound at B*H 48, S 1024, D 256, causal: 0.313 ms by 3xTF32
 // operations (four products per tile pair), as at the main shape.
@@ -619,7 +612,6 @@ __global__ void __launch_bounds__(kDkv256Threads, 1)
 constexpr int kD256Threads = 2 * kTcThreads;  // two warpgroups: consumer,
                                               // then producer
 constexpr int kD256Rows = 16;                 // KV rows of a streamed tile
-constexpr int kSlabCols = 32;                 // f32 columns of a 128-byte row
 // A split K or V tile: eight slabs of 32 columns, each [2 kD256Rows rows,
 // 128 bytes], the tile's big rows then its small ones (kSmallWords on).
 constexpr int kSlabBytes = 2 * kD256Rows * 128;
@@ -629,9 +621,8 @@ constexpr int kKvTileBytes = 8 * kSlabBytes;
 // [kTile rows, 128 bytes].
 constexpr int kQSlabBytes = kTile * 128;
 constexpr int kQSplitBytes = 8 * kQSlabBytes;
-// one half (big or small) of a split [kTile, kD256Rows] p or ds tile (a
-// 128-byte row a Q row)
-constexpr int kXSplitBytes = kTile * 128;
+// A split [kTile, kD256Rows] p or ds tile takes kXSplitBytes a half
+// (wgmma_tf32.cuh), half of each 128-byte row used.
 
 // The forward's V tile, transposed: [256 head-dim rows, kD256Rows KV
 // columns] a half, 64-byte rows in the 64-byte swizzle (vt_at), big then
@@ -650,84 +641,6 @@ constexpr int kDqStash = 12;
 constexpr int dq256_tc_smem_bytes() {
   return 1024 + 2 * kTile * 256 * 4 + 2 * kKvTileBytes + 2 * kXSplitBytes +
          kDqStash * kTcThreads * 4 + 4 * 8;
-}
-
-// Hopper building blocks, as in flash_attention.cu
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The dynamic shared memory rounded up to 1024 bytes, the period of the
-// 128-byte swizzle.
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
-  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the barrier has completed the phase of the given parity; a
-// wait that never ends traps after 2^26 failed polls, so that a fault in
-// the pipeline fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// Makes this thread's shared-memory writes visible to wgmma (the async
-// proxy); a barrier after it makes them visible to the other threads' too.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-// Waits until at most N of this warpgroup's committed wgmma groups are
-// pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving register reads of an accumulator before
-// the wait for the asynchronous wgmma that writes it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: 8-row groups
-// 1024 bytes apart, 14-bit start address in 16-byte units, layout type 1 =
-// 128-byte swizzle; a K-major k-step (8 tf32, 32 bytes) is +2.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // d[64 x 16] (+)= A.B in TF32: A one k-step's fragments in registers
@@ -752,34 +665,6 @@ __device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
 __device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
-}
-
-// d[64 x 32] (+)= A.B in TF32, both read K-major from shared memory.
-__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da,
-                                                  uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d[64 x 16] (+)= A.B in TF32, A [64, 8 of K] and B [16 of N, 8 of K] both
-// read K-major from shared memory through descriptors.
-__device__ __forceinline__ void wgmma_ss_tf32_n16(float (&d)[8], uint64_t da,
-                                                  uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(acc));
 }
 
 // d[64 x 32] (+)= A.B in TF32, as wgmma_tf32_n16 with 32 columns.
@@ -809,13 +694,6 @@ __device__ __forceinline__ int split_at(int r, int c) {
   const int f = (c & 24) | ((c >> 1) & 3) | ((c & 1) << 2);
   return (c >> 5) * (kRows * kSlabCols) + r * kSlabCols +
          (((f >> 2) ^ (r & 7)) << 2) + (f & 3);
-}
-
-// Word of element (row, col) of one half of a split [kTile, kD256Rows] p
-// or ds tile: row at 128 bytes, col in natural order, the 16-byte chunks
-// XORed by row % 8.
-__device__ __forceinline__ int x_at(int row, int col) {
-  return row * kSlabCols + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
 }
 
 // Word of element (d, kv) of one half of the forward's transposed V tile:
@@ -971,24 +849,6 @@ __device__ __forceinline__ void produce_d256(const float* first,
   }
 }
 
-// x, which the compiler may not treat as known: the shared-memory
-// addresses derived from it are recomputed in each tile instead of being
-// hoisted out of the tile loop into registers the products need.
-template <typename T>
-__device__ __forceinline__ T opaque(T x) {
-  if constexpr (sizeof(T) == 8)
-    asm volatile("" : "+l"(x));
-  else
-    asm volatile("" : "+r"(x));
-  return x;
-}
-
-// A consumer warp's release of a stage (its empty barrier at bars + 8).
-__device__ __forceinline__ void release_stage(uint32_t bars) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bars + 8);
-}
-
 // s[64 x kD256Rows] = a.b^T of the consumer warpgroup, contracted over D
 // = 256 as 3xTF32, with a from registers (dq, whose Q and dO cannot both
 // sit in shared memory split): a the raw [64, 256] Q or dO tile
@@ -1138,25 +998,6 @@ __device__ __forceinline__ void accumulate_t(float (&acc)[4][32],
       epi(acc[mb], nh, big, small);
     }
   }
-}
-
-// Writes this thread's 8 values of a [64, kD256Rows] tile in the scores'
-// layout (rows wr + g, + 8; columns 8 n + 2 t, + 1), split, into the p or
-// ds tile at x (big; small kXSplitBytes on).
-__device__ __forceinline__ void store_x(uint32_t* x, const float (&v)[8]) {
-  const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
-  const int t4 = threadIdx.x & 3;
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float pair[2] = {v[4 * n + 2 * h], v[4 * n + 2 * h + 1]};
-      const Tf32<2> f = split(pair);
-      const int at = x_at(row + 8 * h, 8 * n + 2 * t4);
-      *reinterpret_cast<uint2*>(x + at) = make_uint2(f.big[0], f.big[1]);
-      *reinterpret_cast<uint2*>(x + kXSplitBytes / 4 + at) =
-          make_uint2(f.small[0], f.small[1]);
-    }
 }
 
 // Stores acc^T (dq^T) into rows q0 + col of a head's [seq, 256] out, this
@@ -1313,7 +1154,7 @@ __global__ void __launch_bounds__(kD256Threads, 1)
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
-    store_x(sp, s);
+    store_x<kD256Rows>(sp, s);
     fence_proxy_async();
     named_sync(1, kTcThreads);  // p is written
     mbar_wait(v_bars, j & 1);
@@ -1436,7 +1277,7 @@ __global__ void __launch_bounds__(kD256Threads, 1)
       s[i] = p * (st[i * kTcThreads] - st[(10 + h) * kTcThreads]) *
              scale;  // ds
     }
-    store_x(const_cast<uint32_t*>(t) + kDsW, s);
+    store_x<kD256Rows>(const_cast<uint32_t*>(t) + kDsW, s);
     fence_proxy_async();
     named_sync(1, kTcThreads);  // ds is written
     accumulate_t(acc, t + kKW, t_at + 4 * kDsW,

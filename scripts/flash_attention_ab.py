@@ -27,7 +27,8 @@ The f32 kernels at head dim 256 are flash_attention_f32.cu's
 flash_fwd_d256_tc_kernel and flash_bwd_dq_d256_tc_kernel (3xTF32 on
 wgmma) and flash_bwd_dkv_d256_tc_kernel, under ``_f32_d256``. Head dim
 512 (B*H 24, chip_smoke.py's DSPLIT_SHAPE) times the split-head-dim
-kernels of flash_attention_dsplit.cu, under ``_f32ds`` and ``_bf16ds``.
+kernels of flash_attention_dsplit.cu, under ``_f32ds`` and ``_bf16ds``, and
+float16's route there (the f32 kernels on f32 copies) under ``_f16ds``.
 ``FLASH_AB_SHAPES`` (suffixes, comma-separated, "" for the bf16 main
 shape) times those shapes alone.
 
@@ -54,7 +55,8 @@ SHAPES = {"": (192, 1024, 64, "bfloat16"), "_f32": (192, 1024, 64, "float32"),
           "_f32_d256": (48, 1024, 256, "float32"),
           "_bf16d256": (48, 1024, 256, "bfloat16"),
           "_f32ds": (24, 1024, 512, "float32"),
-          "_bf16ds": (24, 1024, 512, "bfloat16")}
+          "_bf16ds": (24, 1024, 512, "bfloat16"),
+          "_f16ds": (24, 1024, 512, "float16")}
 NAMES = [f"{name}{suffix}" for suffix in SHAPES for name in (
     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sdpa_fwd", "sdpa_bwd")]
 

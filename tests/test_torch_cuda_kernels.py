@@ -264,30 +264,47 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     assert fa.LAUNCHES == before
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("BH,S,Dh,causal", [
     (2, 129, 320, True), (2, 1000, 300, False), (1, 200, 512, True),
     (1, 129, 1000, False),
+    # f32's dq and dk/dv take 256-column chunks: a narrow last one (384),
+    # and a head dim padded to 576 (520)
+    (2, 1024, 384, True), (2, 1024, 384, False), (2, 129, 520, True),
+    (2, 129, 520, False),
 ])
 def test_head_dims_above_256_run_the_dsplit_kernels(cuda, dtype, BH, S, Dh,
                                                    causal):
     """Above head dim 256 each dtype runs its split-head-dim kernels at the
     head dim padded to a multiple of 64, within the plain versions' bound
-    of its dtype."""
+    of its dtype (float16 on the f32 kernels, under the bf16 bound)."""
     launched = _check_all_three(cuda, BH, S, Dh, causal, dtype, seed=Dh)
     suffix = "_bf16ds" if dtype == torch.bfloat16 else "_f32ds"
     assert launched == {k + suffix: 1 for k in fa.KERNELS}
+
+
+# f32's dq and dk/dv above 256 are two warpgroups (a producer and a
+# consumer) with their operands split in shared memory: one block an SM
+WGMMA_DSPLIT = {"flash_bwd_dq_f32ds": 230720, "flash_bwd_dkv_f32ds": 230720}
 
 
 @pytest.mark.parametrize("kernel", [k + s for s in ("_bf16ds", "_f32ds")
                                     for k in fa.KERNELS])
 def test_dsplit_kernel_attributes(cuda, kernel):
     """One kernel a dtype serves every head dim above 256, whatever head
-    dim it is asked at; none spills."""
+    dim it is asked at; none spills. The mma.sync ones fit two blocks an
+    SM; the f32 dq and dk/dv on wgmma take one, with the shared memory they
+    launch with."""
     attrs = fa.kernel_attributes(kernel)
     assert attrs == fa.kernel_attributes(kernel, 1024)
-    assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 2
-    assert attrs["max_dynamic_smem"] <= 232448 // 2
+    assert attrs["local_bytes"] == 0
+    if kernel in WGMMA_DSPLIT:
+        assert attrs["blocks_per_sm"] == 1
+        assert attrs["max_dynamic_smem"] == WGMMA_DSPLIT[kernel] <= 232448
+    else:
+        assert attrs["blocks_per_sm"] >= 2
+        assert attrs["max_dynamic_smem"] <= 232448 // 2
 
 
 @pytest.mark.parametrize("BH,S,Dh,causal", [

@@ -43,10 +43,12 @@ import pytest
 from ray_tpu_torch.ops import flash_attention as tfa
 from tests.test_torch_wgmma_layout import decode, swizzle
 
-# the f32 kernels' source: flash_attention_f32.cu after the shared 3xTF32
-# helpers it includes (tf32_mma.cuh: the tile constants among them)
+# the f32 kernels' source: flash_attention_f32.cu after the headers it
+# includes (tf32_mma.cuh's 3xTF32 helpers and tile constants, wgmma_tf32.cuh's
+# barriers, descriptors and p or ds tile, shared with the dsplit kernels)
 SRC = "".join((Path(tfa.__file__).resolve().parent / "csrc" / name).read_text()
-              for name in ("tf32_mma.cuh", "flash_attention_f32.cu"))
+              for name in ("tf32_mma.cuh", "wgmma_tf32.cuh",
+                           "flash_attention_f32.cu"))
 MAX_SMEM = 232448  # bytes of shared memory a block may take on an H100
 D = 256
 
