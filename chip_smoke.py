@@ -487,9 +487,11 @@ def check_kernels(torch, F, fa):
              ("f32d320nc", 8, 1024, 320, False, f32),
              ("f32d512nc", 24, 1024, 512, False, f32),
              ("f32d300r", 8, 129, 300, True, f32),
-             # f32's dq and dk/dv above 256 take 256-column chunks: a
-             # narrow last one (384), a head dim padded to 576 (520) and
-             # four chunks (1000, padded to 1024)
+             # the forwards and f32's dq and dk/dv above 256 take
+             # 256-column chunks: a narrow last one (384), a head dim
+             # padded to 576 (520) and four chunks (1000, padded to 1024);
+             # bf16's forward keeps Q resident up to 512 and streams it
+             # above (520, 576, 1000)
              ("f32d384", 8, 1024, 384, True, f32),
              ("f32d384nc", 8, 129, 384, False, f32),
              ("f32d520", 8, 129, 520, True, f32),
@@ -501,6 +503,13 @@ def check_kernels(torch, F, fa):
              ("bf16d320nc", 8, 1024, 320, False, bf16),
              ("bf16d512nc", 24, 1024, 512, False, bf16),
              ("bf16d300r", 8, 129, 300, False, bf16),
+             ("bf16d384", 8, 1024, 384, True, bf16),
+             ("bf16d384nc", 8, 129, 384, False, bf16),
+             ("bf16d520", 8, 129, 520, True, bf16),
+             ("bf16d576nc", 8, 1024, 576, False, bf16),
+             ("bf16d576", 8, 129, 576, True, bf16),
+             ("bf16d1000", 2, 1024, 1000, True, bf16),
+             ("bf16d1000nc", 2, 129, 1000, False, bf16),
              ("dsplit", *DSPLIT_SHAPE, True, bf16),
              ("f16d320", 8, 129, 320, True, torch.float16),
              ("f16d520nc", 4, 1024, 520, False, torch.float16)]

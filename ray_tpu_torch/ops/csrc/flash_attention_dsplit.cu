@@ -4,20 +4,22 @@
 //
 // They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
 // compute, at any head dim:
-//   flash_fwd_dsplit_kernel      <- _fwd_kernel      (flash_attention.py:29)
-//   flash_bwd_dq_dsplit_kernel,  <- _bwd_dq_kernel   (flash_attention.py:160)
+//   flash_fwd_tma_kernel (bf16),  <- _fwd_kernel      (flash_attention.py:29)
+//   flash_fwd_ws_kernel (f32)
+//   flash_bwd_dq_dsplit_kernel,   <- _bwd_dq_kernel   (flash_attention.py:160)
 //   flash_bwd_dq_ws_kernel
-//   flash_bwd_dkv_dsplit_kernel, <- _bwd_dkv_kernel  (flash_attention.py:212)
+//   flash_bwd_dkv_dsplit_kernel,  <- _bwd_dkv_kernel  (flash_attention.py:212)
 //   flash_bwd_dkv_ws_kernel
-// The *_dsplit kernels are templates on the input type T (the forward in
-// bf16 and f32, dq and dk/dv in bf16); the *_ws kernels are f32's dq and
-// dk/dv, on wgmma (further down, with their own notes). Sums, the softmax
-// and lse are f32; o, dq, dk and dv are written in T. In bf16, p (forward
-// and dv) and ds (dq and dk) are rounded to bf16 before the products that
-// take them, as the bf16 Pallas kernels cast them (flash_attention.py:196-
-// 199).
+// The *_dsplit kernels are mma.sync templates on the input type T, built
+// for bf16 alone (dq and dk/dv); the *_ws kernels are f32's forward, dq
+// and dk/dv on 3xTF32 wgmma, and flash_fwd_tma_kernel bf16's forward on
+// wgmma (each further down, with its own notes). Sums, the softmax and
+// lse are f32; o, dq, dk and dv are written in the inputs' type. In bf16,
+// p (forward and dv) and ds (dq and dk) are rounded to bf16 before the
+// products that take them, as the bf16 Pallas kernels cast them
+// (flash_attention.py:196-199).
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D] in T, contiguous and
+// Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D], contiguous and
 // 16-byte aligned, D a multiple of 64 (the wrapper pads any other head dim
 // with zero columns, which add nothing to q.k^T or do.v^T); lse and delta
 // are [BH, S] f32. A ragged S is masked at the tile edges as in
@@ -26,31 +28,29 @@
 // Why the head dim is split: the other kernels keep a [rows, D] f32
 // accumulator in registers, which at D 320 would take 160 registers a
 // thread for one 64-row tile of 4 warps, and no limit on D would hold. Here
-// a block owns a 64-row tile of its own axis (Q rows for the forward and
-// dq, KV rows for dk/dv) and one chunk of the output's columns (grid z),
-// so its accumulators do not grow with D. The scores still contract over
-// the whole head dim, so a block streams q and k (and do and v) through
-// shared memory in 64-column steps, summing each step's product into s,
-// and only then takes the softmax, the mask and the accumulating product
-// with its own chunk's columns. Every chunk's block computes s in the same
-// order, so the chunks of a row see the same p bit for bit, and lse is
-// written by chunk 0's block only. The price is that the scores are
-// computed once for each chunk. The mma.sync templates take 64-column
-// chunks: a forward does (D / 64 + 1) products of a tile pair where one
-// block with the whole row would do 2, dq 2 D / 64 + 1 for 3, dk/dv 2 D /
-// 64 + 2 for 4 (at D 512: 9 / 2, 17 / 3 and 18 / 4 times the work). The f32
-// dq and dk/dv take 256-column chunks, dk/dv in a dv block and a dk block
-// (at D 512: 5 / 3 and 8 / 4). No kernel holds more than a 64-column step
-// of any row of the scores' operands, so shared memory does not grow with
-// D either.
+// a block owns a tile of its own axis (Q rows for the forward and dq, KV
+// rows for dk/dv) and one chunk of the output's columns, so its
+// accumulators do not grow with D. The scores still contract over the
+// whole head dim, so a block streams q and k (and do and v) through shared
+// memory in 64-column steps, summing each step's product into s, and only
+// then takes the softmax, the mask and the accumulating product with its
+// own chunk's columns. Every chunk's block computes s in the same order,
+// so the chunks of a row see the same p bit for bit, and lse is written by
+// chunk 0's block only. The price is that the scores are computed once for
+// each chunk. The mma.sync templates take 64-column chunks: dq does 2 D /
+// 64 + 1 products of a tile pair where one block with the whole row would
+// do 3, dk/dv 2 D / 64 + 2 for 4 (at D 512: 17 / 3 and 18 / 4 times the
+// work). The wgmma kernels take 256-column chunks: the forward (D / 256 +
+// 1) for 2, dq 2 D / 256 + 1 for 3, dk/dv in a dv block and a dk block (at
+// D 512: 3 / 2, 5 / 3 and 8 / 4). No kernel holds more than a 64-column
+// step of any row of the scores' streamed operands, so shared memory does
+// not grow with D either (bf16's forward keeps its Q tile whole while D
+// <= 512 and streams it above).
 //
-// Products of the templates: mma.sync on tiles loaded by cp.async into a
-// two-stage ring, so that the next step's loads run under this step's
-// products. In f32 every product is 3xTF32 m16n8k8 on tiles in
-// tf32_mma.cuh's layout, as in flash_attention_f32.cu, and every 64-column
-// step's product starts from 0 and is added to s in f32. In bf16 every
-// product is m16n8k16 on raw bf16 tiles (fragments by ldmatrix, .trans for
-// the accumulating product's B) with f32 sums, p and ds packed to bf16 as
+// Products of the templates: mma.sync m16n8k16 on raw bf16 tiles loaded
+// by cp.async into a two-stage ring, so that the next step's loads run
+// under this step's products (fragments by ldmatrix, .trans for the
+// accumulating product's B), with f32 sums, and ds and p packed to bf16 as
 // its A operand.
 //
 // What bounds them on an H100: at B*H 24, S 1024, D 512, causal the
@@ -61,13 +61,17 @@
 // the bound does not count. What holds the templates far from it is
 // traffic from L2: a 64-column step reads a 64-row tile of the block's own
 // axis again for every tile of the other axis and every chunk, for a few
-// products a warp (PERF.md). The f32 dq and dk/dv on wgmma split each
-// operand once for each use and take every product from shared memory;
-// what bounds them on the card is their producer's loads (their note).
+// products a warp (PERF.md). The f32 wgmma kernels split each operand once
+// for each use and take every product from shared memory; what bounds
+// them on the card is their producer's loads (their note). bf16's forward
+// loads by TMA and keeps its Q tile resident (its note).
 //
 // The host entry points return cudaGetLastError() right after the launch,
-// or -3 for a head dim that is not a positive multiple of 64.
+// -3 for a head dim that is not a positive multiple of 64, and for bf16's
+// forward -1 if the CUDA driver has no cuTensorMapEncodeTiled, -2 if it
+// refuses a tensor map.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,18 +83,13 @@
 
 namespace {
 
-// head-dim columns of a step, and of an output chunk
+// head-dim columns of a step, and of an output chunk of the mma.sync
+// templates
 constexpr int kChunk = 64;
-using CL = Layout<kChunk>;  // a 64-column step or chunk of a tile
-// Rows of the other axis a step streams: each step reads the block's
-// own 64-row tile again, so more rows a step mean less traffic, up to
-// what the registers hold without spilling. bf16: 128 for the forward,
-// 64 for dq and dk/dv, which hold two score tiles; the f32 forward, whose
-// 3xTF32 scores take three accumulators: 32. (f32's dq and dk/dv are the
-// wgmma kernels further down.)
-constexpr bool kBf16(int bytes) { return bytes == 2; }
-template <typename T>
-constexpr int kFwdRows = kBf16(sizeof(T)) ? 128 : 32;
+// Rows of the other axis a step of the bf16 dq and dk/dv templates
+// streams: each step reads the block's own 64-row tile again, so more rows
+// a step mean less traffic, up to what the registers hold without
+// spilling (they hold two score tiles).
 template <typename T>
 constexpr int kDqRows = 64;
 template <typename T>
@@ -136,57 +135,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// What differs between the input types: how a tile is laid out and
-// loaded into shared memory, how one 64-column step's scores and an
-// accumulating product are taken (in bf16, p and ds rounded to bf16 as
-// they are packed into its A operand), and how a pair of outputs is
-// stored.
+// How the templates' input type lays a tile out and loads it into shared
+// memory, takes one 64-column step's scores and an accumulating product
+// (p and ds rounded to bf16 as they are packed into its A operand), and
+// stores a pair of outputs. bf16 alone has one: f32 runs the wgmma
+// kernels further down.
 template <typename T>
 struct Io;
-
-// f32: tiles as tf32_mma.cuh lays them out, every product 3xTF32; each
-// step's scores start from 0 and are added to s in f32
-template <>
-struct Io<float> {
-  // rows [r0, r0 + kRows) and columns [c0, c0 + 64) of one head's [seq, ld]
-  // matrix; rows past seq as zeros
-  template <int kRows>
-  static __device__ __forceinline__ void load(uint32_t* dst, const float* src,
-                                              int r0, int c0, int seq,
-                                              int ld) {
-    constexpr int kChunks = kChunk / 4;  // 16-byte copies a row
-    for (int i = threadIdx.x; i < kRows * kChunks; i += kTcThreads) {
-      const int r = i / kChunks, ch = i % kChunks;
-      const bool valid = r0 + r < seq;
-      cp_async16(dst + CL::chunk(r, ch),
-                 src + (size_t)(valid ? r0 + r : 0) * ld + c0 + ch * 4,
-                 valid);
-    }
-  }
-  // s[16 x 8 NT] += a[16 rows from `row`] . b[8 NT rows]^T over one step
-  template <bool kRestart, int NT>
-  static __device__ __forceinline__ void scores(float (&s)[NT][4],
-                                                const uint32_t* a,
-                                                const uint32_t* b, int row) {
-    float part[NT][4];
-    tile_scores<kChunk, NT, kRestart>(part, a, b, row);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
-  }
-  // acc[16 x 64] += x[16 x 8 NT] . tile[8 NT x 64], x in the accumulator
-  // layout
-  template <int NT>
-  static __device__ __forceinline__ void accumulate(
-      float (&acc)[kChunk / 8][4], const float (&x)[NT][4],
-      const uint32_t* tile) {
-    ::accumulate<kChunk, NT>(acc, x, tile);
-  }
-  static __device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
 
 // bf16: tiles raw, 128 bytes a row with its 16-byte chunks XOR-swizzled
 // by the row, so that the 8 rows of an ldmatrix hit 8 distinct chunks of
@@ -263,138 +218,6 @@ struct Io<__nv_bfloat16> {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
   }
 };
-
-// ---------------------------------------------------------------- forward
-
-// a stage: [Q 64 rows, K kFwdRows rows] of one 64-column step; then V's
-// rows of the block's chunk, a buffer for each of two K/V tiles
-template <typename T>
-constexpr int kFwdStage = (kTile + kFwdRows<T>) * kRowWords<T>;
-template <typename T>
-constexpr int fwd_smem_bytes() {
-  return (2 * kFwdStage<T> + 2 * kFwdRows<T> * kRowWords<T>) * 4;
-}
-
-// Replaces _fwd_kernel for head dims above 256. Per K/V tile: s = q.k^T
-// over all of D in 64-column steps, then the online softmax of
-// flash_attention_f32.cu's flash_fwd_tc_kernel and o[:, chunk] += p.v[:,
-// chunk]. grid (Q tiles, BH, D / 64).
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads, 2)
-    flash_fwd_dsplit_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, T* __restrict__ o,
-                            float* __restrict__ lse, int seq, int D,
-                            float scale, int causal) {
-  constexpr int BN = kFwdRows<T>, NT = BN / 8;
-  constexpr int W = kRowWords<T>;  // words a tile row
-  extern __shared__ __align__(16) uint32_t ds_smem[];
-  uint32_t* ring = ds_smem;
-  uint32_t* vbuf = ring + 2 * kFwdStage<T>;
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * kTile;
-  const int c_out = blockIdx.z * kChunk;
-  const size_t base = (size_t)blockIdx.y * seq * D;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
-  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
-
-  const int nc = D / kChunk;
-  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
-  const int n_steps = (kv_end + BN - 1) / BN * nc;
-  auto load_step = [&](int i) {
-    const int j = i / nc, c = i % nc;
-    uint32_t* st = ring + (i & 1) * kFwdStage<T>;
-    Io<T>::template load<kTile>(st, q + base, q0, c * kChunk, seq, D);
-    Io<T>::template load<BN>(st + kTile * W, k + base, j * BN,
-                             c * kChunk, seq, D);
-    if (c == 0)
-      Io<T>::template load<BN>(vbuf + (j & 1) * BN * W, v + base,
-                               j * BN, c_out, seq, D);
-  };
-  load_step(0);
-  cp_async_commit();
-
-  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
-  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
-  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
-  float s[NT][4], acc[kChunk / 8][4];
-#pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int i = 0; i < n_steps; ++i) {
-    const int j = i / nc, c = i % nc, k0 = j * BN;
-    if (i + 1 < n_steps) {  // the next step loads under this one
-      load_step(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // under causal masking a tile wholly after the warp's rows adds nothing
-    if (!causal || k0 <= q0 + wr + 15) {
-      if (c == 0) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-      }
-      const uint32_t* st = ring + (i & 1) * kFwdStage<T>;
-      Io<T>::template scores<false>(s, st, st + kTile * W, wr);
-      if (c == nc - 1) {
-        // only a tile past S or across the diagonal has masked entries
-        const bool edge = k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr);
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1, row = q0 + wr + g + 8 * h,
-                      col = k0 + 8 * n + 2 * t4 + (e & 1);
-            if (edge && (col >= seq || (causal && col > row)))
-              s[n][e] = kNegInf;
-            mx[h] = fmaxf(mx[h], s[n][e]);
-          }
-        float corr[2], ms[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mx[h] = quad_max(mx[h]);
-          corr[h] = exp2f((m[h] - mx[h]) * scale2);
-          m[h] = mx[h];
-          ms[h] = mx[h] * scale2;
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[n][e] = exp2f(fmaf(s[n][e], scale2, -ms[e >> 1]));  // p
-            sum[e >> 1] += s[n][e];
-          }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
-#pragma unroll
-        for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-        Io<T>::accumulate(acc, s, vbuf + (j & 1) * BN * W);
-      }
-    }
-    __syncthreads();  // this stage is read: the next load may refill it
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + wr + g + 8 * h;
-    const float lc = fmaxf(quad_sum(l[h]), 1e-30f);
-    if (row >= seq) continue;
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-      Io<T>::store2(o + base + (size_t)row * D + c_out + 8 * n + 2 * t4,
-                    acc[n][2 * h] / lc, acc[n][2 * h + 1] / lc);
-    if (blockIdx.z == 0 && t4 == 0)
-      lse[(size_t)blockIdx.y * seq + row] = m[h] * scale + logf(lc);
-  }
-}
 
 // --------------------------------------------------------------------- dq
 
@@ -661,10 +484,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
-// ------------------------------------------- f32 dq and dk/dv on wgmma
+// ----------------------------------- f32 forward, dq and dk/dv on wgmma
 //
 // flash_bwd_dq_ws_kernel and flash_bwd_dkv_ws_kernel: the f32 backward
-// above head dim 256 (and float16's, on f32 copies). A block is two
+// above head dim 256 (and float16's, on f32 copies); flash_fwd_ws_kernel,
+// the forward, runs the same machinery as a dv block does (its note). A
+// block is two
 // warpgroups, as in flash_attention_f32.cu's head-dim-256 kernels:
 // warpgroup 0, the consumer, owns a 64-row tile of its own axis (Q for dq,
 // KV for dk/dv) and one 256-column chunk of one output, and issues every
@@ -1282,12 +1107,659 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   ws_store((dk_block ? dk : dv) + base, acc, k0, c0, seq, D);
 }
 
+// Replaces _fwd_kernel (flash_attention.py:29) for f32 head dims above
+// 256. A block as dq's (grid (chunks, Q tiles, BH)): the consumer owns 64
+// Q rows and one 256-column chunk of o; the producer streams the score
+// product's steps (own Q, other K) and each KV tile's rows of the chunk of
+// V, transposed, as a dv block streams dO's (phases 1, no lse or delta).
+// Per KV tile of kWsRows rows: s = q.k^T (ws_scores), the online softmax
+// of flash_attention_f32.cu's flash_fwd_d256_tc_kernel in the scores'
+// layout, p written split, o = o.corr + p.v[:, chunk] (ws_accumulate). At
+// the end o = acc / max(l, 1e-30) and lse = m scale + log(l), written by
+// chunk 0's block.
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_ws_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int seq, int D, float scale,
+                        int causal) {
+  extern __shared__ uint8_t ws_smem[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(align_1024(ws_smem));
+  uint32_t* vt = ring + kStages * kStageBytes / 4;  // V^T: big, small
+  uint32_t* sp = vt + 2 * kOutCols * kSlabCols;     // p: big, small
+  // the chunk's lse and delta words, which the forward's producer fills
+  // with zeros
+  float* rows = reinterpret_cast<float*>(sp + 2 * kXSplitBytes / 4);
+  const uint32_t bars = smem_addr(rows + 2 * kWsRows);
+  const uint32_t vt_bars = bars + 16 * kStages;
+  // grid (chunks, Q tiles, BH), as dq's
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * kTile, c0 = blockIdx.x * kOutCols;
+  const size_t base = (size_t)blockIdx.z * seq * D;
+  const int n = D / kChunk;
+  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
+  const int n_tiles = (kv_end + kWsRows - 1) / kWsRows;
+  ws_init_bars(bars);
+  if (threadIdx.x >= kTcThreads) {
+    const WsJob job{q + base, k + base, nullptr, nullptr, v + base,
+                    nullptr,  nullptr,  1,       q0,      0,
+                    n_tiles,  n,        c0,      seq,     D};
+    ws_produce(job, ring, vt, rows, bars);
+    return;
+  }
+
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
+  const uint32_t ring_at = smem_addr(ring), vt_at = smem_addr(vt);
+  const uint32_t sp_at = smem_addr(sp);
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float acc[kOutCols / kPieceCols][kPieceCols / 2];
+#pragma unroll
+  for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+#pragma unroll
+    for (int e = 0; e < kPieceCols / 2; ++e) acc[pc][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kWsRows;
+    float s[16];
+    ws_scores(s, ring_at, bars, n * j, n);
+    // only a tile past S or across the diagonal has masked entries
+    const bool edge =
+        k0 + kWsRows > seq || (causal && k0 + kWsRows - 1 > q0 + wr);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int h = (e >> 1) & 1, row = q0 + wr + g + 8 * h,
+                col = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+      if (edge && (col >= seq || (causal && col > row))) s[e] = kNegInf;
+      mx[h] = fmaxf(mx[h], s[e]);
+    }
+    float corr[2], ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      corr[h] = exp2f((m[h] - mx[h]) * scale2);
+      m[h] = mx[h];
+      ms[h] = mx[h] * scale2;
+    }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      s[e] = exp2f(fmaf(s[e], scale2, -ms[(e >> 1) & 1]));  // p
+      sum[(e >> 1) & 1] += s[e];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+    store_x<kWsRows>(sp, s);
+    fence_proxy_async();
+    named_sync(1, kTcThreads);  // p is written
+#pragma unroll
+    for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+#pragma unroll
+      for (int e = 0; e < kPieceCols / 2; ++e) acc[pc][e] *= corr[(e >> 1) & 1];
+    mbar_wait(vt_bars, j & 1);  // the tile's rows of V^T
+#pragma unroll
+    for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+      ws_accumulate(acc[pc], sp_at, opaque(vt_at) + pc * kPieceCols * 128,
+                    kOutCols * 128);
+    release_stage(vt_bars);
+  }
+  float lc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lc[h] = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = q0 + wr + g + 8 * h;
+    if (blockIdx.x == 0 && t4 == 0 && row < seq)
+      lse[(size_t)blockIdx.z * seq + row] = m[h] * scale + logf(lc[h]);
+  }
+#pragma unroll
+  for (int pc = 0; pc < kOutCols / kPieceCols; ++pc)
+#pragma unroll
+    for (int e = 0; e < kPieceCols / 2; ++e) acc[pc][e] /= lc[(e >> 1) & 1];
+  ws_store(o + base, acc, q0, c0, seq, D);
+}
+
+// -------------------------------------------------- bf16 forward on wgmma
+//
+// flash_fwd_tma_kernel: the bf16 forward above head dim 256, built on
+// flash_attention.cu's flash_fwd_d256_kernel: TMA loads in the 128-byte
+// swizzle, bf16 wgmma m64n64k16 with f32 sums, the online softmax of its
+// 64 rows in each consumer warpgroup's registers, p packed to bf16 as the
+// register A operand of o += p.v, and p.v of KV tile j - 1 issued after the
+// scores of tile j, so that it runs on the tensor cores while the softmax
+// of tile j runs. A block is two warpgroups (64 Q rows each, 128 a block)
+// and computes one kOutCols-column chunk of o (grid (chunks, Q tiles,
+// BH)), o[64 x 256] f32 in a thread's 128 registers.
+//
+// The scores contract over all of D in 64-column TMA boxes: per 64-row KV
+// tile, box b of K (8 KB) goes through a ring of kKStages stages, and the
+// two warpgroups add q[:, box b].k[:, box b]^T into s (4 k-steps a box,
+// one wgmma group a box; a warp is done with a box as soon as the group
+// after its own is issued and its own is complete, so one box's products
+// are in flight while the next box is awaited). The block's Q tile stays
+// in shared memory while D <= kQBoxes * 64 (512): 128 KB at D 512, loaded
+// once. Above that the ring's stages take each Q box beside its K box, in
+// the same 192 KB: Q is then read again for every KV tile. V's tile holds the chunk's 64-column
+// boxes (a [64, 256] bf16 tile, 32 KB) in one stage; boxes past D are not
+// loaded, and the products that read them write only columns that are not
+// stored. No warp only loads: thread 0 issues the first loads (Q, the
+// first kKStages K boxes, V's tile 0), and then the last of the eight
+// warps done with a stage refills it (a count a stage in shared memory):
+// K box i + kKStages once box i is done, V's tile j + 1 once tile j is. So
+// no warp ever waits for a stage to empty, and a load goes out the moment
+// its stage is free.
+//
+// Why these widths: a chunk of 256 columns (o's 128 registers a thread,
+// with s 32 and p 16: ~200) takes the scores once per 256 columns of o, so
+// at D 512 a forward does (D + 256) / 2 / 256 = 1.5 times the products of
+// a whole-row kernel, against 4.5 for the mma.sync template's 64-column
+// chunks; 128 Q rows a block share each K box between two warpgroups, and
+// a resident Q tile is read once per block instead of once per KV tile
+// (the template's 64 KB per 128 KV rows and chunk at D 512).
+//
+// Order of the sums: every chunk's block adds the boxes of a KV tile into
+// s in the same order with the same instructions and takes the same
+// softmax steps, so every chunk of a row sees the same p bit for bit.
+//
+// Shared memory: 1024 (alignment) + 192 KB (Q and the K ring) + V 32 KB +
+// 10 barriers and 9 counts = 230,516 bytes: one block an SM.
+
+// Two warpgroups, both consumers. A ninth (producer) warp would cap every
+// thread at 168 registers (the SM splits a block's warps over four
+// register files of 16K), and the consumers spilled there; a producer
+// warpgroup under setmaxnreg left ptxas at 168 all the same. So the
+// consumers' own lanes issue the loads (tma_done_k, tma_done_v).
+constexpr int kTmaThreads = 2 * kTcThreads;
+constexpr int kTmaRows = 128;  // Q rows of a block, 64 a consumer warpgroup
+constexpr int kTmaKv = 64;     // KV rows of a tile
+constexpr int kBoxCols = 64;   // bf16 columns of a box: one 128-byte row
+constexpr int kKBoxBytes = kTmaKv * 128;    // a [64, 64] K or V box
+constexpr int kQBoxBytes = kTmaRows * 128;  // a [128, 64] Q box
+constexpr int kQBoxes = 8;  // Q boxes that stay resident: D <= 512
+constexpr int kKStages = 8;
+// The ring's 192 KB: resident Q (kQBoxes boxes) and K stages of one box
+// each, or K stages of a K box and a Q box each
+constexpr int kRingBytes = kQBoxes * kQBoxBytes + kKStages * kKBoxBytes;
+static_assert(kKStages * (kKBoxBytes + kQBoxBytes) == kRingBytes,
+              "streamed Q fits where resident Q and the K ring lie");
+constexpr int kVBytes = kOutCols / kBoxCols * kKBoxBytes;
+
+// The ring, V's stage, then a full barrier for each K stage, V's and Q's,
+// then the counts of warps done with each K stage and with V.
+constexpr int tma_fwd_smem_bytes() {
+  return 1024 + kRingBytes + kVBytes + 8 * (kKStages + 2) +
+         4 * (kKStages + 1);
+}
+
+// Shared address of K stage `slot` in the ring at `ring` (its Q box, when
+// Q streams, kKBoxBytes on).
+__device__ __forceinline__ uint32_t kstage_at(uint32_t ring, int slot,
+                                              bool resident) {
+  return resident ? ring + kQBoxes * kQBoxBytes + slot * kKBoxBytes
+                  : ring + slot * (kKBoxBytes + kQBoxBytes);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// One [rows x 64] box of a [BH, S, D] tensor map at (col, row, bh) into
+// shared memory; the box's bytes complete a transaction on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+// d[64 x 64] (+)= A.B in bf16 with f32 sums, A [64, 16 of K] and B [64 of
+// N, 16 of K] read K-major from shared memory; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] += A.B, A bf16 fragments in registers (mma.sync's m16n8k16 A
+// layout, a 16-row slab a warp), B [16 of K, 64 of N] read MN-major from
+// shared memory.
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int H>
+__device__ __forceinline__ void fence_regs(float (&d)[H][32]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) fence_regs(d[h]);
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// 2^x on the special-function unit, denormals flushed (p and the rescale
+// factors are either 0 or far above the denormal range).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One KV tile of the online softmax for this thread's rows row and row + 8
+// (flash_attention.cu's softmax_tile at 64 KV rows): sc holds the raw
+// scores, masked to NEG_INF where the tile crosses the diagonal or S; m is
+// the running raw max, l this thread's share of the row sums, corr the
+// factor that rescales the output accumulated so far. On return sc holds
+// p = exp2(s scale log2(e) - m scale log2(e)).
+__device__ __forceinline__ void tma_softmax(float (&sc)[32], float (&m)[2],
+                                            float (&l)[2], float (&corr)[2],
+                                            bool masked, int k0, int row,
+                                            int t, int seq, int causal,
+                                            float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + 8 * j + 2 * t + (i & 1);
+        if ((causal && col > row + 8 * (i >> 1)) || col >= seq)
+          sc[4 * j + i] = kNegInf;
+      }
+  }
+  // row maxima as a tree (row: i = 0, 1; row + 8: i = 2, 3)
+  float r[2][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    r[0][j] = fmaxf(sc[4 * j], sc[4 * j + 1]);
+    r[1][j] = fmaxf(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+#pragma unroll
+  for (int w = 4; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+      r[0][j] = fmaxf(r[0][j], r[0][j + w]);
+      r[1][j] = fmaxf(r[1][j], r[1][j + w]);
+    }
+  float ms[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mnew = quad_max(fmaxf(m[h], r[h][0]));
+    corr[h] = exp2_ftz((m[h] - mnew) * scale_log2);
+    m[h] = mnew;
+    ms[h] = mnew * scale_log2;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    sc[i] = exp2_ftz(fmaf(sc[i], scale_log2, -ms[(i >> 1) & 1]));
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    r[0][j] = sc[4 * j] + sc[4 * j + 1];
+    r[1][j] = sc[4 * j + 2] + sc[4 * j + 3];
+  }
+#pragma unroll
+  for (int w = 4; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) {
+      r[0][j] += r[0][j + w];
+      r[1][j] += r[1][j + w];
+    }
+  l[0] = fmaf(l[0], corr[0], r[0][0]);
+  l[1] = fmaf(l[1], corr[1], r[1][0]);
+}
+
+// What a block of flash_fwd_tma_kernel loads and where: the tensor maps;
+// the ring's shared address (V's stage kRingBytes on) and its barriers'
+// (each K stage's full barrier at bars + 8 s, V's at bars + 8 kKStages,
+// Q's 8 on); the warps done with each K stage and with V, counted in
+// done[]; the block's Q rows, chunk and head; the K boxes a
+// tile and the KV tiles; V's boxes below D; whether Q stays resident; and
+// the consumer warpgroup.
+struct TmaBlock {
+  const CUtensorMap *q, *k, *v;
+  uint32_t ring, bars;
+  int* done;
+  int q0, c0, bh, nb, n_kv, v_boxes;
+  bool resident;
+  int wg;
+};
+
+// K box idx (box idx % nb of KV tile idx / nb), and its Q box when Q
+// streams, into stage idx % kKStages.
+__device__ __forceinline__ void tma_load_k(const TmaBlock& t, int idx) {
+  const int slot = idx % kKStages, j = idx / t.nb, b = idx - j * t.nb;
+  const uint32_t bar = t.bars + 8 * slot;
+  const uint32_t st = kstage_at(t.ring, slot, t.resident);
+  mbar_expect_tx(bar, t.resident ? kKBoxBytes : kKBoxBytes + kQBoxBytes);
+  tma_load(st, t.k, bar, b * kBoxCols, j * kTmaKv, t.bh);
+  if (!t.resident)
+    tma_load(st + kKBoxBytes, t.q, bar, b * kBoxCols, t.q0, t.bh);
+}
+
+// V's boxes of KV tile j below D, the chunk's columns, into V's stage.
+__device__ __forceinline__ void tma_load_v(const TmaBlock& t, int j) {
+  const uint32_t bar = t.bars + 8 * kKStages;
+  mbar_expect_tx(bar, t.v_boxes * kKBoxBytes);
+  for (int h = 0; h < t.v_boxes; ++h)
+    tma_load(t.ring + kRingBytes + h * kKBoxBytes, t.v, bar,
+             t.c0 + h * kBoxCols, j * kTmaKv, t.bh);
+}
+
+// Counts this warp done with the stage of done[i] (its wgmmas that read
+// it are complete); true for the last of the eight warps, whose first
+// lane then owns the stage.
+__device__ __forceinline__ bool tma_last_done(int* done, int i) {
+  __syncwarp();
+  bool last = false;
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();
+    last = atomicAdd(done + i, 1) % (2 * kTcWarps) == 2 * kTcWarps - 1;
+    if (last) __threadfence_block();
+  }
+  return last;
+}
+
+// This warp is done with K box idx: the last warp refills its stage with
+// box idx + kKStages.
+__device__ __forceinline__ void tma_done_k(const TmaBlock& t, int idx) {
+  if (tma_last_done(t.done, idx % kKStages) &&
+      idx + kKStages < t.nb * t.n_kv)
+    tma_load_k(t, idx + kKStages);
+}
+
+// This warp is done with V's tile j: the last warp loads tile j + 1.
+__device__ __forceinline__ void tma_done_v(const TmaBlock& t, int j) {
+  if (tma_last_done(t.done, kKStages) && j + 1 < t.n_kv) tma_load_v(t, j + 1);
+}
+
+// Waits for K box idx (box b of its tile) and issues its 4 k-steps of s +=
+// q[:, box].k[:, box]^T as one wgmma group (box 0 overwrites s).
+__device__ __forceinline__ void tma_issue_box(float (&sc)[32],
+                                              const TmaBlock& t, int idx,
+                                              int b) {
+  const int slot = idx % kKStages;
+  mbar_wait(t.bars + 8 * slot, (idx / kKStages) & 1);
+  const uint32_t st = opaque(kstage_at(t.ring, slot, t.resident));
+  const uint32_t qa =
+      (t.resident ? opaque(t.ring) + b * kQBoxBytes : st + kKBoxBytes) +
+      t.wg * 64 * 128;
+  const uint64_t dq = sw128_desc(qa), dk = sw128_desc(st);
+#pragma unroll
+  for (int kk = 0; kk < kBoxCols / 16; ++kk)
+    wgmma_bf16_ss(sc, dq + 2 * kk, dk + 2 * kk, b | kk);
+  wgmma_commit();
+}
+
+// s = q.k^T of the next KV tile (its first box at ring index idx, which
+// moves past the tile), a wgmma group a box, this warp done with each box
+// once the next box's group is issued and its own is done; returns with
+// the last box's group in flight. Box 0 is issued
+// before the loop, so that no wgmma or wait sits in a branch (ptxas
+// serializes wgmmas in a divergent path, C7520).
+__device__ __forceinline__ void tma_scores(float (&sc)[32], const TmaBlock& t,
+                                           int& idx) {
+  wgmma_fence();
+  tma_issue_box(sc, t, idx++, 0);
+  for (int b = 1; b < t.nb; ++b) {
+    tma_issue_box(sc, t, idx++, b);
+    wgmma_wait<1>();  // box b - 1 is read
+    tma_done_k(t, idx - 2);
+  }
+}
+
+// o += p.v of a tile as one wgmma group: A p's bf16 fragments, B V's boxes
+// at sv MN-major, a k-step 16 KV rows (2048 bytes) on.
+__device__ __forceinline__ void tma_pv(float (&acc)[kOutCols / kBoxCols][32],
+                                       const uint32_t (&pa)[kTmaKv / 16][4],
+                                       uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < kTmaKv / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < kOutCols / kBoxCols; ++h)
+      wgmma_bf16_rs(acc[h], pa[kk],
+                    sw128_desc(opaque(sv) + h * kKBoxBytes) + kk * 128);
+  wgmma_commit();
+}
+
+// p in the scores' layout as the bf16 A fragments of p.v: k-step kk takes
+// columns 16 kk to 16 kk + 15, the accumulator's layout being mma.sync's
+// C and wgmma's register A mma.sync's A.
+__device__ __forceinline__ void tma_pack(uint32_t (&pa)[kTmaKv / 16][4],
+                                         const float (&sc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < kTmaKv / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+// Replaces _fwd_kernel (flash_attention.py:29) for bf16 head dims above
+// 256. Per 64-row KV tile each consumer warpgroup takes s = q.k^T over the
+// boxes of D, then (from the second tile on) issues p.v of the tile before,
+// runs the online softmax of the tile, rescales o and packs p to bf16. At
+// the end o = acc / max(l, 1e-30) and lse = m scale + log(l), written by
+// chunk 0's block. Under causal masking warpgroup 0's rows may end before
+// the block's last KV tile: it counts that tile's K boxes done unread.
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int seq, int D,
+                         float scale, int causal) {
+  extern __shared__ uint8_t tma_smem[];
+  uint8_t* base = align_1024(tma_smem);
+  const uint32_t ring = smem_addr(base);
+  const uint32_t bars = ring + kRingBytes + kVBytes;
+  const uint32_t v_full = bars + 8 * kKStages, q_full = v_full + 8;
+  int* done = reinterpret_cast<int*>(base + kRingBytes + kVBytes +
+                                     8 * (kKStages + 2));
+  // grid (chunks, Q tiles, BH): the longest rows first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTmaRows;
+  const int c0 = blockIdx.x * kOutCols, bh = blockIdx.z;
+  const int nb = D / kBoxCols;
+  const int n_kv = ((causal ? min(q0 + kTmaRows, seq) : seq) + kTmaKv - 1) /
+                   kTmaKv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const TmaBlock t{&tm_q, &tm_k, &tm_v, ring, bars, done, q0, c0, bh, nb,
+                   n_kv, min(kOutCols, D - c0) / kBoxCols, nb <= kQBoxes,
+                   wg};
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= kKStages + 1; ++s) mbar_init(bars + 8 * s, 1);
+    for (int s = 0; s <= kKStages; ++s) done[s] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the first loads; the consumers issue the rest
+    if (t.resident) {
+      mbar_expect_tx(q_full, nb * kQBoxBytes);
+      for (int b = 0; b < nb; ++b)
+        tma_load(ring + b * kQBoxBytes, &tm_q, q_full, b * kBoxCols, q0, bh);
+    }
+    for (int i = 0; i < kKStages && i < nb * n_kv; ++i) tma_load_k(t, i);
+    tma_load_v(t, 0);
+  }
+
+  // warpgroup wg owns rows q0 + 64 wg .. + 63 and uses the first n_w KV
+  // tiles
+  const int g = lane >> 2, tq = lane & 3;
+  const int wg_row0 = q0 + wg * 64;
+  const int row = wg_row0 + (warp & 3) * 16 + g;  // and row + 8
+  const int n_w = causal ? (min(wg_row0 + 64, seq) + kTmaKv - 1) / kTmaKv
+                         : n_kv;
+  const float scale_log2 = scale * kLog2e;
+  float acc[kOutCols / kBoxCols][32];
+#pragma unroll
+  for (int h = 0; h < kOutCols / kBoxCols; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float corr[2];
+  float sc[32];
+  uint32_t pa[kTmaKv / 16][4];
+  int idx = 0;  // ring index of the next K box
+  auto masked = [&](int it) {
+    const int k0 = it * kTmaKv;
+    return (causal && k0 + kTmaKv - 1 > wg_row0) || k0 + kTmaKv > seq;
+  };
+
+  if (t.resident) mbar_wait(q_full, 0);
+  tma_scores(sc, t, idx);  // tile 0
+  wgmma_wait<0>();
+  fence_regs(sc);
+  tma_done_k(t, idx - 1);
+  tma_softmax(sc, m, l, corr, masked(0), 0, row, tq, seq, causal,
+              scale_log2);
+  tma_pack(pa, sc);
+  for (int it = 1; it < n_w; ++it) {
+    tma_scores(sc, t, idx);
+    mbar_wait(v_full, (it - 1) & 1);
+    tma_pv(acc, pa, ring + kRingBytes);  // of tile it - 1
+    wgmma_wait<1>();                     // the scores of tile it
+    fence_regs(sc);
+    tma_done_k(t, idx - 1);
+    tma_softmax(sc, m, l, corr, masked(it), it * kTmaKv, row, tq, seq,
+                causal, scale_log2);
+    wgmma_wait<0>();  // p.v of tile it - 1
+    fence_regs(acc);
+    fence_regs(pa);
+    tma_done_v(t, it - 1);
+#pragma unroll
+    for (int h = 0; h < kOutCols / kBoxCols; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][i] *= corr[(i >> 1) & 1];
+    tma_pack(pa, sc);
+  }
+  mbar_wait(v_full, (n_w - 1) & 1);
+  wgmma_fence();
+  tma_pv(acc, pa, ring + kRingBytes);  // of the last tile
+  wgmma_wait<0>();
+  fence_regs(acc);
+  tma_done_v(t, n_w - 1);
+  // the K boxes of the tiles this warpgroup skips, each counted done once
+  // it is in (only then is the stage's count that of this box); their V
+  // tiles load for the other warpgroup alone
+  for (; idx < n_kv * nb; ++idx) {
+    mbar_wait(bars + 8 * (idx % kKStages), (idx / kKStages) & 1);
+    tma_done_k(t, idx);
+  }
+
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lc[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+  __nv_bfloat16* out = o + (size_t)bh * seq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= seq) continue;
+    if (blockIdx.x == 0 && tq == 0)
+      lse[(size_t)bh * seq + rr] = m[r] * scale + logf(lc[r]);
+#pragma unroll
+    for (int h = 0; h < kOutCols / kBoxCols; ++h) {
+      const int col = c0 + h * kBoxCols;
+      if (col >= D) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)rr * D + col +
+                                           8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[h][4 * j + 2 * r] / lc[r],
+                                  acc[h][4 * j + 2 * r + 1] / lc[r]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda), in its
+// CUDA 12 form; looked up once (C++11 makes the static's initialisation
+// thread-safe, so two host threads may launch at once).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiledFn lookup_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                              &found) == cudaSuccess &&
+      found == cudaDriverEntryPointSuccess)
+    return reinterpret_cast<EncodeTiledFn>(p);
+  return nullptr;
+}
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = lookup_encode_tiled();
+  return fn;
+}
+
+// A [BH, S, D] bf16 tensor as a 3-D tensor map with [box_rows x 64] boxes
+// (one 128-byte swizzle row wide) in the 128-byte swizzle; rows past S
+// read as zeros. -1 if the driver has no cuTensorMapEncodeTiled, -2 if it
+// refuses the map.
+int make_map(CUtensorMap* map, const void* ptr, int bh, int seq, int d,
+             int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
 // -------------------------------------------------------------- launching
 
 // The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) for T,
 // its dynamic shared memory, its threads a block and the output columns a
-// block takes (grid z); nullptr for another kernel id. f32's dq and dk/dv
-// are the wgmma kernels, the rest the 64-column mma.sync templates.
+// block takes; nullptr for another kernel id. The forwards and f32's dq
+// and dk/dv are the wgmma kernels, bf16's dq and dk/dv the 64-column
+// mma.sync templates.
 template <typename T>
 const void* kernel_fn(int kernel, int* smem, int* threads, int* cols) {
   constexpr bool kF32 = std::is_same_v<T, float>;
@@ -1295,8 +1767,16 @@ const void* kernel_fn(int kernel, int* smem, int* threads, int* cols) {
   *cols = kChunk;
   switch (kernel) {
     case 0:
-      *smem = fwd_smem_bytes<T>();
-      return (const void*)flash_fwd_dsplit_kernel<T>;
+      *cols = kOutCols;
+      if constexpr (kF32) {
+        *smem = ws_smem_bytes();
+        *threads = kWsThreads;
+        return (const void*)flash_fwd_ws_kernel;
+      } else {
+        *smem = tma_fwd_smem_bytes();
+        *threads = kTmaThreads;
+        return (const void*)flash_fwd_tma_kernel;
+      }
     case 1:
       if constexpr (kF32) {
         *smem = ws_smem_bytes();
@@ -1332,12 +1812,13 @@ int prepare(int kernel, int d, int* smem, int* threads, int* cols) {
 }
 
 // (tiles of the own axis, BH, chunks) for the mma.sync templates,
-// (chunks, tiles, BH) for f32's dq and dk/dv on wgmma, whose dk/dv takes
-// two blocks a chunk (dv's, dk's)
+// (chunks, tiles, BH) for the wgmma kernels, whose f32 dk/dv takes two
+// blocks a chunk (dv's, dk's) and whose bf16 forward 128-row Q tiles
 template <typename T>
 dim3 grid_of(int kernel, int bh, int seq, int d, int cols) {
-  const int tiles = (seq + kTile - 1) / kTile, chunks = (d + cols - 1) / cols;
-  if (std::is_same_v<T, float> && kernel != 0)
+  const int rows = std::is_same_v<T, float> || kernel != 0 ? kTile : kTmaRows;
+  const int tiles = (seq + rows - 1) / rows, chunks = (d + cols - 1) / cols;
+  if (std::is_same_v<T, float> || kernel == 0)
     return dim3(kernel == 1 ? 2 * chunks : chunks, tiles, bh);
   return dim3(tiles, bh, chunks);
 }
@@ -1349,11 +1830,20 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   int smem, threads, cols;
   const int e = prepare<T>(0, d, &smem, &threads, &cols);
   if (e != 0) return e;
-  flash_fwd_dsplit_kernel<T>
-      <<<grid_of<T>(0, bh, seq, d, cols), threads, smem,
-          (cudaStream_t)stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, seq, d,
-          scale, causal);
+  const dim3 grid = grid_of<T>(0, bh, seq, d, cols);
+  if constexpr (std::is_same_v<T, float>) {
+    flash_fwd_ws_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        (float*)lse, seq, d, scale, causal);
+  } else {
+    CUtensorMap tq, tk, tv;
+    int err = make_map(&tq, q, bh, seq, d, kTmaRows);
+    if (err == 0) err = make_map(&tk, k, bh, seq, d, kTmaKv);
+    if (err == 0) err = make_map(&tv, v, bh, seq, d, kTmaKv);
+    if (err != 0) return err;
+    flash_fwd_tma_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        tq, tk, tv, (T*)o, (float*)lse, seq, d, scale, causal);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -273,6 +273,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     # and a head dim padded to 576 (520)
     (2, 1024, 384, True), (2, 1024, 384, False), (2, 129, 520, True),
     (2, 129, 520, False),
+    # bf16's forward keeps Q resident up to head dim 512 and streams it
+    # above (576, 1000), with more K boxes a tile than ring stages; under
+    # causal masking its first warpgroup skips the block's last KV tile
+    (1, 1000, 1000, True), (2, 200, 576, True), (2, 1024, 576, False),
 ])
 def test_head_dims_above_256_run_the_dsplit_kernels(cuda, dtype, BH, S, Dh,
                                                    causal):
@@ -284,18 +288,21 @@ def test_head_dims_above_256_run_the_dsplit_kernels(cuda, dtype, BH, S, Dh,
     assert launched == {k + suffix: 1 for k in fa.KERNELS}
 
 
-# f32's dq and dk/dv above 256 are two warpgroups (a producer and a
-# consumer) with their operands split in shared memory: one block an SM
-WGMMA_DSPLIT = {"flash_bwd_dq_f32ds": 230720, "flash_bwd_dkv_f32ds": 230720}
+# f32's forward, dq and dk/dv above 256 are two warpgroups (a producer
+# and a consumer) with their operands split in shared memory, bf16's
+# forward two warpgroups fed by TMA, with its Q tile resident up to head
+# dim 512: one block an SM
+WGMMA_DSPLIT = {"flash_fwd_f32ds": 230720, "flash_bwd_dq_f32ds": 230720,
+                "flash_bwd_dkv_f32ds": 230720, "flash_fwd_bf16ds": 230516}
 
 
 @pytest.mark.parametrize("kernel", [k + s for s in ("_bf16ds", "_f32ds")
                                     for k in fa.KERNELS])
 def test_dsplit_kernel_attributes(cuda, kernel):
     """One kernel a dtype serves every head dim above 256, whatever head
-    dim it is asked at; none spills. The mma.sync ones fit two blocks an
-    SM; the f32 dq and dk/dv on wgmma take one, with the shared memory they
-    launch with."""
+    dim it is asked at; none spills. The mma.sync ones (bf16's dq and
+    dk/dv) fit two blocks an SM; the wgmma ones (both forwards, f32's dq
+    and dk/dv) take one, with the shared memory they launch with."""
     attrs = fa.kernel_attributes(kernel)
     assert attrs == fa.kernel_attributes(kernel, 1024)
     assert attrs["local_bytes"] == 0

@@ -460,7 +460,8 @@ def test_shared_memory_fits_one_block(kernel):
                      SRC).group(1)
     smem = _int_expr(body, C)
     assert smem == 230720 <= MAX_SMEM
-    assert KERNEL_FN.count("*smem = ws_smem_bytes();") == 2
+    # f32's forward, dk/dv and dq all launch with it
+    assert KERNEL_FN.count("*smem = ws_smem_bytes();") == 3
     src = DQ if kernel == "dq" else DKV
     chunk, x = ("kt", "sds") if kernel == "dq" else ("ch", "sx")
     for line in ("align_1024(ws_smem)",
