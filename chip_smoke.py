@@ -510,6 +510,12 @@ def check_kernels(torch, F, fa):
              ("bf16d576", 8, 129, 576, True, bf16),
              ("bf16d1000", 2, 1024, 1000, True, bf16),
              ("bf16d1000nc", 2, 129, 1000, False, bf16),
+             # bf16's dq and dk/dv: a last 256-column chunk of three
+             # 64-column boxes (448; 320 and 384 give one and two), and
+             # whole chunks with a one-row last tile (512 at S 129: dq's
+             # second 128-row Q tile, dk/dv's third 64-row KV tile)
+             ("bf16d448", 8, 1000, 448, True, bf16),
+             ("bf16d512r", 8, 129, 512, True, bf16),
              ("dsplit", *DSPLIT_SHAPE, True, bf16),
              ("f16d320", 8, 129, 320, True, torch.float16),
              ("f16d520nc", 4, 1024, 520, False, torch.float16)]

@@ -4,20 +4,18 @@
 //
 // They compute what the Pallas TPU kernels of ray_tpu/ops/flash_attention.py
 // compute, at any head dim:
-//   flash_fwd_tma_kernel (bf16),  <- _fwd_kernel      (flash_attention.py:29)
+//   flash_fwd_tma_kernel (bf16),     <- _fwd_kernel     (flash_attention.py:29)
 //   flash_fwd_ws_kernel (f32)
-//   flash_bwd_dq_dsplit_kernel,   <- _bwd_dq_kernel   (flash_attention.py:160)
-//   flash_bwd_dq_ws_kernel
-//   flash_bwd_dkv_dsplit_kernel,  <- _bwd_dkv_kernel  (flash_attention.py:212)
-//   flash_bwd_dkv_ws_kernel
-// The *_dsplit kernels are mma.sync templates on the input type T, built
-// for bf16 alone (dq and dk/dv); the *_ws kernels are f32's forward, dq
-// and dk/dv on 3xTF32 wgmma, and flash_fwd_tma_kernel bf16's forward on
-// wgmma (each further down, with its own notes). Sums, the softmax and
-// lse are f32; o, dq, dk and dv are written in the inputs' type. In bf16,
-// p (forward and dv) and ds (dq and dk) are rounded to bf16 before the
-// products that take them, as the bf16 Pallas kernels cast them
-// (flash_attention.py:196-199).
+//   flash_bwd_dq_tma_kernel (bf16),  <- _bwd_dq_kernel  (flash_attention.py:160)
+//   flash_bwd_dq_ws_kernel (f32)
+//   flash_bwd_dkv_tma_kernel (bf16), <- _bwd_dkv_kernel (flash_attention.py:212)
+//   flash_bwd_dkv_ws_kernel (f32)
+// The *_ws kernels are f32's forward, dq and dk/dv on 3xTF32 wgmma, the
+// *_tma kernels bf16's on bf16 wgmma fed by TMA (each further down, with
+// its own notes). Sums, the softmax and lse are f32; o, dq, dk and dv are
+// written in the inputs' type. In bf16, p (forward and dv) and ds (dq and
+// dk) are rounded to bf16 before the products that take them, as the bf16
+// Pallas kernels cast them (flash_attention.py:196-199).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [BH, S, D], contiguous and
 // 16-byte aligned, D a multiple of 64 (the wrapper pads any other head dim
@@ -29,7 +27,7 @@
 // accumulator in registers, which at D 320 would take 160 registers a
 // thread for one 64-row tile of 4 warps, and no limit on D would hold. Here
 // a block owns a tile of its own axis (Q rows for the forward and dq, KV
-// rows for dk/dv) and one chunk of the output's columns, so its
+// rows for dk/dv) and one 256-column chunk of the output's columns, so its
 // accumulators do not grow with D. The scores still contract over the
 // whole head dim, so a block streams q and k (and do and v) through shared
 // memory in 64-column steps, summing each step's product into s, and only
@@ -37,39 +35,30 @@
 // own chunk's columns. Every chunk's block computes s in the same order,
 // so the chunks of a row see the same p bit for bit, and lse is written by
 // chunk 0's block only. The price is that the scores are computed once for
-// each chunk. The mma.sync templates take 64-column chunks: dq does 2 D /
-// 64 + 1 products of a tile pair where one block with the whole row would
-// do 3, dk/dv 2 D / 64 + 2 for 4 (at D 512: 17 / 3 and 18 / 4 times the
-// work). The wgmma kernels take 256-column chunks: the forward (D / 256 +
-// 1) for 2, dq 2 D / 256 + 1 for 3, dk/dv in a dv block and a dk block (at
-// D 512: 3 / 2, 5 / 3 and 8 / 4). No kernel holds more than a 64-column
-// step of any row of the scores' streamed operands, so shared memory does
-// not grow with D either (bf16's forward keeps its Q tile whole while D
-// <= 512 and streams it above).
-//
-// Products of the templates: mma.sync m16n8k16 on raw bf16 tiles loaded
-// by cp.async into a two-stage ring, so that the next step's loads run
-// under this step's products (fragments by ldmatrix, .trans for the
-// accumulating product's B), with f32 sums, and ds and p packed to bf16 as
-// its A operand.
+// each chunk: the forward does (D / 256 + 1) products of a tile pair where
+// one block with the whole row would do 2, dq 2 D / 256 + 1 for 3, dk/dv
+// 2 + 2 D / 256 for 4 in one block (bf16) or 8 in a dv block and a dk
+// block (f32) (at D 512: 3 / 2, 5 / 3, 6 / 4 and 8 / 4). A last chunk past
+// D is computed on zero columns and not stored.
 //
 // What bounds them on an H100: at B*H 24, S 1024, D 512, causal the
 // forward's two products are 25.8 GFLOP (bf16: 0.026 ms at 989 TFLOP/s;
 // f32: 0.156 ms at 3xTF32's 165) against 101 MB of traffic in bf16 (0.030
 // ms), so the bf16 forward is bound by bytes and the rest by operations
-// (f32 dq 0.2345 ms, dk/dv 0.3127); the recomputed scores above are work
-// the bound does not count. What holds the templates far from it is
-// traffic from L2: a 64-column step reads a 64-row tile of the block's own
-// axis again for every tile of the other axis and every chunk, for a few
-// products a warp (PERF.md). The f32 wgmma kernels split each operand once
-// for each use and take every product from shared memory; what bounds
-// them on the card is their producer's loads (their note). bf16's forward
-// loads by TMA and keeps its Q tile resident (its note).
+// (bf16 dq 0.0391 ms, dk/dv 0.0522; f32 0.2345 and 0.3127); the recomputed
+// scores above are work the bound does not count. What holds the kernels
+// from it is their loads: a block reads the other axis' tiles over all of
+// D once for each chunk and each tile of its own axis. The f32 wgmma
+// kernels split each operand once for each use and take every product
+// from shared memory; what bounds them on the card is their producer's
+// loads (their note). The bf16 ones load by TMA: the forward keeps its Q
+// tile resident while D <= 512, dq and dk/dv stream every operand through
+// a deeper ring (their notes).
 //
 // The host entry points return cudaGetLastError() right after the launch,
-// -3 for a head dim that is not a positive multiple of 64, and for bf16's
-// forward -1 if the CUDA driver has no cuTensorMapEncodeTiled, -2 if it
-// refuses a tensor map.
+// -3 for a head dim that is not a positive multiple of 64, and for bf16
+// -1 if the CUDA driver has no cuTensorMapEncodeTiled, -2 if it refuses a
+// tensor map.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,405 +72,12 @@
 
 namespace {
 
-// head-dim columns of a step, and of an output chunk of the mma.sync
-// templates
+// head-dim columns of a step of the scores
 constexpr int kChunk = 64;
-// Rows of the other axis a step of the bf16 dq and dk/dv templates
-// streams: each step reads the block's own 64-row tile again, so more rows
-// a step mean less traffic, up to what the registers hold without
-// spilling (they hold two score tiles).
-template <typename T>
-constexpr int kDqRows = 64;
-template <typename T>
-constexpr int kDkvRows = 64;
-
-// 4-byte words of one 64-column row of a tile in shared memory
-template <typename T>
-constexpr int kRowWords = kChunk * (int)sizeof(T) / 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// four 8 x 8 matrices of 16-bit values from shared memory, lane l giving
-// the address of row l % 8 of matrix l / 8 (.trans: each transposed)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a.b for a 16 x 16 bf16 A (row-major) and a 16 x 8 bf16 B
-// (column-major), f32 sums; the accumulator layout is mma_tf32's
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// How the templates' input type lays a tile out and loads it into shared
-// memory, takes one 64-column step's scores and an accumulating product
-// (p and ds rounded to bf16 as they are packed into its A operand), and
-// stores a pair of outputs. bf16 alone has one: f32 runs the wgmma
-// kernels further down.
-template <typename T>
-struct Io;
-
-// bf16: tiles raw, 128 bytes a row with its 16-byte chunks XOR-swizzled
-// by the row, so that the 8 rows of an ldmatrix hit 8 distinct chunks of
-// banks; every product bf16 mma.sync m16n8k16 with f32 sums, p and ds
-// rounded to bf16 as the A operand is packed
-template <>
-struct Io<__nv_bfloat16> {
-  // element (r, c) of a tile, c a multiple of 8 (one 16-byte chunk)
-  static __device__ __forceinline__ int at(int r, int c) {
-    return r * kChunk + ((((c >> 3) ^ r) & 7) << 3);
-  }
-  template <int kRows>
-  static __device__ __forceinline__ void load(uint32_t* dst,
-                                              const __nv_bfloat16* src,
-                                              int r0, int c0, int seq,
-                                              int ld) {
-    constexpr int kChunks = kChunk / 8;  // 16-byte copies a row
-    auto* t = reinterpret_cast<__nv_bfloat16*>(dst);
-    for (int i = threadIdx.x; i < kRows * kChunks; i += kTcThreads) {
-      const int r = i / kChunks, ch = i % kChunks;
-      const bool valid = r0 + r < seq;
-      cp_async16(reinterpret_cast<uint32_t*>(t + at(r, 8 * ch)),
-                 src + (size_t)(valid ? r0 + r : 0) * ld + c0 + ch * 8,
-                 valid);
-    }
-  }
-  template <bool kRestart, int NT>
-  static __device__ __forceinline__ void scores(float (&s)[NT][4],
-                                                const uint32_t* a,
-                                                const uint32_t* b, int row) {
-    static_assert(NT % 2 == 0, "B fragments load two n-tiles at a time");
-    const auto* A = reinterpret_cast<const __nv_bfloat16*>(a);
-    const auto* B = reinterpret_cast<const __nv_bfloat16*>(b);
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int ks = 0; ks < kChunk / 16; ++ks) {
-      uint32_t fa[4];  // rows row..row+15, columns 16 ks..16 ks+15
-      ldsm_x4(fa, A + at(row + (lane & 15), 16 * ks + 8 * (lane >> 4)));
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t fb[4];  // b rows 8 n..8 n+15: two n-tiles
-        ldsm_x4(fb, B + at(8 * n + (lane & 7) + 8 * (lane >> 4),
-                           16 * ks + 8 * ((lane >> 3) & 1)));
-        mma_bf16(s[n], fa, fb[0], fb[1]);
-        mma_bf16(s[n + 1], fa, fb[2], fb[3]);
-      }
-    }
-  }
-  template <int NT>
-  static __device__ __forceinline__ void accumulate(
-      float (&acc)[kChunk / 8][4], const float (&x)[NT][4],
-      const uint32_t* tile) {
-    static_assert(NT % 2 == 0, "a k-step takes two n-tiles of x");
-    const auto* V = reinterpret_cast<const __nv_bfloat16*>(tile);
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      const uint32_t a[4] = {pack_bf16(x[j][0], x[j][1]),
-                             pack_bf16(x[j][2], x[j][3]),
-                             pack_bf16(x[j + 1][0], x[j + 1][1]),
-                             pack_bf16(x[j + 1][2], x[j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; n += 2) {
-        uint32_t fb[4];  // tile rows 8 j..8 j+15, columns 8 n..8 n+15
-        ldsm_x4_t(fb, V + at(8 * j + (lane & 7) + 8 * ((lane >> 3) & 1),
-                             8 * n + 8 * (lane >> 4)));
-        mma_bf16(acc[n], a, fb[0], fb[1]);
-        mma_bf16(acc[n + 1], a, fb[2], fb[3]);
-      }
-    }
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a,
-                                                float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-};
-
-// --------------------------------------------------------------------- dq
-
-// a stage: [Q 64, dO 64, K kDqRows, V kDqRows rows] of one 64-column step;
-// then K's rows of the block's chunk, a buffer for each of two K/V tiles
-template <typename T>
-constexpr int kDqStage = (2 * kTile + 2 * kDqRows<T>) * kRowWords<T>;
-template <typename T>
-constexpr int dq_smem_bytes() {
-  return (2 * kDqStage<T> + 2 * kDqRows<T> * kRowWords<T>) * 4;
-}
-
-// Replaces _bwd_dq_kernel for bf16 head dims above 256. Per K/V tile: s =
-// q.k^T and dp = do.v^T over all of D, p = exp(s scale - lse), ds = p (dp
-// - delta) scale, rounded to k's type, then dq[:, chunk] += ds.k[:,
-// chunk]. grid (Q tiles, BH, D / 64).
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads, 2)
-    flash_bwd_dq_dsplit_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               T* __restrict__ dq, int seq, int D,
-                               float scale, int causal) {
-  static_assert(sizeof(T) == 2, "f32 runs flash_bwd_dq_ws_kernel");
-  constexpr int BN = kDqRows<T>, NT = BN / 8;
-  constexpr int W = kRowWords<T>;  // words a tile row
-  extern __shared__ __align__(16) uint32_t ds_smem[];
-  uint32_t* ring = ds_smem;
-  uint32_t* kbuf = ring + 2 * kDqStage<T>;
-  const int tile = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = tile * kTile;
-  const int c_out = blockIdx.z * kChunk;
-  const size_t base = (size_t)blockIdx.y * seq * D;
-  const size_t rbase = (size_t)blockIdx.y * seq;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
-  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
-
-  const int nc = D / kChunk;
-  const int kv_end = causal ? min(seq, q0 + kTile) : seq;
-  const int n_steps = (kv_end + BN - 1) / BN * nc;
-  auto load_step = [&](int i) {
-    const int j = i / nc, c = i % nc;
-    uint32_t* st = ring + (i & 1) * kDqStage<T>;
-    Io<T>::template load<kTile>(st, q + base, q0, c * kChunk, seq, D);
-    Io<T>::template load<kTile>(st + kTile * W, dout + base, q0,
-                                c * kChunk, seq, D);
-    Io<T>::template load<BN>(st + 2 * kTile * W, k + base, j * BN,
-                             c * kChunk, seq, D);
-    Io<T>::template load<BN>(st + (2 * kTile + BN) * W, v + base, j * BN,
-                             c * kChunk, seq, D);
-    if (c == 0)
-      Io<T>::template load<BN>(kbuf + (j & 1) * BN * W, k + base,
-                               j * BN, c_out, seq, D);
-  };
-  load_step(0);
-  cp_async_commit();
-
-  // p = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
-  const float scale2 = scale * kLog2e;
-  float lse2[2], delta_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + wr + g + 8 * h;
-    lse2[h] = row < seq ? lse[rbase + row] * kLog2e : 0.f;
-    delta_r[h] = row < seq ? delta[rbase + row] : 0.f;
-  }
-  float s[NT][4], dp[NT][4], acc[kChunk / 8][4];
-#pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int i = 0; i < n_steps; ++i) {
-    const int j = i / nc, c = i % nc, k0 = j * BN;
-    if (i + 1 < n_steps) {  // the next step loads under this one
-      load_step(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // under causal masking a tile wholly after the warp's rows adds nothing
-    if (!causal || k0 <= q0 + wr + 15) {
-      if (c == 0) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      }
-      const uint32_t* st = ring + (i & 1) * kDqStage<T>;
-      Io<T>::template scores<false>(s, st, st + 2 * kTile * W, wr);
-      Io<T>::template scores<true>(dp, st + kTile * W,
-                                   st + (2 * kTile + BN) * W, wr);
-      if (c == nc - 1) {
-        // only a tile past S or across the diagonal has masked entries
-        const bool edge = k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr);
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1, row = q0 + wr + g + 8 * h,
-                      col = k0 + 8 * n + 2 * t4 + (e & 1);
-            float p = exp2f(fmaf(s[n][e], scale2, -lse2[h]));
-            if (edge && (col >= seq || (causal && col > row))) p = 0.f;
-            s[n][e] = p * (dp[n][e] - delta_r[h]) * scale;  // ds
-          }
-        Io<T>::accumulate(acc, s, kbuf + (j & 1) * BN * W);
-      }
-    }
-    __syncthreads();  // this stage is read: the next load may refill it
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + wr + g + 8 * h;
-    if (row >= seq) continue;
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-      Io<T>::store2(dq + base + (size_t)row * D + c_out + 8 * n + 2 * t4,
-                    acc[n][2 * h], acc[n][2 * h + 1]);
-  }
-}
-
-// ------------------------------------------------------------------ dk/dv
-
-// a stage: [K 64, V 64, Q kDkvRows, dO kDkvRows rows] of one 64-column
-// step; then, for each of two Q tiles, Q's and dO's rows of the block's
-// chunk, and lse and delta of the tile's rows
-template <typename T>
-constexpr int kDkvStage = (2 * kTile + 2 * kDkvRows<T>) * kRowWords<T>;
-template <typename T>
-constexpr int kDkvOut = 2 * kDkvRows<T> * kRowWords<T>;
-template <typename T>
-constexpr int dkv_smem_bytes() {
-  return (2 * kDkvStage<T> + 2 * kDkvOut<T> + 2 * 2 * kDkvRows<T>) * 4;
-}
-
-// Replaces _bwd_dkv_kernel for bf16 head dims above 256. Per Q tile, in
-// transposed scores (rows the warp's KV rows, columns Q rows): s^T = k.q^T
-// and dp^T = v.do^T over all of D, p^T from lse, ds^T = p^T (dp^T -
-// delta) scale; then dv[:, chunk] += p^T.do[:, chunk] (p in do's type) and
-// dk[:, chunk] += ds^T.q[:, chunk] (ds in q's type). grid (KV tiles, BH,
-// D / 64).
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads, 2)
-    flash_bwd_dkv_dsplit_kernel(const T* __restrict__ q,
-                                const T* __restrict__ k,
-                                const T* __restrict__ v,
-                                const T* __restrict__ dout,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ delta,
-                                T* __restrict__ dk, T* __restrict__ dv,
-                                int seq, int D, float scale, int causal) {
-  static_assert(sizeof(T) == 2, "f32 runs flash_bwd_dkv_ws_kernel");
-  constexpr int BN = kDkvRows<T>, NT = BN / 8;
-  constexpr int W = kRowWords<T>;  // words a tile row
-  extern __shared__ __align__(16) uint32_t ds_smem[];
-  uint32_t* ring = ds_smem;
-  uint32_t* outb = ring + 2 * kDkvStage<T>;  // [Q tile][q, do][BN rows]
-  float* rows = reinterpret_cast<float*>(outb + 2 * kDkvOut<T>);
-  // rows: [Q tile][lse, delta][BN]
-  const int k0 = blockIdx.x * kTile;  // the longest column runs come first
-  const int c_out = blockIdx.z * kChunk;
-  const size_t base = (size_t)blockIdx.y * seq * D;
-  const size_t rbase = (size_t)blockIdx.y * seq;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's KV rows in the tile
-  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
-  const float scale2 = scale * kLog2e;  // exp(x) = exp2(x log2(e))
-
-  const int nc = D / kChunk;
-  // Q tiles wholly before this KV tile see none of it under causal masking
-  const int q_begin = causal ? k0 : 0;
-  const int n_steps = (seq - q_begin + BN - 1) / BN * nc;
-  auto load_step = [&](int i) {
-    const int j = i / nc, c = i % nc, q0 = q_begin + j * BN;
-    uint32_t* st = ring + (i & 1) * kDkvStage<T>;
-    Io<T>::template load<kTile>(st, k + base, k0, c * kChunk, seq, D);
-    Io<T>::template load<kTile>(st + kTile * W, v + base, k0,
-                                c * kChunk, seq, D);
-    Io<T>::template load<BN>(st + 2 * kTile * W, q + base, q0,
-                             c * kChunk, seq, D);
-    Io<T>::template load<BN>(st + (2 * kTile + BN) * W, dout + base, q0,
-                             c * kChunk, seq, D);
-    if (c == 0) {
-      uint32_t* ob = outb + (j & 1) * kDkvOut<T>;
-      Io<T>::template load<BN>(ob, q + base, q0, c_out, seq, D);
-      Io<T>::template load<BN>(ob + BN * W, dout + base, q0, c_out, seq,
-                               D);
-      float* r = rows + (j & 1) * 2 * BN;
-      load_rows_async(r, lse + rbase, q0, BN, seq);
-      load_rows_async(r + BN, delta + rbase, q0, BN, seq);
-    }
-  };
-  load_step(0);
-  cp_async_commit();
-
-  float p[NT][4], ds[NT][4];
-  float dk_acc[kChunk / 8][4], dv_acc[kChunk / 8][4];
-#pragma unroll
-  for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int i = 0; i < n_steps; ++i) {
-    const int j = i / nc, c = i % nc, q0 = q_begin + j * BN;
-    if (i + 1 < n_steps) {  // the next step loads under this one
-      load_step(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // under causal masking a Q tile wholly before the warp's rows adds
-    // nothing
-    if (!causal || q0 + BN - 1 >= k0 + wr) {
-      if (c == 0) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.f;
-      }
-      const uint32_t* st = ring + (i & 1) * kDkvStage<T>;
-      Io<T>::template scores<false>(p, st, st + 2 * kTile * W, wr);
-      Io<T>::template scores<true>(ds, st + kTile * W,
-                                   st + (2 * kTile + BN) * W, wr);
-      if (c == nc - 1) {
-        const uint32_t* ob = outb + (j & 1) * kDkvOut<T>;
-        const float* slse = rows + (j & 1) * 2 * BN;
-        const float* sdelta = slse + BN;
-        // only a tile past S or across the diagonal has masked entries (KV
-        // rows past S are never stored, so they need no mask)
-        const bool edge = q0 + BN > seq || (causal && q0 < k0 + wr + 15);
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int a = 8 * n + 2 * t4 + (e & 1), row = q0 + a,
-                      col = k0 + wr + g + 8 * (e >> 1);
-            float pe = exp2f(fmaf(p[n][e], scale2, -slse[a] * kLog2e));
-            if (edge && (row >= seq || (causal && col > row))) pe = 0.f;
-            ds[n][e] = pe * (ds[n][e] - sdelta[a]) * scale;
-            p[n][e] = pe;
-          }
-        Io<T>::accumulate(dv_acc, p, ob + BN * W);  // p^T . do
-        Io<T>::accumulate(dk_acc, ds, ob);                // ds^T . q
-      }
-    }
-    __syncthreads();  // this stage is read: the next load may refill it
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = k0 + wr + g + 8 * h;
-    if (row >= seq) continue;
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n) {
-      const size_t at = base + (size_t)row * D + c_out + 8 * n + 2 * t4;
-      Io<T>::store2(dk + at, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
-      Io<T>::store2(dv + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
-    }
-  }
 }
 
 // ----------------------------------- f32 forward, dq and dk/dv on wgmma
@@ -514,8 +110,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 // dk/dv's grid has a dv block and a dk block for each chunk, side by side.
 //
 // Why these widths: the scores are computed once for each chunk of the
-// output, so a chunk as wide as the registers allow cuts the recompute of
-// the mma.sync kernels' 64-column chunks. A consumer thread holds its 64 x
+// output, so a chunk as wide as the registers allow cuts the recompute
+// that 64-column chunks took. A consumer thread holds its 64 x
 // 256 output (128 registers) and, while it takes a score product, the
 // sum, the small terms' chain and the step's part of a 64 x kWsRows tile
 // (16 registers each at kWsRows 32; 64 rows would take 96 and did not
@@ -1708,6 +1304,467 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 }
 
+// ------------------------------------------- bf16 dq and dk/dv on wgmma
+//
+// flash_bwd_dq_tma_kernel and flash_bwd_dkv_tma_kernel: the bf16 backward
+// above head dim 256, on flash_fwd_tma_kernel's machinery (TMA boxes of 64
+// columns in the 128-byte swizzle through a ring whose stages the last of
+// the eight warps done with them refills, bf16 wgmma m64n64k16 with f32
+// sums) and the products of flash_attention.cu's head-dim-256 backward
+// kernels. A block is two warpgroups and computes one kOutCols-column
+// chunk of its outputs (grid (chunks, tiles, BH)), a [64, 256] f32
+// accumulator in a thread's 128 registers.
+//
+//   dq:    128 Q rows, 64 a warpgroup. Per 64-row KV tile, over the boxes
+//          of D: dp = do.v^T and s = q.k^T (both products of a box in one
+//          wgmma group); then p from lse, ds = p (dp - delta) scale, packed
+//          to bf16 as the register A operand of dq[:, chunk] += ds.k[:,
+//          chunk], K's rows of the chunk read MN-major.
+//   dk/dv: 64 KV rows, every row in both warpgroups; per 64-row Q tile,
+//          warpgroup 0 takes s^T = k.q^T over the boxes of D, p^T from lse
+//          and dv[:, chunk] += p^T.do[:, chunk]; warpgroup 1 dp^T = v.do^T,
+//          ds^T = p^T (dp^T - delta) scale and dk[:, chunk] += ds^T.q[:,
+//          chunk]. p^T passes from warpgroup 0 to 1 through shared memory
+//          in f32, as in flash_bwd_dkv_d256_kernel.
+//
+// Why these widths: the scores are taken once for each chunk, so 256
+// columns (the widest accumulator the registers hold beside s and dp)
+// cut the 64-column templates' recompute: at D 512 dq does (2 D / 256 +
+// 1) / 3 = 1.67 times the products of a whole-row kernel, against 5.7,
+// and dk/dv (2 + 2 x 256 / D) 2 / 4 = 1.5, against 4.5. 128 Q rows a dq
+// block share each K and V box between two warpgroups.
+//
+// What binds them is the wait for boxes, not L2's bytes or the tensor
+// cores: every box of the other axis is read once for each chunk and each
+// tile of the block's own axis, and a box's products take less time than
+// its load. So a stage holds every box one k-step of 64 columns needs, the
+// block's own rows among them (dq: K, V, dO and Q, 48 KB; dk/dv: Q, dO, V
+// and K, 32 KB), and the ring is as deep as shared memory allows: 4 stages,
+// 3 of them loading while one is read. Keeping the own tile resident
+// instead (Q 128 KB, K 64 KB at D 512) read ~1.07 and ~1.76 GB from L2,
+// not ~1.47 and ~2.14, but left 2 and 3 stages and ran 28% and 16% slower
+// on the card (PERF.md). The chunk's rows of the other axis (dq: K's,
+// dk/dv: Q's and dO's) have a buffer of their own, loaded once a tile: the
+// boxes the scores read are gone by the time ds is known. A chunk's boxes
+// past D are not loaded; the products that read them write only columns
+// that are not stored.
+//
+// Order of the sums: every chunk's block adds the boxes into s and dp in
+// the same order with the same instructions and takes p and ds in the
+// same steps, so every chunk of a row sees the same p and ds bit for bit.
+//
+// Loads: no warp only loads (a ninth warp caps every thread at 168
+// registers, the forward's note). Thread 0 issues the first loads (the
+// first stages and tile 0's chunk); then the last of the eight warps done
+// with a stage refills it with box idx + kBwdStages, and the last done
+// with the chunk loads the next tile's. Under causal masking dq's
+// warpgroup 0 may end a KV tile before the block: it counts that tile's
+// boxes done unread, as the forward does.
+constexpr int kBwdStages = 4;
+// dq: a stage is a K, a V, a dO and a Q box (dO's and Q's [128, 64])
+constexpr int kDqStageBytes = 2 * kKBoxBytes + 2 * kQBoxBytes;
+// dk/dv: a stage is a Q, a dO, a V and a K box
+constexpr int kDkvStageBytes = 4 * kKBoxBytes;
+constexpr int kPtBytes = kTmaKv * kTmaKv * 4;
+
+// The ring, K's chunk, a full barrier for each stage and the chunk's, the
+// counts of warps done with each stage and with the chunk.
+constexpr int tma_dq_smem_bytes() {
+  return 1024 + kBwdStages * kDqStageBytes + kVBytes + 8 * (kBwdStages + 1) +
+         4 * (kBwdStages + 1);
+}
+
+// The ring, the chunk of Q and of dO, p^T, a full barrier for each stage
+// and the chunk's, p^T's full and empty ones, the counts.
+constexpr int tma_dkv_smem_bytes() {
+  return 1024 + kBwdStages * kDkvStageBytes + 2 * kVBytes + kPtBytes +
+         8 * (kBwdStages + 3) + 4 * (kBwdStages + 1);
+}
+
+// What a block of the bf16 backward loads and where: the tensor maps; the
+// ring's shared address (stage s kStageBytes s on) and the chunk's; the
+// barriers (stage s's full barrier at bars + 8 s, the chunk's at bars + 8
+// kBwdStages); the warps done with each stage and with the chunk, counted
+// in done[] (the chunk's at done[kBwdStages]); the own tile's first row,
+// the other axis' first row, the chunk's first column, the head; the boxes
+// of D, the other axis' tiles, the chunk's boxes below D; the warpgroup.
+struct BwdBlock {
+  const CUtensorMap *q, *k, *v, *dout;
+  uint32_t ring, chunk, bars;
+  int* done;
+  int own0, o_begin, c0, bh, nb, n_tiles, chunk_boxes, wg;
+};
+
+// Ring index idx (box idx % nb of the other axis' tile idx / nb) into
+// stage idx % kBwdStages. dq: K's and V's box of the KV tile, dO's and Q's
+// of the block's rows; dk/dv: Q's and dO's box of the Q tile, V's and K's
+// of the block's rows.
+template <bool kDq>
+__device__ __forceinline__ void bwd_load_stage(const BwdBlock& t, int idx) {
+  constexpr int kStageBytes = kDq ? kDqStageBytes : kDkvStageBytes;
+  constexpr int kOwnBox = kDq ? kQBoxBytes : kKBoxBytes;
+  const int slot = idx % kBwdStages, j = idx / t.nb, b = idx - j * t.nb;
+  const uint32_t bar = t.bars + 8 * slot, st = t.ring + slot * kStageBytes;
+  const int col = b * kBoxCols, o = t.o_begin + j * kTmaKv;
+  mbar_expect_tx(bar, kStageBytes);
+  tma_load(st, kDq ? t.k : t.q, bar, col, o, t.bh);
+  tma_load(st + kKBoxBytes, kDq ? t.v : t.dout, bar, col, o, t.bh);
+  tma_load(st + 2 * kKBoxBytes, kDq ? t.dout : t.v, bar, col, t.own0, t.bh);
+  tma_load(st + 2 * kKBoxBytes + kOwnBox, kDq ? t.q : t.k, bar, col, t.own0,
+           t.bh);
+}
+
+// The chunk's boxes below D of the other axis' tile j: dq K's, dk/dv Q's
+// and then dO's (kVBytes on).
+template <bool kDq>
+__device__ __forceinline__ void bwd_load_chunk(const BwdBlock& t, int j) {
+  const uint32_t bar = t.bars + 8 * kBwdStages;
+  const int o = t.o_begin + j * kTmaKv;
+  mbar_expect_tx(bar, (kDq ? 1 : 2) * t.chunk_boxes * kKBoxBytes);
+  for (int h = 0; h < t.chunk_boxes; ++h) {
+    tma_load(t.chunk + h * kKBoxBytes, kDq ? t.k : t.q, bar,
+             t.c0 + h * kBoxCols, o, t.bh);
+    if constexpr (!kDq)
+      tma_load(t.chunk + kVBytes + h * kKBoxBytes, t.dout, bar,
+               t.c0 + h * kBoxCols, o, t.bh);
+  }
+}
+
+// This warp is done with ring index idx: the last warp refills its stage
+// with idx + kBwdStages.
+template <bool kDq>
+__device__ __forceinline__ void bwd_done_box(const BwdBlock& t, int idx) {
+  if (tma_last_done(t.done, idx % kBwdStages) &&
+      idx + kBwdStages < t.nb * t.n_tiles)
+    bwd_load_stage<kDq>(t, idx + kBwdStages);
+}
+
+// This warp is done with tile j's chunk: the last warp loads tile j + 1's.
+template <bool kDq>
+__device__ __forceinline__ void bwd_done_chunk(const BwdBlock& t, int j) {
+  if (tma_last_done(t.done, kBwdStages) && j + 1 < t.n_tiles)
+    bwd_load_chunk<kDq>(t, j + 1);
+}
+
+// Waits for ring index idx (box b of its tile) and issues its products as
+// one wgmma group (box 0 overwrites the scores). dq: dp += do[:, box].v[:,
+// box]^T and s += q[:, box].k[:, box]^T of the warpgroup's 64 rows; dk/dv:
+// x += k[:, box].q[:, box]^T (s^T, warpgroup 0) or v[:, box].do[:, box]^T
+// (dp^T, warpgroup 1), y untouched.
+template <bool kDq>
+__device__ __forceinline__ void bwd_issue_box(float (&x)[32], float (&y)[32],
+                                              const BwdBlock& t, int idx,
+                                              int b) {
+  const int slot = idx % kBwdStages;
+  mbar_wait(t.bars + 8 * slot, (idx / kBwdStages) & 1);
+  if constexpr (kDq) {
+    const uint32_t st = opaque(t.ring) + slot * kDqStageBytes;
+    const uint32_t rows = t.wg * 64 * 128;  // the warpgroup's rows of a box
+    const uint64_t dk = sw128_desc(st), dv = sw128_desc(st + kKBoxBytes);
+    const uint64_t ddo = sw128_desc(st + 2 * kKBoxBytes + rows);
+    const uint64_t dq = sw128_desc(st + 2 * kKBoxBytes + kQBoxBytes + rows);
+#pragma unroll
+    for (int kk = 0; kk < kBoxCols / 16; ++kk)
+      wgmma_bf16_ss(x, ddo + 2 * kk, dv + 2 * kk, b | kk);
+#pragma unroll
+    for (int kk = 0; kk < kBoxCols / 16; ++kk)
+      wgmma_bf16_ss(y, dq + 2 * kk, dk + 2 * kk, b | kk);
+  } else {
+    const uint32_t st = opaque(t.ring) + slot * kDkvStageBytes;
+    const uint64_t da =
+        sw128_desc(st + (t.wg == 0 ? 3 * kKBoxBytes : 2 * kKBoxBytes));
+    const uint64_t db = sw128_desc(st + t.wg * kKBoxBytes);
+#pragma unroll
+    for (int kk = 0; kk < kBoxCols / 16; ++kk)
+      wgmma_bf16_ss(x, da + 2 * kk, db + 2 * kk, b | kk);
+  }
+  wgmma_commit();
+}
+
+// The scores of the next tile of the other axis (its first box at ring
+// index idx, which moves past the tile), a wgmma group a box, this warp
+// done with each box once the next box's group is issued and its own is
+// done; returns with the last box's group in flight (as tma_scores).
+template <bool kDq>
+__device__ __forceinline__ void bwd_scores(float (&x)[32], float (&y)[32],
+                                           const BwdBlock& t, int& idx) {
+  wgmma_fence();
+  bwd_issue_box<kDq>(x, y, t, idx++, 0);
+  for (int b = 1; b < t.nb; ++b) {
+    bwd_issue_box<kDq>(x, y, t, idx++, b);
+    wgmma_wait<1>();  // box b - 1 is read
+    bwd_done_box<kDq>(t, idx - 2);
+  }
+}
+
+// The block's TMA state and thread 0's first loads: the barriers, the
+// first stages and tile 0's chunk. The own tile's first row, the other
+// axis' first row and tiles as the kernel gives them; the chunk's buffer
+// after the ring.
+template <bool kDq>
+__device__ __forceinline__ BwdBlock bwd_setup(
+    const CUtensorMap* q, const CUtensorMap* k, const CUtensorMap* v,
+    const CUtensorMap* dout, uint32_t ring, uint32_t bars, int* done,
+    int own0, int o_begin, int n_tiles, int D) {
+  constexpr int kStageBytes = kDq ? kDqStageBytes : kDkvStageBytes;
+  const int c0 = blockIdx.x * kOutCols;
+  const BwdBlock t{q,
+                   k,
+                   v,
+                   dout,
+                   ring,
+                   ring + kBwdStages * kStageBytes,
+                   bars,
+                   done,
+                   own0,
+                   o_begin,
+                   c0,
+                   (int)blockIdx.z,
+                   D / kBoxCols,
+                   n_tiles,
+                   min(kOutCols, D - c0) / kBoxCols,
+                   (int)(threadIdx.x >> 7)};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= kBwdStages; ++s) mbar_init(bars + 8 * s, 1);
+    for (int s = 0; s <= kBwdStages; ++s) done[s] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBwdStages && i < t.nb * n_tiles; ++i)
+      bwd_load_stage<kDq>(t, i);
+    bwd_load_chunk<kDq>(t, 0);
+  }
+  return t;
+}
+
+// Stores a warpgroup's [64, kOutCols] accumulator as bf16: rows row and
+// row + 8 below seq, the chunk's columns below D.
+__device__ __forceinline__ void bwd_store(
+    __nv_bfloat16* out, const float (&acc)[kOutCols / kBoxCols][32], int row,
+    int c0, int tq, int seq, int D) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= seq) continue;
+#pragma unroll
+    for (int h = 0; h < kOutCols / kBoxCols; ++h) {
+      const int col = c0 + h * kBoxCols;
+      if (col >= D) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)rr * D + col +
+                                           8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[h][4 * j + 2 * r],
+                                  acc[h][4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Replaces _bwd_dq_kernel (flash_attention.py:160) for bf16 head dims
+// above 256. Per 64-row KV tile each warpgroup takes dp and s over the
+// boxes of D, ds in registers, then dq[:, chunk] += ds.k[:, chunk] from
+// the chunk's buffer. grid (chunks, 128-row Q tiles, BH), the longest
+// rows first.
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dq, int seq, int D,
+                            float scale, int causal) {
+  extern __shared__ uint8_t tma_smem[];
+  uint8_t* base = align_1024(tma_smem);
+  const uint32_t ring = smem_addr(base);
+  const uint32_t bars = ring + kBwdStages * kDqStageBytes + kVBytes;
+  const uint32_t chunk_full = bars + 8 * kBwdStages;
+  int* done = reinterpret_cast<int*>(base + kBwdStages * kDqStageBytes +
+                                     kVBytes + 8 * (kBwdStages + 1));
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTmaRows;
+  const int n_kv = ((causal ? min(q0 + kTmaRows, seq) : seq) + kTmaKv - 1) /
+                   kTmaKv;
+  const BwdBlock t = bwd_setup<true>(&tm_q, &tm_k, &tm_v, &tm_do, ring, bars,
+                                     done, q0, 0, n_kv, D);
+
+  // warpgroup wg owns rows q0 + 64 wg .. + 63 and uses the first n_w KV
+  // tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wg_row0 = q0 + t.wg * 64;
+  const int row = wg_row0 + (warp & 3) * 16 + g;  // and row + 8
+  const int n_w = causal ? (min(wg_row0 + 64, seq) + kTmaKv - 1) / kTmaKv
+                         : n_kv;
+  // p = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
+  const float scale_log2 = scale * kLog2e;
+  const size_t rbase = (size_t)t.bh * seq;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    lse2[h] = r < seq ? lse[rbase + r] * kLog2e : 0.f;
+    dl[h] = r < seq ? delta[rbase + r] : 0.f;
+  }
+  float acc[kOutCols / kBoxCols][32];
+#pragma unroll
+  for (int h = 0; h < kOutCols / kBoxCols; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float dp[32], sc[32];
+  uint32_t da[kTmaKv / 16][4];
+  int idx = 0;  // ring index of the next box
+
+  for (int it = 0; it < n_w; ++it) {
+    bwd_scores<true>(dp, sc, t, idx);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    fence_regs(sc);
+    bwd_done_box<true>(t, idx - 1);
+    const int k0 = it * kTmaKv;
+    // only a tile past S or across the diagonal has masked entries
+    const bool masked = (causal && k0 + kTmaKv - 1 > wg_row0) ||
+                        k0 + kTmaKv > seq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = k0 + 8 * j + 2 * tq + (i & 1);
+        float p = exp2_ftz(fmaf(sc[4 * j + i], scale_log2, -lse2[h]));
+        if (masked && ((causal && col > row + 8 * h) || col >= seq)) p = 0.f;
+        sc[4 * j + i] = p * (dp[4 * j + i] - dl[h]) * scale;  // ds
+      }
+    tma_pack(da, sc);
+    mbar_wait(chunk_full, it & 1);
+    wgmma_fence();
+    tma_pv(acc, da, t.chunk);  // dq[:, chunk] += ds.k[:, chunk]
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(da);
+    bwd_done_chunk<true>(t, it);
+  }
+  // the boxes of the tile this warpgroup skips, each counted done once it
+  // is in (only then is the stage's count that of this box)
+  for (; idx < n_kv * t.nb; ++idx) {
+    mbar_wait(t.bars + 8 * (idx % kBwdStages), (idx / kBwdStages) & 1);
+    bwd_done_box<true>(t, idx);
+  }
+  bwd_store(dq + rbase * D, acc, row, t.c0, tq, seq, D);
+}
+
+// Replaces _bwd_dkv_kernel (flash_attention.py:212) for bf16 head dims
+// above 256. Per 64-row Q tile warpgroup 0 takes s^T, p^T (written to
+// shared memory for warpgroup 1) and dv[:, chunk] += p^T.do[:, chunk];
+// warpgroup 1 dp^T, ds^T and dk[:, chunk] += ds^T.q[:, chunk]; one code
+// path, the operands chosen by warpgroup (ptxas serializes wgmmas on
+// divergent paths). grid (chunks, 64-row KV tiles, BH); under causal
+// masking a KV tile's Q tiles start at its diagonal, so KV tile 0 has the
+// most and runs first.
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int seq, int D,
+                             float scale, int causal) {
+  extern __shared__ uint8_t tma_smem[];
+  uint8_t* base = align_1024(tma_smem);
+  const uint32_t ring = smem_addr(base);
+  // p^T: [32][128] f32, a thread's 32 values 128 words apart
+  float* pt = reinterpret_cast<float*>(base + kBwdStages * kDkvStageBytes +
+                                       2 * kVBytes);
+  const uint32_t bars = smem_addr(pt) + kPtBytes;
+  const uint32_t chunk_full = bars + 8 * kBwdStages;
+  const uint32_t p_full = chunk_full + 8, p_empty = p_full + 8;
+  int* done = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(pt) +
+                                     kPtBytes + 8 * (kBwdStages + 3));
+  const int k0 = blockIdx.y * kTmaKv;
+  // Q tiles wholly before this KV tile see none of it under causal masking
+  const int q_begin = causal ? k0 : 0;
+  const int n_q = (seq - q_begin + kTmaKv - 1) / kTmaKv;
+  if (threadIdx.x == 0) {
+    mbar_init(p_full, kTcThreads);
+    mbar_init(p_empty, kTcThreads);
+  }
+  const BwdBlock t = bwd_setup<false>(&tm_q, &tm_k, &tm_v, &tm_do, ring,
+                                      bars, done, k0, q_begin, n_q, D);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int tw = threadIdx.x & (kTcThreads - 1);
+  const int krow = k0 + (warp & 3) * 16 + g;  // and krow + 8
+  const float scale_log2 = scale * kLog2e;
+  // warpgroup 0 reads its Q columns' lse (in log2 units), 1 their delta
+  const float* rows = (t.wg == 0 ? lse : delta) + (size_t)t.bh * seq;
+  const float rows_scale = t.wg == 0 ? kLog2e : 1.f;
+  float acc[kOutCols / kBoxCols][32];  // dv (warpgroup 0) or dk (1)
+#pragma unroll
+  for (int h = 0; h < kOutCols / kBoxCols; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float x[32], rv[16];
+  uint32_t pa[kTmaKv / 16][4];
+  int idx = 0;  // ring index of the next box
+
+  for (int j = 0; j < n_q; ++j) {
+    const int q0 = q_begin + j * kTmaKv;
+    // this thread's Q columns q0 + 8 n + 2 tq (+ 1), read under the scores
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = q0 + 8 * n + 2 * tq + e;
+        rv[2 * n + e] = c < seq ? rows[c] * rows_scale : 0.f;
+      }
+    bwd_scores<false>(x, x, t, idx);
+    wgmma_wait<0>();
+    fence_regs(x);
+    bwd_done_box<false>(t, idx - 1);
+    if (t.wg == 0) {
+      // only a tile past S or across the diagonal has masked entries (KV
+      // rows past S are never stored, so they need no mask)
+      const bool masked = (causal && q0 < k0 + kTmaKv - 1) ||
+                          q0 + kTmaKv > seq;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = q0 + 8 * n + 2 * tq + (i & 1);
+          float p =
+              exp2_ftz(fmaf(x[4 * n + i], scale_log2, -rv[2 * n + (i & 1)]));
+          if (masked && ((causal && c < krow + 8 * (i >> 1)) || c >= seq))
+            p = 0.f;
+          x[4 * n + i] = p;
+        }
+      mbar_wait(p_empty, (j & 1) ^ 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pt[i * kTcThreads + tw] = x[i];
+      mbar_arrive(p_full);
+    } else {
+      mbar_wait(p_full, j & 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)  // ds^T
+        x[i] = pt[i * kTcThreads + tw] * (x[i] - rv[2 * (i >> 2) + (i & 1)]) *
+               scale;
+      mbar_arrive(p_empty);
+    }
+    tma_pack(pa, x);
+    mbar_wait(chunk_full, j & 1);
+    wgmma_fence();
+    // dv[:, chunk] += p^T.do[:, chunk] or dk[:, chunk] += ds^T.q[:, chunk]
+    tma_pv(acc, pa, t.chunk + (t.wg == 0 ? kVBytes : 0));
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    bwd_done_chunk<false>(t, j);
+  }
+  bwd_store((t.wg == 0 ? dv : dk) + (size_t)t.bh * seq * D, acc, krow, t.c0,
+            tq, seq, D);
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime (no -lcuda), in its
 // CUDA 12 form; looked up once (C++11 makes the static's initialisation
 // thread-safe, so two host threads may launch at once).
@@ -1757,45 +1814,38 @@ int make_map(CUtensorMap* map, const void* ptr, int bh, int seq, int d,
 
 // The kernel (0 forward, 1 dk/dv, 2 dq, as in flash_attention.cu) for T,
 // its dynamic shared memory, its threads a block and the output columns a
-// block takes; nullptr for another kernel id. The forwards and f32's dq
-// and dk/dv are the wgmma kernels, bf16's dq and dk/dv the 64-column
-// mma.sync templates.
+// block takes; nullptr for another kernel id. Every one is a wgmma kernel
+// with kOutCols-column chunks: f32's a producer and a consumer warpgroup,
+// bf16's two consumer warpgroups fed by TMA.
 template <typename T>
 const void* kernel_fn(int kernel, int* smem, int* threads, int* cols) {
   constexpr bool kF32 = std::is_same_v<T, float>;
-  *threads = kTcThreads;
-  *cols = kChunk;
+  *threads = kF32 ? kWsThreads : kTmaThreads;
+  *cols = kOutCols;
   switch (kernel) {
     case 0:
-      *cols = kOutCols;
       if constexpr (kF32) {
         *smem = ws_smem_bytes();
-        *threads = kWsThreads;
         return (const void*)flash_fwd_ws_kernel;
       } else {
         *smem = tma_fwd_smem_bytes();
-        *threads = kTmaThreads;
         return (const void*)flash_fwd_tma_kernel;
       }
     case 1:
       if constexpr (kF32) {
         *smem = ws_smem_bytes();
-        *threads = kWsThreads;
-        *cols = kOutCols;
         return (const void*)flash_bwd_dkv_ws_kernel;
       } else {
-        *smem = dkv_smem_bytes<T>();
-        return (const void*)flash_bwd_dkv_dsplit_kernel<T>;
+        *smem = tma_dkv_smem_bytes();
+        return (const void*)flash_bwd_dkv_tma_kernel;
       }
     case 2:
       if constexpr (kF32) {
         *smem = ws_smem_bytes();
-        *threads = kWsThreads;
-        *cols = kOutCols;
         return (const void*)flash_bwd_dq_ws_kernel;
       } else {
-        *smem = dq_smem_bytes<T>();
-        return (const void*)flash_bwd_dq_dsplit_kernel<T>;
+        *smem = tma_dq_smem_bytes();
+        return (const void*)flash_bwd_dq_tma_kernel;
       }
   }
   return nullptr;
@@ -1811,16 +1861,15 @@ int prepare(int kernel, int d, int* smem, int* threads, int* cols) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
 }
 
-// (tiles of the own axis, BH, chunks) for the mma.sync templates,
-// (chunks, tiles, BH) for the wgmma kernels, whose f32 dk/dv takes two
-// blocks a chunk (dv's, dk's) and whose bf16 forward 128-row Q tiles
+// (chunks, tiles of the own axis, BH): f32's dk/dv takes two blocks a
+// chunk (dv's, dk's), bf16's forward and dq 128-row Q tiles
 template <typename T>
 dim3 grid_of(int kernel, int bh, int seq, int d, int cols) {
-  const int rows = std::is_same_v<T, float> || kernel != 0 ? kTile : kTmaRows;
+  const int rows = std::is_same_v<T, float> || kernel == 1 ? kTile : kTmaRows;
   const int tiles = (seq + rows - 1) / rows, chunks = (d + cols - 1) / cols;
-  if (std::is_same_v<T, float> || kernel == 0)
+  if (std::is_same_v<T, float>)
     return dim3(kernel == 1 ? 2 * chunks : chunks, tiles, bh);
-  return dim3(tiles, bh, chunks);
+  return dim3(chunks, tiles, bh);
 }
 
 template <typename T>
@@ -1847,6 +1896,18 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// The four [BH, S, D] bf16 tensor maps of the backward: Q's and dO's with
+// the boxes of dq's own 128 rows, or all of 64 rows for dk/dv.
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+             const void* v, const void* dout, int bh, int seq, int d,
+             int own_rows) {
+  int err = make_map(&m[0], q, bh, seq, d, own_rows);
+  if (err == 0) err = make_map(&m[1], k, bh, seq, d, kTmaKv);
+  if (err == 0) err = make_map(&m[2], v, bh, seq, d, kTmaKv);
+  if (err == 0) err = make_map(&m[3], dout, bh, seq, d, own_rows);
+  return err;
+}
+
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int seq,
@@ -1854,16 +1915,20 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   int smem, threads, cols;
   const int e = prepare<T>(2, d, &smem, &threads, &cols);
   if (e != 0) return e;
-  auto fn = [] {
-    if constexpr (std::is_same_v<T, float>)
-      return flash_bwd_dq_ws_kernel;
-    else
-      return flash_bwd_dq_dsplit_kernel<T>;
-  }();
-  fn<<<grid_of<T>(2, bh, seq, d, cols), threads, smem,
-        (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq, seq, d, scale, causal);
+  const dim3 grid = grid_of<T>(2, bh, seq, d, cols);
+  if constexpr (std::is_same_v<T, float>) {
+    flash_bwd_dq_ws_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dq, seq, d, scale, causal);
+  } else {
+    CUtensorMap m[4];
+    const int err = bwd_maps(m, q, k, v, dout, bh, seq, d, kTmaRows);
+    if (err != 0) return err;
+    flash_bwd_dq_tma_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
+        (T*)dq, seq, d, scale, causal);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1874,17 +1939,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   int smem, threads, cols;
   const int e = prepare<T>(1, d, &smem, &threads, &cols);
   if (e != 0) return e;
-  auto fn = [] {
-    if constexpr (std::is_same_v<T, float>)
-      return flash_bwd_dkv_ws_kernel;
-    else
-      return flash_bwd_dkv_dsplit_kernel<T>;
-  }();
-  fn<<<grid_of<T>(1, bh, seq, d, cols), threads, smem,
-        (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, seq, d, scale,
-      causal);
+  const dim3 grid = grid_of<T>(1, bh, seq, d, cols);
+  if constexpr (std::is_same_v<T, float>) {
+    flash_bwd_dkv_ws_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dk, (float*)dv, seq, d, scale, causal);
+  } else {
+    CUtensorMap m[4];
+    const int err = bwd_maps(m, q, k, v, dout, bh, seq, d, kTmaKv);
+    if (err != 0) return err;
+    flash_bwd_dkv_tma_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta,
+        (T*)dk, (T*)dv, seq, d, scale, causal);
+  }
   return (int)cudaGetLastError();
 }
 

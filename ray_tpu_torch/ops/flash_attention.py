@@ -12,10 +12,9 @@ kernels of ``csrc/flash_attention_f32.cu`` (head dims 16, 32, 64, 128 and
 f32 kernels on f32 copies, the outputs cast back to float16. Head dims
 above 256 (padded to a multiple of 64) run the kernels of
 ``csrc/flash_attention_dsplit.cu``, in which each block computes one
-chunk of the output's columns (256 for the forwards and f32's dq and
-dk/dv, 64 for bf16's dq and dk/dv) and the scores over the whole head
-dim: "bf16_dsplit" and "f32_dsplit", and "f16_f32_dsplit" (float16 on
-f32 copies). Every bf16 kernel rounds p and ds to bf16 before the products
+256-column chunk of the output's columns and the scores over the whole
+head dim: "bf16_dsplit" and "f32_dsplit", and "f16_f32_dsplit" (float16
+on f32 copies). Every bf16 kernel rounds p and ds to bf16 before the products
 that take them, as the bf16 Pallas kernels do. The forward uses online
 softmax and writes ``o`` and the row logsumexp; dq and dk/dv recompute
 the probabilities from the saved logsumexp, so that no S x S tensor
@@ -62,7 +61,7 @@ _BF16_FAMILIES = dict(zip(BF16_HEAD_DIMS, ("bf16", "bf16_wide", "bf16_d256")))
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)
 # Above 256 every dtype runs the split-head-dim kernels, at the head dim
 # padded up to a multiple of DSPLIT_CHUNK (the columns of a step of the
-# scores, and of a block's output in bf16's dq and dk/dv)
+# scores)
 DSPLIT_CHUNK = 64
 _DSPLIT_FAMILIES = {torch.bfloat16: "bf16_dsplit",
                     torch.float32: "f32_dsplit",

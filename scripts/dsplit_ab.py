@@ -2,8 +2,9 @@
 """Variants of the wgmma kernels above head dim 256 (of
 ray_tpu_torch/ops/csrc/flash_attention_dsplit.cu: f32's forward, dq and
 dk/dv, flash_fwd_ws_kernel, flash_bwd_dq_ws_kernel and
-flash_bwd_dkv_ws_kernel, and bf16's forward, flash_fwd_tma_kernel) on one
-GPU, in one process:
+flash_bwd_dkv_ws_kernel, and bf16's, flash_fwd_tma_kernel,
+flash_bwd_dq_tma_kernel and flash_bwd_dkv_tma_kernel) on one GPU, in one
+process:
 
     python scripts/dsplit_ab.py [variant ...]
 
@@ -26,7 +27,10 @@ S 1024, D 512, causal) in turns, v0..vn then vn..v0, with chip_smoke.py's
               the producer's waits for free stages, its loads and its
               stores; bf16's forward (thread 0): the consumers' waits for
               K boxes and for V, and their time counting boxes done and
-              refilling stages
+              refilling stages; bf16's dq and dk/dv (the first thread of
+              each warpgroup): the waits for ring stages and for the
+              chunk, the time counting boxes done and refilling stages,
+              and dk/dv's waits to hand p^T over
 
 Prints the card's name and power limit, each variant's registers, local
 bytes and checks, its times, and the profile's counters. Needs one CUDA
@@ -46,12 +50,14 @@ CSRC = os.path.join(REPO, "ray_tpu_torch", "ops", "csrc")
 SOURCE = "flash_attention_dsplit.cu"
 SHAPE = (24, 1024, 512)
 CHECKS = [(24, 1024, 512, True), (2, 129, 320, True), (2, 1000, 576, False),
-          (1, 1000, 1024, True)]
+          (1, 1000, 1024, True), (2, 200, 448, True), (2, 1024, 512, False)]
 # kernel -> (C entry, its kernel id for the attributes, bf16)
 KERNELS = {"fwd": ("flash_fwd_f32ds", 0, False),
            "dq": ("flash_bwd_dq_f32ds", 2, False),
            "dk/dv": ("flash_bwd_dkv_f32ds", 1, False),
-           "bf16 fwd": ("flash_fwd_bf16ds", 0, True)}
+           "bf16 fwd": ("flash_fwd_bf16ds", 0, True),
+           "bf16 dq": ("flash_bwd_dq_bf16ds", 2, True),
+           "bf16 dk/dv": ("flash_bwd_dkv_bf16ds", 1, True)}
 
 LOAD = ('''  return valid ? __ldg(reinterpret_cast<const float4*>(p))
                : make_float4(0.f, 0.f, 0.f, 0.f);''')
@@ -88,9 +94,15 @@ LOOP2 = '''  WsRaw r0, r1, r2;
 COUNTERS = ["consumer waits for full stages", "consumer waits for its wgmmas",
             "producer waits for free stages", "producer loads",
             "producer splits and stores", "consumers wait for K boxes",
-            "consumers wait for V", "consumers count boxes done and refill"]
-F32_COUNTERS, BF16_COUNTERS = range(5), range(5, 8)
-PROFILE_DEF = '''__device__ unsigned long long g_prof[8];
+            "consumers wait for V", "consumers count boxes done and refill",
+            "warpgroups wait for ring stages", "warpgroups wait for the chunk",
+            "warpgroups count boxes done and refill",
+            "warpgroups wait to hand p^T over"]
+# kernel -> the counters it adds to
+COUNTERS_OF = {"fwd": range(5), "dq": range(5), "dk/dv": range(5),
+               "bf16 fwd": range(5, 8), "bf16 dq": range(8, 11),
+               "bf16 dk/dv": range(8, 12)}
+PROFILE_DEF = '''__device__ unsigned long long g_prof[12];
 __device__ __forceinline__ void prof_add(int i, long long t0) {
   atomicAdd(&g_prof[i], (unsigned long long)(clock64() - t0));
 }
@@ -99,7 +111,7 @@ __device__ __forceinline__ void prof_add(int i, long long t0) {
 PROFILE_READ = '''
 extern "C" int ws_prof(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const unsigned long long zero[12] = {0};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
   return (int)e;
 }
@@ -141,6 +153,32 @@ PROFILE_EDITS = [
     ("    tma_load_k(t, idx + kKStages);\n}",
      "    tma_load_k(t, idx + kKStages);\n"
      "  if (threadIdx.x == 0) prof_add(7, t0);\n}"),
+    ("  mbar_wait(t.bars + 8 * slot, (idx / kBwdStages) & 1);\n",
+     "  const long long t0 = clock64();\n"
+     "  mbar_wait(t.bars + 8 * slot, (idx / kBwdStages) & 1);\n"
+     "  if ((threadIdx.x & 127) == 0) prof_add(8, t0);\n"),
+    ("    mbar_wait(chunk_full, it & 1);\n",
+     "    const long long t0 = clock64();\n"
+     "    mbar_wait(chunk_full, it & 1);\n"
+     "    if ((threadIdx.x & 127) == 0) prof_add(9, t0);\n"),
+    ("    mbar_wait(chunk_full, j & 1);\n",
+     "    const long long t0 = clock64();\n"
+     "    mbar_wait(chunk_full, j & 1);\n"
+     "    if ((threadIdx.x & 127) == 0) prof_add(9, t0);\n"),
+    ("__device__ __forceinline__ void bwd_done_box(const BwdBlock& t, int idx) {\n",
+     "__device__ __forceinline__ void bwd_done_box(const BwdBlock& t, int idx) {\n"
+     "  const long long t0 = clock64();\n"),
+    ("    bwd_load_stage<kDq>(t, idx + kBwdStages);\n}",
+     "    bwd_load_stage<kDq>(t, idx + kBwdStages);\n"
+     "  if ((threadIdx.x & 127) == 0) prof_add(10, t0);\n}"),
+    ("      mbar_wait(p_empty, (j & 1) ^ 1);\n",
+     "      const long long t1 = clock64();\n"
+     "      mbar_wait(p_empty, (j & 1) ^ 1);\n"
+     "      if (threadIdx.x == 0) prof_add(11, t1);\n"),
+    ("      mbar_wait(p_full, j & 1);\n",
+     "      const long long t1 = clock64();\n"
+     "      mbar_wait(p_full, j & 1);\n"
+     "      if (threadIdx.x == kTcThreads) prof_add(11, t1);\n"),
 ]
 
 
@@ -225,6 +263,8 @@ def main(names) -> int:
         lib.flash_fwd_bf16ds.argtypes = fa._FWD_D
         lib.flash_bwd_dq_f32ds.argtypes = fa._DQ_D
         lib.flash_bwd_dkv_f32ds.argtypes = fa._DKV_D
+        lib.flash_bwd_dq_bf16ds.argtypes = fa._DQ_D
+        lib.flash_bwd_dkv_bf16ds.argtypes = fa._DKV_D
         lib.flash_dsplit_kernel_attributes.argtypes = fa._ATTRIBUTES
     for name, lib in libs.items():
         for which, (_, kernel, bf16) in KERNELS.items():
@@ -248,7 +288,7 @@ def main(names) -> int:
             if which in ("fwd", "bf16 fwd"):
                 outs = (torch.empty_like(q), torch.empty_like(lse))
                 args = (q, k, v, *outs)
-            elif which == "dq":
+            elif which.endswith("dq"):
                 outs = (torch.empty_like(q),)
                 args = (q, k, v, do, lse, delta, *outs)
             else:
@@ -278,13 +318,12 @@ def main(names) -> int:
             o, lse = fa.flash_fwd_plain(q, k, v, **kw)
             delta = (do.float() * o.float()).sum(-1)
             ins[bf16] = (q, k, v, do, lse, delta)
-            fwd = "bf16 fwd" if bf16 else "fwd"
-            want[fwd] = (o, lse)
-            if not bf16:
-                want["dq"] = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                    **kw),)
-                want["dk/dv"] = fa.flash_bwd_dkv_plain(q, k, v, do, lse,
-                                                       delta, **kw)
+            pre = "bf16 " if bf16 else ""
+            want[pre + "fwd"] = (o, lse)
+            want[pre + "dq"] = (fa.flash_bwd_dq_plain(q, k, v, do, lse,
+                                                      delta, **kw),)
+            want[pre + "dk/dv"] = fa.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                         delta, **kw)
         for name, lib in libs.items():
             for which, (fn, outs) in launches(lib, ins, **kw).items():
                 fn()
@@ -318,7 +357,7 @@ def main(names) -> int:
                 fn()
                 torch.cuda.synchronize()
                 lib.ws_prof(ctypes.addressof(counts))
-                kept = BF16_COUNTERS if KERNELS[which][2] else F32_COUNTERS
+                kept = COUNTERS_OF[which]
                 print(f"profile {which}, Mcycles summed over the blocks: "
                       + ", ".join(f"{COUNTERS[i]} {counts[i] / 1e6:.1f}"
                                   for i in kept), flush=True)

@@ -277,6 +277,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     # above (576, 1000), with more K boxes a tile than ring stages; under
     # causal masking its first warpgroup skips the block's last KV tile
     (1, 1000, 1000, True), (2, 200, 576, True), (2, 1024, 576, False),
+    # bf16's dq and dk/dv: a last 256-column chunk of three 64-column
+    # boxes (448; 320 and 384 give one and two), and whole chunks with a
+    # one-row last tile (512 at S 129)
+    (2, 200, 448, True), (2, 129, 512, True),
 ])
 def test_head_dims_above_256_run_the_dsplit_kernels(cuda, dtype, BH, S, Dh,
                                                    causal):
@@ -289,29 +293,27 @@ def test_head_dims_above_256_run_the_dsplit_kernels(cuda, dtype, BH, S, Dh,
 
 
 # f32's forward, dq and dk/dv above 256 are two warpgroups (a producer
-# and a consumer) with their operands split in shared memory, bf16's
-# forward two warpgroups fed by TMA, with its Q tile resident up to head
-# dim 512: one block an SM
+# and a consumer) with their operands split in shared memory; bf16's are
+# two warpgroups fed by TMA, the forward with Q resident up to head dim
+# 512, dq and dk/dv streaming every box through a 4-stage ring: one block
+# an SM
 WGMMA_DSPLIT = {"flash_fwd_f32ds": 230720, "flash_bwd_dq_f32ds": 230720,
-                "flash_bwd_dkv_f32ds": 230720, "flash_fwd_bf16ds": 230516}
+                "flash_bwd_dkv_f32ds": 230720, "flash_fwd_bf16ds": 230516,
+                "flash_bwd_dq_bf16ds": 230460,
+                "flash_bwd_dkv_bf16ds": 214092}
 
 
 @pytest.mark.parametrize("kernel", [k + s for s in ("_bf16ds", "_f32ds")
                                     for k in fa.KERNELS])
 def test_dsplit_kernel_attributes(cuda, kernel):
     """One kernel a dtype serves every head dim above 256, whatever head
-    dim it is asked at; none spills. The mma.sync ones (bf16's dq and
-    dk/dv) fit two blocks an SM; the wgmma ones (both forwards, f32's dq
-    and dk/dv) take one, with the shared memory they launch with."""
+    dim it is asked at; none spills. Every one is a wgmma kernel that
+    takes one block an SM, with the shared memory it launches with."""
     attrs = fa.kernel_attributes(kernel)
     assert attrs == fa.kernel_attributes(kernel, 1024)
     assert attrs["local_bytes"] == 0
-    if kernel in WGMMA_DSPLIT:
-        assert attrs["blocks_per_sm"] == 1
-        assert attrs["max_dynamic_smem"] == WGMMA_DSPLIT[kernel] <= 232448
-    else:
-        assert attrs["blocks_per_sm"] >= 2
-        assert attrs["max_dynamic_smem"] <= 232448 // 2
+    assert attrs["blocks_per_sm"] == 1
+    assert attrs["max_dynamic_smem"] == WGMMA_DSPLIT[kernel] <= 232448
 
 
 @pytest.mark.parametrize("BH,S,Dh,causal", [

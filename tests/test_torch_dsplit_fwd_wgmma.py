@@ -179,7 +179,8 @@ def test_every_output_column_has_one_owner(kernel, D):
     assert "*cols = kOutCols;" in KERNEL_FN.split("case 1:")[0]
     assert "return dim3(kernel == 1 ? 2 * chunks : chunks, tiles, bh);" \
         in GRID_OF
-    assert "const int rows = std::is_same_v<T, float> || kernel != 0 ? " \
+    # bf16's forward and dq take 128-row Q tiles, every other kernel 64
+    assert "const int rows = std::is_same_v<T, float> || kernel == 1 ? " \
         "kTile : kTmaRows;" in GRID_OF
     owners, rows = (_owners_f32 if kernel == "f32" else _owners_bf16)(Dk)
     assert sorted(owners) == [(r, c) for r in range(rows) for c in range(Dk)]
