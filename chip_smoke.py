@@ -15,8 +15,9 @@ Phases, each of which exits non-zero on failure:
    the f32 dk/dv up to head dim 128 (at 256 and above none may);
 2. each hand-written kernel against its plain PyTorch version on the card:
    in bf16 at GPT-2-small's attention shape (B*H 192, S 1024, D 64,
-   causal), the gang's (B*H 96, phase 4), one microbatch of phase 6a's
-   stages (B*H 48), two ragged S (1000, and 129:
+   causal), the gang's (B*H 96, phase 4, and phase 6d's ranks' at 6
+   heads), one microbatch of phase 6a's stages (B*H 48) and of phase
+   6e's ranks (B*H 24, 6 heads), two ragged S (1000, and 129:
    one row past a 128-row tile), a non-causal case and head dims 16 and
    32 (zero-padded to 64); in f32 at the main shape and at head dims 16
    (gpt2_tiny's), 32 and 128 (S 1000 causal among them), causal and
@@ -103,17 +104,23 @@ Phases, each of which exits non-zero on failure:
    on its own CUDA stream: 6a at pp 2 (two stages of 6 blocks, flash
    attention in the stages; 2 warm-up and 3 timed steps), 6b at pp 2 x
    sp 2 (four ranks of 512 tokens, ring attention; 1 warm-up and 2 timed
-   steps) and 6c at dp 2 x pp 2 (two replicas of 8 rows, each in 4
+   steps), 6c at dp 2 x pp 2 (two replicas of 8 rows, each in 4
    microbatches of 2, their grads and metrics averaged over dp; 1
+   warm-up and 2 timed steps), 6d at tp 2 (two ranks of 6 heads, half
+   the MLP hidden and half the vocab each, the batch as one microbatch;
+   1 warm-up and 2 timed steps) and 6e at pp 2 x tp 2 (four ranks; 1
    warm-up and 2 timed steps). Each run's first step (the loss, the
    global grad norm and the attention leaves' grads reassembled from
-   replica 0's stages) is held to the one-card step on the same weights
-   and batch with reference attention by phase 3's limits; the launch
-   counts are exact (6a: 48 of each bf16 kernel a step, 6b: none, 6c:
-   96); 6c's replicas end with bit-equal params. It prints the step ms
-   and tokens/s beside the card, each rank's ms in each collective (the
-   dp sync among them), its resident params and moments, and the card's
-   peak memory.
+   replica 0's stages and tp blocks) is held to the one-card step on the
+   same weights and batch with reference attention by phase 3's limits;
+   the launch counts are exact (dp x tp x 12 layers x microbatches of
+   each bf16 kernel a step: 6a 48, 6b none (ring attention), 6c 96, 6d
+   24, 6e 96); 6c's replicas end with bit-equal params, and at tp 2 the
+   leaves every tp rank holds whole (the LayerNorms, b2, wpe) end
+   bit-equal across the tp ranks. It prints the step ms and tokens/s
+   beside the card, each rank's ms in each collective (the dp sync, the
+   tp sums and the tp copies' backward sums among them), its resident
+   params and moments, and the card's peak memory.
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
@@ -239,16 +246,21 @@ MOE_ORACLE_TOKENS = (2, 16)
 MOE_ORACLE_ATOL = 1e-5
 
 # Phase 6, the pipeline: GPT-2-small at full width on batch PIPE_BATCH
-# (phase 3's weights and tokens) in PIPE_MICROBATCHES microbatches, the
-# ranks threads as in phase 4: 6a at pp 2 (flash attention in the
-# stages), 6b at pp 2 x sp 2 (ring attention). Each run's first step is
-# held to the one-card step with reference attention by phase 3's limits.
+# (phase 3's weights and tokens) in PIPE_MICROBATCHES microbatches (at pp
+# 1, one), the ranks threads as in phase 4: 6a at pp 2 (flash attention in
+# the stages), 6b at pp 2 x sp 2 (ring attention), 6c at dp 2 x pp 2, 6d
+# at tp 2, 6e at pp 2 x tp 2. Each run's first step is held to the
+# one-card step with reference attention by phase 3's limits.
 PIPE_BATCH = 16
 PIPE_MICROBATCHES = 4
-# (name, dp, pp, sp, warm-up steps, timed steps): 6a, 6b, and 6c at dp 2
-# x pp 2, each replica's 8 rows as 4 microbatches of 2
-PIPE_RUNS = (("pp2", 1, 2, 1, 2, 3), ("pp2sp2", 1, 2, 2, 1, 2),
-             ("dp2pp2", 2, 2, 1, 1, 2))
+# (name, dp, pp, sp, tp, microbatches, warm-up steps, timed steps): 6a,
+# 6b, 6c (each replica's 8 rows as 4 microbatches of 2), 6d (with one
+# stage there is no bubble to fill: the batch as one microbatch) and 6e
+PIPE_RUNS = (("pp2", 1, 2, 1, 1, PIPE_MICROBATCHES, 2, 3),
+             ("pp2sp2", 1, 2, 2, 1, PIPE_MICROBATCHES, 1, 2),
+             ("dp2pp2", 2, 2, 1, 1, PIPE_MICROBATCHES, 1, 2),
+             ("tp2", 1, 1, 1, 2, 1, 1, 2),
+             ("pp2tp2", 1, 2, 1, 2, PIPE_MICROBATCHES, 1, 2))
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
@@ -444,8 +456,11 @@ def check_kernels(torch, F, fa):
     results, failures = {}, []
     cases = [("main", 192, 1024, 64, True, bf16),
              ("gang", GANG_BATCH * 12, 1024, 64, True, bf16),
-             # one microbatch of phase 6a's stages
+             # one microbatch of phase 6a's stages, and of 6e's ranks (6
+             # heads each; 6d's ranks run the gang's 96)
              ("pipe", PIPE_BATCH // PIPE_MICROBATCHES * 12, 1024, 64, True,
+              bf16),
+             ("pipe_tp", PIPE_BATCH // PIPE_MICROBATCHES * 6, 1024, 64, True,
               bf16),
              ("ragged", 24, 1000, 64, True, bf16),
              ("ragged129", 24, 129, 64, True, bf16),
@@ -1715,18 +1730,21 @@ def checkpoints(torch, card: str):
 
 def pipeline(torch, fa, card: str):
     """Phase 6: GPT-2-small's pipelined step on rank threads, at pp 2, at
-    pp 2 x sp 2 and at dp 2 x pp 2 (PIPE_RUNS). Each run's first step
-    (loss, global grad norm, the attention leaves' grads reassembled from
-    the stages of replica 0) is held to the one-card step on the same
-    weights and batch with reference attention; then its warm-up and
-    timed steps run with the launch counters set to 0 just before and read
-    just after, and each rank's seconds inside each collective op summed;
-    at dp 2 the replicas' stage params must end bit-equal. Returns each
-    run's counts."""
+    pp 2 x sp 2, at dp 2 x pp 2, at tp 2 and at pp 2 x tp 2 (PIPE_RUNS).
+    Each run's first step (loss, global grad norm, the attention leaves'
+    grads reassembled from the stages and tp blocks of replica 0) is held
+    to the one-card step on the same weights and batch with reference
+    attention; then its warm-up and timed steps run with the launch
+    counters set to 0 just before and read just after, and each rank's
+    seconds inside each collective op summed; at dp 2 the replicas' stage
+    params must end bit-equal, and at tp 2 the leaves the tp ranks hold
+    whole. Returns each run's counts."""
     from ray_tpu_torch import convert
     from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
                                              tree_unflatten)
     from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel import tensor_parallel
     from ray_tpu_torch.parallel import train_step as ts
     from ray_tpu_torch.parallel.mesh import MeshConfig
     from ray_tpu_torch.parallel.train_step import (default_optimizer,
@@ -1739,7 +1757,11 @@ def pipeline(torch, fa, card: str):
 
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(gpt2.gpt2_small(), remat=False)
-    S, M = cfg.max_seq, PIPE_MICROBATCHES
+    S = cfg.max_seq
+    specs = gpt2.partition_specs(cfg)
+    # the leaves every tp rank holds whole: LayerNorms, b2, wpe, ln_f
+    whole_leaf = [not any("tp" in sharding.spec_axes(e) for e in spec)
+                  for spec in tree_leaves(specs)]
     tokens = torch.randint(0, cfg.vocab_size, (PIPE_BATCH, S + 1),
                            device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(1))
@@ -1762,20 +1784,27 @@ def pipeline(torch, fa, card: str):
 
     def rank_state(lay):
         stage = convert.stage_params(params, lay.pp_rank, lay.pp)
+        if lay.tp > 1:
+            stage = sharding.tree_shard(stage, lay, specs)
         return make_train_state(lambda g: stage, None, optimizer())
 
     # seconds a rank thread spends inside each collective op over the
     # timed steps (a recv's wait for its peer's compute included): the
     # stages' hops, the ring's, the loss's broadcast, the norm's and the
-    # loss's scalar allreduces, the shared and block grads' sums over pp
-    # and sp, and the average over dp of the grads and metrics (an op
-    # called inside another counts in the outer one only)
+    # loss's scalar allreduces (the vocab-parallel cross-entropy's two
+    # among them), the shared and block grads' sums over pp and sp, the
+    # average over dp of the grads and metrics, the tp sums of the
+    # forward's partials (embedding, attention, MLP) and the tp copies'
+    # backward sums (an op called inside another counts in the outer one
+    # only)
     comm_ops = {"send": (col, "send"), "recv": (col, "recv"),
                 "ring hops": (col, "sendrecv"),
                 "broadcast": (col, "broadcast"),
                 "allreduce": (col, "allreduce"),
                 "grad sums": (ddp, "sync_gradients"),
-                "dp sync": (ts, "sync_over_dp")}
+                "dp sync": (ts, "sync_over_dp"),
+                "tp sums": (tensor_parallel, "_sum_over"),
+                "tp copies": (tensor_parallel, "_copy_backward")}
     originals = {op: getattr(*where) for op, where in comm_ops.items()}
     parts = threading.local()
 
@@ -1795,17 +1824,24 @@ def pipeline(torch, fa, card: str):
         return run
 
     launches, bad = {}, []
-    for name, dp, pp, sp, warmup, timed in PIPE_RUNS:
-        config = MeshConfig(dp=dp, pp=pp, sp=sp)
+    for name, dp, pp, sp, tp, M, warmup, timed in PIPE_RUNS:
+        config = MeshConfig(dp=dp, pp=pp, sp=sp, tp=tp)
 
         def first_step(lay):
             state = rank_state(lay)
             m, grads = ts.pipelined_grads(state.params, batch, cfg, lay,
                                           n_microbatches=M)
-            attn = (grads["blocks"]["attn"]
-                    if lay.sp_rank == 0 and lay.dp_rank == 0 else None)
+            attn = None
+            if lay.sp_rank == 0 and lay.dp_rank == 0:
+                attn = grads["blocks"]["attn"]
+                if lay.tp > 1:
+                    # every tp rank of the coordinate joins the gather
+                    attn = sharding.tree_unshard(
+                        attn, lay, specs["blocks"]["attn"])
+                if lay.tp_rank != 0:
+                    attn = None
             return (lay, float(m["loss"]),
-                    float(pipelined_global_norm(grads, lay)), attn)
+                    float(pipelined_global_norm(grads, lay, specs)), attn)
 
         ranks = run_mesh(torch, config, first_step)
         losses = {r[1] for r in ranks}
@@ -1858,7 +1894,8 @@ def pipeline(torch, fa, card: str):
                            + tree_leaves(state.opt_state["nu"]))
             return lay, out, dt / timed, resident, {
                 op: v / timed for op, v in comm.items()}, (
-                    tree_leaves(state.params) if dp > 1 else None)
+                    tree_leaves(state.params) if dp > 1 or tp > 1
+                    else None)
 
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
@@ -1872,11 +1909,13 @@ def pipeline(torch, fa, card: str):
         launches[name] = dict(fa.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         if dp > 1:
-            # the replicas of each (stage, shard) hold the same params
+            # the replicas of each (stage, shard, tp block) hold the same
+            # params
             for lay, *_, leaves in ranks:
                 twin = next(r for r in ranks if r[0].dp_rank == 0
                             and r[0].pp_rank == lay.pp_rank
-                            and r[0].sp_rank == lay.sp_rank)
+                            and r[0].sp_rank == lay.sp_rank
+                            and r[0].tp_rank == lay.tp_rank)
                 same = same_bits(torch, leaves, twin[-1])
                 print(f"pipeline {name}: rank {lay.rank}'s params after the "
                       f"timed steps {'bit-equal to' if same else 'DIFFER from'}"
@@ -1884,9 +1923,28 @@ def pipeline(torch, fa, card: str):
                 if not same:
                     bad.append(f"{name}: rank {lay.rank}'s params differ from "
                                f"replica 0's")
+        if tp > 1:
+            # the tp ranks of each (replica, stage, shard) hold the same
+            # whole leaves
+            for lay, *_, leaves in ranks:
+                twin = next(r for r in ranks if r[0].tp_rank == 0
+                            and r[0].dp_rank == lay.dp_rank
+                            and r[0].pp_rank == lay.pp_rank
+                            and r[0].sp_rank == lay.sp_rank)
+                same = same_bits(
+                    torch, [x for x, w in zip(leaves, whole_leaf) if w],
+                    [x for x, w in zip(twin[-1], whole_leaf) if w])
+                print(f"pipeline {name}: rank {lay.rank}'s whole leaves "
+                      f"(LayerNorms, b2, wpe) after the timed steps "
+                      f"{'bit-equal to' if same else 'DIFFER from'} tp "
+                      f"rank 0's (rank {twin[0].rank})", flush=True)
+                if not same:
+                    bad.append(f"{name}: rank {lay.rank}'s whole leaves "
+                               f"differ from tp rank 0's")
         for lay, losses, dt, resident, comm, _ in ranks:
             print(f"pipeline {name}: rank {lay.rank} (replica {lay.dp_rank}, "
-                  f"stage {lay.pp_rank}, shard {lay.sp_rank}): losses "
+                  f"stage {lay.pp_rank}, shard {lay.sp_rank}, tp block "
+                  f"{lay.tp_rank}): losses "
                   f"{losses}, step "
                   f"{dt * 1e3:.1f} ms, of which in "
                   + ", ".join(f"{op} {v * 1e3:.1f}" for op, v in comm.items())
@@ -1898,7 +1956,7 @@ def pipeline(torch, fa, card: str):
         step_s = max(r[2] for r in ranks)
         print(f"pipeline {name}: {card}: GPT-2-small, batch {PIPE_BATCH} in "
               f"{M} microbatches a replica, seq {S}, dp {dp} x pp {pp} x sp "
-              f"{sp} rank threads on "
+              f"{sp} x tp {tp} rank threads on "
               f"one card: step {step_s * 1e3:.1f} ms (the slowest rank), "
               f"{PIPE_BATCH * S / step_s:.0f} tokens/s, peak memory of the "
               f"card {peak / 2**30:.2f} GiB for all {config.world_size} ranks "
@@ -1906,8 +1964,9 @@ def pipeline(torch, fa, card: str):
               f"not separable) ({warmup} warm-up and {timed} timed steps)",
               flush=True)
         # each replica's stages launch each bf16 kernel once a layer and
-        # microbatch; ring attention (sp > 1) none
-        per_step = dp * cfg.n_layer * M if sp == 1 else 0
+        # microbatch on each tp rank (its heads); ring attention (sp > 1)
+        # none
+        per_step = dp * tp * cfg.n_layer * M if sp == 1 else 0
         for kernel, n in launches[name].items():
             want = 0 if family(kernel) else per_step * (warmup + timed)
             print(f"pipeline {name}: {kernel} launched {n} times "

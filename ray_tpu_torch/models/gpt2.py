@@ -8,15 +8,17 @@ positional embeddings, pre-LN blocks, GELU MLP, tied LM head; with
 returns its aux loss, averaged over the layers.
 
 The pipelined forward (``forward_pipelined``) runs on every rank of a
-``pp`` x ``sp`` layout (``parallel/mesh.py``), each holding its stage's
-``[n_layer / pp, ...]`` slice of the block leaves and the whole embedding
-and final LayerNorm (``convert.stage_params``). Stage 0 embeds, the block
-stack runs under GPipe (``parallel/pipeline.py``) and the last stage
-unembeds; at ``sp`` > 1 each rank holds a contiguous shard of the
-sequence and attention is ``"ring_local"``. Its gradient is a schedule,
-not autograd through the collectives: ``value_and_grad_pipelined``, or
-``PipelinedForward.backward``. The sharding specs come with the mesh
-slice.
+``dp`` x ``pp`` x ``sp`` x ``tp`` layout (``parallel/mesh.py``), each
+holding its stage's ``[n_layer / pp, ...]`` slice of the block leaves and
+the embedding and final LayerNorm (``convert.stage_params``), cut at tp
+> 1 to the rank's block of the heads, the MLP hidden and the vocab
+(``parallel.sharding.tree_shard`` with ``partition_specs``). Stage 0
+embeds, the block stack runs under GPipe (``parallel/pipeline.py``) and
+the last stage unembeds; at ``sp`` > 1 each rank holds a contiguous shard
+of the sequence and attention is ``"ring_local"``; at ``tp`` > 1 the
+collectives of ``parallel/tensor_parallel.py`` join the blocks. Its
+gradient is a schedule, not autograd through the collectives:
+``value_and_grad_pipelined``, or ``PipelinedForward.backward``.
 """
 from __future__ import annotations
 
@@ -30,8 +32,11 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch._private.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.models import layers as L
-from ray_tpu_torch.parallel.pipeline import (gpipe_local, microbatch,
-                                             stack_stage_params, unmicrobatch)
+from ray_tpu_torch.parallel import sharding as sh
+from ray_tpu_torch.parallel import tensor_parallel
+from ray_tpu_torch.parallel.pipeline import (StageTape, gpipe_local,
+                                             microbatch, stack_stage_params,
+                                             unmicrobatch)
 from ray_tpu_torch.parallel.ring_attention import shard_bounds
 from ray_tpu_torch.train import ddp
 from ray_tpu_torch.util import collective as col
@@ -125,6 +130,33 @@ def init(generator: torch.Generator, cfg: GPT2Config, device: DeviceLike = None)
     return {"wte": wte, "wpe": wpe, "blocks": blocks, "ln_f": final_ln}
 
 
+def logical_axes(cfg: GPT2Config):
+    """Tree of logical-axis names matching ``init``'s. Stacked block leaves
+    get a leading ``"layers"`` axis, whole on every rank (the pipeline cuts
+    the stages itself, ``convert.stage_params``)."""
+    ln = {"scale": ("embed",), "bias": ("embed",)}
+    block = {"ln1": ln, "attn": dict(L.ATTENTION_LOGICAL), "ln2": ln}
+    if cfg.moe:
+        block["moe"] = dict(L.MOE_LOGICAL)
+    else:
+        block["mlp"] = dict(L.MLP_LOGICAL)
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": tree_map(lambda names: ("layers",) + tuple(names), block),
+        "ln_f": ln,
+    }
+
+
+def partition_specs(cfg: GPT2Config, rules=None):
+    """One spec a leaf (``parallel.sharding.spec``): under the default
+    rules ``wq``/``wk``/``wv`` on heads, ``wo`` on its first non-layer
+    axis, ``w1``/``b1``/``w2`` on the MLP hidden and ``wte`` on the vocab
+    ride tp; the LayerNorms, ``b2`` and ``wpe`` are whole."""
+    return tree_map(lambda names: sh.spec(*names, rules=rules),
+                    logical_axes(cfg))
+
+
 # ----------------------------------------------------------------- forward
 def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
     """``"auto"`` is ``"flash"`` on a CUDA device and ``"reference"``
@@ -139,56 +171,56 @@ def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
 
 
 def _block_apply(block, x, cfg: GPT2Config, impl: str, sp_group=None,
-                 tape=None):
+                 tp_group=None, tape=None):
     """(the block's output, its MoE aux loss, or None without MoE).
-    ``sp_group`` and ``tape``: ``"ring_local"``'s (``apply_attention``)."""
+    ``sp_group`` and ``tape``: ``"ring_local"``'s (``apply_attention``);
+    ``tp_group`` and ``tape``: the block's leaves hold this rank's block
+    of the heads and the hidden, and the residual after attention is cut
+    on the tape, so that the MLP's copy and the output reach it by
+    separate autograd segments."""
     cd = cfg.dtype
     h = L.layer_norm(x, block["ln1"]["scale"], block["ln1"]["bias"])
     x = x + L.apply_attention(block["attn"], h, causal=True, impl=impl,
                               compute_dtype=cd, sp_group=sp_group,
-                              tape=tape)
+                              tp_group=tp_group, tape=tape)
+    if tp_group is not None:
+        x = tape.cut(x)
     h = L.layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"])
     if cfg.moe:
         m, aux = L.apply_moe(block["moe"], h, cfg.moe, compute_dtype=cd)
         return x + m, aux
-    return x + L.apply_mlp(block["mlp"], h, compute_dtype=cd), None
+    return x + L.apply_mlp(block["mlp"], h, compute_dtype=cd,
+                           tp_group=tp_group, tape=tape), None
 
 
-def embed(params, tokens, cfg: GPT2Config, position_offset: int = 0):
+def embed(params, tokens, cfg: GPT2Config, position_offset: int = 0, *,
+          tp_group=None, tape=None):
     """Token + position embedding, cast to the compute dtype: the residual
     stream is bf16 by default. ``tokens`` sit at positions
-    ``position_offset`` on (a shard of the sequence)."""
+    ``position_offset`` on (a shard of the sequence). With ``tp_group``
+    ``wte`` is this rank's block of the vocab: the rows are summed over
+    the group on ``tape``, then ``wpe`` is added once."""
     S = tokens.shape[1]
     wpe = params["wpe"][position_offset:position_offset + S]
-    x = F.embedding(tokens.long(), params["wte"]) + wpe
-    return x.to(cfg.dtype)
+    if tp_group is None:
+        rows = F.embedding(tokens.long(), params["wte"])
+    else:
+        rows = tensor_parallel.vocab_parallel_embedding(
+            tokens, params["wte"], tp_group, tape)
+    return (rows + wpe).to(cfg.dtype)
 
 
-class _MatmulF32Out(torch.autograd.Function):
-    """a [N, d] . b[V, d]^T -> [N, V] f32 from compute-dtype operands. The
-    backward rounds the cotangent to the operands' dtype and multiplies in
-    that dtype with f32 accumulation."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return L.mm_f32(a, b.t())
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        gc = g.to(a.dtype)
-        return gc @ b, gc.t() @ a
-
-
-def unembed(params, x, cfg: GPT2Config):
+def unembed(params, x, cfg: GPT2Config, *, tp_group=None, tape=None):
     """Final LayerNorm, then the tied vocab projection: bf16 operands, f32
-    logits."""
+    logits. With ``tp_group`` the normed x enters the group's copy on
+    ``tape`` and the logits are this rank's block of the vocab's."""
     x = L.layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    if tp_group is not None:
+        x = tensor_parallel.copy_to_tp(x, tp_group, tape)
     B, S, D = x.shape
     cd = cfg.dtype
-    logits = _MatmulF32Out.apply(x.to(cd).reshape(B * S, D),
-                                 params["wte"].to(cd))
+    logits = L.matmul_nt_f32(x.to(cd).reshape(B * S, D),
+                             params["wte"].to(cd))
     return logits.view(B, S, -1)
 
 
@@ -253,16 +285,17 @@ def loss_fn(params, batch, cfg: GPT2Config, layout=None, *,
 @dataclasses.dataclass
 class PipelinedForward:
     """One rank's part of ``forward_pipelined``. ``logits``: ``[B,
-    S_local, V]`` f32 for this rank's shard of the sequence on the last
-    stage, attached to the graph of the unembed; None on the other
-    stages. ``aux``: 0 (MoE is refused). ``backward(value)``, called once
-    on every rank with, on the last stage, the scalar this rank
-    differentiates (its part of the loss, computed from ``logits``) and
+    S_local, V / tp]`` f32 for this rank's shard of the sequence and block
+    of the vocab on the last stage, attached to the graph of the unembed;
+    None on the other stages. ``aux``: 0 (MoE is refused).
+    ``backward(value)``, called once on every rank with, on the last
+    stage, the scalar this rank differentiates (its part of the loss,
+    computed from ``logits``, the same on every rank of its tp group) and
     None elsewhere, returns the gradient of the sum over the last stage's
-    ranks of their values, with respect to this rank's parameters: a
-    tree like them, already summed over the ``pp`` and ``sp`` groups
-    where JAX's ``psum`` transposes sum it (the embedding and final
-    LayerNorm over both, the block leaves over ``sp``)."""
+    sequence shards of their values, with respect to this rank's
+    parameters: a tree like them, already summed over the ``pp`` and
+    ``sp`` groups where JAX's ``psum`` transposes sum it (the embedding
+    and final LayerNorm over both, the block leaves over ``sp``)."""
 
     logits: Optional[torch.Tensor]
     aux: torch.Tensor
@@ -273,18 +306,21 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
                       n_microbatches: int = 4) -> PipelinedForward:
     """Pipeline-parallel forward on one rank of ``layout`` (a
     ``parallel.mesh.RankLayout``). ``params``: this rank's stage tree
-    (``convert.stage_params``). ``tokens`` ``[B, S]``: the rows of the
-    rank's ``dp`` replica (the whole batch at dp 1; ``train_step.dp_rows``),
-    the same on every rank of the replica; the rank takes its shard of the
-    sequence. The groups it runs over (``pp``, ``sp``) are its replica's.
+    (``convert.stage_params``), at tp > 1 cut to its block
+    (``sharding.tree_shard`` with ``partition_specs``). ``tokens`` ``[B,
+    S]``: the rows of the rank's ``dp`` replica (the whole batch at dp 1;
+    ``train_step.dp_rows``), the same on every rank of the replica; the
+    rank takes its shard of the sequence. The groups it runs over (``pp``,
+    ``sp``, ``tp``) are its replica's.
 
     Embed runs on stage 0 (``wpe`` at the shard's global positions), the
     blocks as GPipe over ``n_microbatches`` and the ``pp`` group, and the
     unembed on the last stage. Attention in the stages is
     ``"ring_local"`` at sp > 1, else ``_resolve_attention``'s (flash on a
-    CUDA device). Refuses what the JAX twin refuses (``n_layer`` not
-    divisible by pp, MoE), and ``remat`` at sp > 1, whose recompute would
-    run the ring inside autograd's backward."""
+    CUDA device), on the rank's heads. Refuses what the JAX twin refuses
+    (``n_layer`` not divisible by pp, MoE), and ``remat`` at sp > 1 or tp
+    > 1, whose recompute would run the ring or the tp sums inside
+    autograd's backward."""
     n_pp = layout.pp
     if cfg.n_layer % n_pp:
         raise ValueError(f"n_layer={cfg.n_layer} not divisible by pp={n_pp}")
@@ -296,15 +332,21 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
             "use pp=1 with MoE or a dense (non-MoE) config with pp>1")
     impl = ("ring_local" if layout.sp > 1
             else _resolve_attention(cfg, tokens.device))
-    if impl == "ring_local" and cfg.remat:
+    tp_group = layout.tp_group if layout.tp > 1 else None
+    if cfg.remat and (impl == "ring_local" or tp_group is not None):
         raise NotImplementedError(
-            "remat with sp > 1 would recompute the ring inside autograd's "
-            "backward; pass remat=False")
+            "remat with sp > 1 or tp > 1 would recompute the ring or the tp "
+            "sums inside autograd's backward; pass remat=False")
     per_stage = cfg.n_layer // n_pp
     lead = params["blocks"]["ln1"]["scale"].shape[0]
     if lead != per_stage:
         raise ValueError(f"params hold {lead} blocks; a stage of pp={n_pp} "
                          f"holds {per_stage} (convert.stage_params)")
+    if params["wte"].shape[0] * layout.tp != cfg.vocab_size:
+        raise ValueError(
+            f"params hold {params['wte'].shape[0]} vocab rows; a rank of "
+            f"tp={layout.tp} holds {cfg.vocab_size // layout.tp} "
+            f"(sharding.tree_shard with gpt2.partition_specs)")
     grad = torch.is_grad_enabled()
     # each layer's leaves apart, so that each autograd segment of a stage
     # ends at its own layer's leaves
@@ -320,20 +362,24 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
                                   impl, use_reentrant=False)
             else:
                 x, _ = _block_apply(stage_layers[key], x, cfg, impl,
-                                    layout.sp_group, tape)
+                                    layout.sp_group, tp_group, tape)
         return x
 
     lo, hi = shard_bounds(tokens.shape[1], layout.sp, layout.sp_rank)
+    # the embedding's and the unembedding's tp boundaries (none at tp 1)
+    embed_tape, unembed_tape = StageTape(), StageTape()
     x = mb = None
     if layout.is_first_stage:
-        x = embed(params, tokens[:, lo:hi], cfg, position_offset=lo)
+        x = embed(params, tokens[:, lo:hi], cfg, position_offset=lo,
+                  tp_group=tp_group, tape=embed_tape)
         mb = microbatch(x, n_microbatches)
     run = gpipe_local(stage_fn, layers, mb, group=layout.pp_group,
                       n_microbatches=n_microbatches, replicate=False)
     y = logits = None
     if layout.is_last_stage:
         y = unmicrobatch(run.outputs).requires_grad_(grad)
-        logits = unembed(params, y, cfg)
+        logits = unembed(params, y, cfg, tp_group=tp_group,
+                         tape=unembed_tape)
 
     def backward(value):
         shared = {k: params[k] for k in ("ln_f", "wpe", "wte")}
@@ -347,18 +393,18 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
 
         g_mb = None
         if layout.is_last_stage:
-            g_y, *got = torch.autograd.grad(value, [y] + leaves,
-                                            allow_unused=True)
+            (g_y,), got = unembed_tape.backward(
+                value, torch.ones_like(value), [y], leaves)
             add(got)
             g_mb = microbatch(g_y, n_microbatches)
         g_mb, layer_grads = run.backward(g_mb)
         if layout.is_first_stage:
-            add(torch.autograd.grad(x, leaves, unmicrobatch(g_mb),
-                                    allow_unused=True))
+            add(embed_tape.backward(x, unmicrobatch(g_mb), [], leaves)[1])
         # the embedding's and the unembedding's parts live on different
         # stages and the sequence's shards on different sp ranks: sum
         # them, as the transposes of JAX's psums do; the block leaves are
-        # replicated over sp, their grads partial sums over its shards
+        # replicated over sp, their grads partial sums over its shards.
+        # Each tp rank sums its own block.
         out = tree_unflatten(shared, totals)
         for group in (layout.pp_group, layout.sp_group):
             out = ddp.sync_gradients(out, group, mode="allreduce")
@@ -374,14 +420,21 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
 def _pipelined_loss(fwd: PipelinedForward, targets, layout):
     """(the mean token loss over the whole batch and sequence, on every
     rank; this rank's part of it, attached to the logits, on the last
-    stage, else None). The shards' parts are summed over ``sp`` and the
-    sum broadcast from the last stage over ``pp``."""
+    stage, else None). At tp > 1 the token losses come from the ranks'
+    blocks of the vocab (``tensor_parallel.vocab_parallel_token_losses``),
+    the same on every rank of the group. The shards' parts are summed
+    over ``sp`` and the sum broadcast from the last stage over ``pp``."""
     B, S = targets.shape
     part = None
     value = torch.zeros((), dtype=torch.float32)
     if layout.is_last_stage:
         lo, hi = shard_bounds(S, layout.sp, layout.sp_rank)
-        part = _token_losses(fwd.logits, targets[:, lo:hi]).sum() / (B * S)
+        if layout.tp > 1:
+            losses = tensor_parallel.vocab_parallel_token_losses(
+                fwd.logits, targets[:, lo:hi], layout.tp_group)
+        else:
+            losses = _token_losses(fwd.logits, targets[:, lo:hi])
+        part = losses.sum() / (B * S)
         value = part.detach()
         if layout.sp > 1:
             value = col.allreduce(value, layout.sp_group)

@@ -8,6 +8,10 @@ same residuals as the JAX rules. The routed MoE layer (``apply_moe``)
 mirrors the JAX package's dense-dispatch einsums; expert parallelism
 comes with the mesh slice. ``apply_attention``'s ``"ring_local"`` runs
 the per-shard ring over a rank's ``sp`` group inside a pipeline stage.
+Given a ``tp_group``, attention and the MLP run on a rank's block of the
+heads or of the hidden (``parallel/tensor_parallel.py``): the input is
+copied to the group, the output projection's f32 partials are summed
+over it, and the MLP's ``b2`` is added once, after the sum.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.parallel.ring_attention import (reference_attention,
                                                    ring_attention_stage)
+from ray_tpu_torch.parallel.tensor_parallel import copy_to_tp, reduce_over_tp
 
 Params = Dict[str, Any]
 
@@ -42,6 +47,29 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """a [N, d] . b[V, d]^T -> [N, V] f32 from compute-dtype operands. The
+    backward rounds the cotangent to the operands' dtype and multiplies in
+    that dtype with f32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return mm_f32(a, b.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gc = g.to(a.dtype)
+        return gc @ b, gc.t() @ a
+
+
+def matmul_nt_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N, d] . b [V, d]^T -> [N, V] f32, differentiable
+    (``_MatmulF32Out``)."""
+    return _MatmulF32Out.apply(a, b)
 
 
 # --------------------------------------------------------------- layer norm
@@ -94,19 +122,35 @@ def init_attention(generator, d_model, n_head, dtype=torch.float32, *,
     }
 
 
+# The JAX package's logical axes of each leaf, as plain data.
+ATTENTION_LOGICAL = {
+    "wq": ("embed", "heads", "head_dim"),
+    "wk": ("embed", "heads", "head_dim"),
+    "wv": ("embed", "heads", "head_dim"),
+    "wo": ("heads", "head_dim", "embed"),
+}
+
+
 def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
                     impl: str = "reference",
                     compute_dtype=torch.bfloat16, sp_group: str = None,
-                    tape=None) -> torch.Tensor:
+                    tp_group: str = None, tape=None) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]. impl: "reference" (plain PyTorch),
     "flash" (the Hopper kernels on CUDA tensors) or "ring_local" (x is
     this rank's shard of the sequence and attention runs around the ring
     of ``sp_group``; with gradients, only inside a pipeline stage, on its
     ``tape``: see ``parallel.ring_attention.ring_attention_stage``). The
-    q/k/v/o projections are plain matmuls in the compute dtype."""
+    q/k/v/o projections are plain matmuls in the compute dtype. With
+    ``tp_group`` the leaves hold this rank's block of the heads, and x
+    enters and the output leaves through the group's boundaries on
+    ``tape``: the o-projection's f32 partials are summed over the group,
+    then rounded to x's dtype."""
     cd = compute_dtype
     B, S, D = x.shape
     _, H, K = params["wq"].shape
+    out_dtype = x.dtype
+    if tp_group is not None:
+        x = copy_to_tp(x, tp_group, tape)
     xc = x.to(cd)
 
     def project(w):
@@ -123,8 +167,12 @@ def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
     else:
         raise ValueError(f"attention impl {impl!r} is not ported; use "
                          f"'flash', 'reference' or 'ring_local'")
-    out = o.to(cd).reshape(B, S, H * K) @ params["wo"].to(cd).reshape(H * K, D)
-    return out.to(x.dtype)
+    o = o.to(cd).reshape(B, S, H * K)
+    wo = params["wo"].to(cd).reshape(H * K, D)
+    if tp_group is None:
+        return (o @ wo).to(out_dtype)
+    partial = matmul_nt_f32(o.reshape(B * S, H * K), wo.t()).view(B, S, D)
+    return reduce_over_tp(partial, tp_group, tape).to(out_dtype)
 
 
 # ---------------------------------------------------------------- dense MLP
@@ -139,13 +187,27 @@ def init_mlp(generator, d_model, d_ff, dtype=torch.float32, *,
     }
 
 
+MLP_LOGICAL = {
+    "w1": ("embed", "mlp"),
+    "b1": ("mlp",),
+    "w2": ("mlp", "embed"),
+    "b2": ("embed",),
+}
+
+
 def _gelu(u):
     return F.gelu(u, approximate="tanh")  # jax.nn.gelu's default
 
 
 def _mlp_compute(x, w1, b1, w2, b2, cd):
-    """Matmul outputs and bias adds stay in the compute dtype."""
+    """Matmul outputs and bias adds stay in the compute dtype. Without
+    ``b2`` (a rank's block of the hidden under tp) the output is the
+    second matmul's f32 partial, with no bias."""
     u = x.to(cd) @ w1.to(cd) + b1.to(cd)
+    if b2 is None:
+        g = _gelu(u)
+        o = mm_f32(g.reshape(-1, g.shape[-1]), w2.to(cd))
+        return o.view(*g.shape[:-1], -1), u
     o = _gelu(u) @ w2.to(cd) + b2.to(cd)
     return o, u
 
@@ -153,7 +215,8 @@ def _mlp_compute(x, w1, b1, w2, b2, cd):
 class _LeanMLP(torch.autograd.Function):
     """2-layer GELU MLP that saves only (x, w1, w2, u), u the
     pre-activation, and recomputes gelu and its derivative in the
-    backward. dw1 and dw2 accumulate in f32; the bias grads sum in f32."""
+    backward. dw1 and dw2 accumulate in f32; the bias grads sum in f32.
+    ``b2`` None: the f32 partial of ``_mlp_compute``."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, cd):
@@ -178,14 +241,30 @@ class _LeanMLP(torch.autograd.Function):
         dw1 = mm_f32(x2.to(cd).t(), du2)
         dx = du @ w1.to(cd).t()
         db1 = du2.float().sum(dim=0)
-        db2 = do2.float().sum(dim=0)
+        db2 = do2.float().sum(dim=0) if ctx.needs_input_grad[4] else None
         return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(w1.dtype),
-                dw2.to(w2.dtype), db2.to(w2.dtype), None)
+                dw2.to(w2.dtype), None if db2 is None else db2.to(w2.dtype),
+                None)
 
 
-def apply_mlp(params: Params, x, compute_dtype=torch.bfloat16):
-    out = _LeanMLP.apply(x, params["w1"], params["b1"], params["w2"],
-                         params["b2"], compute_dtype)
+def apply_mlp(params: Params, x, compute_dtype=torch.bfloat16, *,
+              tp_group: str = None, tape=None):
+    """x: [B, S, D] -> [B, S, D]. With ``tp_group`` the leaves hold this
+    rank's block of the hidden (``w1``, ``b1``, ``w2``; ``b2`` whole): x
+    enters through the group's copy on ``tape``, the f32 partials are
+    summed over the group and rounded to the compute dtype, and ``b2`` is
+    added once, after the sum, so that every rank adds it and its grad is
+    the same on every rank."""
+    if tp_group is None:
+        out = _LeanMLP.apply(x, params["w1"], params["b1"], params["w2"],
+                             params["b2"], compute_dtype)
+        return out.to(x.dtype)
+    h = copy_to_tp(x, tp_group, tape)
+    partial = _LeanMLP.apply(h, params["w1"], params["b1"], params["w2"],
+                             None, compute_dtype)
+    cd = compute_dtype
+    out = (reduce_over_tp(partial, tp_group, tape).to(cd)
+           + params["b2"].to(cd))
     return out.to(x.dtype)
 
 

@@ -1,6 +1,7 @@
-"""Per-rank layout of the data (``dp``), pipeline (``pp``) and sequence
-(``sp``) axes. The twin of ``ray_tpu/parallel/mesh.py``'s ``MeshConfig``,
-``AXIS_ORDER``, ``balanced_factorization``, ``mesh_shape_summary`` and
+"""Per-rank layout of the data (``dp``), pipeline (``pp``), sequence
+(``sp``) and tensor (``tp``) axes. The twin of
+``ray_tpu/parallel/mesh.py``'s ``MeshConfig``, ``AXIS_ORDER``,
+``balanced_factorization``, ``mesh_shape_summary`` and
 ``validate_mesh_for_model``.
 
 The JAX package builds one ``Mesh`` over every device and lets a
@@ -15,14 +16,14 @@ process group of a process, and the port's ranks may be threads of one
 process (ROADMAP, ground rules).
 
 Ranks are numbered as the JAX mesh orders its devices, slowest axis
-first (``AXIS_ORDER``: dp, pp, ep, sp, tp): with ``ep`` and ``tp`` at 1,
-rank = (dp_rank * pp + pp_rank) * sp + sp_rank.
+first (``AXIS_ORDER``: dp, pp, ep, sp, tp): with ``ep`` at 1,
+rank = ((dp_rank * pp + pp_rank) * sp + sp_rank) * tp + tp_rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch.distributed as dist
 
@@ -32,16 +33,16 @@ from ray_tpu_torch.util.collective.collective import DEFAULT_TIMEOUT_S
 # Canonical axis order, slowest- to fastest-varying, as the JAX package's.
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
 # the axes a rank layout holds groups for, in AXIS_ORDER
-LAYOUT_AXES = ("dp", "pp", "sp")
+LAYOUT_AXES = ("dp", "pp", "sp", "tp")
 
-_NOT_PORTED = ("the port's layout has the dp, pp and sp axes only; "
-               "{axis}={size} waits for mesh SPMD (ROADMAP Queue 1 item 2)")
+_NOT_PORTED = ("the port's layout has the dp, pp, sp and tp axes only; "
+               "ep={size} waits for mesh SPMD (ROADMAP Queue 1 item 2)")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """How many ways each axis splits the work. ``dp``, ``pp`` and ``sp``
-    are ported; ``ep`` and ``tp`` stay 1. Any one axis may be -1, which
+    """How many ways each axis splits the work. ``dp``, ``pp``, ``sp`` and
+    ``tp`` are ported; ``ep`` stays 1. Any one axis may be -1, which
     ``resolved`` turns into what the others leave of a device count."""
 
     dp: int = 1
@@ -51,11 +52,8 @@ class MeshConfig:
     tp: int = 1
 
     def __post_init__(self):
-        for axis in ("ep", "tp"):
-            size = getattr(self, axis)
-            if size not in (1, -1):
-                raise NotImplementedError(
-                    _NOT_PORTED.format(axis=axis, size=size))
+        if self.ep not in (1, -1):
+            raise NotImplementedError(_NOT_PORTED.format(size=self.ep))
         for axis in AXIS_ORDER:
             size = getattr(self, axis)
             if size < 1 and size != -1:
@@ -147,6 +145,10 @@ class RankLayout:
     dp_group: str
     pp_group: str
     sp_group: str
+    # last and defaulted, so that a layout built by hand without tp (and
+    # the positional constructions of the layouts before it) still reads
+    tp_rank: int = 0
+    tp_group: Optional[str] = None
 
     @property
     def dp(self) -> int:
@@ -161,6 +163,10 @@ class RankLayout:
         return self.config.sp
 
     @property
+    def tp(self) -> int:
+        return self.config.tp
+
+    @property
     def is_first_stage(self) -> bool:
         return self.pp_rank == 0
 
@@ -170,23 +176,24 @@ class RankLayout:
 
 
 def coordinates(config: MeshConfig, rank: int):
-    """(dp_rank, pp_rank, sp_rank) of a global rank."""
+    """(dp_rank, pp_rank, sp_rank, tp_rank) of a global rank."""
     if not 0 <= rank < config.world_size:
         raise ValueError(f"rank {rank} out of range for a mesh of "
                          f"{config.world_size}")
-    rest, sp_rank = divmod(rank, config.sp)
+    rest, tp_rank = divmod(rank, config.tp)
+    rest, sp_rank = divmod(rest, config.sp)
     dp_rank, pp_rank = divmod(rest, config.pp)
-    return dp_rank, pp_rank, sp_rank
+    return dp_rank, pp_rank, sp_rank, tp_rank
 
 
 def init_rank_layout(config: MeshConfig, rank: int, *, store,
                      name: str = "mesh",
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> RankLayout:
-    """Join ``rank`` into its ``dp``, ``pp`` and ``sp`` groups over
-    ``store``, in that order; returns when every member of all three has
-    joined, or raises after ``timeout_s``. A group's store prefix names
-    its axis and the rank's coordinates on the other two, so no two
-    groups share a key; group names carry ``name`` and the global rank,
+    """Join ``rank`` into its ``dp``, ``pp``, ``sp`` and ``tp`` groups
+    over ``store``, in that order; returns when every member of all four
+    has joined, or raises after ``timeout_s``. A group's store prefix
+    names its axis and the rank's coordinates on the other three, so no
+    two groups share a key; group names carry ``name`` and the global rank,
     so the ranks of one mesh may share a process."""
     coords = dict(zip(LAYOUT_AXES, coordinates(config, rank)))
     groups = {}
@@ -205,9 +212,12 @@ def init_rank_layout(config: MeshConfig, rank: int, *, store,
             col.destroy_collective_group(group)
         raise
     return RankLayout(config, rank, coords["dp"], coords["pp"], coords["sp"],
-                      groups["dp"], groups["pp"], groups["sp"])
+                      groups["dp"], groups["pp"], groups["sp"],
+                      coords["tp"], groups["tp"])
 
 
 def destroy_rank_layout(layout: RankLayout) -> None:
-    for group in (layout.dp_group, layout.pp_group, layout.sp_group):
-        col.destroy_collective_group(group)
+    for group in (layout.dp_group, layout.pp_group, layout.sp_group,
+                  layout.tp_group):
+        if group is not None:
+            col.destroy_collective_group(group)

@@ -1,14 +1,27 @@
-"""Gradient-bucket plumbing for the data-parallel gang. Port of the bucket
-half of ``ray_tpu/parallel/sharding.py`` (``:86-264``) and of its
-``axis_size`` (``:267``), over the port's mesh layouts; the rest of the
-mesh half (logical-axis rules, ``named_sharding``, ``constrain``) comes
-with mesh SPMD.
+"""Logical-axis sharding over the port's rank layouts, and gradient-bucket
+plumbing for the data-parallel gang. Port of ``ray_tpu/parallel/sharding.py``:
+its mesh half (``:16-72``), its bucket half (``:86-264``) and its
+``axis_size`` (``:267``).
 
-A grad tree is flattened in sorted-key order (jax's dict order), its
-leaves are planned into size-targeted buckets, and each bucket is packed
-into one contiguous 1-D host tensor that the collective group moves.
-Planning depends only on leaf shapes and dtypes, so every rank derives
-the same buckets, and the same buckets as ``ray_tpu`` for the same tree.
+**The mesh half.** Model code names a leaf's dimensions by logical axes
+(``models.layers.ATTENTION_LOGICAL``, ``gpt2.logical_axes``) and
+``DEFAULT_RULES`` maps them to mesh axes, as in the JAX package. There
+a ``NamedSharding`` lays an array out over the mesh's devices and XLA
+inserts the collectives; here each rank is a program of its own, so a
+spec is a plain tuple (``spec``), ``tree_shard`` cuts the rank's block
+out of a whole tree and ``tree_unshard`` puts one back together over the
+axis groups, and the model places each collective itself
+(``parallel.tensor_parallel``). ``named_sharding`` and ``constrain``
+have no twin: in an eager per-rank program there is no compiler to hand
+a layout to, and a tensor's layout is the block a rank holds, decided
+once by ``tree_shard``; a constraint between two ops would be a no-op.
+
+**The bucket half.** A grad tree is flattened in sorted-key order (jax's
+dict order), its leaves are planned into size-targeted buckets, and each
+bucket is packed into one contiguous 1-D host tensor that the collective
+group moves. Planning depends only on leaf shapes and dtypes, so every
+rank derives the same buckets, and the same buckets as ``ray_tpu`` for
+the same tree.
 
 Dtypes are spelled the numpy way (``float32``, not ``torch.float32``) in
 the plan and the fingerprint, so both equal ``ray_tpu``'s.
@@ -17,11 +30,125 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from ray_tpu_torch._private.tree import tree_leaves, tree_map, tree_unflatten
+from ray_tpu_torch.util import collective as col
+
+AxisVal = Union[None, str, Tuple[str, ...]]
+
+# Default logical -> mesh rules for transformer LMs, the JAX package's:
+# "seq" rides the sp axis; "heads", "mlp" and "vocab" ride tp; "experts"
+# ride ep; "stage" rides pp; "batch" rides dp.
+DEFAULT_RULES: Dict[str, AxisVal] = {
+    "batch": "dp",
+    "seq": "sp",
+    "embed": None,
+    "heads": "tp",
+    "kv": None,
+    "head_dim": None,
+    "mlp": "tp",
+    "experts": "ep",
+    "expert_mlp": "tp",
+    "vocab": "tp",
+    "stage": "pp",
+    "layers": None,
+}
+
+
+def spec(*logical_axes: Optional[str],
+         rules: Optional[Dict[str, AxisVal]] = None) -> tuple:
+    """The partition spec of a leaf whose dimensions carry
+    ``logical_axes``: one mesh axis (a name, a tuple of names, or None) a
+    dimension, as a plain tuple equal to the JAX package's
+    ``PartitionSpec``'s. A dimension past the spec's end is whole."""
+    rules = rules or DEFAULT_RULES
+    out = []
+    for ax in logical_axes:
+        if ax is None:
+            out.append(None)
+        else:
+            if ax not in rules:
+                raise KeyError(f"No sharding rule for logical axis {ax!r}")
+            out.append(rules[ax])
+    return tuple(out)
+
+
+def replicated() -> tuple:
+    """The spec of a leaf every rank holds whole."""
+    return ()
+
+
+def spec_axes(entry: AxisVal) -> Tuple[str, ...]:
+    """The mesh axes one dimension's spec entry names, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _axis_coord(layout, axis: str) -> int:
+    return 0 if axis_size(layout, axis) == 1 else getattr(layout,
+                                                         f"{axis}_rank")
+
+
+def _shard_leaf(leaf: torch.Tensor, layout, leaf_spec) -> torch.Tensor:
+    """This rank's block of a whole ``leaf``, a copy: each dimension whose
+    spec names mesh axes is cut into as many contiguous blocks as they
+    make together, and the block at the rank's coordinates (the first
+    axis named the slowest) is kept, as ``NamedSharding`` lays out a
+    device's shard. Raises ``ValueError`` where the axes do not divide a
+    dimension."""
+    out = leaf.detach()
+    for dim, entry in enumerate(leaf_spec):
+        axes = spec_axes(entry)
+        n = math.prod(axis_size(layout, a) for a in axes)
+        if n == 1:
+            continue
+        if out.shape[dim] % n:
+            raise ValueError(
+                f"dimension {dim} of a leaf of shape {tuple(leaf.shape)} "
+                f"(spec {tuple(leaf_spec)}) is not divisible by "
+                f"{'x'.join(axes)}={n}")
+        index = 0
+        for a in axes:
+            index = index * axis_size(layout, a) + _axis_coord(layout, a)
+        step = out.shape[dim] // n
+        out = out.narrow(dim, index * step, step)
+    return out.clone()
+
+
+def tree_shard(tree, layout, spec_tree):
+    """The eager twin of ``tree_shard`` with ``NamedSharding``: this
+    rank's block (``_shard_leaf``) of every leaf of the whole ``tree``,
+    each a copy of its own (the ranks update their trees in place), by
+    the matching tree of specs."""
+    specs = tree_leaves(spec_tree)
+    return tree_unflatten(tree, [_shard_leaf(leaf, layout, s) for leaf, s
+                                 in zip(tree_leaves(tree), specs,
+                                        strict=True)])
+
+
+def tree_unshard(tree, layout, spec_tree):
+    """The whole tree back from every rank's blocks (``tree_shard``'s): on
+    each sharded dimension the blocks are allgathered over the axis
+    groups, the last axis named first, and concatenated in rank order.
+    Every rank of each group calls it; each gets the whole tree."""
+    def gather(leaf, leaf_spec):
+        out = leaf.detach()
+        for dim, entry in enumerate(leaf_spec):
+            for a in reversed(spec_axes(entry)):
+                if axis_size(layout, a) > 1:
+                    parts = col.allgather(out, getattr(layout, f"{a}_group"))
+                    out = torch.cat([p.to(out.device) for p in parts],
+                                    dim=dim)
+        return out
+
+    specs = tree_leaves(spec_tree)
+    return tree_unflatten(tree, [gather(leaf, s) for leaf, s
+                                 in zip(tree_leaves(tree), specs,
+                                        strict=True)])
 
 
 def dtype_name(leaf) -> str:

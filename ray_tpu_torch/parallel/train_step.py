@@ -16,11 +16,12 @@ grads) and ``host_optimizer`` (a ``train.ddp.ZeroOptimizer`` owns the
 sync and the update). The state-bytes gauges are not ported.
 
 ``make_pipelined_train_step`` is GPT-2's step on one rank of a ``dp`` x
-``pp`` x ``sp`` layout: the rank's replica takes its rows of the batch
-(``dp_rows``), the pipelined gradient is averaged over the ``dp`` group
-with the metrics (``pipelined_grads``), then the global norm over every
-stage and each rank's update of its own leaves, which is the whole
-model's update restricted to them.
+``pp`` x ``sp`` x ``tp`` layout: the rank's replica takes its rows of the
+batch (``dp_rows``), the pipelined gradient is averaged over the ``dp``
+group with the metrics (``pipelined_grads``), then the global norm over
+every stage and tp block and each rank's update of its own leaves (its
+blocks at tp > 1), which is the whole model's update restricted to them:
+AdamW works element by element and clips by the global norm.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch._private.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.parallel import sharding as sh
 from ray_tpu_torch.train import ddp
 from ray_tpu_torch.util import collective as col
 
@@ -239,15 +241,39 @@ def make_train_step(loss_fn: Callable[[Any, Any], tuple],
     return step
 
 
-def pipelined_global_norm(grads, layout) -> torch.Tensor:
+def _squares_over_tp(tree, specs, layout) -> torch.Tensor:
+    """The sum of squares of the whole model's leaves of which ``tree``
+    holds this rank's blocks: the leaves whose spec names tp summed over
+    the tp group, the whole ones (the same on every rank) counted once."""
+    if layout.tp == 1:
+        return _sum_of_squares(tree)
+    leaves = tree_leaves(tree)
+    whole = sharded = torch.zeros((), device=leaves[0].device)
+    for g, spec in zip(leaves, tree_leaves(specs), strict=True):
+        if any("tp" in sh.spec_axes(entry) for entry in spec):
+            sharded = sharded + torch.sum(g.float() * g.float())
+        else:
+            whole = whole + torch.sum(g.float() * g.float())
+    sharded = col.allreduce(sharded, layout.tp_group).to(sharded.device)
+    return whole + sharded
+
+
+def pipelined_global_norm(grads, layout, specs=None) -> torch.Tensor:
     """The whole model's gradient norm from one rank's grads on a pipeline
     ``layout``: the squares of the stage's block grads summed over the
-    ``pp`` group, plus the shared leaves' (the same on every rank) once."""
-    blocks = _sum_of_squares(grads["blocks"])
+    ``pp`` group, plus the shared leaves' (the same on every stage) once.
+    At tp > 1 ``specs`` (``gpt2.partition_specs``) names the leaves cut
+    over tp, whose squares are summed over the tp group."""
+    if layout.tp > 1 and specs is None:
+        raise ValueError("at tp > 1 the norm needs the grads' partition "
+                         "specs (gpt2.partition_specs)")
+    specs = specs or {}
+    blocks = _squares_over_tp(grads["blocks"], specs.get("blocks"), layout)
     if layout.pp > 1:
         blocks = col.allreduce(blocks, layout.pp_group).to(blocks.device)
-    shared = _sum_of_squares({k: v for k, v in grads.items()
-                              if k != "blocks"})
+    shared = {k: v for k, v in grads.items() if k != "blocks"}
+    shared = _squares_over_tp(
+        shared, {k: specs.get(k) for k in shared}, layout)
     return torch.sqrt(blocks + shared)
 
 
@@ -302,16 +328,19 @@ def make_pipelined_train_step(cfg, optimizer: ClipAdamW, layout,
                               n_microbatches: int = 4):
     """GPT-2's train step on one rank of ``layout`` (a
     ``parallel.mesh.RankLayout``), whose state holds this rank's stage
-    tree (``convert.stage_params``). Returns step(state, batch) ->
-    (state, metrics) with ``make_train_step``'s metrics, the same on every
-    rank; ``grad_norm`` is the whole model's, which the update clips by.
-    Every rank is given the whole batch and takes its replica's rows
-    (``pipelined_grads``)."""
+    tree (``convert.stage_params``), at tp > 1 its block of it
+    (``sharding.tree_shard`` with ``gpt2.partition_specs``). Returns
+    step(state, batch) -> (state, metrics) with ``make_train_step``'s
+    metrics, the same on every rank; ``grad_norm`` is the whole model's,
+    which the update clips by. Every rank is given the whole batch and
+    takes its replica's rows (``pipelined_grads``); the ranks of a tp
+    group take the same rows."""
+    specs = gpt2.partition_specs(cfg)
 
     def step(state: TrainState, batch):
         metrics, grads = pipelined_grads(state.params, batch, cfg, layout,
                                          n_microbatches)
-        metrics["grad_norm"] = pipelined_global_norm(grads, layout)
+        metrics["grad_norm"] = pipelined_global_norm(grads, layout, specs)
         opt_state = optimizer.update(grads, state.opt_state, state.params,
                                      metrics["grad_norm"])
         return (TrainState(step=state.step + 1, params=state.params,

@@ -59,10 +59,12 @@ def test_resolved_and_axis_sizes_match_jax(sizes, n):
 
 def test_a_wild_axis_that_resolves_to_an_unported_size_is_refused():
     """tp=-1 over 8 devices with dp 2 and pp 2 is tp 2 in the JAX package,
-    which the port's layout does not hold yet."""
+    and in the port's, which holds the tp axis; an ep the port does not
+    hold yet is refused."""
     assert JMeshConfig(dp=2, pp=2, tp=-1).resolved(8).tp == 2
+    assert MeshConfig(dp=2, pp=2, tp=-1).resolved(8).tp == 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        MeshConfig(dp=2, pp=2, tp=-1).resolved(8)
+        MeshConfig(dp=2, pp=2, ep=-1).resolved(8)
     with pytest.raises(ValueError, match="resolve it first"):
         MeshConfig(dp=-1, pp=2).world_size
 
@@ -116,11 +118,12 @@ def test_layout_follows_the_jax_mesh_order_at_dp2_pp2_sp2():
 
     for r, got in enumerate(run_mesh(cfg, rank)):
         d, p, s = got["coords"]
-        assert M.coordinates(cfg, r) == (d, p, s)
+        assert M.coordinates(cfg, r) == (d, p, s, 0)
         assert devices[d, p, 0, s, 0].id == r == (d * 2 + p) * 2 + s
         assert got["dp"] == (d, 2, [p * 2 + s + 4 * i for i in range(2)])
         assert got["pp"] == (p, 2, [d * 4 + s + 2 * i for i in range(2)])
         assert got["sp"] == (s, 2, [d * 4 + p * 2 + i for i in range(2)])
+        assert got["tp"] == (0, 1, [r])
 
 
 def test_dp_rows_cut_the_batch_as_the_dp_sharding_does():

@@ -202,10 +202,12 @@ def test_pipelined_forward_refusals_on_both_packages(kind, error, match):
 # ------------------------------------------------------------------ layout
 @pytest.mark.parametrize("axis", ["dp", "tp", "ep"])
 def test_mesh_config_refuses_unported_axes(axis):
-    """tp and ep wait for mesh SPMD; dp is ported, and a dp of 2 doubles
-    the ranks of a layout."""
+    """ep waits for mesh SPMD; dp and tp are ported, and a dp or a tp of 2
+    doubles the ranks of a layout."""
     if axis == "dp":
         assert M.MeshConfig(dp=2, pp=2).world_size == 4
+    elif axis == "tp":
+        assert M.MeshConfig(tp=2).world_size == 2
     else:
         with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
             M.MeshConfig(**{axis: 2})
