@@ -120,7 +120,23 @@ Phases, each of which exits non-zero on failure:
    bit-equal across the tp ranks. It prints the step ms and tokens/s
    beside the card, each rank's ms in each collective (the dp sync, the
    tp sums and the tp copies' backward sums among them), its resident
-   params and moments, and the card's peak memory.
+   params and moments, and the card's peak memory;
+6f. expert parallelism (EP_RUNS): GPT-2-small-MoE (phase 3c's model,
+   weights and batch of 8) at dp 2 x ep 2, four rank threads, each its
+   replica's 4 rows and 4 of the 8 experts (``tree_shard``), the router
+   counting slots, capacity and the aux loss's top-1 fractions over the
+   whole batch (1 warm-up and 2 timed steps, bf16, flash attention).
+   Its first step in f32 (loss, aux loss, global grad norm, the router's
+   grad norm) is held to the one-card f32 step on the same weights and batch by phase 3b's f32
+   limits; the aux loss must be finite and positive at every step; the
+   launch counts are exact (dp x ep x 12 layers of each bf16 kernel a
+   step: 48); the leaves every ep rank holds whole (router, attention,
+   LayerNorms, embeddings) end bit-equal across the ep ranks and every
+   leaf across the replicas. It prints the step ms and tokens/s beside
+   the card, each rank's ms in the slot prefix (the routing counts'
+   allreduce), the ep sums, the ep copies' backward sums and the dp
+   sync, its resident params and moments, the card's peak memory, and
+   the share of (token, k) pairs past capacity.
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
@@ -130,7 +146,8 @@ for the bf16_d256 ones, the tiny configs with a head of 320 for the
 split-head-dim ones, the f32 tiny config with a head of 256 for the
 f32 kernels' head-dim-256 instances, listed apart as ``*_f32_d256``),
 and ``tiny_launches``, ``moe_launches``,
-``gang_launches`` and ``pipeline_launches`` the other runs'; the last
+``gang_launches`` and ``pipeline_launches`` (phase 6's runs and 6f's)
+the other runs'; the last
 line is ``{"ok": true,
 "device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
@@ -261,6 +278,17 @@ PIPE_RUNS = (("pp2", 1, 2, 1, 1, PIPE_MICROBATCHES, 2, 3),
              ("dp2pp2", 2, 2, 1, 1, PIPE_MICROBATCHES, 1, 2),
              ("tp2", 1, 1, 1, 2, 1, 1, 2),
              ("pp2tp2", 1, 2, 1, 2, PIPE_MICROBATCHES, 1, 2))
+
+# Phase 6f, expert parallelism: GPT-2-small-MoE (phase 3c's model, seeded
+# weights and batch of MOE_BATCH rows) at dp 2 x ep 2, four rank threads,
+# each its replica's rows and 4 of the 8 experts, the replica's rows as
+# one microbatch (the router counts slots, capacity and the aux loss's
+# top-1 fractions over the whole batch). Its first step is held in f32 to
+# the one-card f32 step by phase 3b's f32 limits (the aux loss by the
+# loss's), as phase 3c holds its own (in bf16 the router's top-k moves a
+# few tokens to other experts on rounding alone).
+# (name, dp, ep, warm-up steps, timed steps)
+EP_RUNS = (("dp2ep2", 2, 2, 1, 2),)
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
@@ -1009,10 +1037,10 @@ def moe(torch, fa, card: str):
     dropped = []
     apply_moe = L.apply_moe
 
-    def counting(params, x, moe_cfg, compute_dtype):
+    def counting(params, x, moe_cfg, compute_dtype, **kw):
         _, _, _, slots = L.route_tokens(params["wg"], x, moe_cfg)
         dropped.append(((slots >= C).sum() / slots.numel()).item())
-        return apply_moe(params, x, moe_cfg, compute_dtype)
+        return apply_moe(params, x, moe_cfg, compute_dtype, **kw)
 
     L.apply_moe = counting
     try:
@@ -1182,6 +1210,60 @@ def run_mesh(torch, config, fn):
             mesh.destroy_rank_layout(layout)
 
     return _rank_threads(torch, config.world_size, body)
+
+
+class CommTimer:
+    """Seconds a rank thread spends inside each collective op of ``ops``
+    (name -> (module, attribute)) while a measurement is on (``start`` to
+    ``stop``), waits for its peers included; an op called inside another
+    counts in the outer one only. An op whose name holds ``{axis}`` counts
+    under the axis of the group it is given as its second argument, on
+    the rank's layout (``"{axis} sums"`` is ``"tp sums"`` over the tp
+    group, ``"ep sums"`` over the ep group). ``with`` the timer the ops
+    are wrapped and restored after."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.originals = {op: getattr(*where) for op, where in ops.items()}
+        self.parts = threading.local()
+
+    def _timed(self, op, fn):
+        def run(*args, **kw):
+            parts = self.parts
+            if getattr(parts, "inside", False):
+                return fn(*args, **kw)
+            parts.inside = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                parts.inside = False
+                acc = getattr(parts, "acc", None)
+                if acc is not None:
+                    key = (op.format(axis=parts.axes[args[1]])
+                           if "{axis}" in op else op)
+                    acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return run
+
+    def __enter__(self):
+        for op, (module, attr) in self.ops.items():
+            setattr(module, attr, self._timed(op, self.originals[op]))
+        return self
+
+    def __exit__(self, *exc):
+        for op, (module, attr) in self.ops.items():
+            setattr(module, attr, self.originals[op])
+
+    def start(self, layout):
+        """Start this rank thread's measurement, on its ``layout``."""
+        self.parts.axes = {getattr(layout, f"{axis}_group"): axis
+                           for axis in ("dp", "pp", "ep", "sp", "tp")}
+        self.parts.acc = {op: 0.0 for op in self.ops if "{axis}" not in op}
+
+    def stop(self) -> dict:
+        """Seconds in each op since ``start`` on this rank thread."""
+        acc, self.parts.acc = self.parts.acc, None
+        return acc
 
 
 def same_bits(torch, a_leaves, b_leaves) -> bool:
@@ -1797,31 +1879,15 @@ def pipeline(torch, fa, card: str):
     # forward's partials (embedding, attention, MLP) and the tp copies'
     # backward sums (an op called inside another counts in the outer one
     # only)
-    comm_ops = {"send": (col, "send"), "recv": (col, "recv"),
-                "ring hops": (col, "sendrecv"),
-                "broadcast": (col, "broadcast"),
-                "allreduce": (col, "allreduce"),
-                "grad sums": (ddp, "sync_gradients"),
-                "dp sync": (ts, "sync_over_dp"),
-                "tp sums": (tensor_parallel, "_sum_over"),
-                "tp copies": (tensor_parallel, "_copy_backward")}
-    originals = {op: getattr(*where) for op, where in comm_ops.items()}
-    parts = threading.local()
-
-    def timed_op(op, fn):
-        def run(*args, **kw):
-            if getattr(parts, "inside", False):
-                return fn(*args, **kw)
-            parts.inside = True
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                parts.inside = False
-                acc = getattr(parts, "acc", None)
-                if acc is not None:
-                    acc[op] += time.perf_counter() - t0
-        return run
+    timer = CommTimer({"send": (col, "send"), "recv": (col, "recv"),
+                       "ring hops": (col, "sendrecv"),
+                       "broadcast": (col, "broadcast"),
+                       "allreduce": (col, "allreduce"),
+                       "grad sums": (ddp, "sync_gradients"),
+                       "dp sync": (ts, "sync_over_dp"),
+                       "{axis} sums": (tensor_parallel, "_sum_over"),
+                       "{axis} copies": (tensor_parallel,
+                                         "_copy_backward")})
 
     launches, bad = {}, []
     for name, dp, pp, sp, tp, M, warmup, timed in PIPE_RUNS:
@@ -1882,12 +1948,12 @@ def pipeline(torch, fa, card: str):
             for i in range(warmup + timed):
                 if i == warmup:
                     torch.cuda.current_stream().synchronize()
-                    parts.acc = dict.fromkeys(comm_ops, 0.0)
+                    timer.start(lay)
                     t0 = time.perf_counter()
                 state, m = step(state, batch)
                 out.append(float(m["loss"]))
             torch.cuda.current_stream().synchronize()
-            dt, comm, parts.acc = time.perf_counter() - t0, parts.acc, None
+            dt, comm = time.perf_counter() - t0, timer.stop()
             resident = sum(t.numel() * t.element_size() for t in
                            tree_leaves(state.params)
                            + tree_leaves(state.opt_state["mu"])
@@ -1899,13 +1965,8 @@ def pipeline(torch, fa, card: str):
 
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
-        for op, (module, attr) in comm_ops.items():
-            setattr(module, attr, timed_op(op, originals[op]))
-        try:
+        with timer:
             ranks = run_mesh(torch, config, steps)
-        finally:
-            for op, (module, attr) in comm_ops.items():
-                setattr(module, attr, originals[op])
         launches[name] = dict(fa.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         if dp > 1:
@@ -1983,6 +2044,228 @@ def pipeline(torch, fa, card: str):
     return launches
 
 
+def expert_parallel(torch, fa, card: str):
+    """Phase 6f: GPT-2-small-MoE's step on rank threads at dp x ep
+    (EP_RUNS). Each run's first step in f32 (loss, aux loss, global grad
+    norm, the router's grad norm) is held to the one-card f32 step on the
+    same weights and batch; then its bf16 warm-up and timed steps run with
+    the launch counters set to 0 just before and read just after, and
+    each rank's seconds inside the routing counts (the slot prefix), the
+    ep sums and copies and the dp sync summed, and one more forward counts
+    the pairs past capacity from the state after the steps; the leaves
+    every ep rank holds whole must end bit-equal across the ep ranks, and
+    every leaf across the replicas. Returns each run's counts."""
+    from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
+                                             tree_unflatten)
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import layers as L
+    from ray_tpu_torch.parallel import expert_parallel as ep_
+    from ray_tpu_torch.parallel import sharding, tensor_parallel
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    from ray_tpu_torch.util import collective as col
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(gpt2.gpt2_small(), remat=False,
+                              moe=L.MoEConfig())
+    f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    B, S = MOE_BATCH, cfg.max_seq
+    C = L.moe_capacity(cfg.moe, B * S)
+    specs = gpt2.partition_specs(cfg)
+    # the leaves every ep rank holds whole: all but the experts
+    whole_leaf = [not any("ep" in sharding.spec_axes(e) for e in spec)
+                  for spec in tree_leaves(specs)]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    batch = {"tokens": tokens}
+    # phase 3c's weights (the param dtype is f32 whatever the compute's)
+    params = tree_map(lambda p: p.requires_grad_(True), gpt2.init(
+        torch.Generator(device="cuda").manual_seed(0), f32_cfg))
+
+    def router_norm(grads) -> float:
+        # the gates' copy's backward sums wg's gradient over ep: without
+        # it a rank's holds only its own experts' share
+        return float(ts.global_norm(grads["blocks"]["moe"]["wg"]))
+
+    # the yardstick: the one-card f32 step
+    total, m = gpt2.loss_fn(params, batch, f32_cfg)
+    grads = tree_unflatten(params, torch.autograd.grad(total,
+                                                       tree_leaves(params)))
+    want = (float(m["loss"].detach()), float(m["aux_loss"].detach()),
+            float(ts.global_norm(grads)), router_norm(grads))
+    del total, m, grads
+    params = tree_map(lambda p: p.detach(), params)
+    torch.cuda.empty_cache()
+
+    def optimizer():
+        return ts.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+
+    timer = CommTimer({"slot prefix": (ep_, "route_counts"),
+                       "{axis} sums": (tensor_parallel, "_sum_over"),
+                       "{axis} copies": (tensor_parallel,
+                                         "_copy_backward"),
+                       "dp sync": (ts, "sync_over_dp"),
+                       "allreduce": (col, "allreduce")})
+    # the share of (token, k) pairs past capacity, layer by layer, counted
+    # in one more forward after the timed steps
+    route, drops = L._route, threading.local()
+
+    def counting_route(probs, moe_cfg, dp_group=None):
+        out = route(probs, moe_cfg, dp_group)
+        shares = getattr(drops, "shares", None)
+        if shares is not None:
+            shares.append(((out[2] >= C).sum() / out[2].numel()).item())
+        return out
+
+    launches, bad = {}, []
+    for name, dp, ep, warmup, timed in EP_RUNS:
+        config = MeshConfig(dp=dp, ep=ep)
+
+        def first_step(lay):
+            mine = tree_map(lambda t: t.requires_grad_(True),
+                            sharding.tree_shard(params, lay, specs))
+            m, grads = ts.pipelined_grads(mine, batch, f32_cfg, lay,
+                                          n_microbatches=1)
+            return (float(m["loss"]), float(m["aux_loss"]),
+                    float(ts.pipelined_global_norm(grads, lay, specs)),
+                    router_norm(grads))
+
+        got = run_mesh(torch, config, first_step)
+        rel = [abs(g - w) / abs(w) for g, w in zip(got[0], want)]
+        limits = (TINY_F32_LIMITS[0], TINY_F32_LIMITS[0], TINY_F32_LIMITS[1],
+                  TINY_F32_LIMITS[1])
+        print(f"experts {name}: f32 first step against the one-card f32 "
+              f"step: loss {got[0][0]:.6f} / {want[0]:.6f}, relative "
+              f"{rel[0]:.2e} (limit {limits[0]:.0e}); aux loss "
+              f"{got[0][1]:.6f} / {want[1]:.6f}, {rel[1]:.2e} (limit "
+              f"{limits[1]:.0e}); grad norm {got[0][2]:.6f} / {want[2]:.6f}, "
+              f"{rel[2]:.2e} (limit {limits[2]:.0e}); the router's (wg, "
+              f"whole on every ep rank) grad norm {got[0][3]:.6f} / "
+              f"{want[3]:.6f}, {rel[3]:.2e} (limit {limits[3]:.0e})",
+              flush=True)
+        if len(set(got)) != 1:
+            bad.append(f"{name}: the ranks disagree on the first step: "
+                       f"{got}")
+        bad += [f"{name}: f32 first-step {what}" for what, r, lim in zip(
+            ("loss", "aux loss", "grad norm", "router grad norm"), rel,
+            limits) if not r <= lim]
+        torch.cuda.empty_cache()
+
+        def steps(lay):
+            state = ts.make_train_state(
+                lambda g: sharding.tree_shard(params, lay, specs), None,
+                optimizer())
+            step = ts.make_pipelined_train_step(cfg, optimizer(), lay,
+                                                n_microbatches=1)
+            out = []
+            for i in range(warmup + timed):
+                if i == warmup:
+                    torch.cuda.current_stream().synchronize()
+                    timer.start(lay)
+                    t0 = time.perf_counter()
+                state, m = step(state, batch)
+                out.append((float(m["loss"]), float(m["aux_loss"])))
+            torch.cuda.current_stream().synchronize()
+            dt, comm = time.perf_counter() - t0, timer.stop()
+            resident = sum(t.numel() * t.element_size() for t in
+                           tree_leaves(state.params)
+                           + tree_leaves(state.opt_state["mu"])
+                           + tree_leaves(state.opt_state["nu"]))
+            return (lay, out, dt / timed, resident,
+                    {op: v / timed for op, v in comm.items()}, state.params)
+
+        def count_drops(lay):
+            drops.shares = []
+            rows = ts.dp_rows(batch, lay, 1)["tokens"]
+            with torch.no_grad():
+                gpt2.forward_pipelined(finals[lay.rank], rows[:, :-1], cfg,
+                                       lay, n_microbatches=1)
+            shares, drops.shares = drops.shares, None
+            return shares
+
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        with timer:
+            ranks = run_mesh(torch, config, steps)
+        launches[name] = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        finals = {r[0].rank: r[-1] for r in ranks}
+        L._route = counting_route
+        try:
+            shares = run_mesh(torch, config, count_drops)
+        finally:
+            L._route = route
+        del finals
+        ranks = [(*r[:-1], shares[i], tree_leaves(r[-1]))
+                 for i, r in enumerate(ranks)]
+        for lay, *_, leaves in ranks:
+            ep_twin = next(r for r in ranks if r[0].ep_rank == 0
+                           and r[0].dp_rank == lay.dp_rank)
+            dp_twin = next(r for r in ranks if r[0].dp_rank == 0
+                           and r[0].ep_rank == lay.ep_rank)
+            same_ep = same_bits(
+                torch, [x for x, w in zip(leaves, whole_leaf) if w],
+                [x for x, w in zip(ep_twin[-1], whole_leaf) if w])
+            same_dp = same_bits(torch, leaves, dp_twin[-1])
+            print(f"experts {name}: rank {lay.rank}'s leaves held whole "
+                  f"(router, attention, LayerNorms, embeddings) after the "
+                  f"timed steps {'bit-equal to' if same_ep else 'DIFFER from'}"
+                  f" ep rank 0's (rank {ep_twin[0].rank}); all its params "
+                  f"{'bit-equal to' if same_dp else 'DIFFER from'} replica "
+                  f"0's (rank {dp_twin[0].rank})", flush=True)
+            if not same_ep:
+                bad.append(f"{name}: rank {lay.rank}'s whole leaves differ "
+                           f"from ep rank 0's")
+            if not same_dp:
+                bad.append(f"{name}: rank {lay.rank}'s params differ from "
+                           f"replica 0's")
+        for lay, out, dt, resident, comm, shares, _ in ranks:
+            print(f"experts {name}: rank {lay.rank} (replica {lay.dp_rank}, "
+                  f"experts {lay.ep_rank * (cfg.moe.n_experts // ep)}-"
+                  f"{(lay.ep_rank + 1) * (cfg.moe.n_experts // ep) - 1}): "
+                  f"(loss, aux loss) {out}, step {dt * 1e3:.1f} ms, of which "
+                  f"in " + ", ".join(f"{op} {v * 1e3:.1f}"
+                                     for op, v in comm.items())
+                  + f" ms (waits for peers included), the rest "
+                  f"{(dt - sum(comm.values())) * 1e3:.1f} ms; its params and "
+                  f"Adam moments {resident / 2**30:.2f} GiB; (token, k) pairs "
+                  f"past capacity (C {C}) in its replica's rows by layer: "
+                  + ", ".join(f"{x:.4f}" for x in shares), flush=True)
+            if not all(math.isfinite(x) for x, _ in out):
+                bad.append(f"{name}: non-finite loss on rank {lay.rank}")
+            if not all(math.isfinite(a) and a > 0 for _, a in out):
+                bad.append(f"{name}: an aux loss on rank {lay.rank} that is "
+                           f"not finite and positive")
+        step_s = max(r[2] for r in ranks)
+        dropped = statistics.fmean(x for r in ranks for x in r[5])
+        print(f"experts {name}: {card}: GPT-2-small-MoE "
+              f"({cfg.n_params / 1e6:.1f} M params, {cfg.moe.n_experts} "
+              f"experts, top-{cfg.moe.top_k}, capacity factor "
+              f"{cfg.moe.capacity_factor}, C {C}), batch {B} ({B // dp} rows "
+              f"a replica, one microbatch), seq {S}, dp {dp} x ep {ep} rank "
+              f"threads on one card: step {step_s * 1e3:.1f} ms (the slowest "
+              f"rank), {B * S / step_s:.0f} tokens/s, peak memory of the card "
+              f"{peak / 2**30:.2f} GiB for all {config.world_size} ranks "
+              f"together; (token, k) pairs past capacity {dropped:.4f} of "
+              f"the batch ({warmup} warm-up and {timed} timed steps)",
+              flush=True)
+        per_step = dp * ep * cfg.n_layer
+        for kernel, n in launches[name].items():
+            want_n = 0 if family(kernel) else per_step * (warmup + timed)
+            print(f"experts {name}: {kernel} launched {n} times (expected "
+                  f"{want_n})")
+            if n != want_n:
+                bad.append(f"{name}: {kernel} launched {n} times, expected "
+                           f"{want_n}")
+        del ranks
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"experts: {'; '.join(bad)}")
+    return launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2007,6 +2290,7 @@ def main() -> int:
     gang_launches = gang(torch, fa, card)
     checkpoints(torch, card)
     pipeline_launches = pipeline(torch, fa, card)
+    pipeline_launches.update(expert_parallel(torch, fa, card))
 
     kernels = []
     # each kernel's count on the path that runs it: the main path for the

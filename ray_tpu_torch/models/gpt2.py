@@ -8,15 +8,19 @@ positional embeddings, pre-LN blocks, GELU MLP, tied LM head; with
 returns its aux loss, averaged over the layers.
 
 The pipelined forward (``forward_pipelined``) runs on every rank of a
-``dp`` x ``pp`` x ``sp`` x ``tp`` layout (``parallel/mesh.py``), each
-holding its stage's ``[n_layer / pp, ...]`` slice of the block leaves and
-the embedding and final LayerNorm (``convert.stage_params``), cut at tp
-> 1 to the rank's block of the heads, the MLP hidden and the vocab
+``dp`` x ``pp`` x ``ep`` x ``sp`` x ``tp`` layout (``parallel/mesh.py``),
+each holding its stage's ``[n_layer / pp, ...]`` slice of the block
+leaves and the embedding and final LayerNorm (``convert.stage_params``),
+cut at tp > 1 to the rank's block of the heads, the MLP hidden and the
+vocab, and at ep > 1 to its block of the experts
 (``parallel.sharding.tree_shard`` with ``partition_specs``). Stage 0
 embeds, the block stack runs under GPipe (``parallel/pipeline.py``) and
 the last stage unembeds; at ``sp`` > 1 each rank holds a contiguous shard
 of the sequence and attention is ``"ring_local"``; at ``tp`` > 1 the
-collectives of ``parallel/tensor_parallel.py`` join the blocks. Its
+collectives of ``parallel/tensor_parallel.py`` join the blocks; with MoE
+(pp 1 only) the router counts over the whole dp batch and the experts
+run over ep (``parallel/expert_parallel.py`` and
+``parallel/tensor_parallel.py``'s boundaries over the ep group). Its
 gradient is a schedule, not autograd through the collectives:
 ``value_and_grad_pipelined``, or ``PipelinedForward.backward``.
 """
@@ -171,23 +175,26 @@ def _resolve_attention(cfg: GPT2Config, device: torch.device) -> str:
 
 
 def _block_apply(block, x, cfg: GPT2Config, impl: str, sp_group=None,
-                 tp_group=None, tape=None):
+                 tp_group=None, tape=None, dp_group=None, ep_group=None):
     """(the block's output, its MoE aux loss, or None without MoE).
     ``sp_group`` and ``tape``: ``"ring_local"``'s (``apply_attention``);
     ``tp_group`` and ``tape``: the block's leaves hold this rank's block
-    of the heads and the hidden, and the residual after attention is cut
-    on the tape, so that the MLP's copy and the output reach it by
-    separate autograd segments."""
+    of the heads and the hidden; ``dp_group``: the MoE router counts the
+    whole dp batch; ``ep_group`` and ``tape``: the MoE layer runs the
+    rank's block of the experts (``apply_moe``). With ``tp_group`` or
+    ``ep_group``, the residual after attention is cut on the tape, so that
+    the MLP's or the MoE's segments and the output's reach it apart."""
     cd = cfg.dtype
     h = L.layer_norm(x, block["ln1"]["scale"], block["ln1"]["bias"])
     x = x + L.apply_attention(block["attn"], h, causal=True, impl=impl,
                               compute_dtype=cd, sp_group=sp_group,
                               tp_group=tp_group, tape=tape)
-    if tp_group is not None:
+    if tp_group is not None or ep_group is not None:
         x = tape.cut(x)
     h = L.layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"])
     if cfg.moe:
-        m, aux = L.apply_moe(block["moe"], h, cfg.moe, compute_dtype=cd)
+        m, aux = L.apply_moe(block["moe"], h, cfg.moe, compute_dtype=cd,
+                             dp_group=dp_group, ep_group=ep_group, tape=tape)
         return x + m, aux
     return x + L.apply_mlp(block["mlp"], h, compute_dtype=cd,
                            tp_group=tp_group, tape=tape), None
@@ -216,7 +223,7 @@ def unembed(params, x, cfg: GPT2Config, *, tp_group=None, tape=None):
     ``tape`` and the logits are this rank's block of the vocab's."""
     x = L.layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     if tp_group is not None:
-        x = tensor_parallel.copy_to_tp(x, tp_group, tape)
+        (x,) = tensor_parallel.copy_to_group((x,), tp_group, tape)
     B, S, D = x.shape
     cd = cfg.dtype
     logits = L.matmul_nt_f32(x.to(cd).reshape(B * S, D),
@@ -287,7 +294,10 @@ class PipelinedForward:
     """One rank's part of ``forward_pipelined``. ``logits``: ``[B,
     S_local, V / tp]`` f32 for this rank's shard of the sequence and block
     of the vocab on the last stage, attached to the graph of the unembed;
-    None on the other stages. ``aux``: 0 (MoE is refused).
+    None on the other stages. ``aux``: the MoE aux loss averaged over the
+    layers, this replica's share (``apply_moe``: its mean over dp is the
+    whole batch's), the same on every rank of the replica; 0 without MoE
+    (which runs at pp 1 only).
     ``backward(value)``, called once on every rank with, on the last
     stage, the scalar this rank differentiates (its part of the loss,
     computed from ``logits``, the same on every rank of its tp group) and
@@ -317,26 +327,54 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
     blocks as GPipe over ``n_microbatches`` and the ``pp`` group, and the
     unembed on the last stage. Attention in the stages is
     ``"ring_local"`` at sp > 1, else ``_resolve_attention``'s (flash on a
-    CUDA device), on the rank's heads. Refuses what the JAX twin refuses
-    (``n_layer`` not divisible by pp, MoE), and ``remat`` at sp > 1 or tp
-    > 1, whose recompute would run the ring or the tp sums inside
-    autograd's backward."""
+    CUDA device), on the rank's heads.
+
+    With MoE (pp 1 only) the whole replica is one microbatch, as the
+    router counts its slots, capacity and top-1 fractions over the whole
+    batch (over every replica at dp > 1), and the experts ride ep: the
+    twin of the JAX package's ``forward(..., mesh)`` at pp 1. The aux
+    loss of each layer is a term of the stage's tape, weighted as
+    ``_metrics`` weighs it.
+
+    Refuses what the JAX twin refuses (``n_layer`` not divisible by pp,
+    MoE at pp > 1), MoE or ep > 1 with tp > 1 or sp > 1 (not ported), and
+    ``remat`` at sp > 1, at tp > 1 or with MoE, whose recompute would run
+    the ring, the tp sums or the MoE's sums inside autograd's backward and
+    drop the aux loss's term."""
     n_pp = layout.pp
     if cfg.n_layer % n_pp:
         raise ValueError(f"n_layer={cfg.n_layer} not divisible by pp={n_pp}")
-    if cfg.moe is not None:
+    if cfg.moe is not None and n_pp > 1:
         # the GPipe carry is activations only: the MoE aux loss would be
         # dropped without a signal, as the JAX twin says
         raise NotImplementedError(
             "pipelined forward does not yet propagate the MoE aux loss; "
             "use pp=1 with MoE or a dense (non-MoE) config with pp>1")
+    if ((cfg.moe is not None or layout.ep > 1)
+            and (layout.tp > 1 or layout.sp > 1)):
+        raise NotImplementedError(
+            f"{'MoE' if cfg.moe is not None else 'a dense model'} at "
+            f"ep={layout.ep} with tp={layout.tp} and sp={layout.sp}: the "
+            f"port runs MoE and ep at tp 1 and sp 1 only (under tp the "
+            f"experts' hidden, expert_mlp, would ride tp; under sp the "
+            f"router would count a shard of the sequence; ROADMAP Queue 1 "
+            f"item 2)")
+    if cfg.moe is not None and n_microbatches != 1:
+        raise ValueError(
+            f"n_microbatches={n_microbatches}: MoE routes a replica's rows "
+            f"as one batch (its slots and capacity are the whole batch's); "
+            f"pass n_microbatches=1")
     impl = ("ring_local" if layout.sp > 1
             else _resolve_attention(cfg, tokens.device))
     tp_group = layout.tp_group if layout.tp > 1 else None
-    if cfg.remat and (impl == "ring_local" or tp_group is not None):
+    dp_group = layout.dp_group if layout.dp > 1 else None
+    ep_group = layout.ep_group if layout.ep > 1 else None
+    if cfg.remat and (impl == "ring_local" or tp_group is not None
+                      or cfg.moe is not None):
         raise NotImplementedError(
-            "remat with sp > 1 or tp > 1 would recompute the ring or the tp "
-            "sums inside autograd's backward; pass remat=False")
+            "remat with sp > 1, tp > 1 or MoE would recompute the ring, the "
+            "tp sums or the MoE layer's sums inside autograd's backward; "
+            "pass remat=False")
     per_stage = cfg.n_layer // n_pp
     lead = params["blocks"]["ln1"]["scale"].shape[0]
     if lead != per_stage:
@@ -353,6 +391,7 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
     layers = {f"{i:04d}": tree_map(
         lambda leaf: leaf[i].detach().requires_grad_(grad),
         params["blocks"]) for i in range(per_stage)}
+    auxes = []
 
     def stage_fn(stage_layers, x, tape):
         for key in sorted(stage_layers):
@@ -361,8 +400,13 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
                 x, _ = checkpoint(_block_apply, stage_layers[key], x, cfg,
                                   impl, use_reentrant=False)
             else:
-                x, _ = _block_apply(stage_layers[key], x, cfg, impl,
-                                    layout.sp_group, tp_group, tape)
+                x, aux = _block_apply(stage_layers[key], x, cfg, impl,
+                                      layout.sp_group, tp_group, tape,
+                                      dp_group, ep_group)
+                if aux is not None:
+                    auxes.append(aux)
+        if auxes:
+            tape.add_term(sum(auxes) * (cfg.aux_loss_weight / cfg.n_layer))
         return x
 
     lo, hi = shard_bounds(tokens.shape[1], layout.sp, layout.sp_rank)
@@ -413,8 +457,9 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
             layout.sp_group, mode="allreduce")
         return out
 
-    return PipelinedForward(logits, torch.zeros((), device=tokens.device),
-                            backward)
+    aux = (sum(a.detach() for a in auxes) / cfg.n_layer if auxes
+           else torch.zeros((), device=tokens.device))
+    return PipelinedForward(logits, aux, backward)
 
 
 def _pipelined_loss(fwd: PipelinedForward, targets, layout):

@@ -5,9 +5,12 @@ shapes and dtypes; layers are functions over them. Compute is bf16 by
 default with f32 params and accumulators. The memory-lean custom VJPs
 (``layer_norm``, the MLP) are ``torch.autograd.Function``s that save the
 same residuals as the JAX rules. The routed MoE layer (``apply_moe``)
-mirrors the JAX package's dense-dispatch einsums; expert parallelism
-comes with the mesh slice. ``apply_attention``'s ``"ring_local"`` runs
-the per-shard ring over a rank's ``sp`` group inside a pipeline stage.
+mirrors the JAX package's dense-dispatch einsums; given a rank layout's
+dp and ep groups it routes the whole dp batch and runs the rank's block
+of the experts (``parallel/expert_parallel.py``, and the boundaries of
+``parallel/tensor_parallel.py`` over ep). ``apply_attention``'s
+``"ring_local"`` runs the per-shard ring over a rank's ``sp`` group
+inside a pipeline stage.
 Given a ``tp_group``, attention and the MLP run on a rank's block of the
 heads or of the hidden (``parallel/tensor_parallel.py``): the input is
 copied to the group, the output projection's f32 partials are summed
@@ -23,9 +26,12 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.parallel import expert_parallel as ep_
 from ray_tpu_torch.parallel.ring_attention import (reference_attention,
                                                    ring_attention_stage)
-from ray_tpu_torch.parallel.tensor_parallel import copy_to_tp, reduce_over_tp
+from ray_tpu_torch.parallel.tensor_parallel import (copy_to_group,
+                                                     reduce_over_group)
+from ray_tpu_torch.util import collective as col
 
 Params = Dict[str, Any]
 
@@ -150,7 +156,7 @@ def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
     _, H, K = params["wq"].shape
     out_dtype = x.dtype
     if tp_group is not None:
-        x = copy_to_tp(x, tp_group, tape)
+        (x,) = copy_to_group((x,), tp_group, tape)
     xc = x.to(cd)
 
     def project(w):
@@ -172,7 +178,7 @@ def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
     if tp_group is None:
         return (o @ wo).to(out_dtype)
     partial = matmul_nt_f32(o.reshape(B * S, H * K), wo.t()).view(B, S, D)
-    return reduce_over_tp(partial, tp_group, tape).to(out_dtype)
+    return reduce_over_group(partial, tp_group, tape).to(out_dtype)
 
 
 # ---------------------------------------------------------------- dense MLP
@@ -259,11 +265,11 @@ def apply_mlp(params: Params, x, compute_dtype=torch.bfloat16, *,
         out = _LeanMLP.apply(x, params["w1"], params["b1"], params["w2"],
                              params["b2"], compute_dtype)
         return out.to(x.dtype)
-    h = copy_to_tp(x, tp_group, tape)
+    (h,) = copy_to_group((x,), tp_group, tape)
     partial = _LeanMLP.apply(h, params["w1"], params["b1"], params["w2"],
                              None, compute_dtype)
     cd = compute_dtype
-    out = (reduce_over_tp(partial, tp_group, tape).to(cd)
+    out = (reduce_over_group(partial, tp_group, tape).to(cd)
            + params["b2"].to(cd))
     return out.to(x.dtype)
 
@@ -308,64 +314,147 @@ def moe_capacity(cfg: MoEConfig, n_tokens: int) -> int:
                       / cfg.n_experts))
 
 
-def route_tokens(wg: torch.Tensor, x: torch.Tensor, cfg: MoEConfig):
-    """The router, in f32: x [B, S, D] -> (probs [B, S, E], gates [B, S, K]
-    renormalized with max(sum, 1e-9), experts [B, S, K], slots [B, S, K]).
-    A (token, k) pair's slot is its place in its expert's buffer, counted
-    over the whole flattened token stream in (b, s, k) order; a slot at or
-    past ``moe_capacity`` is dropped."""
-    B, S, _ = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(x.float() @ wg.float(), dim=-1)
+def router_probs(wg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The router's softmax over the experts, in f32: x [B, S, D] ->
+    probs [B, S, E]."""
+    return torch.softmax(x.float() @ wg.float(), dim=-1)
+
+
+def _route(probs: torch.Tensor, cfg: MoEConfig, dp_group=None):
+    """(gates, experts, slots, the top-1 fractions ``ce`` [E]) from
+    ``probs``; at dp > 1 the slots and ``ce`` are the whole batch's
+    (``route_tokens``)."""
+    B, S, E = probs.shape
+    K = cfg.top_k
     gates, experts = torch.topk(probs, K, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # the count runs along the inner dim of [E, B*S*K]: on the card a scan
     # down the 8 columns of [B*S*K, E] took 3 ms a layer at B*S 8192
     onehot = F.one_hot(experts.reshape(-1), E).t().contiguous()
     pos = onehot.cumsum(dim=1) - 1
+    top1 = F.one_hot(experts[..., 0], E)
+    if dp_group is None or col.get_collective_group_size(dp_group) == 1:
+        ce = (top1.float().sum(dim=1) / S).mean(dim=0)
+    else:
+        before, top1 = ep_.route_counts(pos[:, -1] + 1, top1.sum(dim=(0, 1)),
+                                        dp_group)
+        pos = pos + before.unsqueeze(1)
+        n = B * col.get_collective_group_size(dp_group) * S
+        ce = top1.float() / n
     slots = pos.gather(0, experts.reshape(1, -1)).view(B, S, K)
-    return probs, gates, experts, slots
+    return gates, experts, slots, ce
+
+
+def route_tokens(wg: torch.Tensor, x: torch.Tensor, cfg: MoEConfig, *,
+                 dp_group: str = None):
+    """The router, in f32: x [B, S, D] -> (probs [B, S, E], gates [B, S, K]
+    renormalized with max(sum, 1e-9), experts [B, S, K], slots [B, S, K]).
+    A (token, k) pair's slot is its place in its expert's buffer, counted
+    over the whole flattened token stream in (b, s, k) order; a slot at or
+    past ``moe_capacity`` of the whole batch is dropped. With ``dp_group``
+    (of size > 1), x is one dp replica's rows of a batch cut as ``P("dp")``
+    cuts it, and a slot also counts the pairs of the replicas before it
+    (one allreduce over the group, forward only)."""
+    probs = router_probs(wg, x)
+    return (probs, *_route(probs, cfg, dp_group)[:3])
+
+
+def _group_place(group) -> Tuple[int, int]:
+    """(size, rank) of a group, (1, 0) for None."""
+    if group is None:
+        return 1, 0
+    return col.get_collective_group_size(group), col.get_rank(group)
 
 
 def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig,
-              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+              compute_dtype=torch.bfloat16, *, dp_group: str = None,
+              ep_group: str = None,
+              tape=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-style top-k routed MoE with capacity, over dense-dispatch
     einsums: x [B, S, D] -> (out [B, S, D] in x's dtype, the Switch aux
     loss, an f32 scalar).
 
     ``disp [B, S, E, C]`` is 1 where token (b, s) holds slot c of expert
-    e. It is written by a scatter into zeros where the JAX package sums
-    one-hots: a token's experts are distinct, so the two agree, and a
-    dropped pair's ``one_hot(-1)`` is JAX's zero row. ``gates_per_e``
-    is scattered the same way from the gates rounded to the compute dtype
-    (JAX's sum over k of gate times one-hot, which adds exact zeros). The
-    products are plain einsums in the compute dtype, with the casts where
-    the JAX package makes them; ``combine`` carries the gradient to the
-    router."""
+    e. It is written by a scatter-add into zeros where the JAX package
+    sums one-hots: a token's experts are distinct, so the two agree, and a
+    dropped pair adds JAX's zero row. ``gates_per_e`` is scattered the
+    same way from the gates rounded to the compute dtype (JAX's sum over
+    k of gate times one-hot, which adds exact zeros). The products are
+    plain einsums in the compute dtype, with the casts where the JAX
+    package makes them; ``combine`` carries the gradient to the router.
+
+    On a rank of a layout, ``dp_group`` and ``ep_group`` (either of size
+    > 1): x is the rank's replica's rows (the same on its ep group) and
+    ``w1``/``w2`` its block of E / ep experts. The router counts slots,
+    the capacity and the aux loss's top-1 fractions ``ce`` over the whole
+    dp batch (``_route``), so the same pairs are dropped as on one
+    device. A slot holds one token of the whole batch, so an expert's
+    input at a replica's slots is that replica's rows alone and its
+    output there reaches that replica's rows alone: the rank runs its
+    experts on its own rows, and nothing of the experts is summed over
+    dp. The aux loss ``E * sum(me * ce)`` takes ``me`` from the replica's
+    rows: its mean over dp, as the train step averages it, is the whole
+    batch's and so is its gradient. At ep > 1 the layer runs on ``tape``:
+    x and the gates enter the rank's experts by a copy whose backward sums
+    over ep, and the output is the sum over ep of each rank's combine over
+    its own experts, an f32 product rounded once after the sum
+    (``tensor_parallel``'s boundaries over the ep group); the tape cuts x
+    and the router's probs, so that the aux loss (the caller's term of the
+    tape), the gates' copy and x's copy reach them by separate autograd
+    segments."""
     cd = compute_dtype
     B, S, D = x.shape
     E = cfg.n_experts
-    C = moe_capacity(cfg, B * S)
-    probs, gates, experts, slots = route_tokens(params["wg"], x, cfg)
+    n_dp, _ = _group_place(dp_group)
+    n_ep, ep_rank = _group_place(ep_group)
+    E_l = params["w1"].shape[0]
+    if E_l * n_ep != E:
+        raise ValueError(
+            f"params hold {E_l} experts; a rank of ep={n_ep} holds "
+            f"{E // n_ep} of {E} (sharding.tree_shard with "
+            f"gpt2.partition_specs)")
+    if n_ep > 1 and tape is None:
+        raise ValueError("apply_moe over an ep group communicates, so it "
+                         "runs on a pipeline StageTape "
+                         "(gpt2.forward_pipelined)")
+    C = moe_capacity(cfg, n_dp * B * S)
+    out_dtype = x.dtype
+    if n_ep > 1:
+        x = tape.cut(x)
+    probs = router_probs(params["wg"], x)
+    if n_ep > 1:
+        probs = tape.cut(probs)
+    gates, experts, slots, ce = _route(probs, cfg, dp_group)
 
     # Switch load balancing: mean router prob per expert times the
     # fraction of tokens whose top-1 expert it is
-    me = probs.mean(dim=(0, 1))
-    ce = (F.one_hot(experts[..., 0], E).float().sum(dim=1) / S).mean(dim=0)
-    aux_loss = E * torch.sum(me * ce)
+    aux_loss = E * torch.sum(probs.mean(dim=(0, 1)) * ce)
+    if n_ep > 1:
+        x, gates = copy_to_group((x, gates), ep_group, tape)
 
-    # A dropped pair writes its 0 into slot C - 1 of its own (token,
-    # expert) row, which no other pair writes.
-    index = experts * C + slots.clamp(max=C - 1)
-    disp = torch.zeros(B, S, E * C, dtype=cd, device=x.device)
-    disp.scatter_(-1, index, (slots < C).to(cd))
-    disp = disp.view(B, S, E, C)
-    gates_per_e = torch.zeros(B, S, E, dtype=cd, device=x.device).scatter(
-        -1, experts, gates.to(cd))
+    # this rank's experts [lo, lo + E_l): a pair of another rank's
+    # expert, or a dropped one, adds 0 (a token's experts are distinct, so
+    # no slot of a token's row gets two 1s)
+    lo = ep_rank * E_l
+    mine = (experts >= lo) & (experts < lo + E_l)
+    local = (experts - lo).clamp(0, E_l - 1)
+    disp = torch.zeros(B, S, E_l * C, dtype=cd, device=x.device)
+    disp.scatter_add_(-1, local * C + slots.clamp(max=C - 1),
+                      (mine & (slots < C)).to(cd))
+    disp = disp.view(B, S, E_l, C)
+    gates_per_e = torch.zeros(B, S, E_l, dtype=cd, device=x.device
+                              ).scatter_add(-1, local,
+                                            torch.where(mine, gates.to(cd), 0))
     combine = disp * gates_per_e.unsqueeze(-1)
 
     expert_in = torch.einsum("bsec,bsd->ecd", disp, x.to(cd))
     h = _gelu(torch.einsum("ecd,edf->ecf", expert_in, params["w1"].to(cd)))
     expert_out = torch.einsum("ecf,efd->ecd", h, params["w2"].to(cd))
-    out = torch.einsum("bsec,ecd->bsd", combine, expert_out)
-    return out.to(x.dtype), aux_loss
+    if n_ep == 1:
+        out = torch.einsum("bsec,ecd->bsd", combine, expert_out)
+    else:
+        partial = matmul_nt_f32(combine.view(B * S, E_l * C),
+                                expert_out.reshape(E_l * C, D).t())
+        out = reduce_over_group(partial.view(B, S, D), ep_group,
+                                tape).to(cd)
+    return out.to(out_dtype), aux_loss

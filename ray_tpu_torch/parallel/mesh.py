@@ -1,5 +1,5 @@
-"""Per-rank layout of the data (``dp``), pipeline (``pp``), sequence
-(``sp``) and tensor (``tp``) axes. The twin of
+"""Per-rank layout of the data (``dp``), pipeline (``pp``), expert
+(``ep``), sequence (``sp``) and tensor (``tp``) axes. The twin of
 ``ray_tpu/parallel/mesh.py``'s ``MeshConfig``, ``AXIS_ORDER``,
 ``balanced_factorization``, ``mesh_shape_summary`` and
 ``validate_mesh_for_model``.
@@ -16,8 +16,9 @@ process group of a process, and the port's ranks may be threads of one
 process (ROADMAP, ground rules).
 
 Ranks are numbered as the JAX mesh orders its devices, slowest axis
-first (``AXIS_ORDER``: dp, pp, ep, sp, tp): with ``ep`` at 1,
-rank = ((dp_rank * pp + pp_rank) * sp + sp_rank) * tp + tp_rank.
+first (``AXIS_ORDER``: dp, pp, ep, sp, tp), as ``create_mesh`` reshapes
+the device list: rank = (((dp_rank * pp + pp_rank) * ep + ep_rank) * sp
++ sp_rank) * tp + tp_rank.
 """
 from __future__ import annotations
 
@@ -32,18 +33,18 @@ from ray_tpu_torch.util.collective.collective import DEFAULT_TIMEOUT_S
 
 # Canonical axis order, slowest- to fastest-varying, as the JAX package's.
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
-# the axes a rank layout holds groups for, in AXIS_ORDER
-LAYOUT_AXES = ("dp", "pp", "sp", "tp")
-
-_NOT_PORTED = ("the port's layout has the dp, pp, sp and tp axes only; "
-               "ep={size} waits for mesh SPMD (ROADMAP Queue 1 item 2)")
+# the axes a rank layout holds groups for: every one, in AXIS_ORDER
+LAYOUT_AXES = AXIS_ORDER
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """How many ways each axis splits the work. ``dp``, ``pp``, ``sp`` and
-    ``tp`` are ported; ``ep`` stays 1. Any one axis may be -1, which
-    ``resolved`` turns into what the others leave of a device count."""
+    """How many ways each axis splits the work: the batch over ``dp``, the
+    layers over ``pp``, the MoE experts over ``ep``, the sequence over
+    ``sp``, the heads, MLP hidden and vocab over ``tp``. Any one axis may
+    be -1, which ``resolved`` turns into what the others leave of a device
+    count. Which combinations a model runs on is the model's to say
+    (``gpt2.forward_pipelined``)."""
 
     dp: int = 1
     pp: int = 1
@@ -52,8 +53,6 @@ class MeshConfig:
     tp: int = 1
 
     def __post_init__(self):
-        if self.ep not in (1, -1):
-            raise NotImplementedError(_NOT_PORTED.format(size=self.ep))
         for axis in AXIS_ORDER:
             size = getattr(self, axis)
             if size < 1 and size != -1:
@@ -135,7 +134,10 @@ def validate_mesh_for_model(mesh, *, n_heads: int,
 
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
-    """One rank's place on the mesh and the names of its axis groups."""
+    """One rank's place on the mesh and the names of its axis groups: its
+    coordinate on each axis (``dp_rank``, ``pp_rank``, ``ep_rank``,
+    ``sp_rank``, ``tp_rank``) and the group of the ranks that differ from
+    it on that axis alone."""
 
     config: MeshConfig
     rank: int
@@ -149,6 +151,8 @@ class RankLayout:
     # the positional constructions of the layouts before it) still reads
     tp_rank: int = 0
     tp_group: Optional[str] = None
+    ep_rank: int = 0
+    ep_group: Optional[str] = None
 
     @property
     def dp(self) -> int:
@@ -157,6 +161,10 @@ class RankLayout:
     @property
     def pp(self) -> int:
         return self.config.pp
+
+    @property
+    def ep(self) -> int:
+        return self.config.ep
 
     @property
     def sp(self) -> int:
@@ -176,23 +184,26 @@ class RankLayout:
 
 
 def coordinates(config: MeshConfig, rank: int):
-    """(dp_rank, pp_rank, sp_rank, tp_rank) of a global rank."""
+    """(dp_rank, pp_rank, ep_rank, sp_rank, tp_rank) of a global rank: its
+    device's index on each axis of ``create_mesh``'s array of the same
+    sizes, in ``AXIS_ORDER``."""
     if not 0 <= rank < config.world_size:
         raise ValueError(f"rank {rank} out of range for a mesh of "
                          f"{config.world_size}")
-    rest, tp_rank = divmod(rank, config.tp)
-    rest, sp_rank = divmod(rest, config.sp)
-    dp_rank, pp_rank = divmod(rest, config.pp)
-    return dp_rank, pp_rank, sp_rank, tp_rank
+    coords = []
+    for axis in reversed(AXIS_ORDER):
+        rank, c = divmod(rank, getattr(config, axis))
+        coords.append(c)
+    return tuple(reversed(coords))
 
 
 def init_rank_layout(config: MeshConfig, rank: int, *, store,
                      name: str = "mesh",
                      timeout_s: float = DEFAULT_TIMEOUT_S) -> RankLayout:
-    """Join ``rank`` into its ``dp``, ``pp``, ``sp`` and ``tp`` groups
-    over ``store``, in that order; returns when every member of all four
-    has joined, or raises after ``timeout_s``. A group's store prefix
-    names its axis and the rank's coordinates on the other three, so no
+    """Join ``rank`` into its ``dp``, ``pp``, ``ep``, ``sp`` and ``tp``
+    groups over ``store``, in that order; returns when every member of all
+    five has joined, or raises after ``timeout_s``. A group's store prefix
+    names its axis and the rank's coordinates on the other four, so no
     two groups share a key; group names carry ``name`` and the global rank,
     so the ranks of one mesh may share a process."""
     coords = dict(zip(LAYOUT_AXES, coordinates(config, rank)))
@@ -213,11 +224,11 @@ def init_rank_layout(config: MeshConfig, rank: int, *, store,
         raise
     return RankLayout(config, rank, coords["dp"], coords["pp"], coords["sp"],
                       groups["dp"], groups["pp"], groups["sp"],
-                      coords["tp"], groups["tp"])
+                      coords["tp"], groups["tp"], coords["ep"], groups["ep"])
 
 
 def destroy_rank_layout(layout: RankLayout) -> None:
     for group in (layout.dp_group, layout.pp_group, layout.sp_group,
-                  layout.tp_group):
+                  layout.tp_group, layout.ep_group):
         if group is not None:
             col.destroy_collective_group(group)

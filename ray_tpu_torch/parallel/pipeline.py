@@ -46,13 +46,16 @@ class StageTape:
     the segments in reverse, from the stage output to its input, each by
     one ``torch.autograd.grad`` call, and between two segments the
     boundary's own backward (which may communicate) maps the gradients of
-    its output leaves to those of its inputs.
+    its output leaves to those of its inputs. ``add_term`` adds a scalar
+    to what the stage differentiates (an MoE layer's aux loss, which
+    leaves the stage beside its output).
 
     Under ``torch.no_grad`` nothing is recorded."""
 
     def __init__(self):
         # each: (inputs attached to the graph, output leaves, backward)
         self._cuts: List[tuple] = []
+        self._terms: List[torch.Tensor] = []
 
     def boundary(self, inputs, forward: Callable, backward: Callable):
         """``forward(*inputs detached) -> (outputs, saved)``, run outside
@@ -78,10 +81,18 @@ class StageTape:
                                 lambda _, grads: grads)
         return leaf
 
+    def add_term(self, term: torch.Tensor) -> None:
+        """``backward`` differentiates ``term``, a scalar of this stage's
+        graph, with a cotangent of 1 beside the output, as if it were added
+        to the stage's objective. Nothing is recorded under no_grad."""
+        if torch.is_grad_enabled() and term.requires_grad:
+            self._terms.append(term)
+
     def backward(self, output, grad_output, inputs, params):
-        """Gradients of ``output`` (given ``grad_output``) with respect to
-        ``inputs`` and ``params`` (lists of tensors): (input grads, param
-        grads), None where no path reaches."""
+        """Gradients of ``output`` (given ``grad_output``), plus those of
+        the terms (``add_term``), with respect to ``inputs`` and ``params``
+        (lists of tensors): (input grads, param grads), None where no path
+        reaches."""
         slots = list(inputs) + [leaf for _, leaves, _ in self._cuts
                                 for leaf in leaves]
         n_in = len(inputs)
@@ -110,7 +121,9 @@ class StageTape:
                     param_grads[i] = (g if param_grads[i] is None
                                       else param_grads[i] + g)
 
-        segment((output,), (grad_output,), len(slots))
+        segment((output, *self._terms),
+                (grad_output, *[torch.ones_like(t) for t in self._terms]),
+                len(slots))
         for c in reversed(range(len(self._cuts))):
             cut_inputs, leaves, cut_backward = self._cuts[c]
             lo = first_leaf[c]
@@ -120,6 +133,7 @@ class StageTape:
                 continue
             segment(cut_inputs, cut_backward(leaf_grads), lo)
         self._cuts.clear()
+        self._terms.clear()
         return grads[:n_in], param_grads
 
 

@@ -7,12 +7,14 @@ A rank holds its block of the heads, of the MLP hidden and of the vocab
 (``sharding.tree_shard`` with ``gpt2.partition_specs``). Two boundaries
 carry the activations between the whole and the sharded parts:
 
-* ``copy_to_tp``: the identity forward; the backward sums the gradient
-  over the tp group, since each rank's sharded part differentiates only
-  its own share of the whole input's uses;
-* ``reduce_over_tp``: the forward sums the ranks' partial outputs over
-  the tp group; the backward is the identity.
+* ``copy_to_group``: the identity forward; the backward sums each
+  gradient over the group, since each rank's sharded part differentiates
+  only its own share of the whole inputs' uses;
+* ``reduce_over_group``: the forward sums the ranks' partial outputs
+  over the group; the backward is the identity.
 
+Nothing in them depends on the axis: the MoE layer's experts over ``ep``
+(``layers.apply_moe``) cross the same two boundaries over the ep group.
 Both are ``StageTape`` boundaries (``parallel/pipeline.py``): the
 collective runs on the rank's thread between two autograd segments,
 never inside autograd's backward. Sums run in f32 and are rounded once
@@ -24,6 +26,8 @@ embedding lookup and the cross-entropy over a vocab cut into contiguous
 blocks, a rank's block ``[tp_rank * V_local, (tp_rank + 1) * V_local)``.
 """
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,13 +47,14 @@ def _need_tape(tape, what: str):
                          f"StageTape (gpt2.forward_pipelined)")
 
 
-def copy_to_tp(x: torch.Tensor, group: str, tape) -> torch.Tensor:
-    """``x``, whole on every rank of ``group``, entering the sharded part:
-    the identity, whose backward sums the gradient over the group."""
-    _need_tape(tape, "copy_to_tp")
-    (out,) = tape.boundary((x,), lambda t: ((t,), None),
-                           lambda _, grads: _copy_backward(grads, group))
-    return out
+def copy_to_group(xs: Sequence[torch.Tensor], group: str,
+                  tape) -> Tuple[torch.Tensor, ...]:
+    """``xs``, each whole on every rank of ``group``, entering the sharded
+    part: the identity, whose backward sums each gradient over the
+    group."""
+    _need_tape(tape, "copy_to_group")
+    return tape.boundary(tuple(xs), lambda *t: (t, None),
+                         lambda _, grads: _copy_backward(grads, group))
 
 
 def _copy_backward(grads, group: str):
@@ -57,11 +62,11 @@ def _copy_backward(grads, group: str):
     return tuple(None if g is None else _sum_over(g, group) for g in grads)
 
 
-def reduce_over_tp(partial: torch.Tensor, group: str,
-                   tape) -> torch.Tensor:
+def reduce_over_group(partial: torch.Tensor, group: str,
+                      tape) -> torch.Tensor:
     """The sum over ``group`` of the ranks' ``partial`` outputs (f32 in
     f32), on every rank; the backward hands the gradient on unchanged."""
-    _need_tape(tape, "reduce_over_tp")
+    _need_tape(tape, "reduce_over_group")
     (out,) = tape.boundary((partial,),
                            lambda t: ((_sum_over(t, group),), None),
                            lambda _, grads: grads)
@@ -78,8 +83,8 @@ def vocab_parallel_embedding(tokens: torch.Tensor, wte: torch.Tensor,
     local = tokens.long() - col.get_rank(group) * n
     mine = (local >= 0) & (local < n)
     rows = F.embedding(local.clamp(0, n - 1), wte)
-    return reduce_over_tp(torch.where(mine.unsqueeze(-1), rows, 0.0), group,
-                          tape)
+    return reduce_over_group(torch.where(mine.unsqueeze(-1), rows, 0.0),
+                             group, tape)
 
 
 class _VocabParallelTokenLosses(torch.autograd.Function):

@@ -16,12 +16,13 @@ grads) and ``host_optimizer`` (a ``train.ddp.ZeroOptimizer`` owns the
 sync and the update). The state-bytes gauges are not ported.
 
 ``make_pipelined_train_step`` is GPT-2's step on one rank of a ``dp`` x
-``pp`` x ``sp`` x ``tp`` layout: the rank's replica takes its rows of the
-batch (``dp_rows``), the pipelined gradient is averaged over the ``dp``
-group with the metrics (``pipelined_grads``), then the global norm over
-every stage and tp block and each rank's update of its own leaves (its
-blocks at tp > 1), which is the whole model's update restricted to them:
-AdamW works element by element and clips by the global norm.
+``pp`` x ``ep`` x ``sp`` x ``tp`` layout: the rank's replica takes its
+rows of the batch (``dp_rows``), the pipelined gradient is averaged over
+the ``dp`` group with the metrics (``pipelined_grads``), then the global
+norm over every stage, tp block and expert block and each rank's update
+of its own leaves (its blocks at tp > 1 or ep > 1), which is the whole
+model's update restricted to them: AdamW works element by element and
+clips by the global norm.
 """
 from __future__ import annotations
 
@@ -241,38 +242,49 @@ def make_train_step(loss_fn: Callable[[Any, Any], tuple],
     return step
 
 
-def _squares_over_tp(tree, specs, layout) -> torch.Tensor:
+def _squares_over_shards(tree, specs, layout) -> torch.Tensor:
     """The sum of squares of the whole model's leaves of which ``tree``
-    holds this rank's blocks: the leaves whose spec names tp summed over
-    the tp group, the whole ones (the same on every rank) counted once."""
-    if layout.tp == 1:
+    holds this rank's blocks: each leaf's squares summed over the groups
+    of the axes its spec cuts it over (tp for the heads, hidden and vocab,
+    ep for the experts), the whole ones (the same on every rank) counted
+    once."""
+    cut = [a for a in ("ep", "tp") if sh.axis_size(layout, a) > 1]
+    if not cut:
         return _sum_of_squares(tree)
     leaves = tree_leaves(tree)
-    whole = sharded = torch.zeros((), device=leaves[0].device)
+    totals = {}
     for g, spec in zip(leaves, tree_leaves(specs), strict=True):
-        if any("tp" in sh.spec_axes(entry) for entry in spec):
-            sharded = sharded + torch.sum(g.float() * g.float())
-        else:
-            whole = whole + torch.sum(g.float() * g.float())
-    sharded = col.allreduce(sharded, layout.tp_group).to(sharded.device)
-    return whole + sharded
+        axes = tuple(a for a in cut
+                     if any(a in sh.spec_axes(entry) for entry in spec))
+        square = torch.sum(g.float() * g.float())
+        totals[axes] = totals[axes] + square if axes in totals else square
+    out = torch.zeros((), device=leaves[0].device)
+    for axes in sorted(totals):
+        total = totals[axes]
+        for a in axes:
+            total = col.allreduce(total, getattr(layout, f"{a}_group")).to(
+                total.device)
+        out = out + total
+    return out
 
 
 def pipelined_global_norm(grads, layout, specs=None) -> torch.Tensor:
     """The whole model's gradient norm from one rank's grads on a pipeline
     ``layout``: the squares of the stage's block grads summed over the
     ``pp`` group, plus the shared leaves' (the same on every stage) once.
-    At tp > 1 ``specs`` (``gpt2.partition_specs``) names the leaves cut
-    over tp, whose squares are summed over the tp group."""
-    if layout.tp > 1 and specs is None:
-        raise ValueError("at tp > 1 the norm needs the grads' partition "
-                         "specs (gpt2.partition_specs)")
+    At tp > 1 or ep > 1 ``specs`` (``gpt2.partition_specs``) names the
+    leaves cut over those axes, whose squares are summed over their
+    groups; the leaves every rank holds whole count once."""
+    if (layout.tp > 1 or layout.ep > 1) and specs is None:
+        raise ValueError("at tp > 1 or ep > 1 the norm needs the grads' "
+                         "partition specs (gpt2.partition_specs)")
     specs = specs or {}
-    blocks = _squares_over_tp(grads["blocks"], specs.get("blocks"), layout)
+    blocks = _squares_over_shards(grads["blocks"], specs.get("blocks"),
+                                  layout)
     if layout.pp > 1:
         blocks = col.allreduce(blocks, layout.pp_group).to(blocks.device)
     shared = {k: v for k, v in grads.items() if k != "blocks"}
-    shared = _squares_over_tp(
+    shared = _squares_over_shards(
         shared, {k: specs.get(k) for k in shared}, layout)
     return torch.sqrt(blocks + shared)
 
@@ -296,7 +308,8 @@ def dp_rows(batch, layout, n_microbatches: int):
 
 def sync_over_dp(grads, metrics, layout):
     """(grads, metrics) averaged over the ``dp`` group: every leaf by
-    ``ddp.sync_gradients``, the metrics as one allreduce. At dp 1, as
+    ``ddp.sync_gradients``, the rank's experts among them (its dp group
+    holds the same ones), the metrics as one allreduce. At dp 1, as
     given. Runs on the rank's thread, outside autograd."""
     if layout.dp == 1:
         return grads, metrics
@@ -333,8 +346,9 @@ def make_pipelined_train_step(cfg, optimizer: ClipAdamW, layout,
     step(state, batch) -> (state, metrics) with ``make_train_step``'s
     metrics, the same on every rank; ``grad_norm`` is the whole model's,
     which the update clips by. Every rank is given the whole batch and
-    takes its replica's rows (``pipelined_grads``); the ranks of a tp
-    group take the same rows."""
+    takes its replica's rows (``pipelined_grads``); the ranks of a tp or
+    an ep group take the same rows. With MoE (pp 1) ``n_microbatches`` is
+    1: the router counts over the whole batch."""
     specs = gpt2.partition_specs(cfg)
 
     def step(state: TrainState, batch):

@@ -58,13 +58,20 @@ def test_resolved_and_axis_sizes_match_jax(sizes, n):
 
 
 def test_a_wild_axis_that_resolves_to_an_unported_size_is_refused():
-    """tp=-1 over 8 devices with dp 2 and pp 2 is tp 2 in the JAX package,
-    and in the port's, which holds the tp axis; an ep the port does not
-    hold yet is refused."""
+    """tp=-1 and ep=-1 over 8 devices with dp 2 and pp 2 are tp 2 and ep
+    2 in the JAX package, and in the port's, which holds both axes; a
+    layout the model does not run yet (ep 2 with tp 2) is refused by the
+    forward, before any collective."""
     assert JMeshConfig(dp=2, pp=2, tp=-1).resolved(8).tp == 2
     assert MeshConfig(dp=2, pp=2, tp=-1).resolved(8).tp == 2
+    assert JMeshConfig(dp=2, pp=2, ep=-1).resolved(8).ep == 2
+    assert MeshConfig(dp=2, pp=2, ep=-1).resolved(8).ep == 2
+    config = MeshConfig(ep=2, tp=2)
+    layout = M.RankLayout(config, 0, 0, 0, 0, "dp", "pp", "sp", 0, "tp", 0,
+                          "ep")
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        MeshConfig(dp=2, pp=2, ep=-1).resolved(8)
+        TG.forward_pipelined({}, torch.zeros(2, 4, dtype=torch.int32),
+                             TG.gpt2_tiny(), layout)
     with pytest.raises(ValueError, match="resolve it first"):
         MeshConfig(dp=-1, pp=2).world_size
 
@@ -118,7 +125,7 @@ def test_layout_follows_the_jax_mesh_order_at_dp2_pp2_sp2():
 
     for r, got in enumerate(run_mesh(cfg, rank)):
         d, p, s = got["coords"]
-        assert M.coordinates(cfg, r) == (d, p, s, 0)
+        assert M.coordinates(cfg, r) == (d, p, 0, s, 0)
         assert devices[d, p, 0, s, 0].id == r == (d * 2 + p) * 2 + s
         assert got["dp"] == (d, 2, [p * 2 + s + 4 * i for i in range(2)])
         assert got["pp"] == (p, 2, [d * 4 + s + 2 * i for i in range(2)])

@@ -120,9 +120,12 @@ def test_logical_axes_and_partition_specs_match_jax(name):
 def _layouts(config):
     """A hand-built layout per rank of ``config`` (no groups): enough for
     tree_shard, which only reads coordinates."""
-    return [M.RankLayout(config, r, *M.coordinates(config, r)[:3], "dp",
-                         "pp", "sp", M.coordinates(config, r)[3], "tp")
-            for r in range(config.world_size)]
+    layouts = []
+    for r in range(config.world_size):
+        d, p, e, s, t = M.coordinates(config, r)
+        layouts.append(M.RankLayout(config, r, d, p, s, "dp", "pp", "sp", t,
+                                    "tp", e, "ep"))
+    return layouts
 
 
 @pytest.mark.parametrize("what", ["gpt2_tiny", "tuple_axes"])
@@ -185,16 +188,16 @@ def test_tree_unshard_puts_the_blocks_back_together(setup):
 @pytest.mark.parametrize("sizes", [dict(dp=2, sp=2, tp=2),
                                    dict(pp=2, tp=2)])
 def test_layout_follows_the_jax_mesh_order_with_tp(sizes):
-    """A global rank's (dp, pp, sp, tp) coordinates are its device's place
-    on the JAX mesh of the same sizes, tp the fastest axis, and each of
-    its four groups holds, in order, the ranks that differ from it in
+    """A global rank's (dp, pp, ep, sp, tp) coordinates are its device's
+    place on the JAX mesh of the same sizes, tp the fastest axis, and each
+    of its five groups holds, in order, the ranks that differ from it in
     that axis alone."""
     cfg = MeshConfig(**sizes)
     devices = np.asarray(create_mesh(
         JMeshConfig(**sizes), devices=jax.devices()[:cfg.world_size]).devices)
 
     def rank(lay):
-        out = {"coords": (lay.dp_rank, lay.pp_rank, lay.sp_rank,
+        out = {"coords": (lay.dp_rank, lay.pp_rank, lay.ep_rank, lay.sp_rank,
                           lay.tp_rank)}
         for axis in M.LAYOUT_AXES:
             group = getattr(lay, f"{axis}_group")
@@ -206,15 +209,13 @@ def test_layout_follows_the_jax_mesh_order_with_tp(sizes):
     for r, got in enumerate(run_mesh(cfg, rank)):
         coords = got["coords"]
         assert M.coordinates(cfg, r) == coords
-        d, p, s, t = coords
-        assert devices[d, p, 0, s, t].id == r
+        assert devices[coords].id == r
         for i, axis in enumerate(M.LAYOUT_AXES):
             members = []
             for c in range(getattr(cfg, axis)):
                 place = list(coords)
                 place[i] = c
-                members.append(int(devices[place[0], place[1], 0, place[2],
-                                           place[3]].id))
+                members.append(int(devices[tuple(place)].id))
             assert got[axis] == (coords[i], members)
 
 

@@ -202,15 +202,21 @@ def test_pipelined_forward_refusals_on_both_packages(kind, error, match):
 # ------------------------------------------------------------------ layout
 @pytest.mark.parametrize("axis", ["dp", "tp", "ep"])
 def test_mesh_config_refuses_unported_axes(axis):
-    """ep waits for mesh SPMD; dp and tp are ported, and a dp or a tp of 2
-    doubles the ranks of a layout."""
+    """dp, tp and ep are ported, and a dp, a tp or an ep of 2 doubles the
+    ranks of a layout; ep with tp, which waits for the rest of mesh SPMD,
+    is refused by the forward, before any collective."""
     if axis == "dp":
         assert M.MeshConfig(dp=2, pp=2).world_size == 4
     elif axis == "tp":
         assert M.MeshConfig(tp=2).world_size == 2
     else:
+        assert M.MeshConfig(ep=2).world_size == 2
+        config = M.MeshConfig(ep=2, tp=2)
+        lay = M.RankLayout(config, 0, 0, 0, 0, "dp", "pp", "sp", 0, "tp", 0,
+                           "ep")
         with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            M.MeshConfig(**{axis: 2})
+            TG.forward_pipelined({}, torch.zeros(2, 4, dtype=torch.int32),
+                                 TG.gpt2_tiny(), lay)
     M.MeshConfig(**{axis: 1})
 
 
