@@ -121,20 +121,25 @@ Phases, each of which exits non-zero on failure:
    beside the card, each rank's ms in each collective (the dp sync, the
    tp sums and the tp copies' backward sums among them), its resident
    params and moments, and the card's peak memory;
-6f. expert parallelism (EP_RUNS): GPT-2-small-MoE (phase 3c's model,
-   weights and batch of 8) at dp 2 x ep 2, four rank threads, each its
-   replica's 4 rows and 4 of the 8 experts (``tree_shard``), the router
-   counting slots, capacity and the aux loss's top-1 fractions over the
-   whole batch (1 warm-up and 2 timed steps, bf16, flash attention).
-   Its first step in f32 (loss, aux loss, global grad norm, the router's
-   grad norm) is held to the one-card f32 step on the same weights and batch by phase 3b's f32
-   limits; the aux loss must be finite and positive at every step; the
-   launch counts are exact (dp x ep x 12 layers of each bf16 kernel a
-   step: 48); the leaves every ep rank holds whole (router, attention,
-   LayerNorms, embeddings) end bit-equal across the ep ranks and every
-   leaf across the replicas. It prints the step ms and tokens/s beside
-   the card, each rank's ms in the slot prefix (the routing counts'
-   allreduce), the ep sums, the ep copies' backward sums and the dp
+6f-6h. expert parallelism (EP_RUNS): GPT-2-small-MoE (phase 3c's model,
+   weights and batch of 8) on four rank threads, each holding 4 of the 8
+   experts (``tree_shard``), the router counting slots, capacity and the
+   aux loss's top-1 fractions over the whole batch (1 warm-up and 2
+   timed steps each, bf16): 6f at dp 2 x ep 2 (a replica's 4 rows a
+   rank, flash attention), 6g at ep 2 x tp 2 (all 8 rows a rank, 6 heads,
+   half the vocab and half of each expert's hidden, flash attention), 6h
+   at sp 2 x ep 2 (all 8 rows and half the sequence a rank, ring
+   attention). Each run's first step in f32 (loss, aux loss, global grad
+   norm, the router's grad norm) is held to the one-card f32 step on the
+   same weights and batch by phase 3b's f32 limits; the aux loss must be
+   finite and positive at every step; the launch counts are exact (4
+   ranks x 12 layers of each bf16 kernel a step at sp 1: 48; none through
+   the ring); on each axis the leaves its ranks hold whole (over ep and
+   tp the router, the LayerNorms and wpe among them; over dp and sp every
+   leaf) end bit-equal across its groups. It prints the step ms and
+   tokens/s beside the card, each rank's ms in the slot prefix (the
+   routing counts' allreduces), the ep and tp sums, the ep and tp
+   copies' backward sums, the ring hops, the sp grad sums and the dp
    sync, its resident params and moments, the card's peak memory, and
    the share of (token, k) pairs past capacity.
 
@@ -146,7 +151,7 @@ for the bf16_d256 ones, the tiny configs with a head of 320 for the
 split-head-dim ones, the f32 tiny config with a head of 256 for the
 f32 kernels' head-dim-256 instances, listed apart as ``*_f32_d256``),
 and ``tiny_launches``, ``moe_launches``,
-``gang_launches`` and ``pipeline_launches`` (phase 6's runs and 6f's)
+``gang_launches`` and ``pipeline_launches`` (phase 6's runs and 6f-6h's)
 the other runs'; the last
 line is ``{"ok": true,
 "device": {...}}``. Without
@@ -279,16 +284,21 @@ PIPE_RUNS = (("pp2", 1, 2, 1, 1, PIPE_MICROBATCHES, 2, 3),
              ("tp2", 1, 1, 1, 2, 1, 1, 2),
              ("pp2tp2", 1, 2, 1, 2, PIPE_MICROBATCHES, 1, 2))
 
-# Phase 6f, expert parallelism: GPT-2-small-MoE (phase 3c's model, seeded
-# weights and batch of MOE_BATCH rows) at dp 2 x ep 2, four rank threads,
-# each its replica's rows and 4 of the 8 experts, the replica's rows as
-# one microbatch (the router counts slots, capacity and the aux loss's
-# top-1 fractions over the whole batch). Its first step is held in f32 to
-# the one-card f32 step by phase 3b's f32 limits (the aux loss by the
-# loss's), as phase 3c holds its own (in bf16 the router's top-k moves a
-# few tokens to other experts on rounding alone).
-# (name, dp, ep, warm-up steps, timed steps)
-EP_RUNS = (("dp2ep2", 2, 2, 1, 2),)
+# Phases 6f-6h, expert parallelism: GPT-2-small-MoE (phase 3c's model,
+# seeded weights and batch of MOE_BATCH rows) on four rank threads, each
+# its block of the batch as one microbatch (the router counts slots,
+# capacity and the aux loss's top-1 fractions over the whole batch) and 4
+# of the 8 experts. Each run's first step is held in f32 to the one-card
+# f32 step by phase 3b's f32 limits (the aux loss by the loss's), as
+# phase 3c holds its own (in bf16 the router's top-k moves a few tokens
+# to other experts on rounding alone).
+# (name, dp, ep, sp, tp, warm-up steps, timed steps): 6f, each rank its
+# replica's 4 rows; 6g, each rank all 8 rows, 6 heads, half the vocab and
+# half of each of its experts' hidden (1536); 6h, each rank all 8 rows
+# and half the sequence (512 positions), ring attention over sp
+EP_RUNS = (("dp2ep2", 2, 2, 1, 1, 1, 2),
+           ("ep2tp2", 1, 2, 1, 2, 1, 2),
+           ("sp2ep2", 1, 2, 2, 1, 1, 2))
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
@@ -2044,17 +2054,18 @@ def pipeline(torch, fa, card: str):
     return launches
 
 
-def expert_parallel(torch, fa, card: str):
-    """Phase 6f: GPT-2-small-MoE's step on rank threads at dp x ep
-    (EP_RUNS). Each run's first step in f32 (loss, aux loss, global grad
-    norm, the router's grad norm) is held to the one-card f32 step on the
-    same weights and batch; then its bf16 warm-up and timed steps run with
-    the launch counters set to 0 just before and read just after, and
-    each rank's seconds inside the routing counts (the slot prefix), the
-    ep sums and copies and the dp sync summed, and one more forward counts
-    the pairs past capacity from the state after the steps; the leaves
-    every ep rank holds whole must end bit-equal across the ep ranks, and
-    every leaf across the replicas. Returns each run's counts."""
+def expert_parallel(torch, fa, card: str, runs=EP_RUNS):
+    """Phases 6f-6h: GPT-2-small-MoE's step on rank threads at dp x ep x sp
+    x tp (``runs``, EP_RUNS by default). Each run's first step in f32
+    (loss, aux loss, global grad norm, the router's grad norm) is held to
+    the one-card f32 step on the same weights and batch; then its bf16
+    warm-up and timed steps run with the launch counters set to 0 just
+    before and read just after, and each rank's seconds inside the
+    routing counts (the slot prefix), the ep and tp sums and copies, the
+    ring hops, the sp grad sums and the dp sync summed, and one more
+    forward counts the pairs past capacity from the state after the
+    steps; on each axis the leaves its ranks hold whole must end
+    bit-equal across its groups. Returns each run's counts."""
     from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
                                              tree_unflatten)
     from ray_tpu_torch.models import gpt2
@@ -2063,6 +2074,7 @@ def expert_parallel(torch, fa, card: str):
     from ray_tpu_torch.parallel import sharding, tensor_parallel
     from ray_tpu_torch.parallel import train_step as ts
     from ray_tpu_torch.parallel.mesh import MeshConfig
+    from ray_tpu_torch.train import ddp
     from ray_tpu_torch.util import collective as col
 
     torch.cuda.empty_cache()
@@ -2072,9 +2084,12 @@ def expert_parallel(torch, fa, card: str):
     B, S = MOE_BATCH, cfg.max_seq
     C = L.moe_capacity(cfg.moe, B * S)
     specs = gpt2.partition_specs(cfg)
-    # the leaves every ep rank holds whole: all but the experts
-    whole_leaf = [not any("ep" in sharding.spec_axes(e) for e in spec)
-                  for spec in tree_leaves(specs)]
+    axes = ("dp", "ep", "sp", "tp")
+    # on each axis, the leaves its ranks hold whole: over ep all but the
+    # experts, over tp all but the heads, hidden and vocab, over dp and sp
+    # every leaf
+    whole_leaf = {axis: [not any(axis in sharding.spec_axes(e) for e in spec)
+                         for spec in tree_leaves(specs)] for axis in axes}
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(4))
     batch = {"tokens": tokens}
@@ -2104,22 +2119,25 @@ def expert_parallel(torch, fa, card: str):
                        "{axis} sums": (tensor_parallel, "_sum_over"),
                        "{axis} copies": (tensor_parallel,
                                          "_copy_backward"),
+                       "ring hops": (col, "sendrecv"),
+                       "grad sums": (ddp, "sync_gradients"),
                        "dp sync": (ts, "sync_over_dp"),
                        "allreduce": (col, "allreduce")})
     # the share of (token, k) pairs past capacity, layer by layer, counted
     # in one more forward after the timed steps
     route, drops = L._route, threading.local()
 
-    def counting_route(probs, moe_cfg, dp_group=None):
-        out = route(probs, moe_cfg, dp_group)
+    def counting_route(probs, moe_cfg, dp_group=None, sp_group=None):
+        out = route(probs, moe_cfg, dp_group, sp_group)
         shares = getattr(drops, "shares", None)
         if shares is not None:
             shares.append(((out[2] >= C).sum() / out[2].numel()).item())
         return out
 
     launches, bad = {}, []
-    for name, dp, ep, warmup, timed in EP_RUNS:
-        config = MeshConfig(dp=dp, ep=ep)
+    for name, dp, ep, sp, tp, warmup, timed in runs:
+        config = MeshConfig(dp=dp, ep=ep, sp=sp, tp=tp)
+        sizes = config.axis_sizes()
 
         def first_step(lay):
             mine = tree_map(lambda t: t.requires_grad_(True),
@@ -2140,7 +2158,7 @@ def expert_parallel(torch, fa, card: str):
               f"{got[0][1]:.6f} / {want[1]:.6f}, {rel[1]:.2e} (limit "
               f"{limits[1]:.0e}); grad norm {got[0][2]:.6f} / {want[2]:.6f}, "
               f"{rel[2]:.2e} (limit {limits[2]:.0e}); the router's (wg, "
-              f"whole on every ep rank) grad norm {got[0][3]:.6f} / "
+              f"whole on every rank) grad norm {got[0][3]:.6f} / "
               f"{want[3]:.6f}, {rel[3]:.2e} (limit {limits[3]:.0e})",
               flush=True)
         if len(set(got)) != 1:
@@ -2198,38 +2216,38 @@ def expert_parallel(torch, fa, card: str):
         del finals
         ranks = [(*r[:-1], shares[i], tree_leaves(r[-1]))
                  for i, r in enumerate(ranks)]
-        for lay, *_, leaves in ranks:
-            ep_twin = next(r for r in ranks if r[0].ep_rank == 0
-                           and r[0].dp_rank == lay.dp_rank)
-            dp_twin = next(r for r in ranks if r[0].dp_rank == 0
-                           and r[0].ep_rank == lay.ep_rank)
-            same_ep = same_bits(
-                torch, [x for x, w in zip(leaves, whole_leaf) if w],
-                [x for x, w in zip(ep_twin[-1], whole_leaf) if w])
-            same_dp = same_bits(torch, leaves, dp_twin[-1])
-            print(f"experts {name}: rank {lay.rank}'s leaves held whole "
-                  f"(router, attention, LayerNorms, embeddings) after the "
-                  f"timed steps {'bit-equal to' if same_ep else 'DIFFER from'}"
-                  f" ep rank 0's (rank {ep_twin[0].rank}); all its params "
-                  f"{'bit-equal to' if same_dp else 'DIFFER from'} replica "
-                  f"0's (rank {dp_twin[0].rank})", flush=True)
-            if not same_ep:
-                bad.append(f"{name}: rank {lay.rank}'s whole leaves differ "
-                           f"from ep rank 0's")
-            if not same_dp:
-                bad.append(f"{name}: rank {lay.rank}'s params differ from "
-                           f"replica 0's")
+        for axis in (a for a in axes if sizes[a] > 1):
+            # each rank against the rank of its group at coordinate 0
+            whole = whole_leaf[axis]
+            for lay, *_, leaves in ranks:
+                twin = next(r for r in ranks if all(
+                    getattr(r[0], f"{a}_rank") == (
+                        0 if a == axis else getattr(lay, f"{a}_rank"))
+                    for a in axes))
+                same = same_bits(
+                    torch, [x for x, w in zip(leaves, whole) if w],
+                    [x for x, w in zip(twin[-1], whole) if w])
+                print(f"experts {name}: rank {lay.rank}'s {sum(whole)} "
+                      f"leaves held whole over {axis} (of {len(whole)}) "
+                      f"after the timed steps "
+                      f"{'bit-equal to' if same else 'DIFFER from'} {axis} "
+                      f"rank 0's (rank {twin[0].rank})", flush=True)
+                if not same:
+                    bad.append(f"{name}: rank {lay.rank}'s leaves held "
+                               f"whole over {axis} differ from {axis} rank "
+                               f"0's")
+        E_l = cfg.moe.n_experts // ep
         for lay, out, dt, resident, comm, shares, _ in ranks:
             print(f"experts {name}: rank {lay.rank} (replica {lay.dp_rank}, "
-                  f"experts {lay.ep_rank * (cfg.moe.n_experts // ep)}-"
-                  f"{(lay.ep_rank + 1) * (cfg.moe.n_experts // ep) - 1}): "
+                  f"experts {lay.ep_rank * E_l}-{(lay.ep_rank + 1) * E_l - 1}"
+                  f", shard {lay.sp_rank}, tp block {lay.tp_rank}): "
                   f"(loss, aux loss) {out}, step {dt * 1e3:.1f} ms, of which "
                   f"in " + ", ".join(f"{op} {v * 1e3:.1f}"
                                      for op, v in comm.items())
                   + f" ms (waits for peers included), the rest "
                   f"{(dt - sum(comm.values())) * 1e3:.1f} ms; its params and "
                   f"Adam moments {resident / 2**30:.2f} GiB; (token, k) pairs "
-                  f"past capacity (C {C}) in its replica's rows by layer: "
+                  f"past capacity (C {C}) in its block of the batch by layer: "
                   + ", ".join(f"{x:.4f}" for x in shares), flush=True)
             if not all(math.isfinite(x) for x, _ in out):
                 bad.append(f"{name}: non-finite loss on rank {lay.rank}")
@@ -2242,14 +2260,17 @@ def expert_parallel(torch, fa, card: str):
               f"({cfg.n_params / 1e6:.1f} M params, {cfg.moe.n_experts} "
               f"experts, top-{cfg.moe.top_k}, capacity factor "
               f"{cfg.moe.capacity_factor}, C {C}), batch {B} ({B // dp} rows "
-              f"a replica, one microbatch), seq {S}, dp {dp} x ep {ep} rank "
-              f"threads on one card: step {step_s * 1e3:.1f} ms (the slowest "
-              f"rank), {B * S / step_s:.0f} tokens/s, peak memory of the card "
+              f"a replica, {S // sp} positions a shard, one microbatch), seq "
+              f"{S}, dp {dp} x ep {ep} x sp {sp} x tp {tp} rank threads on "
+              f"one card: step {step_s * 1e3:.1f} ms (the slowest rank), "
+              f"{B * S / step_s:.0f} tokens/s, peak memory of the card "
               f"{peak / 2**30:.2f} GiB for all {config.world_size} ranks "
               f"together; (token, k) pairs past capacity {dropped:.4f} of "
               f"the batch ({warmup} warm-up and {timed} timed steps)",
               flush=True)
-        per_step = dp * ep * cfg.n_layer
+        # each rank launches each bf16 kernel once a layer (its heads);
+        # ring attention (sp > 1) none
+        per_step = config.world_size * cfg.n_layer if sp == 1 else 0
         for kernel, n in launches[name].items():
             want_n = 0 if family(kernel) else per_step * (warmup + timed)
             print(f"experts {name}: {kernel} launched {n} times (expected "

@@ -18,9 +18,10 @@ embeds, the block stack runs under GPipe (``parallel/pipeline.py``) and
 the last stage unembeds; at ``sp`` > 1 each rank holds a contiguous shard
 of the sequence and attention is ``"ring_local"``; at ``tp`` > 1 the
 collectives of ``parallel/tensor_parallel.py`` join the blocks; with MoE
-(pp 1 only) the router counts over the whole dp batch and the experts
-run over ep (``parallel/expert_parallel.py`` and
-``parallel/tensor_parallel.py``'s boundaries over the ep group). Its
+(pp 1 only) the router counts over the whole batch (over dp and sp) and
+the experts run over ep and their hidden over tp
+(``parallel/expert_parallel.py`` and ``parallel/tensor_parallel.py``'s
+boundaries over the ep and tp groups). Its
 gradient is a schedule, not autograd through the collectives:
 ``value_and_grad_pipelined``, or ``PipelinedForward.backward``.
 """
@@ -179,22 +180,26 @@ def _block_apply(block, x, cfg: GPT2Config, impl: str, sp_group=None,
     """(the block's output, its MoE aux loss, or None without MoE).
     ``sp_group`` and ``tape``: ``"ring_local"``'s (``apply_attention``);
     ``tp_group`` and ``tape``: the block's leaves hold this rank's block
-    of the heads and the hidden; ``dp_group``: the MoE router counts the
-    whole dp batch; ``ep_group`` and ``tape``: the MoE layer runs the
-    rank's block of the experts (``apply_moe``). With ``tp_group`` or
-    ``ep_group``, the residual after attention is cut on the tape, so that
-    the MLP's or the MoE's segments and the output's reach it apart."""
+    of the heads and the hidden (the experts' hidden with MoE);
+    ``dp_group`` and ``sp_group``: the MoE router counts the whole batch;
+    ``ep_group`` and ``tape``: the MoE layer runs the rank's block of the
+    experts (``apply_moe``). With ``tp_group``, ``ep_group`` or MoE on a
+    ``tape``, the residual after attention is cut on the tape, so that the
+    MLP's or the MoE's segments (the aux loss's among them) and the
+    output's reach it apart."""
     cd = cfg.dtype
     h = L.layer_norm(x, block["ln1"]["scale"], block["ln1"]["bias"])
     x = x + L.apply_attention(block["attn"], h, causal=True, impl=impl,
                               compute_dtype=cd, sp_group=sp_group,
                               tp_group=tp_group, tape=tape)
-    if tp_group is not None or ep_group is not None:
+    if tape is not None and (tp_group is not None or ep_group is not None
+                             or cfg.moe is not None):
         x = tape.cut(x)
     h = L.layer_norm(x, block["ln2"]["scale"], block["ln2"]["bias"])
     if cfg.moe:
         m, aux = L.apply_moe(block["moe"], h, cfg.moe, compute_dtype=cd,
-                             dp_group=dp_group, ep_group=ep_group, tape=tape)
+                             dp_group=dp_group, ep_group=ep_group,
+                             sp_group=sp_group, tp_group=tp_group, tape=tape)
         return x + m, aux
     return x + L.apply_mlp(block["mlp"], h, compute_dtype=cd,
                            tp_group=tp_group, tape=tape), None
@@ -295,9 +300,9 @@ class PipelinedForward:
     S_local, V / tp]`` f32 for this rank's shard of the sequence and block
     of the vocab on the last stage, attached to the graph of the unembed;
     None on the other stages. ``aux``: the MoE aux loss averaged over the
-    layers, this replica's share (``apply_moe``: its mean over dp is the
-    whole batch's), the same on every rank of the replica; 0 without MoE
-    (which runs at pp 1 only).
+    layers, this replica's (``apply_moe``'s shares summed over sp: its
+    mean over dp is the whole batch's), the same on every rank of the
+    replica; 0 without MoE (which runs at pp 1 only).
     ``backward(value)``, called once on every rank with, on the last
     stage, the scalar this rank differentiates (its part of the loss,
     computed from ``logits``, the same on every rank of its tp group) and
@@ -331,16 +336,18 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
 
     With MoE (pp 1 only) the whole replica is one microbatch, as the
     router counts its slots, capacity and top-1 fractions over the whole
-    batch (over every replica at dp > 1), and the experts ride ep: the
-    twin of the JAX package's ``forward(..., mesh)`` at pp 1. The aux
-    loss of each layer is a term of the stage's tape, weighted as
-    ``_metrics`` weighs it.
+    batch (over every replica and sequence shard), the experts ride ep
+    and their hidden tp: the twin of the JAX package's ``forward(...,
+    mesh)`` at pp 1. The aux loss of each layer is a term of the stage's
+    tape (the rank's share of it at sp > 1), weighted as ``_metrics``
+    weighs it. A dense model at ep > 1 runs as at ep 1 on every ep rank,
+    as no leaf rides ep.
 
     Refuses what the JAX twin refuses (``n_layer`` not divisible by pp,
-    MoE at pp > 1), MoE or ep > 1 with tp > 1 or sp > 1 (not ported), and
-    ``remat`` at sp > 1, at tp > 1 or with MoE, whose recompute would run
-    the ring, the tp sums or the MoE's sums inside autograd's backward and
-    drop the aux loss's term."""
+    MoE at pp > 1), MoE over more than one microbatch, and ``remat`` at
+    sp > 1, at tp > 1 or with MoE, whose recompute would run the ring,
+    the tp sums or the MoE's sums inside autograd's backward and drop the
+    aux loss's term."""
     n_pp = layout.pp
     if cfg.n_layer % n_pp:
         raise ValueError(f"n_layer={cfg.n_layer} not divisible by pp={n_pp}")
@@ -350,15 +357,6 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
         raise NotImplementedError(
             "pipelined forward does not yet propagate the MoE aux loss; "
             "use pp=1 with MoE or a dense (non-MoE) config with pp>1")
-    if ((cfg.moe is not None or layout.ep > 1)
-            and (layout.tp > 1 or layout.sp > 1)):
-        raise NotImplementedError(
-            f"{'MoE' if cfg.moe is not None else 'a dense model'} at "
-            f"ep={layout.ep} with tp={layout.tp} and sp={layout.sp}: the "
-            f"port runs MoE and ep at tp 1 and sp 1 only (under tp the "
-            f"experts' hidden, expert_mlp, would ride tp; under sp the "
-            f"router would count a shard of the sequence; ROADMAP Queue 1 "
-            f"item 2)")
     if cfg.moe is not None and n_microbatches != 1:
         raise ValueError(
             f"n_microbatches={n_microbatches}: MoE routes a replica's rows "
@@ -457,8 +455,12 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
             layout.sp_group, mode="allreduce")
         return out
 
-    aux = (sum(a.detach() for a in auxes) / cfg.n_layer if auxes
-           else torch.zeros((), device=tokens.device))
+    aux = torch.zeros((), device=tokens.device)
+    if auxes:
+        # each sp rank's layers hold its share of the replica's aux loss
+        aux = sum(a.detach() for a in auxes) / cfg.n_layer
+        if layout.sp > 1:
+            aux = col.allreduce(aux, layout.sp_group).to(aux.device)
     return PipelinedForward(logits, aux, backward)
 
 

@@ -6,9 +6,9 @@ default with f32 params and accumulators. The memory-lean custom VJPs
 (``layer_norm``, the MLP) are ``torch.autograd.Function``s that save the
 same residuals as the JAX rules. The routed MoE layer (``apply_moe``)
 mirrors the JAX package's dense-dispatch einsums; given a rank layout's
-dp and ep groups it routes the whole dp batch and runs the rank's block
-of the experts (``parallel/expert_parallel.py``, and the boundaries of
-``parallel/tensor_parallel.py`` over ep). ``apply_attention``'s
+dp, ep, sp and tp groups it routes the whole batch and runs the rank's
+block of the experts and of their hidden (``parallel/expert_parallel.py``,
+and the boundaries of ``parallel/tensor_parallel.py`` over ep and tp). ``apply_attention``'s
 ``"ring_local"`` runs the per-shard ring over a rank's ``sp`` group
 inside a pipeline stage.
 Given a ``tp_group``, attention and the MLP run on a rank's block of the
@@ -31,7 +31,6 @@ from ray_tpu_torch.parallel.ring_attention import (reference_attention,
                                                    ring_attention_stage)
 from ray_tpu_torch.parallel.tensor_parallel import (copy_to_group,
                                                      reduce_over_group)
-from ray_tpu_torch.util import collective as col
 
 Params = Dict[str, Any]
 
@@ -43,37 +42,40 @@ def _init_dense(generator: torch.Generator, shape, device, scale=0.02,
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b (2-D) with an f32 result accumulated in f32 from operands in
-    their own dtype: ``preferred_element_type=float32``. On the card a
-    bf16 product takes ``torch.mm``'s ``out_dtype`` overload; that
-    overload has no CPU kernel, so on the CPU the operands, already
-    rounded to their dtype, are upcast (the same products, exactly)."""
+    """a @ b (2-D, or 3-D batched) with an f32 result accumulated in f32
+    from operands in their own dtype: ``preferred_element_type=float32``.
+    On the card a bf16 product takes ``torch.mm``'s (``torch.bmm``'s)
+    ``out_dtype`` overload; that overload has no CPU kernel, so on the CPU
+    the operands, already rounded to their dtype, are upcast (the same
+    products, exactly)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
 
 class _MatmulF32Out(torch.autograd.Function):
-    """a [N, d] . b[V, d]^T -> [N, V] f32 from compute-dtype operands. The
-    backward rounds the cotangent to the operands' dtype and multiplies in
-    that dtype with f32 accumulation."""
+    """a [..., N, d] . b[..., V, d]^T -> [..., N, V] f32 from
+    compute-dtype operands (2-D, or 3-D batched). The backward rounds the
+    cotangent to the operands' dtype and multiplies in that dtype with
+    f32 accumulation."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return mm_f32(a, b.t())
+        return mm_f32(a, b.transpose(-1, -2))
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         gc = g.to(a.dtype)
-        return gc @ b, gc.t() @ a
+        return gc @ b, gc.transpose(-1, -2) @ a
 
 
 def matmul_nt_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [N, d] . b [V, d]^T -> [N, V] f32, differentiable
+    """a [..., N, d] . b [..., V, d]^T -> [..., N, V] f32, differentiable
     (``_MatmulF32Out``)."""
     return _MatmulF32Out.apply(a, b)
 
@@ -320,10 +322,11 @@ def router_probs(wg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x.float() @ wg.float(), dim=-1)
 
 
-def _route(probs: torch.Tensor, cfg: MoEConfig, dp_group=None):
+def _route(probs: torch.Tensor, cfg: MoEConfig, dp_group=None,
+           sp_group=None):
     """(gates, experts, slots, the top-1 fractions ``ce`` [E]) from
-    ``probs``; at dp > 1 the slots and ``ce`` are the whole batch's
-    (``route_tokens``)."""
+    ``probs``; at dp > 1 or sp > 1 the slots and ``ce`` are the whole
+    batch's (``route_tokens``)."""
     B, S, E = probs.shape
     K = cfg.top_k
     gates, experts = torch.topk(probs, K, dim=-1)
@@ -331,44 +334,47 @@ def _route(probs: torch.Tensor, cfg: MoEConfig, dp_group=None):
     # the count runs along the inner dim of [E, B*S*K]: on the card a scan
     # down the 8 columns of [B*S*K, E] took 3 ms a layer at B*S 8192
     onehot = F.one_hot(experts.reshape(-1), E).t().contiguous()
-    pos = onehot.cumsum(dim=1) - 1
     top1 = F.one_hot(experts[..., 0], E)
-    if dp_group is None or col.get_collective_group_size(dp_group) == 1:
+    n_dp, _ = ep_.group_place(dp_group)
+    n_sp, _ = ep_.group_place(sp_group)
+    if n_dp * n_sp == 1:
+        pos = onehot.cumsum(dim=1) - 1
         ce = (top1.float().sum(dim=1) / S).mean(dim=0)
     else:
-        before, top1 = ep_.route_counts(pos[:, -1] + 1, top1.sum(dim=(0, 1)),
-                                        dp_group)
-        pos = pos + before.unsqueeze(1)
-        n = B * col.get_collective_group_size(dp_group) * S
-        ce = top1.float() / n
+        # each row counted apart, then re-based on the pairs before it in
+        # the whole stream: the rows before it on every replica and shard,
+        # and its own pairs on the shards before this one
+        pos = onehot.view(E, B, S * K).cumsum(dim=2) - 1
+        before, top1 = ep_.route_counts(pos[:, :, -1].t() + 1,
+                                        top1.sum(dim=(0, 1)), dp_group,
+                                        sp_group)
+        pos = (pos + before.t().unsqueeze(-1)).view(E, B * S * K)
+        ce = top1.float() / (n_dp * B * n_sp * S)
     slots = pos.gather(0, experts.reshape(1, -1)).view(B, S, K)
     return gates, experts, slots, ce
 
 
 def route_tokens(wg: torch.Tensor, x: torch.Tensor, cfg: MoEConfig, *,
-                 dp_group: str = None):
+                 dp_group: str = None, sp_group: str = None):
     """The router, in f32: x [B, S, D] -> (probs [B, S, E], gates [B, S, K]
     renormalized with max(sum, 1e-9), experts [B, S, K], slots [B, S, K]).
     A (token, k) pair's slot is its place in its expert's buffer, counted
     over the whole flattened token stream in (b, s, k) order; a slot at or
     past ``moe_capacity`` of the whole batch is dropped. With ``dp_group``
-    (of size > 1), x is one dp replica's rows of a batch cut as ``P("dp")``
-    cuts it, and a slot also counts the pairs of the replicas before it
-    (one allreduce over the group, forward only)."""
+    or ``sp_group`` (of size > 1), x is one rank's block of a batch cut as
+    ``P("dp", "sp")`` cuts it, its replica's rows and its shard of the
+    sequence, and a slot also counts the pairs before it in the whole
+    stream: the rows of the replicas before it, and in each row the
+    shards before this one (``expert_parallel.route_counts``, forward
+    only)."""
     probs = router_probs(wg, x)
-    return (probs, *_route(probs, cfg, dp_group)[:3])
-
-
-def _group_place(group) -> Tuple[int, int]:
-    """(size, rank) of a group, (1, 0) for None."""
-    if group is None:
-        return 1, 0
-    return col.get_collective_group_size(group), col.get_rank(group)
+    return (probs, *_route(probs, cfg, dp_group, sp_group)[:3])
 
 
 def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig,
               compute_dtype=torch.bfloat16, *, dp_group: str = None,
-              ep_group: str = None,
+              ep_group: str = None, sp_group: str = None,
+              tp_group: str = None,
               tape=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-style top-k routed MoE with capacity, over dense-dispatch
     einsums: x [B, S, D] -> (out [B, S, D] in x's dtype, the Switch aux
@@ -383,54 +389,71 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig,
     plain einsums in the compute dtype, with the casts where the JAX
     package makes them; ``combine`` carries the gradient to the router.
 
-    On a rank of a layout, ``dp_group`` and ``ep_group`` (either of size
-    > 1): x is the rank's replica's rows (the same on its ep group) and
-    ``w1``/``w2`` its block of E / ep experts. The router counts slots,
-    the capacity and the aux loss's top-1 fractions ``ce`` over the whole
-    dp batch (``_route``), so the same pairs are dropped as on one
-    device. A slot holds one token of the whole batch, so an expert's
-    input at a replica's slots is that replica's rows alone and its
-    output there reaches that replica's rows alone: the rank runs its
-    experts on its own rows, and nothing of the experts is summed over
-    dp. The aux loss ``E * sum(me * ce)`` takes ``me`` from the replica's
-    rows: its mean over dp, as the train step averages it, is the whole
-    batch's and so is its gradient. At ep > 1 the layer runs on ``tape``:
-    x and the gates enter the rank's experts by a copy whose backward sums
-    over ep, and the output is the sum over ep of each rank's combine over
-    its own experts, an f32 product rounded once after the sum
-    (``tensor_parallel``'s boundaries over the ep group); the tape cuts x
-    and the router's probs, so that the aux loss (the caller's term of the
-    tape), the gates' copy and x's copy reach them by separate autograd
-    segments."""
+    On a rank of a layout, any of ``dp_group``, ``ep_group``, ``sp_group``
+    and ``tp_group`` (of size > 1): x is the rank's replica's rows and its
+    shard of the sequence (the same on its ep and tp groups), ``w1`` and
+    ``w2`` its block of E / ep experts, cut at tp > 1 to its block of each
+    expert's hidden. The router counts slots, the capacity and the aux
+    loss's top-1 fractions ``ce`` over the whole batch (``_route``), so
+    the same pairs are dropped as on one device. A slot holds one token of
+    the whole batch, so an expert's input at a rank's slots is that rank's
+    tokens alone and its output there reaches those tokens alone: the rank
+    runs its experts on its own tokens, and nothing of the experts is
+    summed over dp or sp. The aux loss ``E * sum(me * ce)`` takes ``me``
+    from the rank's tokens: its mean over dp, as the train step averages
+    it, and its sum over sp, as the pipelined backward sums the block
+    leaves' grads over sp, are the whole batch's, and so is its gradient,
+    so each sp rank returns its share, divided by sp.
+
+    At ep > 1 or tp > 1 the layer runs on ``tape``. x and the gates enter
+    the rank's experts by a copy whose backward sums over ep, and x then
+    by one whose backward sums over tp; the gates need none over tp, whose
+    ranks combine the same whole ``expert_out``. At tp > 1 ``expert_out``
+    is the sum over tp of each rank's f32 product over its block of the
+    hidden, rounded once after the sum, as the one-device einsum rounds
+    it. The output is, at ep > 1, the sum over ep of each rank's combine
+    over its own experts, an f32 product rounded once after the sum
+    (``tensor_parallel``'s boundaries). The router reads x before the
+    copies, each tp and ep rank the whole router: its gradient is whole
+    on every rank, summed over neither group. Given a ``tape``, at any
+    layout, the tape cuts x and the router's probs, so that the aux loss
+    (the caller's term of the tape, differentiated with the stage's
+    output), the gates' copy and x's copies reach them by separate
+    autograd segments, and no segment runs through a graph another has
+    run through."""
     cd = compute_dtype
     B, S, D = x.shape
     E = cfg.n_experts
-    n_dp, _ = _group_place(dp_group)
-    n_ep, ep_rank = _group_place(ep_group)
+    n_dp, _ = ep_.group_place(dp_group)
+    n_ep, ep_rank = ep_.group_place(ep_group)
+    n_sp, _ = ep_.group_place(sp_group)
+    n_tp, _ = ep_.group_place(tp_group)
     E_l = params["w1"].shape[0]
     if E_l * n_ep != E:
         raise ValueError(
             f"params hold {E_l} experts; a rank of ep={n_ep} holds "
             f"{E // n_ep} of {E} (sharding.tree_shard with "
             f"gpt2.partition_specs)")
-    if n_ep > 1 and tape is None:
-        raise ValueError("apply_moe over an ep group communicates, so it "
-                         "runs on a pipeline StageTape "
+    if (n_ep > 1 or n_tp > 1) and tape is None:
+        raise ValueError("apply_moe over an ep or a tp group communicates, "
+                         "so it runs on a pipeline StageTape "
                          "(gpt2.forward_pipelined)")
-    C = moe_capacity(cfg, n_dp * B * S)
+    C = moe_capacity(cfg, n_dp * B * n_sp * S)
     out_dtype = x.dtype
-    if n_ep > 1:
+    if tape is not None:
         x = tape.cut(x)
     probs = router_probs(params["wg"], x)
-    if n_ep > 1:
+    if tape is not None:
         probs = tape.cut(probs)
-    gates, experts, slots, ce = _route(probs, cfg, dp_group)
+    gates, experts, slots, ce = _route(probs, cfg, dp_group, sp_group)
 
     # Switch load balancing: mean router prob per expert times the
     # fraction of tokens whose top-1 expert it is
-    aux_loss = E * torch.sum(probs.mean(dim=(0, 1)) * ce)
+    aux_loss = E * torch.sum(probs.mean(dim=(0, 1)) * ce) / n_sp
     if n_ep > 1:
         x, gates = copy_to_group((x, gates), ep_group, tape)
+    if n_tp > 1:
+        (x,) = copy_to_group((x,), tp_group, tape)
 
     # this rank's experts [lo, lo + E_l): a pair of another rank's
     # expert, or a dropped one, adds 0 (a token's experts are distinct, so
@@ -449,7 +472,11 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig,
 
     expert_in = torch.einsum("bsec,bsd->ecd", disp, x.to(cd))
     h = _gelu(torch.einsum("ecd,edf->ecf", expert_in, params["w1"].to(cd)))
-    expert_out = torch.einsum("ecf,efd->ecd", h, params["w2"].to(cd))
+    if n_tp == 1:
+        expert_out = torch.einsum("ecf,efd->ecd", h, params["w2"].to(cd))
+    else:
+        partial = matmul_nt_f32(h, params["w2"].to(cd).transpose(1, 2))
+        expert_out = reduce_over_group(partial, tp_group, tape).to(cd)
     if n_ep == 1:
         out = torch.einsum("bsec,ecd->bsd", combine, expert_out)
     else:

@@ -7,6 +7,7 @@ JAX oracles of test_torch_gpt2_pipelined.py (the same meshes, with that
 file's tolerances). The port's ranks are threads of this process over one
 HashStore (tests/torch_gang.run_mesh), torch at two intra-op threads, and
 every group and join has a timeout."""
+import dataclasses
 import threading
 
 import jax
@@ -20,6 +21,7 @@ from ray_tpu.parallel.mesh import MeshConfig as JMeshConfig, create_mesh
 from ray_tpu_torch import convert
 from ray_tpu_torch._private.tree import tree_leaves, tree_map
 from ray_tpu_torch.models import gpt2 as TG
+from ray_tpu_torch.models import layers as TL
 from ray_tpu_torch.parallel import mesh as M
 from ray_tpu_torch.parallel import sharding as TS
 from ray_tpu_torch.parallel import train_step as TT
@@ -60,18 +62,20 @@ def test_resolved_and_axis_sizes_match_jax(sizes, n):
 def test_a_wild_axis_that_resolves_to_an_unported_size_is_refused():
     """tp=-1 and ep=-1 over 8 devices with dp 2 and pp 2 are tp 2 and ep
     2 in the JAX package, and in the port's, which holds both axes; a
-    layout the model does not run yet (ep 2 with tp 2) is refused by the
-    forward, before any collective."""
+    layout the model does not run (MoE at pp 2, with the ep the wild axis
+    resolves to) is refused by the forward with the JAX twin's message,
+    before any collective."""
     assert JMeshConfig(dp=2, pp=2, tp=-1).resolved(8).tp == 2
     assert MeshConfig(dp=2, pp=2, tp=-1).resolved(8).tp == 2
     assert JMeshConfig(dp=2, pp=2, ep=-1).resolved(8).ep == 2
-    assert MeshConfig(dp=2, pp=2, ep=-1).resolved(8).ep == 2
-    config = MeshConfig(ep=2, tp=2)
+    config = MeshConfig(dp=2, pp=2, ep=-1).resolved(8)
+    assert config.ep == 2
     layout = M.RankLayout(config, 0, 0, 0, 0, "dp", "pp", "sp", 0, "tp", 0,
                           "ep")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        TG.forward_pipelined({}, torch.zeros(2, 4, dtype=torch.int32),
-                             TG.gpt2_tiny(), layout)
+    cfg = dataclasses.replace(TG.gpt2_tiny(), moe=TL.MoEConfig())
+    with pytest.raises(NotImplementedError, match="use pp=1 with MoE"):
+        TG.forward_pipelined({}, torch.zeros(2, 4, dtype=torch.int32), cfg,
+                             layout)
     with pytest.raises(ValueError, match="resolve it first"):
         MeshConfig(dp=-1, pp=2).world_size
 

@@ -3,6 +3,7 @@ layout (parallel.mesh) and its point-to-point collectives
 (util.collective) against the JAX package's, with pipeline stages as
 threads of this process (tests/torch_gang.py). The JAX oracle is computed
 once a module."""
+import dataclasses
 import threading
 import time
 
@@ -203,20 +204,21 @@ def test_pipelined_forward_refusals_on_both_packages(kind, error, match):
 @pytest.mark.parametrize("axis", ["dp", "tp", "ep"])
 def test_mesh_config_refuses_unported_axes(axis):
     """dp, tp and ep are ported, and a dp, a tp or an ep of 2 doubles the
-    ranks of a layout; ep with tp, which waits for the rest of mesh SPMD,
-    is refused by the forward, before any collective."""
+    ranks of a layout; MoE at pp 2 with ep 2, which the JAX twin refuses,
+    is refused by the forward with its message, before any collective."""
     if axis == "dp":
         assert M.MeshConfig(dp=2, pp=2).world_size == 4
     elif axis == "tp":
         assert M.MeshConfig(tp=2).world_size == 2
     else:
         assert M.MeshConfig(ep=2).world_size == 2
-        config = M.MeshConfig(ep=2, tp=2)
+        config = M.MeshConfig(pp=2, ep=2)
         lay = M.RankLayout(config, 0, 0, 0, 0, "dp", "pp", "sp", 0, "tp", 0,
                            "ep")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        cfg = dataclasses.replace(TG.gpt2_tiny(), moe=MoEConfig())
+        with pytest.raises(NotImplementedError, match="use pp=1 with MoE"):
             TG.forward_pipelined({}, torch.zeros(2, 4, dtype=torch.int32),
-                                 TG.gpt2_tiny(), lay)
+                                 cfg, lay)
     M.MeshConfig(**{axis: 1})
 
 
