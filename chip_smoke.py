@@ -141,7 +141,27 @@ Phases, each of which exits non-zero on failure:
    routing counts' allreduces), the ep and tp sums, the ep and tp
    copies' backward sums, the ring hops, the sp grad sums and the dp
    sync, its resident params and moments, the card's peak memory, and
-   the share of (token, k) pairs past capacity.
+   the share of (token, k) pairs past capacity;
+7. the mesh entry point (MESH_RUNS), as a user calls it: ``create_mesh``
+   over the card named four times, each rank thread's ``Mesh.join``,
+   ``make_train_state(..., layout, gpt2.partition_specs(cfg))`` and
+   ``make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg, layout, ...),
+   opt, layout, batch_spec=...)`` given the global batch, with
+   ``remat=True`` as ``gpt2_small()`` ships (each layer a checkpointed
+   region of its stage's tape): 7a GPT-2-small at dp 2 x tp 2 (dp=-1
+   resolved) on phase 3's weights and batch of 16, 7b GPT-2-small-MoE
+   with attention="ring" at sp 2 x ep 2 on phase 3c's weights and batch
+   of 8, 7c GPT-2-small at dp 2 x pp 2, pipelined in 2 microbatches,
+   batch_spec (("dp",), None) (1 warm-up and 2 timed steps each, bf16).
+   Each run's f32 first step (loss, aux loss, grad norm) is held to the
+   one-card f32 step on the same weights and batch by phase 3b's f32
+   limits; the launch counts are exact (the forward twice a layer, for
+   the recompute: 7a and 7c 4 ranks x 12 layers' worth a step of the
+   forward twice and of dq and dk/dv once; the ring none); on each axis
+   the leaves its ranks hold whole (over pp those outside the blocks)
+   end bit-equal across its groups. It prints the step ms, tokens/s and
+   the card's peak memory beside the card, and for 7a the peak of one
+   step with remat off.
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
@@ -151,8 +171,8 @@ for the bf16_d256 ones, the tiny configs with a head of 320 for the
 split-head-dim ones, the f32 tiny config with a head of 256 for the
 f32 kernels' head-dim-256 instances, listed apart as ``*_f32_d256``),
 and ``tiny_launches``, ``moe_launches``,
-``gang_launches`` and ``pipeline_launches`` (phase 6's runs and 6f-6h's)
-the other runs'; the last
+``gang_launches``, ``pipeline_launches`` (phase 6's runs and 6f-6h's)
+and ``entry_launches`` (phase 7's) the other runs'; the last
 line is ``{"ok": true,
 "device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
@@ -299,6 +319,28 @@ PIPE_RUNS = (("pp2", 1, 2, 1, 1, PIPE_MICROBATCHES, 2, 3),
 EP_RUNS = (("dp2ep2", 2, 2, 1, 1, 1, 2),
            ("ep2tp2", 1, 2, 1, 2, 1, 2),
            ("sp2ep2", 1, 2, 2, 1, 1, 2))
+
+# Phase 7, the mesh entry point: every run through create_mesh over the
+# card named four times, each rank's Mesh.join, make_train_state(...,
+# layout, gpt2.partition_specs(cfg)) and make_train_step(lambda p, b:
+# gpt2.loss_fn(p, b, cfg, layout, ...), opt, layout, batch_spec=...), each
+# rank given the global batch, with remat=True as gpt2_small() ships. Each
+# run's f32 first step (loss, aux loss, grad norm) is held to the one-card
+# f32 step on the same weights and batch by phase 3b's f32 limits, as 6f-6h
+# hold theirs.
+# (name, mesh axes, MoE, pipelined, microbatches, batch_spec, batch,
+# warm-up steps, timed steps): 7a, GPT-2-small at dp 2 x tp 2 (dp=-1
+# resolved over four ranks) on phase 3's weights and batch; 7b,
+# GPT-2-small-MoE with attention="ring" at sp 2 x ep 2 on phase 3c's; 7c,
+# GPT-2-small at dp 2 x pp 2, pipelined in 2 microbatches (the JAX dry
+# run's config C at four devices)
+MESH_RUNS = (("dp2tp2", dict(dp=-1, tp=2), False, False, 1,
+              (("dp",), "sp"), PIPE_BATCH, 1, 2),
+             ("sp2ep2", dict(sp=2, ep=2), True, False, 1,
+              (("dp",), "sp"), MOE_BATCH, 1, 2),
+             ("dp2pp2", dict(dp=2, pp=2), False, True, 2,
+              (("dp",), None), PIPE_BATCH, 1, 2))
+MESH_DEVICES = 4
 
 # Phase 5, checkpoints: the gang's GPT-2-small ZeRO state at world 2 under
 # the repository's build/ directory (two generations, ~3 GB), deleted at
@@ -1222,6 +1264,26 @@ def run_mesh(torch, config, fn):
     return _rank_threads(torch, config.world_size, body)
 
 
+def run_entry(torch, mesh, fn):
+    """``fn(layout)`` on one rank thread for each rank of ``mesh`` (a
+    ``parallel.mesh.Mesh``), each joined by ``Mesh.join`` over one
+    in-memory store."""
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel.mesh import destroy_rank_layout
+
+    store = dist.HashStore()
+
+    def body(rank):
+        layout = mesh.join(rank, store=store, name="entry",
+                           timeout_s=GANG_OP_TIMEOUT_S)
+        try:
+            return fn(layout)
+        finally:
+            destroy_rank_layout(layout)
+
+    return _rank_threads(torch, mesh.size, body)
+
+
 class CommTimer:
     """Seconds a rank thread spends inside each collective op of ``ops``
     (name -> (module, attribute)) while a measurement is on (``start`` to
@@ -2127,8 +2189,8 @@ def expert_parallel(torch, fa, card: str, runs=EP_RUNS):
     # in one more forward after the timed steps
     route, drops = L._route, threading.local()
 
-    def counting_route(probs, moe_cfg, dp_group=None, sp_group=None):
-        out = route(probs, moe_cfg, dp_group, sp_group)
+    def counting_route(probs, moe_cfg, *groups_and_tape):
+        out = route(probs, moe_cfg, *groups_and_tape)
         shares = getattr(drops, "shares", None)
         if shares is not None:
             shares.append(((out[2] >= C).sum() / out[2].numel()).item())
@@ -2287,6 +2349,205 @@ def expert_parallel(torch, fa, card: str, runs=EP_RUNS):
     return launches
 
 
+def mesh_entry(torch, fa, card: str, runs=MESH_RUNS):
+    """Phase 7: the mesh entry point (``runs``, MESH_RUNS by default) on
+    four rank threads
+    sharing the card, remat on. Each run's f32 first step (loss, aux
+    loss, grad norm) is held to the one-card f32 step on the same weights
+    and batch; then its bf16 warm-up and timed steps run with the launch
+    counters set to 0 just before and read just after; on each axis the
+    leaves its ranks hold whole must end bit-equal across its groups. 7a
+    also takes one bf16 step with remat off for its peak memory. Returns
+    each run's counts."""
+    from ray_tpu_torch._private.tree import (tree_leaves, tree_map,
+                                             tree_unflatten)
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import layers as L
+    from ray_tpu_torch.parallel import sharding
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    def optimizer():
+        return ts.default_optimizer(1e-4, warmup_steps=10, total_steps=1000)
+
+    devices = [torch.device("cuda", 0)] * MESH_DEVICES
+    axes = ("dp", "pp", "ep", "sp", "tp")
+    launches, bad = {}, []
+    for (name, sizes, moe, pipelined, M, batch_spec, B, warmup,
+         timed) in runs:
+        torch.cuda.empty_cache()
+        cfg = gpt2.gpt2_small()
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=L.MoEConfig(),
+                                      attention="ring")
+        f32_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        S = cfg.max_seq
+        mesh = create_mesh(MeshConfig(**sizes), devices=devices)
+        shape = dict(mesh.shape)
+        specs = gpt2.partition_specs(cfg)
+        # on each axis, the leaves its ranks hold whole: over pp those
+        # outside the stage's blocks, over ep and tp those no spec cuts
+        # over it, over dp and sp every leaf
+        whole_leaf = {axis: tree_leaves({
+            k: tree_map(lambda spec, k=k: (
+                k != "blocks" if axis == "pp" else
+                not any(axis in sharding.spec_axes(e) for e in spec)), v)
+            for k, v in specs.items()}) for axis in axes}
+        seed = 4 if moe else 1
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(seed))
+        batch = {"tokens": tokens}
+        params = tree_map(lambda p: p.requires_grad_(True), gpt2.init(
+            torch.Generator(device="cuda").manual_seed(0), f32_cfg))
+
+        # the yardstick: the one-card f32 step
+        total, m = gpt2.loss_fn(params, batch, f32_cfg)
+        grads = tree_unflatten(params, torch.autograd.grad(
+            total, tree_leaves(params)))
+        want = (float(m["loss"].detach()), float(m["aux_loss"].detach()),
+                float(ts.global_norm(grads)))
+        del total, m, grads
+        params = tree_map(lambda p: p.detach(), params)
+        torch.cuda.empty_cache()
+
+        def entry_step(lay, run_cfg):
+            state = ts.make_train_state(lambda g: params, None, optimizer(),
+                                        lay, specs)
+            step = ts.make_train_step(
+                lambda p, b: gpt2.loss_fn(p, b, run_cfg, lay,
+                                          pipelined=pipelined,
+                                          n_microbatches=M),
+                optimizer(), lay, batch_spec=batch_spec)
+            return state, step
+
+        def first_step(lay):
+            state, step = entry_step(lay, f32_cfg)
+            _, m = step(state, batch)
+            return (float(m["loss"]), float(m["aux_loss"]),
+                    float(m["grad_norm"]))
+
+        got = run_entry(torch, mesh, first_step)
+        rel = [abs(g - w) / abs(w) if w else abs(g)
+               for g, w in zip(got[0], want)]
+        limits = (TINY_F32_LIMITS[0], TINY_F32_LIMITS[0], TINY_F32_LIMITS[1])
+        print(f"entry {name}: f32 first step through make_train_step on "
+              f"the rank layouts against the one-card f32 step: loss "
+              f"{got[0][0]:.6f} / {want[0]:.6f}, relative {rel[0]:.2e} "
+              f"(limit {limits[0]:.0e}); aux loss {got[0][1]:.6f} / "
+              f"{want[1]:.6f}, {rel[1]:.2e} (limit {limits[1]:.0e}); grad "
+              f"norm {got[0][2]:.6f} / {want[2]:.6f}, {rel[2]:.2e} (limit "
+              f"{limits[2]:.0e})", flush=True)
+        if len(set(got)) != 1:
+            bad.append(f"{name}: the ranks disagree on the first step: "
+                       f"{got}")
+        bad += [f"{name}: f32 first-step {what}" for what, r, lim in zip(
+            ("loss", "aux loss", "grad norm"), rel, limits) if not r <= lim]
+        torch.cuda.empty_cache()
+
+        def steps(lay):
+            state, step = entry_step(lay, cfg)
+            out = []
+            for i in range(warmup + timed):
+                if i == warmup:
+                    torch.cuda.current_stream().synchronize()
+                    t0 = time.perf_counter()
+                state, m = step(state, batch)
+                out.append((float(m["loss"]), float(m["aux_loss"])))
+            torch.cuda.current_stream().synchronize()
+            dt = time.perf_counter() - t0
+            resident = sum(t.numel() * t.element_size() for t in
+                           tree_leaves(state.params)
+                           + tree_leaves(state.opt_state["mu"])
+                           + tree_leaves(state.opt_state["nu"]))
+            return lay, out, dt / timed, resident, tree_leaves(state.params)
+
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        ranks = run_entry(torch, mesh, steps)
+        launches[name] = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for axis in (a for a in axes if shape[a] > 1):
+            whole = whole_leaf[axis]
+            for lay, *_, leaves in ranks:
+                twin = next(r for r in ranks if all(
+                    getattr(r[0], f"{a}_rank") == (
+                        0 if a == axis else getattr(lay, f"{a}_rank"))
+                    for a in axes))
+                same = same_bits(
+                    torch, [x for x, w in zip(leaves, whole) if w],
+                    [x for x, w in zip(twin[-1], whole) if w])
+                print(f"entry {name}: rank {lay.rank}'s {sum(whole)} leaves "
+                      f"held whole over {axis} (of {len(whole)}) after the "
+                      f"timed steps {'bit-equal to' if same else 'DIFFER from'}"
+                      f" {axis} rank 0's (rank {twin[0].rank})", flush=True)
+                if not same:
+                    bad.append(f"{name}: rank {lay.rank}'s leaves held whole "
+                               f"over {axis} differ from {axis} rank 0's")
+        for lay, out, dt, resident, _ in ranks:
+            print(f"entry {name}: rank {lay.rank} (dp {lay.dp_rank}, pp "
+                  f"{lay.pp_rank}, ep {lay.ep_rank}, sp {lay.sp_rank}, tp "
+                  f"{lay.tp_rank}) on {lay.device}: (loss, aux loss) {out}, "
+                  f"step {dt * 1e3:.1f} ms; its params and Adam moments "
+                  f"{resident / 2**30:.2f} GiB", flush=True)
+            if not all(math.isfinite(x) for x, _ in out):
+                bad.append(f"{name}: non-finite loss on rank {lay.rank}")
+            if moe and not all(math.isfinite(a) and a > 0 for _, a in out):
+                bad.append(f"{name}: an aux loss on rank {lay.rank} that is "
+                           f"not finite and positive")
+        step_s = max(r[2] for r in ranks)
+        del ranks
+        off_peak = None
+        if name == "dp2tp2":
+            # one bf16 step with remat off, for its peak
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+
+            def one_step(lay):
+                state, step = entry_step(
+                    lay, dataclasses.replace(cfg, remat=False))
+                step(state, batch)
+
+            run_entry(torch, mesh, one_step)
+            off_peak = torch.cuda.max_memory_allocated()
+            launches[name + " remat off"] = dict(fa.LAUNCHES)
+        model = "GPT-2-small-MoE" if moe else "GPT-2-small"
+        print(f"entry {name}: {card}: {model}"
+              f" ({cfg.n_params / 1e6:.1f} M params, remat on, attention "
+              f"{cfg.attention}), batch {B} (global, batch_spec "
+              f"{batch_spec}), seq {S}, "
+              + " x ".join(f"{a} {n}" for a, n in shape.items() if n > 1)
+              + f" rank threads on one card from create_mesh, "
+              f"{M} microbatch{'es' if M > 1 else ''} a replica: step "
+              f"{step_s * 1e3:.1f} ms (the slowest rank), "
+              f"{B * S / step_s:.0f} tokens/s, peak memory of the card "
+              f"{peak / 2**30:.2f} GiB for all {mesh.size} ranks together"
+              + (f"; one step with remat off peaks at "
+                 f"{off_peak / 2**30:.2f} GiB" if off_peak else "")
+              + f" ({warmup} warm-up and {timed} timed steps)", flush=True)
+        # each rank launches each bf16 kernel once a layer and microbatch
+        # of its stage (its heads), the forward twice with remat (the
+        # layer's recompute); the ring (sp > 1) none
+        per_step = mesh.size * (cfg.n_layer // shape["pp"]) * M * (
+            shape["sp"] == 1)
+        for run, n_steps, forwards in (
+                (name, warmup + timed, 2), (name + " remat off", 1, 1)):
+            for kernel, n in launches.get(run, {}).items():
+                want_n = 0 if family(kernel) else per_step * n_steps * (
+                    forwards if kernel == "flash_fwd" else 1)
+                print(f"entry {run}: {kernel} launched {n} times (expected "
+                      f"{want_n})")
+                if n != want_n:
+                    bad.append(f"{run}: {kernel} launched {n} times, "
+                               f"expected {want_n}")
+        del params, tokens, batch
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"entry: {'; '.join(bad)}")
+    return launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2312,6 +2573,7 @@ def main() -> int:
     checkpoints(torch, card)
     pipeline_launches = pipeline(torch, fa, card)
     pipeline_launches.update(expert_parallel(torch, fa, card))
+    entry_launches = mesh_entry(torch, fa, card)
 
     kernels = []
     # each kernel's count on the path that runs it: the main path for the
@@ -2344,6 +2606,9 @@ def main() -> int:
                         "pipeline_launches": {
                             run: counts[counter] for run, counts
                             in pipeline_launches.items()},
+                        "entry_launches": {
+                            run: counts[counter] for run, counts
+                            in entry_launches.items()},
                         **results[name], **extra})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

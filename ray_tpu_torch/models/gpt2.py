@@ -2,7 +2,8 @@
 
 Parameters are the JAX package's tree: stacked ``[n_layer, ...]`` block
 leaves, f32, with bf16 compute. The forward loops over the stacked
-leaves; ``remat`` maps to ``torch.utils.checkpoint``. Architecture: learned
+leaves; ``remat`` maps to ``torch.utils.checkpoint`` on one device and to
+``StageTape.checkpoint`` on a rank layout. Architecture: learned
 positional embeddings, pre-LN blocks, GELU MLP, tied LM head; with
 ``moe`` set, every block's MLP is the routed MoE layer and the forward
 returns its aux loss, averaged over the layers.
@@ -16,14 +17,25 @@ vocab, and at ep > 1 to its block of the experts
 (``parallel.sharding.tree_shard`` with ``partition_specs``). Stage 0
 embeds, the block stack runs under GPipe (``parallel/pipeline.py``) and
 the last stage unembeds; at ``sp`` > 1 each rank holds a contiguous shard
-of the sequence and attention is ``"ring_local"``; at ``tp`` > 1 the
+of the sequence and attention is ``"ring_local"``, whatever
+``cfg.attention`` names; at ``tp`` > 1 the
 collectives of ``parallel/tensor_parallel.py`` join the blocks; with MoE
 (pp 1 only) the router counts over the whole batch (over dp and sp) and
 the experts run over ep and their hidden over tp
 (``parallel/expert_parallel.py`` and ``parallel/tensor_parallel.py``'s
 boundaries over the ep and tp groups). Its
 gradient is a schedule, not autograd through the collectives:
-``value_and_grad_pipelined``, or ``PipelinedForward.backward``.
+``value_and_grad_pipelined``, or ``PipelinedForward.backward``; with
+``remat`` each layer is a checkpointed region of the stage's tape, rerun
+in that schedule.
+
+``loss_fn(..., layout)`` and ``forward(..., layout)`` are the JAX
+package's ``loss_fn(..., mesh)`` and ``forward(..., mesh)``: on a rank
+layout of more than one rank they run ``forward_pipelined`` (at one
+microbatch unless ``pipelined``), and inside a train step that asks for
+the gradient (``pipeline.scheduled_gradients``) ``loss_fn`` computes it by
+``value_and_grad_pipelined`` and hands it over; on a mesh of one rank
+they are the one-device functions.
 """
 from __future__ import annotations
 
@@ -37,8 +49,10 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch._private.tree import tree_leaves, tree_map, tree_unflatten
 from ray_tpu_torch.models import layers as L
+from ray_tpu_torch.parallel import pipeline
 from ray_tpu_torch.parallel import sharding as sh
 from ray_tpu_torch.parallel import tensor_parallel
+from ray_tpu_torch.parallel.mesh import rank_layout
 from ray_tpu_torch.parallel.pipeline import (StageTape, gpipe_local,
                                              microbatch, stack_stage_params,
                                              unmicrobatch)
@@ -59,7 +73,7 @@ class GPT2Config:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
-    attention: str = "auto"  # auto | flash | reference
+    attention: str = "auto"  # auto | flash | reference | ring
     aux_loss_weight: float = 0.01
 
     @property
@@ -236,9 +250,20 @@ def unembed(params, x, cfg: GPT2Config, *, tp_group=None, tape=None):
     return logits.view(B, S, -1)
 
 
-def forward(params, tokens, cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, tokens, cfg: GPT2Config, layout=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V] f32, the MoE aux loss summed over
-    the layers over n_layer: an f32 scalar, 0 without MoE)."""
+    the layers over n_layer: an f32 scalar, 0 without MoE).
+
+    On a rank ``layout`` of several ranks (the JAX package's ``forward(...,
+    mesh)``), at pp 1, values only: ``tokens`` are the rows of the rank's
+    dp replica and ``params`` its tree (``train_step.make_train_state``
+    with the layout); the logits of the replica's rows, put back together
+    over sp and tp, come back on every rank of the replica, with the
+    replica's aux loss. Its gradient is ``value_and_grad_pipelined``'s."""
+    layout = rank_layout(layout)[0]
+    if layout is not None:
+        return _forward_on_layout(params, tokens, cfg, layout)
     impl = _resolve_attention(cfg, tokens.device)
     x = embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -259,6 +284,23 @@ def forward(params, tokens, cfg: GPT2Config) -> Tuple[torch.Tensor, torch.Tensor
     return logits, aux / cfg.n_layer
 
 
+def _forward_on_layout(params, tokens, cfg: GPT2Config, layout):
+    if layout.pp > 1:
+        raise ValueError("forward(..., layout) runs at pp 1; at pp > 1 the "
+                         "logits are the last stage's: forward_pipelined")
+    with torch.no_grad():
+        fwd = forward_pipelined(params, tokens, cfg, layout,
+                                n_microbatches=1)
+        logits = fwd.logits
+        for axis, dim in (("tp", -1), ("sp", 1)):
+            if getattr(layout, axis) > 1:
+                parts = col.allgather(logits, getattr(layout,
+                                                      f"{axis}_group"))
+                logits = torch.cat([t.to(logits.device) for t in parts],
+                                   dim=dim)
+    return logits, fwd.aux
+
+
 def _token_losses(logits, targets):
     """-log p(target) = logsumexp(logits) - logits[target], without
     materializing log_softmax."""
@@ -274,19 +316,34 @@ def _metrics(loss, aux, cfg: GPT2Config):
 
 def loss_fn(params, batch, cfg: GPT2Config, layout=None, *,
             pipelined: bool = False, n_microbatches: int = 4):
-    """batch: {"tokens" [B, S+1] integer}. Next-token cross-entropy.
+    """batch: {"tokens" [B, S+1] integer}. Next-token cross-entropy, plus
+    the MoE aux loss weighted by ``aux_loss_weight``.
 
-    ``pipelined``: the loss of ``forward_pipelined`` on ``layout``, every
-    rank of a ``dp`` replica given the replica's rows (the whole batch at
-    dp 1) and returning the same values. It runs
-    without gradients; the pipelined gradient is
-    ``value_and_grad_pipelined``'s, a schedule rather than autograd."""
+    On a rank ``layout`` of several ranks (the JAX package's
+    ``loss_fn(..., mesh)``), the loss of ``forward_pipelined``, in
+    ``n_microbatches`` microbatches when ``pipelined``, else in one:
+    every rank of a ``dp`` replica is given the replica's rows (the whole
+    batch at dp 1; the train step cuts them by its ``batch_spec``) and
+    returns the replica's values, whose mean over dp is the whole
+    batch's. Inside a train step that asks for the gradient
+    (``pipeline.scheduled_gradients``) it computes it by
+    ``value_and_grad_pipelined``, a schedule rather than autograd, and
+    hands it over with the parameters; elsewhere it runs without
+    gradients. On a mesh or a layout of one rank it is the one-device
+    loss."""
     tokens = batch["tokens"][:, :-1]
     targets = batch["tokens"][:, 1:]
-    if pipelined:
+    layout = rank_layout(layout)[0]
+    if layout is not None:
+        m = n_microbatches if pipelined else 1
+        if pipeline.gradients_requested():
+            (total, metrics), grads = value_and_grad_pipelined(
+                params, batch, cfg, layout, n_microbatches=m)
+            pipeline.hand_over_gradients(params, grads, total)
+            return total, metrics
         with torch.no_grad():
             fwd = forward_pipelined(params, tokens, cfg, layout,
-                                    n_microbatches=n_microbatches)
+                                    n_microbatches=m)
             loss = _pipelined_loss(fwd, targets, layout)[0]
         return _metrics(loss, fwd.aux, cfg)
     logits, aux = forward(params, tokens, cfg)
@@ -331,8 +388,10 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
     Embed runs on stage 0 (``wpe`` at the shard's global positions), the
     blocks as GPipe over ``n_microbatches`` and the ``pp`` group, and the
     unembed on the last stage. Attention in the stages is
-    ``"ring_local"`` at sp > 1, else ``_resolve_attention``'s (flash on a
-    CUDA device), on the rank's heads.
+    ``"ring_local"`` at sp > 1 (each rank holds its shard of the
+    sequence, whatever ``cfg.attention`` names), else
+    ``_resolve_attention``'s (flash on a CUDA device), on the rank's
+    heads.
 
     With MoE (pp 1 only) the whole replica is one microbatch, as the
     router counts its slots, capacity and top-1 fractions over the whole
@@ -343,11 +402,17 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
     weighs it. A dense model at ep > 1 runs as at ep 1 on every ep rank,
     as no leaf rides ep.
 
+    With ``cfg.remat`` each layer is a checkpointed region of its stage's
+    tape (``StageTape.checkpoint``, the twin of the JAX package's
+    ``jax.checkpoint`` around the layer body): the stage keeps each
+    layer's input and what its boundaries saved (the ring's q, k, v, o and
+    lse; the tp and ep sums' outputs; the router's slot counts, which the
+    recompute reuses rather than count again), and its backward reruns
+    the layer's forward just before it differentiates it, on the rank's
+    thread. The MoE aux loss leaves the region as an output.
+
     Refuses what the JAX twin refuses (``n_layer`` not divisible by pp,
-    MoE at pp > 1), MoE over more than one microbatch, and ``remat`` at
-    sp > 1, at tp > 1 or with MoE, whose recompute would run the ring,
-    the tp sums or the MoE's sums inside autograd's backward and drop the
-    aux loss's term."""
+    MoE at pp > 1) and MoE over more than one microbatch."""
     n_pp = layout.pp
     if cfg.n_layer % n_pp:
         raise ValueError(f"n_layer={cfg.n_layer} not divisible by pp={n_pp}")
@@ -367,12 +432,6 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
     tp_group = layout.tp_group if layout.tp > 1 else None
     dp_group = layout.dp_group if layout.dp > 1 else None
     ep_group = layout.ep_group if layout.ep > 1 else None
-    if cfg.remat and (impl == "ring_local" or tp_group is not None
-                      or cfg.moe is not None):
-        raise NotImplementedError(
-            "remat with sp > 1, tp > 1 or MoE would recompute the ring, the "
-            "tp sums or the MoE layer's sums inside autograd's backward; "
-            "pass remat=False")
     per_stage = cfg.n_layer // n_pp
     lead = params["blocks"]["ln1"]["scale"].shape[0]
     if lead != per_stage:
@@ -394,15 +453,19 @@ def forward_pipelined(params, tokens, cfg: GPT2Config, layout, *,
     def stage_fn(stage_layers, x, tape):
         for key in sorted(stage_layers):
             x = tape.cut(x)
+            block = stage_layers[key]
+
+            def layer(t, x, block=block):
+                y, aux = _block_apply(block, x, cfg, impl, layout.sp_group,
+                                      tp_group, t, dp_group, ep_group)
+                return (y,) if aux is None else (y, aux)
+
             if cfg.remat:
-                x, _ = checkpoint(_block_apply, stage_layers[key], x, cfg,
-                                  impl, use_reentrant=False)
+                out = tape.checkpoint(layer, (x,), tree_leaves(block))
             else:
-                x, aux = _block_apply(stage_layers[key], x, cfg, impl,
-                                      layout.sp_group, tp_group, tape,
-                                      dp_group, ep_group)
-                if aux is not None:
-                    auxes.append(aux)
+                out = layer(tape, x)
+            x = out[0]
+            auxes.extend(out[1:])
         if auxes:
             tape.add_term(sum(auxes) * (cfg.aux_loss_weight / cfg.n_layer))
         return x
@@ -497,7 +560,7 @@ def value_and_grad_pipelined(params, batch, cfg: GPT2Config, layout, *,
     ``layout`` for ``batch``, the rows of its ``dp`` replica; the values
     the same on every rank of the replica and ``grads`` a tree like this
     rank's ``params`` (``PipelinedForward.backward``). Averaging over
-    ``dp`` is ``train_step.pipelined_grads``'s."""
+    ``dp`` is ``train_step.layout_grads``'s."""
     tokens = batch["tokens"][:, :-1]
     targets = batch["tokens"][:, 1:]
     fwd = forward_pipelined(params, tokens, cfg, layout,

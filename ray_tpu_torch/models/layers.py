@@ -10,7 +10,8 @@ dp, ep, sp and tp groups it routes the whole batch and runs the rank's
 block of the experts and of their hidden (``parallel/expert_parallel.py``,
 and the boundaries of ``parallel/tensor_parallel.py`` over ep and tp). ``apply_attention``'s
 ``"ring_local"`` runs the per-shard ring over a rank's ``sp`` group
-inside a pipeline stage.
+inside a pipeline stage, and its ``"ring"`` the ring over global arrays
+(plain attention at sp 1).
 Given a ``tp_group``, attention and the MLP run on a rank's block of the
 heads or of the hidden (``parallel/tensor_parallel.py``): the input is
 copied to the group, the output projection's f32 partials are summed
@@ -28,6 +29,7 @@ from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.parallel import expert_parallel as ep_
 from ray_tpu_torch.parallel.ring_attention import (reference_attention,
+                                                   ring_attention,
                                                    ring_attention_stage)
 from ray_tpu_torch.parallel.tensor_parallel import (copy_to_group,
                                                      reduce_over_group)
@@ -144,10 +146,16 @@ def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
                     compute_dtype=torch.bfloat16, sp_group: str = None,
                     tp_group: str = None, tape=None) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]. impl: "reference" (plain PyTorch),
-    "flash" (the Hopper kernels on CUDA tensors) or "ring_local" (x is
+    "flash" (the Hopper kernels on CUDA tensors), "ring_local" (x is
     this rank's shard of the sequence and attention runs around the ring
     of ``sp_group``; with gradients, only inside a pipeline stage, on its
-    ``tape``: see ``parallel.ring_attention.ring_attention_stage``). The
+    ``tape``: see ``parallel.ring_attention.ring_attention_stage``) or
+    "ring" (x is the whole sequence, as the JAX package's "ring" takes
+    global arrays: over an ``sp_group`` of more than one rank each rank
+    runs its shard around the ring and the shards' outputs are gathered,
+    without gradients, since a stage runs "ring_local" on its tape for
+    them; at sp 1, or without a group, the one shard's attention, which
+    is plain attention, "reference"'s). The
     q/k/v/o projections are plain matmuls in the compute dtype. With
     ``tp_group`` the leaves hold this rank's block of the heads, and x
     enters and the output leaves through the group's boundaries on
@@ -172,9 +180,19 @@ def apply_attention(params: Params, x: torch.Tensor, *, causal: bool = True,
     elif impl == "ring_local":
         o = ring_attention_stage(q, k, v, group=sp_group, tape=tape,
                                  causal=causal)
+    elif impl == "ring":
+        if ep_.group_place(sp_group)[0] == 1:
+            o = reference_attention(q, k, v, causal=causal)
+        elif torch.is_grad_enabled() and q.requires_grad:
+            raise ValueError(
+                "ring attention over global arrays runs without gradients; "
+                "with them a stage runs 'ring_local' on its shard and tape "
+                "(gpt2.forward_pipelined)")
+        else:
+            o = ring_attention(q, k, v, group=sp_group, causal=causal)
     else:
         raise ValueError(f"attention impl {impl!r} is not ported; use "
-                         f"'flash', 'reference' or 'ring_local'")
+                         f"'flash', 'reference', 'ring' or 'ring_local'")
     o = o.to(cd).reshape(B, S, H * K)
     wo = params["wo"].to(cd).reshape(H * K, D)
     if tp_group is None:
@@ -323,10 +341,11 @@ def router_probs(wg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _route(probs: torch.Tensor, cfg: MoEConfig, dp_group=None,
-           sp_group=None):
+           sp_group=None, tape=None):
     """(gates, experts, slots, the top-1 fractions ``ce`` [E]) from
     ``probs``; at dp > 1 or sp > 1 the slots and ``ce`` are the whole
-    batch's (``route_tokens``)."""
+    batch's (``route_tokens``), counted once on ``tape``
+    (``StageTape.once``: a remat's recompute reuses the counts)."""
     B, S, E = probs.shape
     K = cfg.top_k
     gates, experts = torch.topk(probs, K, dim=-1)
@@ -345,9 +364,10 @@ def _route(probs: torch.Tensor, cfg: MoEConfig, dp_group=None,
         # the whole stream: the rows before it on every replica and shard,
         # and its own pairs on the shards before this one
         pos = onehot.view(E, B, S * K).cumsum(dim=2) - 1
-        before, top1 = ep_.route_counts(pos[:, :, -1].t() + 1,
-                                        top1.sum(dim=(0, 1)), dp_group,
-                                        sp_group)
+        args = (pos[:, :, -1].t() + 1, top1.sum(dim=(0, 1)), dp_group,
+                sp_group)
+        before, top1 = (ep_.route_counts(*args) if tape is None
+                        else tape.once(ep_.route_counts, *args))
         pos = (pos + before.t().unsqueeze(-1)).view(E, B * S * K)
         ce = top1.float() / (n_dp * B * n_sp * S)
     slots = pos.gather(0, experts.reshape(1, -1)).view(B, S, K)
@@ -445,7 +465,7 @@ def apply_moe(params: Params, x: torch.Tensor, cfg: MoEConfig,
     probs = router_probs(params["wg"], x)
     if tape is not None:
         probs = tape.cut(probs)
-    gates, experts, slots, ce = _route(probs, cfg, dp_group, sp_group)
+    gates, experts, slots, ce = _route(probs, cfg, dp_group, sp_group, tape)
 
     # Switch load balancing: mean router prob per expert times the
     # fraction of tokens whose top-1 expert it is

@@ -1,12 +1,18 @@
-"""Per-rank layout of the data (``dp``), pipeline (``pp``), expert
-(``ep``), sequence (``sp``) and tensor (``tp``) axes. The twin of
-``ray_tpu/parallel/mesh.py``'s ``MeshConfig``, ``AXIS_ORDER``,
-``balanced_factorization``, ``mesh_shape_summary`` and
-``validate_mesh_for_model``.
+"""The mesh of the data (``dp``), pipeline (``pp``), expert (``ep``),
+sequence (``sp``) and tensor (``tp``) axes, and each rank's layout on
+it. The twin of ``ray_tpu/parallel/mesh.py``: ``MeshConfig``,
+``AXIS_ORDER``, ``create_mesh``, ``single_device_mesh``,
+``balanced_factorization``, ``mesh_shape_summary``,
+``validate_mesh_for_model``, ``group_devices_by_slice`` and
+``create_hybrid_mesh``. ``timed_mesh_build`` is the JAX package's
+compile telemetry and is left out: building a ``Mesh`` here compiles
+nothing.
 
 The JAX package builds one ``Mesh`` over every device and lets a
-``shard_map`` name its axes. The port runs each rank as a thread or a
-process of its own, so a rank gets its coordinates on the mesh and one
+``shard_map`` name its axes. The port's ``Mesh`` is the same array of
+devices in ``AXIS_ORDER``'s shape, but the port runs each rank as a
+thread or a process of its own: rank r, at flat index r of the array,
+joins the mesh (``Mesh.join``) and gets its coordinates on it and one
 gloo group per axis: the ranks that differ from it in that axis's
 coordinate alone. The groups are built here, over one
 ``torch.distributed.Store`` that every rank shares, each under a store
@@ -22,10 +28,13 @@ the device list: rank = (((dp_rank * pp + pp_rank) * ep + ep_rank) * sp
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.util import collective as col
@@ -106,22 +115,23 @@ def balanced_factorization(n: int, axes: Sequence[str]) -> Dict[str, int]:
 
 
 def _shape(mesh) -> Dict[str, int]:
-    """The axis sizes of a ``MeshConfig`` or a ``RankLayout``."""
+    """The axis sizes of a ``Mesh``, a ``MeshConfig`` or a
+    ``RankLayout``."""
     config = getattr(mesh, "config", mesh)
     return config.axis_sizes()
 
 
 def mesh_shape_summary(mesh) -> str:
-    """``dp=2xpp=2x...`` over every axis of a ``MeshConfig`` or a
-    ``RankLayout``, as the JAX package prints a ``Mesh``'s shape."""
+    """``dp=2xpp=2x...`` over every axis of a ``Mesh``, a ``MeshConfig``
+    or a ``RankLayout``, as the JAX package prints a ``Mesh``'s shape."""
     return "x".join(f"{k}={v}" for k, v in _shape(mesh).items())
 
 
 def validate_mesh_for_model(mesh, *, n_heads: int,
                             n_layers: int) -> List[str]:
     """The problems of running a model of ``n_heads`` heads and
-    ``n_layers`` layers on a ``MeshConfig`` or ``RankLayout``, as
-    readable lines; none when it fits."""
+    ``n_layers`` layers on a ``Mesh``, a ``MeshConfig`` or a
+    ``RankLayout``, as readable lines; none when it fits."""
     problems = []
     shape = _shape(mesh)
     if n_heads % shape["tp"] != 0:
@@ -132,12 +142,163 @@ def validate_mesh_for_model(mesh, *, n_heads: int,
     return problems
 
 
+class Mesh:
+    """The twin of ``jax.sharding.Mesh`` over ``AXIS_ORDER``: ``devices``,
+    an object array of ``torch.device`` in the axes' shape (slowest axis
+    first), and the resolved ``config``. Rank r is the device at flat
+    index r, at ``coordinates(config, r)``. Rank threads that share one
+    card name it once each (``devices=[cuda:0] * 4``)."""
+
+    axis_names = AXIS_ORDER
+
+    def __init__(self, devices: np.ndarray, config: MeshConfig):
+        sizes = config.axis_sizes()
+        if devices.shape != tuple(sizes[a] for a in AXIS_ORDER):
+            raise ValueError(f"devices of shape {devices.shape} for a mesh "
+                             f"of {sizes}")
+        self.devices = devices
+        self.config = config
+
+    @property
+    def shape(self) -> "collections.OrderedDict[str, int]":
+        """Every axis's size, in ``AXIS_ORDER``, as ``Mesh.shape``."""
+        return collections.OrderedDict(self.config.axis_sizes())
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def device(self, rank: int) -> torch.device:
+        """Rank ``rank``'s device."""
+        return self.devices.flat[rank]
+
+    def join(self, rank: int, *, store=None, name: str = "mesh",
+             timeout_s: float = DEFAULT_TIMEOUT_S) -> "RankLayout":
+        """Rank ``rank``'s layout on this mesh, its groups joined over
+        ``store`` (``init_rank_layout``), carrying the mesh and the
+        rank's device. Every rank of the mesh calls it, each with the
+        same ``store``; a mesh of one rank needs none."""
+        if store is None:
+            if self.size > 1:
+                raise ValueError(f"a mesh of {self.size} ranks joins over "
+                                 f"a store that every rank shares")
+            store = dist.HashStore()
+        layout = init_rank_layout(self.config, rank, store=store, name=name,
+                                  timeout_s=timeout_s)
+        return dataclasses.replace(layout, mesh=self,
+                                   device=self.device(rank))
+
+    def __repr__(self) -> str:
+        return (f"Mesh({mesh_shape_summary(self)}, devices="
+                f"{[str(d) for d in self.devices.flat]})")
+
+
+def _all_devices() -> List[torch.device]:
+    """Every CUDA device; raises without one, as the entry points do."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ray_tpu_torch builds its meshes over the CUDA devices and none "
+            "is available; pass devices=, e.g. [torch.device('cpu')] * n")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _device_array(devices: Sequence, shape) -> np.ndarray:
+    out = np.empty(len(devices), dtype=object)
+    for i, d in enumerate(devices):
+        out[i] = torch.device(d)
+    return out.reshape(shape)
+
+
+def create_mesh(config: Optional[MeshConfig] = None, *,
+                devices: Optional[Sequence] = None,
+                axes: Optional[Dict[str, int]] = None) -> Mesh:
+    """A ``Mesh`` over ``devices`` (every CUDA device by default), its
+    config resolved to their count (``axes`` stands for the config, all
+    on ``dp`` by default), the device list reshaped to the axes' sizes
+    in ``AXIS_ORDER``, as the JAX package lays out CPU devices. There is
+    no interconnect topology to map the axes onto on a card, so the
+    reshape is the layout."""
+    if config is None:
+        config = MeshConfig(**(axes or {"dp": -1}))
+    devices = list(devices if devices is not None else _all_devices())
+    config = config.resolved(len(devices))
+    sizes = config.axis_sizes()
+    return Mesh(_device_array(devices, tuple(sizes[a] for a in AXIS_ORDER)),
+                config)
+
+
+def single_device_mesh(device=None) -> Mesh:
+    """A mesh of one rank on ``device`` (the first CUDA device by
+    default)."""
+    device = device if device is not None else _all_devices()[0]
+    return create_mesh(MeshConfig(), devices=[device])
+
+
+def group_devices_by_slice(devices: Sequence) -> Dict[int, list]:
+    """Devices grouped by their slice (``slice_index``): a
+    ``torch.device`` has none, so every one lands in slice 0, as the JAX
+    twin puts CPU devices."""
+    groups: Dict[int, list] = {}
+    for d in devices:
+        groups.setdefault(getattr(d, "slice_index", 0), []).append(d)
+    return groups
+
+
+def create_hybrid_mesh(config: Optional[MeshConfig] = None, *,
+                       dcn_dp: int = -1, devices: Optional[Sequence] = None,
+                       axes: Optional[Dict[str, int]] = None,
+                       slice_assignments: Optional[Sequence[int]] = None
+                       ) -> Mesh:
+    """Multi-slice mesh: ``dp`` spans the slices, every other axis stays
+    inside a slice. ``config``/``axes`` describe the within-slice
+    sharding (all on ``tp`` by default), ``dcn_dp`` the between-slice dp
+    degree (-1: one dp shard a slice); the mesh's dp is ``dcn_dp *
+    config.dp``. ``slice_assignments`` forces a slice id a device.
+
+    The JAX twin's checks and messages, and its slice-major layout: the
+    devices in slice order, so that dp's index is the slice for the
+    between-slice part. The card has no topology to query, so that
+    order is the layout."""
+    devices = list(devices if devices is not None else _all_devices())
+    if slice_assignments is not None:
+        if len(slice_assignments) != len(devices):
+            raise ValueError(
+                f"slice_assignments has {len(slice_assignments)} entries "
+                f"for {len(devices)} devices")
+        groups: Dict[int, list] = {}
+        for d, s in zip(devices, slice_assignments):
+            groups.setdefault(s, []).append(d)
+    else:
+        groups = group_devices_by_slice(devices)
+    n_slices = len(groups)
+    if dcn_dp == -1:
+        dcn_dp = n_slices
+    if dcn_dp != n_slices:
+        raise ValueError(
+            f"dcn_dp={dcn_dp} but {n_slices} slices present (one dp shard "
+            f"per slice is the supported DCN layout)")
+    sizes = sorted(len(g) for g in groups.values())
+    if sizes[0] != sizes[-1]:
+        raise ValueError(f"uneven slices: {sizes}")
+    if config is None:
+        config = MeshConfig(**(axes or {"tp": -1}))
+    config = config.resolved(sizes[0])
+    ordered: list = []
+    for s in sorted(groups):
+        ordered.extend(groups[s])
+    mesh_sizes = dict(config.axis_sizes(), dp=dcn_dp * config.dp)
+    return Mesh(_device_array(ordered, tuple(mesh_sizes[a]
+                                             for a in AXIS_ORDER)),
+                MeshConfig(**mesh_sizes))
+
+
 @dataclasses.dataclass(frozen=True)
 class RankLayout:
     """One rank's place on the mesh and the names of its axis groups: its
     coordinate on each axis (``dp_rank``, ``pp_rank``, ``ep_rank``,
     ``sp_rank``, ``tp_rank``) and the group of the ranks that differ from
-    it on that axis alone."""
+    it on that axis alone; joined from a ``Mesh``, the mesh and the
+    rank's device."""
 
     config: MeshConfig
     rank: int
@@ -153,6 +314,12 @@ class RankLayout:
     tp_group: Optional[str] = None
     ep_rank: int = 0
     ep_group: Optional[str] = None
+    mesh: Optional[Mesh] = None
+    device: Optional[torch.device] = None
+
+    @property
+    def world_size(self) -> int:
+        return self.config.world_size
 
     @property
     def dp(self) -> int:
@@ -181,6 +348,25 @@ class RankLayout:
     @property
     def is_last_stage(self) -> bool:
         return self.pp_rank == self.config.pp - 1
+
+
+def rank_layout(mesh):
+    """(the rank layout a function of the port runs on for its ``mesh``
+    argument, the device that argument names): (None, None) for no mesh;
+    for a ``Mesh`` or a ``RankLayout`` of one rank, no layout (the
+    one-device path: there is no collective to schedule) and its device;
+    for a ``RankLayout`` of several ranks, itself and its device. A
+    ``Mesh`` of several ranks is refused: each rank passes its own layout
+    (``Mesh.join``)."""
+    if mesh is None:
+        return None, None
+    if isinstance(mesh, Mesh):
+        if mesh.size > 1:
+            raise TypeError(
+                f"a mesh of {mesh.size} ranks: pass this rank's layout, "
+                f"mesh.join(rank, store=...)")
+        return None, mesh.device(0)
+    return (mesh if mesh.world_size > 1 else None), mesh.device
 
 
 def coordinates(config: MeshConfig, rank: int):

@@ -26,6 +26,8 @@ exactly there.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, List, Optional
 
 import torch
@@ -50,20 +52,51 @@ class StageTape:
     to what the stage differentiates (an MoE layer's aux loss, which
     leaves the stage beside its output).
 
+    ``checkpoint`` is remat on the tape, the twin of ``jax.checkpoint``: a
+    region (a layer) runs without autograd, its boundaries' outputs and
+    what they save and the results of its forward-only computations
+    (``once``) recorded; the tape keeps only that record and the region's
+    inputs and outputs. When ``backward`` reaches the region it reruns the
+    region's forward with autograd on a tape that replays the record, so
+    that no boundary's forward and no ``once`` runs again (a collective
+    among them would run a second time, in an order the peers do not
+    share), then differentiates the region's segments as above. The
+    recompute runs on the rank's thread in the tape's schedule, never
+    inside autograd's backward.
+
     Under ``torch.no_grad`` nothing is recorded."""
 
     def __init__(self):
         # each: (inputs attached to the graph, output leaves, backward)
         self._cuts: List[tuple] = []
         self._terms: List[torch.Tensor] = []
+        # a checkpointed region's forward appends to _record; its
+        # recompute reads the same entries back from _replay
+        self._record: Optional[list] = None
+        self._replay = None
+
+    def _replayed(self, kind: str):
+        entry = next(self._replay, None)
+        if entry is None or entry[0] != kind:
+            raise RuntimeError("a checkpointed region's recompute diverged "
+                               "from its forward: the region must take the "
+                               "same boundaries and once calls in the same "
+                               "order")
+        return entry[1:]
 
     def boundary(self, inputs, forward: Callable, backward: Callable):
         """``forward(*inputs detached) -> (outputs, saved)``, run outside
         autograd; returns the outputs as leaves that require grad.
         ``backward(saved, output grads) -> input grads`` runs when the
         tape's backward reaches this point (a grad of None is zero)."""
-        with torch.no_grad():
-            outputs, saved = forward(*[x.detach() for x in inputs])
+        if self._replay is not None:
+            outputs, saved = self._replayed("boundary")
+        else:
+            with torch.no_grad():
+                outputs, saved = forward(*[x.detach() for x in inputs])
+            if self._record is not None:
+                self._record.append(("boundary", outputs, saved))
+                return outputs
         if not torch.is_grad_enabled():
             return outputs
         leaves = tuple(o.detach().requires_grad_(True) for o in outputs)
@@ -73,26 +106,83 @@ class StageTape:
 
     def cut(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as a leaf: the segments before and after it are
-        differentiated apart. A leaf already is one."""
-        if not (torch.is_grad_enabled() and x.requires_grad
-                and x.grad_fn is not None):
+        differentiated apart. A leaf already is one (but in a checkpointed
+        region, whose record and recompute must meet the same cuts)."""
+        if (self._record is None and self._replay is None
+                and not (torch.is_grad_enabled() and x.requires_grad
+                         and x.grad_fn is not None)):
             return x
         (leaf,) = self.boundary((x,), lambda t: ((t,), None),
                                 lambda _, grads: grads)
         return leaf
 
+    def once(self, fn: Callable, *args):
+        """``fn(*args)``, a computation outside autograd (a forward-only
+        collective, such as the MoE router's slot counts), run once: in a
+        checkpointed region its result is recorded, and the recompute
+        takes it from the record instead of calling ``fn`` again."""
+        if self._replay is not None:
+            return self._replayed("once")[0]
+        out = fn(*args)
+        if self._record is not None:
+            self._record.append(("once", out))
+        return out
+
+    def checkpoint(self, fn: Callable, inputs, params):
+        """``fn(tape, *inputs) -> tuple of tensors``, a region of the
+        stage whose autograd state is not kept: its outputs come back as
+        leaves, and ``backward`` recomputes the region just before it
+        differentiates it (see the class). ``params`` are the leaves
+        ``fn`` reads besides ``inputs`` (a layer's weights), whose
+        gradients the region's backward returns. Without gradients
+        ``fn`` runs on this tape as it is."""
+        if self._record is not None or self._replay is not None:
+            raise RuntimeError("checkpointed regions do not nest")
+        if not torch.is_grad_enabled():
+            return tuple(fn(self, *inputs))
+        n = len(inputs)
+        params = tuple(params)
+
+        def forward(*args):
+            tape = StageTape()
+            tape._record = []
+            return tuple(fn(tape, *args[:n])), tape._record
+
+        def backward(record, grads):
+            tape = StageTape()
+            tape._replay = iter(record)
+            xs = [x.detach().requires_grad_(x.requires_grad)
+                  for x in inputs]
+            with torch.enable_grad():
+                outputs = tuple(fn(tape, *xs))
+            if next(tape._replay, None) is not None:
+                raise RuntimeError("a checkpointed region's recompute "
+                                   "stopped short of its forward's record")
+            tape._replay = None
+            dxs, dparams = tape.backward(outputs, grads, xs, params)
+            return (*dxs, *dparams)
+
+        return self.boundary((*inputs, *params), forward, backward)
+
     def add_term(self, term: torch.Tensor) -> None:
         """``backward`` differentiates ``term``, a scalar of this stage's
         graph, with a cotangent of 1 beside the output, as if it were added
-        to the stage's objective. Nothing is recorded under no_grad."""
+        to the stage's objective. Nothing is recorded under no_grad; a
+        checkpointed region returns its terms as outputs instead."""
+        if self._record is not None or self._replay is not None:
+            raise RuntimeError("a checkpointed region returns its terms "
+                               "among its outputs")
         if torch.is_grad_enabled() and term.requires_grad:
             self._terms.append(term)
 
     def backward(self, output, grad_output, inputs, params):
-        """Gradients of ``output`` (given ``grad_output``), plus those of
-        the terms (``add_term``), with respect to ``inputs`` and ``params``
+        """Gradients of ``output`` (given ``grad_output``; or of a tuple of
+        outputs, given a tuple of grads, None for zero), plus those of the
+        terms (``add_term``), with respect to ``inputs`` and ``params``
         (lists of tensors): (input grads, param grads), None where no path
         reaches."""
+        if isinstance(output, torch.Tensor):
+            output, grad_output = (output,), (grad_output,)
         slots = list(inputs) + [leaf for _, leaves, _ in self._cuts
                                 for leaf in leaves]
         n_in = len(inputs)
@@ -121,8 +211,8 @@ class StageTape:
                     param_grads[i] = (g if param_grads[i] is None
                                       else param_grads[i] + g)
 
-        segment((output, *self._terms),
-                (grad_output, *[torch.ones_like(t) for t in self._terms]),
+        segment((*output, *self._terms),
+                (*grad_output, *[torch.ones_like(t) for t in self._terms]),
                 len(slots))
         for c in reversed(range(len(self._cuts))):
             cut_inputs, leaves, cut_backward = self._cuts[c]
@@ -135,6 +225,51 @@ class StageTape:
         self._cuts.clear()
         self._terms.clear()
         return grads[:n_in], param_grads
+
+
+class ScheduledGradients:
+    """What a loss function whose gradient is a schedule hands the train
+    step that asked for it (``scheduled_gradients``): the parameters it
+    was given, their gradients (a tree like them) and the loss they are
+    the gradients of, the object the loss function returned."""
+
+    def __init__(self):
+        self.params = None
+        self.grads = None
+        self.total = None
+
+
+_SCHEDULE = threading.local()
+
+
+@contextlib.contextmanager
+def scheduled_gradients():
+    """Asks, on this thread, for the gradient of the loss computed inside:
+    a loss function that differentiates by a schedule (``gpt2.loss_fn``
+    on a rank layout) computes its gradient with its value and hands both
+    over (``hand_over_gradients``) to the yielded ``ScheduledGradients``.
+    A loss function that hands nothing over leaves it empty."""
+    box, saved = ScheduledGradients(), getattr(_SCHEDULE, "box", None)
+    _SCHEDULE.box = box
+    try:
+        yield box
+    finally:
+        _SCHEDULE.box = saved
+
+
+def gradients_requested() -> bool:
+    """Whether a ``scheduled_gradients`` is open on this thread."""
+    return getattr(_SCHEDULE, "box", None) is not None
+
+
+def hand_over_gradients(params, grads, total) -> None:
+    """Hands ``params``' ``grads``, the gradients of the loss ``total``, to
+    the open ``scheduled_gradients``, once."""
+    box = _SCHEDULE.box
+    if box.grads is not None:
+        raise RuntimeError("a loss function handed its gradients over "
+                           "twice in one step")
+    box.params, box.grads, box.total = params, grads, total
 
 
 class GPipeRun:

@@ -296,17 +296,29 @@ def test_no_collective_runs_inside_autograd_backward(setup, monkeypatch):
 
 
 def test_remat_with_sp_is_refused(setup):
-    """remat would recompute the ring inside autograd's backward."""
+    """remat at sp 2 is no longer refused: each layer is a checkpointed
+    region of the stage's tape, whose recompute replays the ring's
+    forward rather than run it again, and whose backward runs the ring's
+    between autograd calls. Its metrics and every rank's grads are the
+    same bits as remat off, in f32 on the CPU."""
     params, tokens = setup
-    tcfg = dataclasses.replace(_cfgs("float32")[1], remat=True)
+    _, tcfg = _cfgs("float32")
 
     def rank(lay):
-        with pytest.raises(NotImplementedError, match="remat"):
-            TG.forward_pipelined(_rank_params(params, lay),
-                                 torch.from_numpy(tokens[:, :-1]), tcfg, lay)
-        return True
+        out = []
+        for remat in (False, True):
+            cfg = dataclasses.replace(tcfg, remat=remat)
+            metrics, grads = TT.pipelined_grads(
+                _rank_params(params, lay), {"tokens": torch.from_numpy(
+                    tokens)}, cfg, lay, n_microbatches=M)
+            out.append(({k: float(v) for k, v in metrics.items()},
+                        tree_leaves(grads)))
+        return out
 
-    assert all(run_mesh(MeshConfig(sp=2), rank))
+    for (m_off, g_off), (m_on, g_on) in run_mesh(MeshConfig(sp=2), rank):
+        assert m_on == m_off
+        assert all(torch.equal(a, b) for a, b in zip(g_on, g_off,
+                                                     strict=True))
 
 
 def test_stage_params_round_trip(setup):

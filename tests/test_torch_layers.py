@@ -131,8 +131,13 @@ def test_attention_matches_jax(impl):
 
 
 def test_attention_refuses_unported_impl():
-    x = torch.zeros(1, 4, 8)
+    """An impl the port does not have is refused. "ring" is ported: at sp
+    1 (no group) it is the one shard's attention, "reference"'s."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 4, 8)).astype(np.float32))
     params = TL.init_attention(torch.Generator().manual_seed(0), 8, 2,
                                device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        TL.apply_attention(params, x, impl="ring")
+        TL.apply_attention(params, x, impl="splash")
+    assert torch.equal(TL.apply_attention(params, x, impl="ring"),
+                       TL.apply_attention(params, x, impl="reference"))

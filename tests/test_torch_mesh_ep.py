@@ -24,7 +24,7 @@ import torch
 from ray_tpu.models import layers as JL
 from ray_tpu.parallel.mesh import MeshConfig as JMeshConfig, create_mesh
 from ray_tpu_torch import convert
-from ray_tpu_torch._private.tree import tree_map
+from ray_tpu_torch._private.tree import tree_leaves, tree_map
 from ray_tpu_torch.models import gpt2 as TG
 from ray_tpu_torch.models import layers as TL
 from ray_tpu_torch.parallel import mesh as M
@@ -301,19 +301,42 @@ def _tiny_moe():
 
 @pytest.mark.parametrize("what", ["pp2", "microbatches", "remat"])
 def test_unported_moe_layouts_are_refused(what):
-    """MoE at pp 2 (the JAX twin's message), MoE over more than one
-    microbatch (the router counts the whole batch) and remat with MoE are
-    refused before any collective. MoE at tp 2 or sp 2, at ep 1 or 2,
+    """MoE at pp 2 (the JAX twin's message) and MoE over more than one
+    microbatch (the router counts the whole batch) are refused before any
+    collective. remat with MoE runs since the tape checkpoints each
+    layer: at dp 2 x ep 2 its recompute reuses the router's slot counts
+    rather than count again, and its metrics and grads are the same bits
+    as remat off in f32 on the CPU. MoE at tp 2 or sp 2, at ep 1 or 2,
     runs: tests/test_torch_mesh_moe_*.py hold it to the JAX package."""
     cfg = _tiny_moe()
-    sizes, m = {"pp2": (dict(pp=2), 4),
-                "microbatches": (dict(dp=2, ep=2), 2),
-                "remat": (dict(dp=2, ep=2), 1)}[what]
     if what == "remat":
-        cfg = dataclasses.replace(cfg, remat=True)
+        params = TG.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (8, 33)).astype(np.int32))
+
+        def rank(lay):
+            out = []
+            for remat in (False, True):
+                mine = tree_map(lambda t: t.requires_grad_(True),
+                                TS.tree_shard(params, lay,
+                                              TG.partition_specs(cfg)))
+                metrics, grads = TT.pipelined_grads(
+                    mine, {"tokens": tokens},
+                    dataclasses.replace(cfg, remat=remat), lay, 1)
+                out.append(({k: float(v) for k, v in metrics.items()},
+                            tree_leaves(grads)))
+            return out
+
+        for (m_off, g_off), (m_on, g_on) in run_mesh(MeshConfig(dp=2, ep=2),
+                                                     rank):
+            assert m_on == m_off
+            assert all(torch.equal(a, b) for a, b in zip(g_on, g_off,
+                                                         strict=True))
+        return
+    sizes, m = {"pp2": (dict(pp=2), 4),
+                "microbatches": (dict(dp=2, ep=2), 2)}[what]
     error, match = {"pp2": (NotImplementedError, "use pp=1 with MoE"),
-                    "microbatches": (ValueError, "n_microbatches=1"),
-                    "remat": (NotImplementedError, "remat")}[what]
+                    "microbatches": (ValueError, "n_microbatches=1")}[what]
     lay = _layout(MeshConfig(**sizes), 0)
     with pytest.raises(error, match=match):
         TG.forward_pipelined({}, torch.zeros(8, 16, dtype=torch.int32), cfg,

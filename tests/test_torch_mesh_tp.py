@@ -338,25 +338,33 @@ def test_a_dimension_tp_does_not_divide_is_refused(what):
 
 
 def test_remat_and_unsharded_params_at_tp_are_refused(setup):
-    """remat at tp 2 would recompute the tp sums inside autograd's
-    backward; a stage tree that holds the whole vocab at tp 2 was not cut
-    by tree_shard. Both are refused before any collective."""
+    """remat at tp 2 runs: each layer is a checkpointed region of the
+    stage's tape, whose recompute replays the tp sums' outputs rather
+    than sum again, its metrics and grads the same bits as remat off in
+    f32 on the CPU. A stage tree that holds the whole vocab at tp 2 was
+    not cut by tree_shard, and is still refused before any collective."""
     params, tokens = setup
     _, tcfg = _cfgs("float32")
     whole = convert.params_from_jax(params, "cpu")
+    batch = {"tokens": torch.from_numpy(tokens)}
 
     def rank(lay):
-        with pytest.raises(NotImplementedError, match="remat"):
-            TG.forward_pipelined(
-                _rank_params(params, lay, tcfg),
-                torch.from_numpy(tokens[:, :-1]),
-                dataclasses.replace(tcfg, remat=True), lay)
+        out = []
+        for remat in (False, True):
+            metrics, grads = TT.pipelined_grads(
+                _rank_params(params, lay, tcfg), batch,
+                dataclasses.replace(tcfg, remat=remat), lay, 1)
+            out.append(({k: float(v) for k, v in metrics.items()},
+                        tree_leaves(grads)))
         with pytest.raises(ValueError, match="tree_shard"):
             TG.forward_pipelined(whole, torch.from_numpy(tokens[:, :-1]),
                                  tcfg, lay)
-        return True
+        return out
 
-    assert all(run_mesh(MeshConfig(tp=2), rank))
+    for (m_off, g_off), (m_on, g_on) in run_mesh(MeshConfig(tp=2), rank):
+        assert m_on == m_off
+        assert all(torch.equal(a, b) for a, b in zip(g_on, g_off,
+                                                     strict=True))
 
 
 def test_moe_is_refused_by_the_pipelined_forward_at_tp(setup):

@@ -1,7 +1,8 @@
 """Runs a gang of the port as threads of the test process: a
 data-parallel gang (``run_gang``), each rank holding its own gloo group,
-named ``<name>_r<rank>``, or a ``pp`` x ``sp`` mesh (``run_mesh``), each
-rank holding its two axis groups (``parallel.mesh.init_rank_layout``).
+named ``<name>_r<rank>``, or a mesh (``run_mesh`` from a ``MeshConfig``,
+``run_on_mesh`` from a ``parallel.mesh.Mesh``), each rank holding its
+axis groups (``parallel.mesh.init_rank_layout``, ``Mesh.join``).
 The groups meet over one shared in-memory ``HashStore``: no process is
 started and no address is given. Every wait is bounded."""
 import threading
@@ -75,4 +76,23 @@ def run_mesh(config, fn, *, name="mesh", timeout_s=GROUP_TIMEOUT_S,
             mesh.destroy_rank_layout(layout)
 
     return _run_threads(config.world_size, body, name=name,
+                        join_timeout_s=join_timeout_s)
+
+
+def run_on_mesh(the_mesh, fn, *, name="mesh", timeout_s=GROUP_TIMEOUT_S,
+                join_timeout_s=90.0):
+    """``fn(layout)`` on one rank thread for each rank of ``the_mesh`` (a
+    ``parallel.mesh.Mesh``), each joined by ``Mesh.join``, in rank
+    order."""
+    store = dist.HashStore()
+
+    def body(rank):
+        layout = the_mesh.join(rank, store=store, name=name,
+                               timeout_s=timeout_s)
+        try:
+            return fn(layout)
+        finally:
+            mesh.destroy_rank_layout(layout)
+
+    return _run_threads(the_mesh.size, body, name=name,
                         join_timeout_s=join_timeout_s)
