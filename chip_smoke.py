@@ -73,8 +73,9 @@ Phases, each of which exits non-zero on failure:
    step, phase 3's profile;
 4. the data-parallel Train gang at world 2: two rank threads share the
    card, each GPT-2-small at full width on batch 8 (the main path's 16
-   between them) and each with its own gloo group over one in-memory
-   store. Bucketed DDP (``make_train_step(host_grad_sync=...)``, 4 MiB
+   between them) and each with its own device group
+   (``COLLECTIVE_BACKEND``: the ranks exchange through the card's memory)
+   over one in-memory store. Bucketed DDP (``make_train_step(host_grad_sync=...)``, 4 MiB
    buckets): the ranks' synced grads and params are bit-identical, the
    synced grads are bit-identical to the whole-tree sync of the kill
    switch, and the first step's loss, grad norm and attention leaves'
@@ -85,7 +86,10 @@ Phases, each of which exits non-zero on failure:
    Each run is timed (2 warm-up and 3 timed steps: step ms, host sync ms,
    ms blocked in the bucket waits; for ZeRO also the ms of a step spent
    packing grads and params, in the host Adam and in the gathers) and
-   its launch counts are set to 0 just before and read just after;
+   its launch counts are set to 0 just before and read just after. Both
+   runs are repeated with gloo groups, timed the same way, and (phase
+   8b) their synced grads and params must be the device backend's, bit
+   for bit;
 5. checkpoints: the same gang at world 2, brought up by
    ``TorchBackend.on_start`` over a loopback TCP store, takes ZeRO steps
    and saves sharded checkpoints asynchronously after steps 1 and 2
@@ -100,7 +104,7 @@ Phases, each of which exits non-zero on failure:
    ~3 GB directory (``CKPT_DIR``, under ``build/``) at the end;
 6. the pipeline: GPT-2-small at full width on phase 3's weights and
    batch (16, in 4 microbatches, bf16), its ranks threads of this process
-   with their ``pp`` and ``sp`` gloo groups (``parallel/mesh.py``), each
+   with their axis groups on the device backend (``parallel/mesh.py``), each
    on its own CUDA stream: 6a at pp 2 (two stages of 6 blocks, flash
    attention in the stages; 2 warm-up and 3 timed steps), 6b at pp 2 x
    sp 2 (four ranks of 512 tokens, ring attention; 1 warm-up and 2 timed
@@ -161,7 +165,26 @@ Phases, each of which exits non-zero on failure:
    the leaves its ranks hold whole (over pp those outside the blocks)
    end bit-equal across its groups. It prints the step ms, tokens/s and
    the card's peak memory beside the card, and for 7a the peak of one
-   step with remat off.
+   step with remat off;
+8. the collective backends (``util/collective``): (a) a device group of
+   2 and of 4 rank threads runs allreduce (sum, product, min, max),
+   reducescatter over an uneven dim 0, broadcast from every rank, a
+   sendrecv ring and allgather on CUDA tensors in f32, bf16 and int64,
+   every result on the card and held to the host's reduction in rank
+   order (bit for bit in int64, in min and max and at world 2; within
+   REASSOC_ULPS roundings otherwise), and a profile of a CUDA-input
+   allreduce and sendrecv, taken in a child process of this script
+   (``PROFILE_COLLECTIVES``), must show no copy between host and card; (b)
+   runs in phase 4; (c) an NCCL group at world 1 runs every op, each
+   result on the card, and two NCCL ranks on one card are refused within
+   seconds (if torch has no NCCL, the backend's refusal is printed); (d)
+   a rank that raises while its peers wait in an allreduce poisons the
+   group: they raise ``CollectiveGroupError`` naming it within POISON_S.
+
+Each multi-rank phase prints its step beside the same step on gloo as
+PERF.md records it (``GLOO_STEP_MS``); 6d and 6f (``PROFILED_RUNS``)
+then take one more step under the profiler, whose ranks' kernel time is
+printed against the step (``RankProfile``).
 
 The line before the last is ``{"kernels": [...]}``, where each kernel's
 ``launches`` is its count on the path that runs it (the main path for
@@ -251,6 +274,33 @@ GANG_BUCKET_BYTES = 4 << 20
 GANG_OP_TIMEOUT_S = 120.0
 GANG_JOIN_S = 600.0
 
+# Every multi-rank phase (4, 5, 6a-6h, 7) runs its rank threads' groups on
+# the device backend: the ranks exchange through the card's memory
+# (util/collective/device_backend.py). Each phase prints its step beside
+# the same step on gloo through host memory, in ms, as PERF.md section 5
+# records it (earlier runs of this script on an NVIDIA H100 80GB HBM3 at
+# 700 W).
+COLLECTIVE_BACKEND = "device"
+GLOO_STEP_MS = {
+    "gang ddp": "~590", "gang zero": "~2783",
+    "pipeline pp2": "410.5-738.2", "pipeline pp2sp2": "3225.1-5158.5",
+    "pipeline dp2pp2": "1251.9-1920.3",
+    "pipeline tp2": "5169.8, later 5714.0-6869.7",
+    "pipeline pp2tp2": "3646.9, later 3969.1-5385.7",
+    "experts dp2ep2": "2987.5, over later calls 2221.4-5436.4",
+    "experts ep2tp2": "6076.7", "experts sp2ep2": "5082.3",
+    "entry dp2tp2": "2738.2-5616.0", "entry sp2ep2": "4767.1-7377.6",
+    "entry dp2pp2": "1124.2-2187.2"}
+# Phase 8, the collective backends on the card: each op of a device group
+# at DEVICE_WORLDS rank threads over DEVICE_OP_SHAPE (its 1027 rows cut
+# unevenly over 2 and 4), float results at world 4 within REASSOC_ULPS
+# roundings of the host's rank-order reduction; a poisoned peer must
+# raise within POISON_S
+DEVICE_WORLDS = (2, 4)
+DEVICE_OP_SHAPE = (1027, 33)
+REASSOC_ULPS = 3
+POISON_S = 2.0
+
 # The tiny-config phase: gpt2_tiny (head dim 16) under attention="auto",
 # in bf16 (the bf16 kernels, padded to head dim 64) and in f32 (the f32
 # kernels), TINY_STEPS steps each at batch TINY_BATCH. Its first step is
@@ -298,6 +348,14 @@ PIPE_MICROBATCHES = 4
 # (name, dp, pp, sp, tp, microbatches, warm-up steps, timed steps): 6a,
 # 6b, 6c (each replica's 8 rows as 4 microbatches of 2), 6d (with one
 # stage there is no bubble to fill: the batch as one microbatch) and 6e
+# the runs of phases 6 and 6f-6h whose rank threads take one more step
+# under the profiler (RankProfile), after their gates
+PROFILED_RUNS = ("tp2", "dp2ep2")
+# Phase 8's profile of an allreduce and a sendrecv runs in a process of
+# its own (``python chip_smoke.py PROFILE_COLLECTIVES``): in a process that
+# had already run four profiler sessions (phases 3, 3c, 6d and 6f) a fifth
+# saw no device event on the card, twice
+PROFILE_COLLECTIVES = "--profile-collectives"
 PIPE_RUNS = (("pp2", 1, 2, 1, 1, PIPE_MICROBATCHES, 2, 3),
              ("pp2sp2", 1, 2, 2, 1, PIPE_MICROBATCHES, 1, 2),
              ("dp2pp2", 2, 2, 1, 1, PIPE_MICROBATCHES, 1, 2),
@@ -1193,17 +1251,85 @@ def profile_step(torch, step, state, batch, step_ms, tag="profile"):
         print(f"{tag}:   {e.self_device_time_total / 1e3:8.2f} ms  "
               f"x{e.count:<4d} {e.key} {str(e.input_shapes)[:90]}")
 
-def _rank_threads(torch, world: int, body):
-    """``body(rank)`` on ``world`` threads of this process, each on a CUDA
-    stream of its own. Returns the results in rank order; a rank's error
-    is raised here, and a rank still running after GANG_JOIN_S fails the
-    script."""
+class RankProfile:
+    """One more step of every rank thread under torch.profiler (``run``
+    on each rank), which rank 0 starts before any rank's step and stops
+    after every rank's. ``report`` prints the device time of the ranks'
+    kernels, summed, against the unprofiled step: kernels of different
+    ranks may overlap on the card, so the sum can only overstate its busy
+    time, and the idle share printed is a lower bound."""
+
+    def __init__(self, torch, world: int):
+        self.torch = torch
+        self.barrier = threading.Barrier(world, timeout=GANG_JOIN_S)
+        self.prof = None
+
+    def run(self, rank: int, step) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        if rank == 0:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        self.barrier.wait()
+        step()
+        self.torch.cuda.current_stream().synchronize()
+        self.barrier.wait()
+        if rank == 0:
+            self.prof.__exit__(None, None, None)
+
+    def device_names(self) -> list:
+        """The name of every device event of the profiled step."""
+        from torch.autograd import DeviceType
+
+        return [e.name for e in self.prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+    def report(self, tag: str, step_ms: float) -> None:
+        from torch.autograd import DeviceType
+
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in self.prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy_us = sum(t for _, _, t in rows)
+        if busy_us == 0:
+            print(f"{tag}: the profiler saw no device time (not measured)",
+                  flush=True)
+            return
+        shares = {}
+        for key, _, t in rows:
+            shares[category(key)] = shares.get(category(key), 0.0) + t
+        print(f"{tag}: one step of every rank, the ranks' kernels "
+              f"{busy_us / 1e3:.1f} ms of device time in "
+              f"{sum(c for _, c, _ in rows)} kernels against the unprofiled "
+              f"{step_ms:.1f} ms step: the card idle at least "
+              f"{max(0.0, 1 - busy_us / (step_ms * 1e3)):.3f} of it; "
+              + ", ".join(f"{cat} {t / 1e3:.1f} ms" for cat, t in
+                          sorted(shares.items(), key=lambda kv: -kv[1])),
+              flush=True)
+
+
+def _rank_threads(torch, world: int, join, fn, leave, groups):
+    """On each of ``world`` threads of this process, each on a CUDA stream
+    of its own: ``member = join(rank)``, ``fn(member)``, ``leave(member)``;
+    a rank whose ``fn`` raises poisons its ``groups(member)`` first, so
+    its peers fail at once. Returns the results in rank order; a rank's
+    error is raised here, and a rank still running after GANG_JOIN_S
+    fails the script."""
+    from ray_tpu_torch.util import collective as col
+
     results, errors = [None] * world, [None] * world
 
     def run(rank):
         try:
             with torch.cuda.stream(torch.cuda.Stream()):
-                results[rank] = body(rank)
+                member = join(rank)
+                try:
+                    with col.poison_on_error(*groups(member)):
+                        results[rank] = fn(member)
+                finally:
+                    leave(member)
                 torch.cuda.current_stream().synchronize()
         except BaseException as e:  # raised on the main thread below
             errors[rank] = e
@@ -1223,65 +1349,56 @@ def _rank_threads(torch, world: int, body):
     return results
 
 
-def run_ranks(torch, world: int, fn):
+def run_ranks(torch, world: int, fn, backend=COLLECTIVE_BACKEND):
     """``fn(rank, group)`` on ``world`` rank threads, each holding its own
-    gloo group (``train_dp_r<rank>``) over one in-memory store, so no port
-    is bound."""
+    group (``train_dp_r<rank>``) on ``backend`` over one in-memory store,
+    so no port is bound."""
     import torch.distributed as dist
     from ray_tpu_torch.util import collective as col
 
     store = dist.HashStore()
 
-    def body(rank):
+    def join(rank):
         group = f"train_dp_r{rank}"
-        col.init_collective_group(world, rank, group_name=group,
+        col.init_collective_group(world, rank, backend, group_name=group,
                                   store=store, timeout_s=GANG_OP_TIMEOUT_S)
-        try:
-            return fn(rank, group)
-        finally:
-            col.destroy_collective_group(group)
+        return rank, group
 
-    return _rank_threads(torch, world, body)
+    return _rank_threads(torch, world, join, lambda m: fn(*m),
+                         lambda m: col.destroy_collective_group(m[1]),
+                         lambda m: [m[1]])
 
 
-def run_mesh(torch, config, fn):
+def run_mesh(torch, config, fn, backend=COLLECTIVE_BACKEND):
     """``fn(layout)`` on one rank thread for each rank of ``config`` (a
-    ``parallel.mesh.MeshConfig``), each holding its ``pp`` and ``sp``
-    groups over one in-memory store."""
+    ``parallel.mesh.MeshConfig``), each holding its axis groups on
+    ``backend`` over one in-memory store."""
     import torch.distributed as dist
     from ray_tpu_torch.parallel import mesh
 
     store = dist.HashStore()
-
-    def body(rank):
-        layout = mesh.init_rank_layout(config, rank, store=store,
-                                       name="pipe", timeout_s=GANG_OP_TIMEOUT_S)
-        try:
-            return fn(layout)
-        finally:
-            mesh.destroy_rank_layout(layout)
-
-    return _rank_threads(torch, config.world_size, body)
+    return _rank_threads(
+        torch, config.world_size,
+        lambda rank: mesh.init_rank_layout(
+            config, rank, store=store, name="pipe",
+            timeout_s=GANG_OP_TIMEOUT_S, backend=backend),
+        fn, mesh.destroy_rank_layout, mesh.layout_groups)
 
 
-def run_entry(torch, mesh, fn):
-    """``fn(layout)`` on one rank thread for each rank of ``mesh`` (a
-    ``parallel.mesh.Mesh``), each joined by ``Mesh.join`` over one
-    in-memory store."""
+def run_entry(torch, the_mesh, fn, backend=COLLECTIVE_BACKEND):
+    """``fn(layout)`` on one rank thread for each rank of ``the_mesh`` (a
+    ``parallel.mesh.Mesh``), each joined by ``Mesh.join`` on ``backend``
+    over one in-memory store."""
     import torch.distributed as dist
-    from ray_tpu_torch.parallel.mesh import destroy_rank_layout
+    from ray_tpu_torch.parallel import mesh
 
     store = dist.HashStore()
-
-    def body(rank):
-        layout = mesh.join(rank, store=store, name="entry",
-                           timeout_s=GANG_OP_TIMEOUT_S)
-        try:
-            return fn(layout)
-        finally:
-            destroy_rank_layout(layout)
-
-    return _rank_threads(torch, mesh.size, body)
+    return _rank_threads(
+        torch, the_mesh.size,
+        lambda rank: the_mesh.join(rank, store=store, name="entry",
+                                   timeout_s=GANG_OP_TIMEOUT_S,
+                                   backend=backend),
+        fn, mesh.destroy_rank_layout, mesh.layout_groups)
 
 
 class CommTimer:
@@ -1432,7 +1549,10 @@ def gang(torch, fa, card: str):
     fa.reset_launch_counts()
     ranks = run_ranks(torch, 2, ddp_rank)
     launches = {"ddp": dict(fa.LAUNCHES)}
-    times = {"ddp": ranks, "buckets": ranks[0]["buckets"]}
+    # 8b: the same steps with the ranks' groups on gloo
+    on_gloo = run_ranks(torch, 2, ddp_rank, backend="gloo")
+    times = {"ddp": ranks, "buckets": ranks[0]["buckets"],
+             "ddp gloo": on_gloo}
     attn, attn_ref = ranks[0]["synced"]["blocks"]["attn"], ref_grads["blocks"]["attn"]
     attn_rel = {n: float((attn[n] - attn_ref[n]).norm() / attn_ref[n].norm())
                 for n in sorted(attn)}
@@ -1452,6 +1572,13 @@ def gang(torch, fa, card: str):
         del os.environ["RAY_TPU_TORCH_TRAIN_BUCKET_DDP"]
     checks["bucketed sync is bit-identical to the whole-tree sync"] = all(
         same_bits(torch, w, s) for w, s in zip(whole, synced))
+    checks["8b: the synced grads on gloo are the device backend's, bit for "
+           "bit"] = all(same_bits(torch, tree_leaves(g["synced"]), s)
+                        for g, s in zip(on_gloo, synced))
+    checks["8b: the params after the steps on gloo are the device "
+           "backend's, bit for bit"] = all(
+        same_bits(torch, g["params"], r["params"])
+        for g, r in zip(on_gloo, ranks))
     loss_rel = abs((ranks[0]["first"][0] + ranks[1]["first"][0]) / 2
                    - ref_loss) / ref_loss
     gn_rel = abs(ranks[0]["first"][1] - ref_norm) / ref_norm
@@ -1467,7 +1594,7 @@ def gang(torch, fa, card: str):
     for n, r in attn_rel.items():
         checks[f"the gang's grad of {n} is the one-card step's"] = (
             r <= ATTN_GRAD_RTOL)
-    for r in ranks:  # keep only the times
+    for r in ranks + on_gloo:  # keep only the times
         del r["raw"], r["synced"], r["params"]
     del synced, whole, ref_grads, attn, attn_ref
     torch.cuda.empty_cache()
@@ -1563,10 +1690,14 @@ def gang(torch, fa, card: str):
     fa.reset_launch_counts()
     try:
         ranks = run_ranks(torch, 2, zero_rank)
+        launches["zero"] = dict(fa.LAUNCHES)
+        on_gloo = run_ranks(torch, 2, zero_rank, backend="gloo")  # 8b
     finally:
         sh.pack_bucket, sh.pack_span = pack_bucket, pack_span
-    launches["zero"] = dict(fa.LAUNCHES)
-    times["zero"] = ranks
+    times["zero"], times["zero gloo"] = ranks, on_gloo
+    checks["8b: ZeRO's params after one step on gloo are the device "
+           "backend's, bit for bit"] = all(
+        same_bits(torch, g["new"], r["new"]) for g, r in zip(on_gloo, ranks))
     slack = ranks[0]["buckets"] * 2 * 4  # an element a bucket, 2 f32 slots
     checks.update({
         "ZeRO params are bit-identical to an allreduce then the full apply":
@@ -1597,20 +1728,25 @@ def gang(torch, fa, card: str):
         print(f"gang check: {what}: {'ok' if ok else 'FAIL'}", flush=True)
     host = {"ddp": "the sync hook", "zero": "step_async"}
     for run in ("ddp", "zero"):
-        r0, r1 = times[run]
-        print(f"gang {run}: {card}: world 2, batch {GANG_BATCH} a rank, "
-              f"{times['buckets']} buckets of at most "
-              f"{GANG_BUCKET_BYTES >> 20} MiB: step {r0['step_ms']:.1f} / "
-              f"{r1['step_ms']:.1f} ms (rank 0 / 1), in {host[run]} "
-              f"{r0['host_ms']:.1f} / {r1['host_ms']:.1f} ms, blocked in the "
-              f"bucket waits {r0['wait_ms']:.1f} / {r1['wait_ms']:.1f} ms a "
-              f"step ({warmup} warm-up and {timed} timed steps)", flush=True)
-    r0, r1 = times["zero"]
-    print(f"gang zero: {card}: a timed step's host work, rank 0 / 1: "
-          + ", ".join(f"{k} {r0[k + '_ms']:.1f} / {r1[k + '_ms']:.1f} ms"
-                      for k in SPLIT)
-          + f"; torch CPU threads {torch.get_num_threads()} a rank, "
-          f"{os.cpu_count()} cores", flush=True)
+        for backend, key in ((COLLECTIVE_BACKEND, run), ("gloo", f"{run} gloo")):
+            r0, r1 = times[key]
+            print(f"gang {run} on {backend}: {card}: world 2, batch "
+                  f"{GANG_BATCH} a rank, {times['buckets']} buckets of at "
+                  f"most {GANG_BUCKET_BYTES >> 20} MiB: step "
+                  f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms (rank 0 / "
+                  f"1), in {host[run]} {r0['host_ms']:.1f} / "
+                  f"{r1['host_ms']:.1f} ms, blocked in the bucket waits "
+                  f"{r0['wait_ms']:.1f} / {r1['wait_ms']:.1f} ms a step "
+                  f"({warmup} warm-up and {timed} timed steps; gloo in "
+                  f"PERF.md: {GLOO_STEP_MS['gang ' + run]} ms)", flush=True)
+    for backend, key in ((COLLECTIVE_BACKEND, "zero"), ("gloo", "zero gloo")):
+        r0, r1 = times[key]
+        print(f"gang zero on {backend}: {card}: a timed step's host work, "
+              f"rank 0 / 1: "
+              + ", ".join(f"{k} {r0[k + '_ms']:.1f} / {r1[k + '_ms']:.1f} ms"
+                          for k in SPLIT)
+              + f"; torch CPU threads {torch.get_num_threads()} a rank, "
+              f"{os.cpu_count()} cores", flush=True)
     bad = [what for what, ok in checks.items() if not ok]
     if bad:
         fail(f"gang: {'; '.join(bad)}")
@@ -1720,6 +1856,7 @@ def checkpoints(torch, card: str):
 
     group = ThreadWorkerGroup(2)
     backend = TorchConfig(group_name="ckpt_dp", rank_threads=True,
+                          collective_backend=COLLECTIVE_BACKEND,
                           timeout_s=GANG_OP_TIMEOUT_S).backend_cls()
 
     def fresh(name):
@@ -1806,7 +1943,8 @@ def checkpoints(torch, card: str):
             checks.update({f"rank {r}: {k}": v for k, v in rec["checks"].items()})
 
         # elastic: world 1 restores both ranks' state
-        col.init_collective_group(1, 0, group_name="ckpt_w1",
+        col.init_collective_group(1, 0, COLLECTIVE_BACKEND,
+                                  group_name="ckpt_w1",
                                   store=dist.HashStore(),
                                   timeout_s=GANG_OP_TIMEOUT_S)
         try:
@@ -2089,8 +2227,9 @@ def pipeline(torch, fa, card: str):
         step_s = max(r[2] for r in ranks)
         print(f"pipeline {name}: {card}: GPT-2-small, batch {PIPE_BATCH} in "
               f"{M} microbatches a replica, seq {S}, dp {dp} x pp {pp} x sp "
-              f"{sp} x tp {tp} rank threads on "
-              f"one card: step {step_s * 1e3:.1f} ms (the slowest rank), "
+              f"{sp} x tp {tp} rank threads on one card, {COLLECTIVE_BACKEND}"
+              f" groups: step {step_s * 1e3:.1f} ms (the slowest rank; on "
+              f"gloo in PERF.md {GLOO_STEP_MS['pipeline ' + name]} ms), "
               f"{PIPE_BATCH * S / step_s:.0f} tokens/s, peak memory of the "
               f"card {peak / 2**30:.2f} GiB for all {config.world_size} ranks "
               f"together (they share one allocator: a rank's own peak is "
@@ -2109,6 +2248,20 @@ def pipeline(torch, fa, card: str):
                            f"expected {want}")
         del ranks
         torch.cuda.empty_cache()
+        if name in PROFILED_RUNS:
+            rp = RankProfile(torch, config.world_size)
+
+            def profiled(lay):
+                state = rank_state(lay)
+                step = make_pipelined_train_step(cfg, optimizer(), lay,
+                                                 n_microbatches=M)
+                state, _ = step(state, batch)  # warm-up
+                rp.run(lay.rank, lambda: step(state, batch))
+
+            run_mesh(torch, config, profiled)
+            rp.report(f"pipeline {name} profile", step_s * 1e3)
+            del rp
+            torch.cuda.empty_cache()
     del params, ref_attn
     torch.cuda.empty_cache()
     if bad:
@@ -2324,7 +2477,9 @@ def expert_parallel(torch, fa, card: str, runs=EP_RUNS):
               f"{cfg.moe.capacity_factor}, C {C}), batch {B} ({B // dp} rows "
               f"a replica, {S // sp} positions a shard, one microbatch), seq "
               f"{S}, dp {dp} x ep {ep} x sp {sp} x tp {tp} rank threads on "
-              f"one card: step {step_s * 1e3:.1f} ms (the slowest rank), "
+              f"one card, {COLLECTIVE_BACKEND} groups: step "
+              f"{step_s * 1e3:.1f} ms (the slowest rank; on gloo in PERF.md "
+              f"{GLOO_STEP_MS['experts ' + name]} ms), "
               f"{B * S / step_s:.0f} tokens/s, peak memory of the card "
               f"{peak / 2**30:.2f} GiB for all {config.world_size} ranks "
               f"together; (token, k) pairs past capacity {dropped:.4f} of "
@@ -2342,6 +2497,22 @@ def expert_parallel(torch, fa, card: str, runs=EP_RUNS):
                            f"{want_n}")
         del ranks
         torch.cuda.empty_cache()
+        if name in PROFILED_RUNS:
+            rp = RankProfile(torch, config.world_size)
+
+            def profiled(lay):
+                state = ts.make_train_state(
+                    lambda g: sharding.tree_shard(params, lay, specs), None,
+                    optimizer())
+                step = ts.make_pipelined_train_step(cfg, optimizer(), lay,
+                                                    n_microbatches=1)
+                state, _ = step(state, batch)  # warm-up
+                rp.run(lay.rank, lambda: step(state, batch))
+
+            run_mesh(torch, config, profiled)
+            rp.report(f"experts {name} profile", step_s * 1e3)
+            del rp
+            torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     if bad:
@@ -2519,8 +2690,10 @@ def mesh_entry(torch, fa, card: str, runs=MESH_RUNS):
               f"{batch_spec}), seq {S}, "
               + " x ".join(f"{a} {n}" for a, n in shape.items() if n > 1)
               + f" rank threads on one card from create_mesh, "
+              f"{COLLECTIVE_BACKEND} groups, "
               f"{M} microbatch{'es' if M > 1 else ''} a replica: step "
-              f"{step_s * 1e3:.1f} ms (the slowest rank), "
+              f"{step_s * 1e3:.1f} ms (the slowest rank; on gloo in PERF.md "
+              f"{GLOO_STEP_MS['entry ' + name]} ms), "
               f"{B * S / step_s:.0f} tokens/s, peak memory of the card "
               f"{peak / 2**30:.2f} GiB for all {mesh.size} ranks together"
               + (f"; one step with remat off peaks at "
@@ -2548,6 +2721,256 @@ def mesh_entry(torch, fa, card: str, runs=MESH_RUNS):
     return launches
 
 
+def _rank_order(torch, xs, op: str):
+    """r0 op r1 op ... on the host, in the inputs' dtype, one rounding a
+    step (bf16 through f32, where the exact f32 result rounds once)."""
+    fn = {"sum": torch.add, "product": torch.mul, "min": torch.minimum,
+          "max": torch.maximum}[op]
+    host = [x.cpu() for x in xs]
+    wide = host[0].dtype == torch.bfloat16
+    out = host[0].float() if wide else host[0].clone()
+    for x in host[1:]:
+        out = fn(out, x.float() if wide else x)
+        if wide:
+            out = out.to(torch.bfloat16).float()
+    return out.to(host[0].dtype)
+
+
+def profile_collectives(torch) -> list:
+    """The names of the device events of a profile of a 16 MiB f32
+    allreduce and sendrecv on a device group of two rank threads."""
+    from ray_tpu_torch.util import collective as col
+
+    xs = [torch.randn(1 << 22, device="cuda") for _ in range(2)]
+    torch.cuda.synchronize()
+    rp = RankProfile(torch, 2)
+    run_ranks(torch, 2, lambda r, g: rp.run(r, lambda: (
+        col.allreduce(xs[r], g), col.sendrecv(xs[r], 1 - r, 1 - r, g))))
+    return rp.device_names()
+
+
+def collectives(torch, card: str):
+    """Phase 8, the collective backends on the card: (a) every op of a
+    device group at DEVICE_WORLDS rank threads on CUDA tensors, held to
+    the host's rank-order reduction, with a profile that must show no
+    copy between host and card; (c) an NCCL group at world 1, and two NCCL
+    ranks on one card refused; (d) a rank that raises poisons its peers.
+    (b), the gang on gloo and on the device, runs inside phase 4."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.exceptions import CollectiveGroupError
+    from ray_tpu_torch.util import collective as col
+
+    torch.cuda.empty_cache()
+    bad = []
+    dtypes = (torch.float32, torch.bfloat16, torch.int64)
+    ops = ("sum", "product", "min", "max")
+    # (a) every op, dtype and reduction at each world
+    for world in DEVICE_WORLDS:
+        gen = torch.Generator(device="cuda").manual_seed(world)
+        xs = {dt: [torch.randint(-9, 10, DEVICE_OP_SHAPE, device="cuda",
+                                 generator=gen) if dt == torch.int64 else
+                   (torch.rand(DEVICE_OP_SHAPE, device="cuda", generator=gen)
+                    + 0.5).to(dt) for _ in range(world)] for dt in dtypes}
+        torch.cuda.synchronize()
+
+        def rank(r, group, world=world, xs=xs):
+            out = {}
+            for dt in dtypes:
+                for op in ops:
+                    out[dt, op] = col.allreduce(xs[dt][r], group, op)
+                    out[dt, op, "rs"] = col.reducescatter(xs[dt][r], group,
+                                                          op)
+                out[dt, "bcast"] = [col.broadcast(xs[dt][r].clone(), s, group)
+                                    for s in range(world)]
+                out[dt, "ring"] = col.sendrecv(xs[dt][r], (r + 1) % world,
+                                               (r - 1) % world, group)
+                out[dt, "gather"] = col.allgather(xs[dt][r], group)
+            return out
+
+        t0 = time.perf_counter()
+        outs = run_ranks(torch, world, rank)
+        dt_s = time.perf_counter() - t0
+        exact, within, worst = True, True, 0.0
+        for r, out in enumerate(outs):
+            flat = [t for v in out.values()
+                    for t in (v if isinstance(v, list) else [v])]
+            if not all(t.is_cuda for t in flat):
+                bad.append(f"world {world}: a result is not on the card")
+            for dt in dtypes:
+                for op in ops:
+                    want = _rank_order(torch, xs[dt], op)
+                    for got, ref in ((out[dt, op].cpu(), want),
+                                     (out[dt, op, "rs"].cpu(),
+                                      torch.tensor_split(want, world)[r])):
+                        if torch.equal(got, ref):
+                            continue
+                        exact = False
+                        if dt == torch.int64 or world == 2 or op in ("min",
+                                                                     "max"):
+                            bad.append(f"world {world}: {dt} {op} differs "
+                                       f"from the rank-order reduction")
+                            continue
+                        u = 2.0 ** -24 if dt == torch.float32 else 2.0 ** -8
+                        mags = torch.stack([x.cpu().float().abs()
+                                            for x in xs[dt]])
+                        size = (mags.sum(0) if op == "sum"
+                                else mags.prod(0))
+                        if got.shape != ref.shape:
+                            size = torch.tensor_split(size, world)[r]
+                        err = (got.float() - ref.float()).abs()
+                        worst = max(worst, float((err / size).max()))
+                        within &= bool((err <= REASSOC_ULPS * u * size).all())
+                same = [torch.equal(b, x) for b, x in zip(out[dt, "bcast"],
+                                                          xs[dt])]
+                same += [torch.equal(out[dt, "ring"], xs[dt][(r - 1) % world])]
+                same += [torch.equal(g, x) for g, x in zip(out[dt, "gather"],
+                                                           xs[dt])]
+                if not all(same):
+                    bad.append(f"world {world}: {dt} broadcast, ring or "
+                               f"allgather moved other bits")
+        if not within:
+            bad.append(f"world {world}: a float result past "
+                       f"{REASSOC_ULPS} roundings of the rank-order "
+                       f"reduction")
+        print(f"collectives (a): {card}: device group at world {world}, "
+              f"{DEVICE_OP_SHAPE} in f32, bf16 and int64, sum, product, min "
+              f"and max, uneven reducescatter, broadcast from every rank, a "
+              f"sendrecv ring, allgather: every result on the card, "
+              f"{'bit-equal to' if exact else 'within reassociation of'} "
+              f"the host's rank-order reduction (worst relative error "
+              f"{worst:.2e}), {dt_s:.2f} s", flush=True)
+        del xs, outs
+
+    # (a) a profile of a CUDA-input allreduce and sendrecv: no memcpy
+    # between host and card
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            PROFILE_COLLECTIVES], capture_output=True,
+                           text=True, timeout=GANG_JOIN_S)
+    try:
+        device_events = json.loads(
+            child.stdout.strip().splitlines()[-1])["device_events"]
+    except (IndexError, ValueError, KeyError):
+        print(child.stdout[-2000:] + child.stderr[-4000:], flush=True)
+        device_events = []
+    host_copies = sorted({n for n in device_events if "Memcpy" in n
+                          and ("HtoD" in n or "DtoH" in n)})
+    print(f"collectives (a): profile of a 16 MiB f32 allreduce and "
+          f"sendrecv at world 2: {len(device_events)} device events ("
+          + ", ".join(sorted(set(device_events)))[:400]
+          + f"); host<->card copies: {host_copies or 'none'}", flush=True)
+    if not any("add" in n for n in device_events):
+        bad.append("the profile holds no allreduce kernel: it cannot show "
+                   "the copies")
+    if host_copies:
+        bad.append(f"a CUDA-input allreduce or sendrecv copied between "
+                   f"host and card: {host_copies}")
+
+    # (c) NCCL at world 1, and two NCCL ranks on one card refused
+    if not dist.is_nccl_available():
+        try:
+            col.init_collective_group(1, 0, "nccl", "nccl_w1",
+                                      store=dist.HashStore(), timeout_s=10)
+            bad.append("nccl: a group joined without NCCL in torch")
+        except RuntimeError as e:
+            print(f"collectives (c): torch {torch.__version__} has no NCCL; "
+                  f"backend 'nccl' refuses: {e}", flush=True)
+    else:
+        cuda0 = torch.device("cuda", 0)
+        col.init_collective_group(1, 0, "nccl", "nccl_w1",
+                                  store=dist.HashStore(),
+                                  timeout_s=GANG_OP_TIMEOUT_S, device=cuda0)
+        try:
+            x = torch.arange(14.0, device="cuda").reshape(7, 2)
+            got = {op: col.allreduce(x.clone(), "nccl_w1", op) for op in ops}
+            got["reducescatter"] = col.reducescatter(x.clone(), "nccl_w1")
+            got["allgather"] = col.allgather(x, "nccl_w1")[0]
+            got["broadcast"] = col.broadcast(x.clone(), 0, "nccl_w1")
+            got["sendrecv"] = col.sendrecv(x, 0, 0, "nccl_w1")
+            col.send_device(x, 0, "nccl_w1")
+            got["recv_device"] = col.recv_device((7, 2), x.dtype, 0,
+                                                 "nccl_w1")
+            col.barrier("nccl_w1")
+            objs = col.allgather_object({"rank": 0}, "nccl_w1")
+            torch.cuda.synchronize()
+            wrong = [k for k, v in got.items()
+                     if not (v.is_cuda and torch.equal(v, x))]
+            if wrong or objs != [{"rank": 0}]:
+                bad.append(f"nccl at world 1: {wrong or 'allgather_object'}"
+                           f" wrong or off the card")
+            print(f"collectives (c): NCCL {torch.cuda.nccl.version()} at "
+                  f"world 1: allreduce (sum, product, min, max), "
+                  f"reducescatter, allgather, broadcast, sendrecv, "
+                  f"send_device / recv_device, barrier, allgather_object: "
+                  f"{'ok' if not wrong else 'FAIL ' + str(wrong)}, every "
+                  f"result on the card", flush=True)
+        finally:
+            col.destroy_collective_group("nccl_w1")
+        store, errors, took = dist.HashStore(), [None, None], [None, None]
+
+        def join_twice(r):
+            t0 = time.monotonic()
+            try:
+                col.init_collective_group(2, r, "nccl", f"nccl_two_r{r}",
+                                          store=store, timeout_s=30,
+                                          device=cuda0)
+                col.destroy_collective_group(f"nccl_two_r{r}")
+            except BaseException as e:  # the refusal is the point
+                errors[r] = e
+            took[r] = time.monotonic() - t0
+
+        threads = [threading.Thread(target=join_twice, args=(r,),
+                                    daemon=True) for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        refused = all(isinstance(e, ValueError) and "one device" in str(e)
+                      for e in errors)
+        print(f"collectives (c): two NCCL ranks on {cuda0}: "
+              f"{'refused' if refused else 'NOT refused'} in "
+              + " / ".join(f"{t:.2f}" if t is not None else "-"
+                           for t in took)
+              + f" s: {errors[0]}", flush=True)
+        if not refused or any(t is None or t > 30 for t in took):
+            bad.append("two NCCL ranks on one card were not refused within "
+                       "seconds")
+
+    # (d) a rank that raises mid-allreduce poisons its peers
+    outcome = {}
+
+    def poisoned(r, group):
+        x = torch.ones(1 << 20, device="cuda")
+        if r == 1:
+            time.sleep(0.2)
+            raise RuntimeError("rank 1 raised mid-allreduce")
+        t0 = time.monotonic()
+        try:
+            col.allreduce(x, group)
+        except CollectiveGroupError as e:
+            outcome[r] = (time.monotonic() - t0, e.dead_ranks, str(e))
+        return None
+
+    try:
+        run_ranks(torch, 3, poisoned)
+        bad.append("poison: the raising rank's error was lost")
+    except RuntimeError as e:
+        if "mid-allreduce" not in str(e):
+            raise
+    for r in (0, 2):
+        waited, dead, msg = outcome.get(r, (None, None, "no error"))
+        print(f"collectives (d): rank {r} of 3 (group timeout "
+              f"{GANG_OP_TIMEOUT_S:.0f} s): "
+              + (f"CollectiveGroupError after {waited:.3f} s: {msg}"
+                 if waited is not None else "no CollectiveGroupError"),
+              flush=True)
+        if waited is None or dead != (1,) or waited > POISON_S:
+            bad.append(f"poison: rank {r} did not raise CollectiveGroupError"
+                       f" naming rank 1 within {POISON_S} s")
+    if bad:
+        fail(f"collectives: {'; '.join(bad)}")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2560,6 +2983,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    if sys.argv[1:] == [PROFILE_COLLECTIVES]:  # phase 8's child process
+        print(json.dumps({"device_events": profile_collectives(torch)}))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2574,6 +3000,7 @@ def main() -> int:
     pipeline_launches = pipeline(torch, fa, card)
     pipeline_launches.update(expert_parallel(torch, fa, card))
     entry_launches = mesh_entry(torch, fa, card)
+    collectives(torch, card)
 
     kernels = []
     # each kernel's count on the path that runs it: the main path for the

@@ -536,7 +536,7 @@ def _pipelined_loss(fwd: PipelinedForward, targets, layout):
     over ``sp`` and the sum broadcast from the last stage over ``pp``."""
     B, S = targets.shape
     part = None
-    value = torch.zeros((), dtype=torch.float32)
+    value = torch.zeros((), dtype=torch.float32, device=targets.device)
     if layout.is_last_stage:
         lo, hi = shard_bounds(S, layout.sp, layout.sp_rank)
         if layout.tp > 1:

@@ -53,15 +53,16 @@ def route_counts(pairs: torch.Tensor, top1: torch.Tensor, dp_group=None,
     The stream runs over the replicas' rows in order, and within a row
     over its sp shards in order: one allreduce over the ``sp_group`` and
     one over the ``dp_group`` (either may be None) of a ``[dp * B * sp +
-    1, E]`` f64 table, the rank's counts in its own rows (every count
-    below 2^53 is exact)."""
+    1, E]`` f64 table on the counts' device, the rank's counts in its own
+    rows (every count below 2^53 is exact)."""
     n_dp, dp_rank = group_place(dp_group)
     n_sp, sp_rank = group_place(sp_group)
     B, E = pairs.shape
-    table = torch.zeros(n_dp * B * n_sp + 1, E, dtype=torch.float64)
+    table = torch.zeros(n_dp * B * n_sp + 1, E, dtype=torch.float64,
+                        device=pairs.device)
     table[:-1].view(n_dp, B, n_sp, E)[dp_rank, :, sp_rank] = (
-        pairs.detach().cpu().double())
-    table[-1] = top1.detach().cpu().double()
+        pairs.detach().double())
+    table[-1] = top1.detach().double()
     for group in (sp_group, dp_group):
         if group is not None:
             table = col.allreduce(table, group)

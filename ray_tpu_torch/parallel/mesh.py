@@ -13,13 +13,17 @@ The JAX package builds one ``Mesh`` over every device and lets a
 devices in ``AXIS_ORDER``'s shape, but the port runs each rank as a
 thread or a process of its own: rank r, at flat index r of the array,
 joins the mesh (``Mesh.join``) and gets its coordinates on it and one
-gloo group per axis: the ranks that differ from it in that axis's
+collective group per axis: the ranks that differ from it in that axis's
 coordinate alone. The groups are built here, over one
 ``torch.distributed.Store`` that every rank shares, each under a store
-prefix that names the axis and every other coordinate. torch's
-``DeviceMesh`` is not used: it builds its sub-groups from the one default
-process group of a process, and the port's ranks may be threads of one
-process (ROADMAP, ground rules).
+prefix that names the axis and every other coordinate. They run on the
+``"device"`` backend by default, since the JAX mesh's collectives are
+device collectives: rank threads exchange through device memory, and a
+CUDA tensor stays on the card (``util/collective/device_backend.py``);
+``backend="gloo"`` stays selectable. torch's ``DeviceMesh`` is not used:
+it builds its sub-groups from the one default process group of a
+process, and the port's ranks may be threads of one process (ROADMAP,
+ground rules).
 
 Ranks are numbered as the JAX mesh orders its devices, slowest axis
 first (``AXIS_ORDER``: dp, pp, ep, sp, tp), as ``create_mesh`` reshapes
@@ -173,18 +177,21 @@ class Mesh:
         return self.devices.flat[rank]
 
     def join(self, rank: int, *, store=None, name: str = "mesh",
-             timeout_s: float = DEFAULT_TIMEOUT_S) -> "RankLayout":
+             timeout_s: float = DEFAULT_TIMEOUT_S,
+             backend: str = "device") -> "RankLayout":
         """Rank ``rank``'s layout on this mesh, its groups joined over
-        ``store`` (``init_rank_layout``), carrying the mesh and the
-        rank's device. Every rank of the mesh calls it, each with the
-        same ``store``; a mesh of one rank needs none."""
+        ``store`` on ``backend`` (``init_rank_layout``), carrying the mesh
+        and the rank's device. Every rank of the mesh calls it, each with
+        the same ``store``; a mesh of one rank needs none."""
         if store is None:
             if self.size > 1:
                 raise ValueError(f"a mesh of {self.size} ranks joins over "
                                  f"a store that every rank shares")
             store = dist.HashStore()
-        layout = init_rank_layout(self.config, rank, store=store, name=name,
-                                  timeout_s=timeout_s)
+        layout = init_rank_layout(
+            self.config, rank, store=store, name=name, timeout_s=timeout_s,
+            backend=backend,
+            device=None if backend == "gloo" else self.device(rank))
         return dataclasses.replace(layout, mesh=self,
                                    device=self.device(rank))
 
@@ -385,13 +392,16 @@ def coordinates(config: MeshConfig, rank: int):
 
 def init_rank_layout(config: MeshConfig, rank: int, *, store,
                      name: str = "mesh",
-                     timeout_s: float = DEFAULT_TIMEOUT_S) -> RankLayout:
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     backend: str = "device", device=None) -> RankLayout:
     """Join ``rank`` into its ``dp``, ``pp``, ``ep``, ``sp`` and ``tp``
-    groups over ``store``, in that order; returns when every member of all
-    five has joined, or raises after ``timeout_s``. A group's store prefix
-    names its axis and the rank's coordinates on the other four, so no
-    two groups share a key; group names carry ``name`` and the global rank,
-    so the ranks of one mesh may share a process."""
+    groups over ``store``, in that order, on ``backend`` (``"device"``,
+    ``"gloo"`` or ``"nccl"``; ``device`` is the rank's, for the device
+    and NCCL groups); returns when every member of all five has joined,
+    or raises after ``timeout_s``. A group's store prefix names its axis
+    and the rank's coordinates on the other four, so no two groups share
+    a key; group names carry ``name`` and the global rank, so the ranks
+    of one mesh may share a process."""
     coords = dict(zip(LAYOUT_AXES, coordinates(config, rank)))
     groups = {}
     try:
@@ -400,8 +410,8 @@ def init_rank_layout(config: MeshConfig, rank: int, *, store,
                               if a != axis)
             group = f"{name}_{axis}_{others}_r{rank}"
             col.init_collective_group(
-                getattr(config, axis), coords[axis], group_name=group,
-                timeout_s=timeout_s,
+                getattr(config, axis), coords[axis], backend,
+                group_name=group, timeout_s=timeout_s, device=device,
                 store=dist.PrefixStore(f"{name}/{axis}/{others}", store))
             groups[axis] = group
     except BaseException:
@@ -413,8 +423,12 @@ def init_rank_layout(config: MeshConfig, rank: int, *, store,
                       coords["tp"], groups["tp"], coords["ep"], groups["ep"])
 
 
+def layout_groups(layout: RankLayout) -> List[str]:
+    """The names of a layout's axis groups."""
+    return [g for g in (layout.dp_group, layout.pp_group, layout.sp_group,
+                        layout.tp_group, layout.ep_group) if g is not None]
+
+
 def destroy_rank_layout(layout: RankLayout) -> None:
-    for group in (layout.dp_group, layout.pp_group, layout.sp_group,
-                  layout.tp_group, layout.ep_group):
-        if group is not None:
-            col.destroy_collective_group(group)
+    for group in layout_groups(layout):
+        col.destroy_collective_group(group)

@@ -4,8 +4,9 @@ attention oracle. Port of ``ray_tpu/parallel/ring_attention.py``.
 The sequence is split into contiguous shards over the ``sp`` ranks: rank
 i holds tokens [i * S_local, (i + 1) * S_local). Each rank keeps its Q
 shard and passes K and V around the ring, rank i to rank i + 1, over its
-``sp`` gloo group (``util.collective.sendrecv``, the twin of the JAX
-package's ``ppermute``), combining the blocks' attention by online
+``sp`` group (``util.collective.sendrecv``, the twin of the JAX
+package's ``ppermute``; on the device backend the hop stays on the
+card), combining the blocks' attention by online
 softmax. Under a causal mask a block from an earlier rank is attended
 whole, the rank's own block under the triangle, and a later rank's block
 not at all.

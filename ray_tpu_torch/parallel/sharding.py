@@ -201,32 +201,44 @@ def plan_buckets(leaves, bucket_bytes: int) -> list[list[int]]:
     return plan
 
 
-def pack_bucket(leaves, indices) -> torch.Tensor:
-    """One contiguous 1-D host tensor holding the raveled members of a
-    bucket, in order. CUDA leaves are copied into a pinned buffer without
-    blocking, and the current stream is synchronised once, so the buffer
-    is complete when this returns."""
+def _pack_buffer(first, n: int, on_device: bool):
+    """(an empty 1-D buffer of ``n`` elements for a bucket whose first
+    leaf is ``first``, whether it is staged to the host): on the leaf's
+    device with ``on_device``, else on the host, pinned for a CUDA
+    leaf."""
+    if on_device:
+        return torch.empty(n, dtype=first.dtype, device=first.device), False
+    staged = first.device.type == "cuda"
+    return torch.empty(n, dtype=first.dtype, pin_memory=staged), staged
+
+
+def pack_bucket(leaves, indices, on_device: bool = False) -> torch.Tensor:
+    """One contiguous 1-D tensor holding the raveled members of a bucket,
+    in order. On the host by default: CUDA leaves are copied into a pinned
+    buffer without blocking, and the current stream is synchronised once,
+    so the buffer is complete when this returns. With ``on_device`` (for a
+    group that keeps device tensors, ``collective.keeps_device``) the
+    buffer is on the leaves' device and nothing crosses to the host."""
     first = leaves[indices[0]]
-    on_cuda = first.device.type == "cuda"
-    out = torch.empty(sum(_numel(leaves[i]) for i in indices),
-                      dtype=first.dtype, pin_memory=on_cuda)
+    out, staged = _pack_buffer(
+        first, sum(_numel(leaves[i]) for i in indices), on_device)
     pos = 0
     for i in indices:
         flat = leaves[i].detach().reshape(-1)
-        out[pos:pos + flat.numel()].copy_(flat, non_blocking=on_cuda)
+        out[pos:pos + flat.numel()].copy_(flat, non_blocking=staged)
         pos += flat.numel()
-    if on_cuda:
+    if staged:
         torch.cuda.current_stream(first.device).synchronize()
     return out
 
 
-def pack_span(leaves, indices, lo: int, hi: int) -> torch.Tensor:
+def pack_span(leaves, indices, lo: int, hi: int,
+              on_device: bool = False) -> torch.Tensor:
     """Elements ``[lo, hi)`` of what ``pack_bucket(leaves, indices)``
     packs, copying only the pieces of the leaves that fall in the span (a
-    rank's shard of the bucket). Staged as ``pack_bucket`` stages."""
+    rank's shard of the bucket). Placed as ``pack_bucket`` places it."""
     first = leaves[indices[0]]
-    on_cuda = first.device.type == "cuda"
-    out = torch.empty(hi - lo, dtype=first.dtype, pin_memory=on_cuda)
+    out, staged = _pack_buffer(first, hi - lo, on_device)
     pos = 0
     for i in indices:
         n = _numel(leaves[i])
@@ -234,9 +246,9 @@ def pack_span(leaves, indices, lo: int, hi: int) -> torch.Tensor:
         if a < b:
             out[a - lo:b - lo].copy_(
                 leaves[i].detach().reshape(-1)[a - pos:b - pos],
-                non_blocking=on_cuda)
+                non_blocking=staged)
         pos += n
-    if on_cuda:
+    if staged:
         torch.cuda.current_stream(first.device).synchronize()
     return out
 
@@ -244,7 +256,8 @@ def pack_span(leaves, indices, lo: int, hi: int) -> torch.Tensor:
 def unpack_bucket(flat, leaves, indices, out_leaves) -> None:
     """Scatter one reduced bucket back into per-leaf tensors, shaped like
     the original leaves and on their devices; writes into ``out_leaves``
-    at the bucket's indices. On the host the outputs are views of
+    at the bucket's indices. Where ``flat`` lies on a leaf's device (the
+    host, or the card for a device group) that output is a view of
     ``flat``."""
     pos = 0
     for i in indices:

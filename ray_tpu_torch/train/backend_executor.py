@@ -12,26 +12,35 @@ calling ``fn(world_rank, world_size, *args, **kwargs)``, as
 ``ray_tpu/train/worker_group.py``'s ``TrainWorker`` does.
 
 ``on_start`` asks rank 0 for an address and has every rank join the
-port's gloo group ``group_name`` over a store there: ``"host:port"`` is
-a ``TCPStore`` whose master is rank 0, ``"file://<path>"`` a
-``FileStore`` on a path every rank can reach. A gang whose ranks are
-threads of one process (``rank_threads=True``) registers each rank's
-group as ``<group_name>_r<rank>``, since one process holds one group per
-name; ``group_name_of(rank)`` gives the name a rank's code uses.
+port's collective group ``group_name`` over a store there:
+``"host:port"`` is a ``TCPStore`` whose master is rank 0,
+``"file://<path>"`` a ``FileStore`` on a path every rank can reach. The
+group's backend is ``collective_backend``: ``"gloo"`` (host tensors),
+``"nccl"`` (each worker process on ``cuda:<its rank on its host>``) or
+``"device"`` (rank threads, exchanging through device memory). A gang
+whose ranks are threads of one process (``rank_threads=True``) registers
+each rank's group as ``<group_name>_r<rank>``, since one process holds
+one group per name; ``group_name_of(rank)`` gives the name a rank's code
+uses.
 """
 from __future__ import annotations
 
 import datetime
+import socket
 
+import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.util import collective as col
 from ray_tpu_torch.util.collective.collective import DEFAULT_TIMEOUT_S
+from ray_tpu_torch.util.collective.device_backend import store_wait
 
 SHUTDOWN_TIMEOUT_S = 60.0
-_NOT_PORTED = ("{what} is not ported yet: the port's gang runs one gloo "
-               "group per rank over the host; see ROADMAP Queue 1 item 8 "
-               "(the NCCL device collective backend)")
+_NO_DISTRIBUTED = (
+    "distributed=True (one world of ranks across hosts, jax.distributed's "
+    "twin) is not ported yet: it needs a rank layout across processes, "
+    "which the port does not have; a gang of worker processes joins one "
+    "collective group (collective_backend='gloo' or 'nccl')")
 
 
 class Backend:
@@ -63,15 +72,32 @@ def group_name_of(group_name: str, rank: int, rank_threads: bool) -> str:
     return f"{group_name}_r{int(rank)}" if rank_threads else group_name
 
 
+def _local_rank(store, world_rank: int, world_size: int,
+                timeout_s: float) -> int:
+    """This rank's index among the ranks on its host, in world order."""
+    store.set(f"host{world_rank}", socket.gethostname())
+    keys = [f"host{r}" for r in range(world_size)]
+    store_wait(store, keys, timeout_s, "local rank")
+    hosts = [store.get(k) for k in keys]
+    return sum(1 for r in range(world_rank) if hosts[r] == hosts[world_rank])
+
+
 def _join_group(world_rank, world_size, address, group_name, rank_threads,
-                timeout_s):
-    """Run on each rank by ``on_start``: joins ``group_name``'s gloo
-    group and returns the name it is registered under here."""
+                timeout_s, backend="gloo"):
+    """Run on each rank by ``on_start``: joins ``group_name``'s group on
+    ``backend`` (an NCCL rank on ``cuda:<its rank on its host>``) and
+    returns the name it is registered under here."""
     store = dist.PrefixStore(group_name, _store(address, world_size,
                                                 world_rank, timeout_s))
     registered = group_name_of(group_name, world_rank, rank_threads)
-    col.init_collective_group(world_size, world_rank, group_name=registered,
-                              store=store, timeout_s=timeout_s)
+    device = None
+    if backend == "nccl":
+        device = torch.device("cuda", _local_rank(
+            dist.PrefixStore("local_rank", store), world_rank, world_size,
+            timeout_s))
+    col.init_collective_group(world_size, world_rank, backend,
+                              group_name=registered, store=store,
+                              timeout_s=timeout_s, device=device)
     return registered
 
 
@@ -81,9 +107,10 @@ def _leave_group(world_rank, world_size, group_name, rank_threads):
 
 
 class TorchBackend(Backend):
-    """The data-parallel backend of the port: one gloo group over the
-    gang, which ``train.ddp``'s bucketed sync, ``ZeroOptimizer`` and the
-    sharded checkpoints' commit run on."""
+    """The data-parallel backend of the port: one collective group over
+    the gang, on the config's ``collective_backend``, which
+    ``train.ddp``'s bucketed sync, ``ZeroOptimizer`` and the sharded
+    checkpoints' commit run on."""
 
     def __init__(self, config: "TorchConfig"):
         self.config = config
@@ -101,7 +128,8 @@ class TorchBackend(Backend):
                 0, "free_coordinator_address")
         worker_group.execute(
             "run_setup", (_join_group, (address, cfg.group_name,
-                                        cfg.rank_threads, cfg.timeout_s), {}),
+                                        cfg.rank_threads, cfg.timeout_s,
+                                        cfg.collective_backend), {}),
             timeout=cfg.timeout_s)
 
     def on_shutdown(self, worker_group):
@@ -120,10 +148,11 @@ class TorchBackend(Backend):
 class TorchConfig:
     """The port's ``JaxConfig``. ``coordinator_address`` (None: rank 0's
     ``free_coordinator_address()``) is where the ranks meet;
-    ``timeout_s`` bounds the meeting and every op of the group;
-    ``rank_threads`` is for a gang whose ranks are threads of one
-    process. ``distributed=True`` (jax.distributed across hosts) and
-    ``collective_backend="nccl"`` are not ported and raise."""
+    ``collective_backend`` is the group's: ``"gloo"``, ``"nccl"`` or
+    ``"device"`` (which needs ``rank_threads``); ``timeout_s`` bounds the
+    meeting and every op of the group; ``rank_threads`` is for a gang
+    whose ranks are threads of one process. ``distributed=True``
+    (jax.distributed across hosts) is not ported and raises."""
 
     def __init__(self, distributed: bool = False,
                  coordinator_address: str | None = None,
@@ -132,14 +161,16 @@ class TorchConfig:
                  timeout_s: float = DEFAULT_TIMEOUT_S,
                  rank_threads: bool = False):
         if distributed:
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="distributed=True (one process group across hosts)"))
-        if collective_backend == "nccl":
-            raise NotImplementedError(_NOT_PORTED.format(
-                what="collective_backend='nccl'"))
-        if collective_backend != "gloo":
+            raise NotImplementedError(_NO_DISTRIBUTED)
+        if collective_backend not in col.BACKENDS:
             raise ValueError(f"unknown collective backend "
-                             f"{collective_backend!r}: the port's is 'gloo'")
+                             f"{collective_backend!r}: the port's are "
+                             f"{', '.join(repr(b) for b in col.BACKENDS)}")
+        if collective_backend == "device" and not rank_threads:
+            raise ValueError("collective_backend='device' exchanges through "
+                             "one process's memory: its ranks are threads "
+                             "(rank_threads=True); worker processes use "
+                             "'nccl' or 'gloo'")
         self.distributed = distributed
         self.coordinator_address = coordinator_address
         self.group_name = group_name

@@ -1,15 +1,19 @@
 """Bucketed data-parallel gradient sync and the ZeRO-style sharded
-optimizer, over the port's gloo collective groups. Port of
+optimizer, over the port's collective groups. Port of
 ``ray_tpu/train/ddp.py``.
 
 - The grad tree is flattened in sorted-key order and planned into
   size-targeted buckets (``RAY_TPU_TORCH_TRAIN_GRAD_BUCKET_BYTES``, 4 MiB
   by default; ``parallel/sharding.plan_buckets``). Every rank derives the
   same buckets.
-- Each bucket is packed into one host tensor (pinned, for CUDA grads) and
-  its allreduce starts asynchronously as soon as it is packed, so bucket
-  k's comm overlaps the packing of bucket k+1 and whatever the caller
-  runs before ``result()``.
+- Each bucket is packed into one tensor and its allreduce starts as
+  soon as it is packed. On a gloo group the tensor is on the host
+  (pinned, for CUDA grads) and the allreduce runs asynchronously, so
+  bucket k's comm overlaps the packing of bucket k+1 and whatever the
+  caller runs before ``result()``. On a group that keeps device tensors
+  (``"device"``, ``"nccl"``) the bucket is packed on the grads' device
+  and its reduction is kernels on the caller's stream: nothing crosses
+  to the host.
 - ``result()`` waits the buckets in launch order, unpacks each onto its
   leaves' device, and adds the time it was blocked to ``wait_s``.
 
@@ -17,14 +21,15 @@ Determinism contract (the twin's, ``ray_tpu/train/ddp.py:32-43``): all
 ranks return byte-identical synced grads. At world 2 every element is one
 two-operand IEEE add, which commutes, so bucketed sync is bit-identical
 to the ``RAY_TPU_TORCH_TRAIN_BUCKET_DDP=0`` kill switch (one synchronous
-allreduce over the whole tree, one per dtype). At larger worlds the
-reduction order follows gloo's chunking and the two agree within float
-reassociation.
+allreduce over the whole tree, one per dtype), and the device group's
+sync is gloo's. At larger worlds the reduction order follows the
+backend (gloo's chunking, the device group's rank order) and the two
+agree within float reassociation.
 
 Not ported yet (ROADMAP Queue 1, "left out of the gang slice"): the
-quantized wire, the telemetry, memory-anatomy and profiler spans the twin
-stamps, and the poison path that fails pending handles when a member
-dies.
+quantized wire, and the telemetry, memory-anatomy and profiler spans the
+twin stamps. A poisoned group (``collective.abort_collective_group``)
+fails the pending handles with ``CollectiveGroupError``.
 """
 from __future__ import annotations
 
@@ -228,7 +233,9 @@ def _sync_shards_async(grads, group_name: str, *, average: bool,
     plan = sh.plan_buckets(leaves, bucket_bytes)
     shard_map = sh.plan_shard_map(
         leaves, plan, col.get_collective_group_size(group_name))
-    return _launch_shards((sh.pack_bucket(leaves, indices) for indices in plan),
+    on_device = col.keeps_device(group_name)
+    return _launch_shards((sh.pack_bucket(leaves, indices, on_device)
+                           for indices in plan),
                           group_name, shard_map, average=average)
 
 
@@ -264,12 +271,14 @@ def sync_gradients_async(grads, group_name: str = "train_dp", *,
         return _DoneSync(grads)
     if bucket_bytes is None:
         bucket_bytes = int(get_config("train_grad_bucket_bytes"))
+    on_device = col.keeps_device(group_name)
     if not _bucketed(group_name):
         # the whole tree as one synchronous allreduce per dtype (a bucket
         # is contiguous in one dtype): what the kill switch promises
         out_leaves: list = [None] * len(leaves)
         for indices in sh.plan_buckets(leaves, 1 << 62):
-            flat = col.allreduce(sh.pack_bucket(leaves, indices), group_name)
+            flat = col.allreduce(sh.pack_bucket(leaves, indices, on_device),
+                                 group_name)
             if average:
                 flat.div_(world)
             sh.unpack_bucket(flat, leaves, indices, out_leaves)
@@ -277,8 +286,8 @@ def sync_gradients_async(grads, group_name: str = "train_dp", *,
     # pack on the caller's thread: bucket b's device-to-host copy runs
     # while buckets < b are already on the wire
     launched = [(indices,
-                 col.allreduce_async(sh.pack_bucket(leaves, indices),
-                                     group_name))
+                 col.allreduce_async(
+                     sh.pack_bucket(leaves, indices, on_device), group_name))
                 for indices in sh.plan_buckets(leaves, bucket_bytes)]
     return PendingGradSync(treedef, leaves, launched, world, average)
 
@@ -301,7 +310,10 @@ def sync_gradients(grads, group_name: str = "train_dp", *,
 # Grads arrive per bucket by reducescatter, so each rank holds only its
 # [lo, hi) shard of every bucket; the optimizer state for that shard lives
 # only on its owner rank, on the host; the updated param shards return by
-# async allgathers, waited at first use of the new params.
+# async allgathers, waited at first use of the new params. On a group that
+# keeps device tensors the grads are packed, reducescattered and the param
+# shards allgathered on the card; only this rank's shard of each bucket
+# crosses to the host for the optimizer and back.
 #
 # The shard optimizers are elementwise, so applying them per shard and
 # gathering is the computation the legacy path runs on the full vector,
@@ -451,14 +463,16 @@ class ZeroOptimizer:
     shard map (``parallel/sharding.plan_shard_map``) gives it, holds
     optimizer state, on the host, for that shard only, and updates only
     those elements: ``state_bytes()`` is about
-    ``replicated_state_bytes() / world``.
+    ``replicated_state_bytes() / world``. On a group that keeps device
+    tensors the grads, their accumulators and the gathered params stay
+    on the card, and the shard's optimizer runs on the host.
 
     ``step_async`` folds the grads bucket by bucket and launches each
     bucket's reducescatter; then, bucket by bucket, it waits this rank's
     shard, applies the optimizer to it and launches the allgather of the
     updated param shard. The returned :class:`PendingParams` waits the
     gathers at first use. ``accumulate(grads)`` folds earlier microbatches
-    into host accumulators with no comm. ``state_budget_bytes`` caps this
+    into accumulators with no comm. ``state_budget_bytes`` caps this
     rank's shard state: materializing more raises.
     """
 
@@ -612,14 +626,16 @@ class ZeroOptimizer:
 
     # ------------------------------------------------------------ step
     def accumulate(self, grads):
-        """Fold one microbatch's grads into the host accumulators (pack
-        and add, no comm). Pass the last microbatch to ``step_async``."""
+        """Fold one microbatch's grads into the accumulators, packed as
+        the sync packs them (pack and add, no comm). Pass the last
+        microbatch to ``step_async``."""
         leaves, _ = sh.flatten_tree(grads)
         self._ensure_plan(leaves)
         if self._acc is None:
             self._acc = [None] * len(self._plan)
+        on_device = col.keeps_device(self._group)
         for b, indices in enumerate(self._plan):
-            flat = sh.pack_bucket(leaves, indices)
+            flat = sh.pack_bucket(leaves, indices, on_device)
             if self._acc[b] is None:
                 self._acc[b] = flat   # pack allocates: safe to own
             else:
@@ -638,13 +654,14 @@ class ZeroOptimizer:
         gleaves = None if grads is None else sh.flatten_tree(grads)[0]
         self._step += 1
         acc, self._acc = self._acc, None
+        on_device = col.keeps_device(self._group)
 
         def folded():  # bucket b's grads, packed and folded
             for b, indices in enumerate(self._plan):
                 if gleaves is None:
                     yield acc[b]
                     continue
-                flat = sh.pack_bucket(gleaves, indices)
+                flat = sh.pack_bucket(gleaves, indices, on_device)
                 if acc is not None and acc[b] is not None:
                     flat += acc[b]
                 yield flat
@@ -660,15 +677,18 @@ class ZeroOptimizer:
         for b, indices in enumerate(self._plan):
             lo, hi = self._my_bounds(b)
             pshard = sh.pack_span(leaves, indices, lo, hi)
-            gshard = shards.wait_bucket(b, timeout)
+            # the shard's optimizer runs on the host
+            gshard = shards.wait_bucket(b, timeout).cpu()
             pshard = self._opt.apply(pshard, gshard, self._shard_state(b),
                                      self._step)
-            # gloo gathers equal sizes only: pad to the bucket's widest
-            # shard, and PendingParams trims to the bounds
+            # gloo and NCCL gather equal sizes only: pad to the bucket's
+            # widest shard, and PendingParams trims to the bounds
             width = max(h - l for l, h in self._shard_map[b]["bounds"])
             if pshard.numel() < width:
                 pshard = torch.cat(
                     [pshard, pshard.new_zeros(width - pshard.numel())])
+            if on_device:
+                pshard = pshard.to(leaves[indices[0]].device)
             if bucketed:
                 gathers.append((b, col.allgather_async(pshard, self._group)))
             else:

@@ -10,7 +10,7 @@ generation written by either package restores in the other.
   sha256 recorded. Params come from the torch leaves, wherever they
   live; optimizer slots from ``train.ddp.ZeroOptimizer.shard_state_dict``.
 - **Two-phase commit.** The ranks ack their shard's digest over the
-  collective group (``allgather_object``); then rank 0 alone writes the
+  collective group (``allgather_object``, on any backend); then rank 0 alone writes the
   generation's ``MANIFEST.json`` (world, plan fingerprint, buckets,
   slots, every shard's file, digest and size) the same way. A generation
   without a manifest is torn and invisible to restore. Without a group,

@@ -5,12 +5,20 @@ gloo runs each op on its own worker threads and tags ops in the order they
 are submitted, so every rank matches the same op sequence. Its ``Work``
 cannot be relied on for completion, though: the one a gloo reducescatter
 returns never reports itself completed and ignores the timeout of
-``wait``. So each group has one completion thread (``CompletionQueue``)
-that waits its ops' ``Work`` in submission order, without a timeout of
-its own (gloo fails an op after the group's timeout), and completes each
-op's ``CollectiveHandle``. A caller waits on the handle, which honours its
-timeout: ``result(timeout)`` raises ``TimeoutError`` when the wait runs
-out, and never hangs.
+``wait``. So each gloo group has one completion thread
+(``CompletionQueue``) that waits its ops' ``Work`` in submission order,
+without a timeout of its own (gloo fails an op after the group's
+timeout), and completes each op's ``CollectiveHandle``. A caller waits on
+the handle, which honours its timeout: ``result(timeout)`` raises
+``TimeoutError`` when the wait runs out, and never hangs.
+
+A poisoned group (``collective.abort_collective_group``) fails every
+handle still pending at once with its ``CollectiveGroupError``
+(``CompletionQueue.fail_pending``); the first completion of a handle
+wins, so gloo's late ``Work`` does not overwrite it. The device and NCCL
+groups run an op's host part when it is started and hand back a handle
+that is already complete (``CollectiveHandle.completed``): their work is
+kernels on the caller's stream.
 """
 from __future__ import annotations
 
@@ -33,6 +41,13 @@ class CollectiveHandle:
         self._default_timeout = default_timeout
         self._done = threading.Event()
         self._error = None
+
+    @classmethod
+    def completed(cls, group: str, op: str, value) -> "CollectiveHandle":
+        """A handle of an op that already ran."""
+        handle = cls(group, op, value, 0.0)
+        handle._finish()
+        return handle
 
     def poll(self) -> bool:
         """True once the op finished, successfully or not. Never blocks."""
@@ -57,6 +72,9 @@ class CollectiveHandle:
         return self._value
 
     def _finish(self, error=None):
+        """Complete the handle; only the first completion counts."""
+        if self._done.is_set():
+            return
         self._error = error
         self._done.set()
 
@@ -67,13 +85,24 @@ class CompletionQueue:
 
     def __init__(self, group: str):
         self._queue: queue.SimpleQueue = queue.SimpleQueue()
+        self._pending: set = set()
+        self._lock = threading.Lock()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"collective-{group}")
         self._thread.start()
 
     def put(self, work, handle: CollectiveHandle) -> CollectiveHandle:
+        with self._lock:
+            self._pending.add(handle)
         self._queue.put((work, handle))
         return handle
+
+    def fail_pending(self, make_error) -> None:
+        """Fail every handle not completed yet with ``make_error()``."""
+        with self._lock:
+            pending, self._pending = self._pending, set()
+        for handle in pending:
+            handle._finish(make_error())
 
     def close(self):
         """Stop after the ops already submitted complete."""
@@ -88,3 +117,5 @@ class CompletionQueue:
                 handle._finish(e)
             else:
                 handle._finish()
+            with self._lock:
+                self._pending.discard(handle)

@@ -221,10 +221,13 @@ def test_torch_config_mirrors_jax_config():
     assert cfg.backend_cls().group_name_of(3) == "train_dp"
 
 
-@pytest.mark.parametrize("kw", [{"collective_backend": "nccl"},
+@pytest.mark.parametrize("kw", [{"distributed": True, "collective_backend": "nccl"},
                                 {"distributed": True}])
 def test_what_is_not_ported_raises(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    """distributed=True names what it lacks by title; the NCCL backend is
+    a working config (test_torch_device_gang.py)."""
+    with pytest.raises(NotImplementedError,
+                       match="a rank layout across processes"):
         TB.TorchConfig(**kw)
 
 
@@ -233,3 +236,5 @@ def test_a_bad_address_raises_before_any_store():
         TB._store("no-port-here", 2, 0, 1.0)
     with pytest.raises(ValueError, match="unknown collective backend"):
         TB.TorchConfig(collective_backend="mpi")
+    with pytest.raises(ValueError, match="rank_threads=True"):
+        TB.TorchConfig(collective_backend="device")
