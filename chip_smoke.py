@@ -179,7 +179,34 @@ Phases, each of which exits non-zero on failure:
    result on the card, and two NCCL ranks on one card are refused within
    seconds (if torch has no NCCL, the backend's refusal is printed); (d)
    a rank that raises while its peers wait in an allreduce poisons the
-   group: they raise ``CollectiveGroupError`` naming it within POISON_S.
+   group: they raise ``CollectiveGroupError`` naming it within POISON_S;
+9. serving (``serving``): (a) the GPU probe (``probe_chips``,
+   ``probe_devices``, ``detect_resources``) in a child process of this
+   script (``PROBE_GPUS``), which must leave CUDA uninitialized there,
+   count the card, give CUDA's total memory to the MiB and one GPU, and
+   ``publish_local_device_gauges`` here, which must publish ``in_use``
+   and ``limit``; (b) phase 3's GPT-2-small weights (seed 0) through
+   ``Checkpoint.from_torch`` and ``to_torch("cuda")``, every leaf back
+   bit for bit; (c) ``TorchPredictor.from_checkpoint`` on them (12
+   layers, 12 heads of 64, d 768, vocab 50304, S 1024, bf16, remat on as
+   shipped) behind the port's ``@batch`` (max 16, buckets 1-16, 5 ms),
+   answering the last position's f32 logits and their argmax to
+   SERVE_CLIENTS threads sending SERVE_REQUESTS requests of 1024 token
+   ids from a seed, staggered (SERVE_STAGGER_S) so that batches pad,
+   every batch reaching the card through one ``iter_device_batches``
+   stream, after a warm-up call of each bucket: every answer within
+   LOGITS_ATOL_RMS and LOGITS_RTOL of the request run alone with
+   reference attention, its greedy token the reference's where the
+   margin is clear; some pad slot run; ``flash_fwd`` launched 12 times
+   a batch call and every other kernel never; no new batch signature
+   after warm-up; it prints requests/s, tokens/s, p50 and p99 latency, the
+   batches by bucket, the pad waste and the card's peak memory; (d)
+   DEVICE_BATCHES batches through ``iter_device_batches`` under a
+   consumer running the forward, each as the consumer's stream read it
+   after the forward equal to its host source bit for bit (checked two
+   batches later), and a profile, in a child process
+   (``PROFILE_DEVICE_BATCHES``), whose batch copies must be pinned and
+   on another stream than the forward's.
 
 Each multi-rank phase prints its step beside the same step on gloo as
 PERF.md records it (``GLOO_STEP_MS``); 6d and 6f (``PROFILED_RUNS``)
@@ -194,8 +221,9 @@ for the bf16_d256 ones, the tiny configs with a head of 320 for the
 split-head-dim ones, the f32 tiny config with a head of 256 for the
 f32 kernels' head-dim-256 instances, listed apart as ``*_f32_d256``),
 and ``tiny_launches``, ``moe_launches``,
-``gang_launches``, ``pipeline_launches`` (phase 6's runs and 6f-6h's)
-and ``entry_launches`` (phase 7's) the other runs'; the last
+``gang_launches``, ``pipeline_launches`` (phase 6's runs and 6f-6h's),
+``entry_launches`` (phase 7's) and ``serve_launches`` (9c's traffic) the
+other runs'; the last
 line is ``{"ok": true,
 "device": {...}}``. Without
 CUDA, or without the rest of the repository beside it, the script exits
@@ -207,6 +235,7 @@ import dataclasses
 import json
 import math
 import os
+import queue
 import statistics
 import subprocess
 import sys
@@ -262,6 +291,19 @@ F32_FLOOR = 1e-6
 LOSS_RTOL = 1e-4
 GRAD_NORM_RTOL = 2e-3
 ATTN_GRAD_RTOL = 2.5e-2  # ||g_flash - g_ref|| / ||g_ref|| per attention leaf
+# GPT-2-small's forward alone (phase 9c, serving): the last position's f32
+# logits of a request answered in a padded batch with flash attention,
+# against the same request run alone with reference attention (f32
+# softmax and p.v), both bf16 compute, element by element:
+# |l - r| <= LOGITS_ATOL_RMS * rms(r), and ||l - r|| / ||r|| <= LOGITS_RTOL.
+# The two differ by flash's bf16 p and by the batch's other GEMM shapes
+# (other cuBLAS kernels, other bf16 roundings of the residual stream).
+# Readings (PERF.md, PR 29): worst element 5.6e-2 of the rms, norm 1.21e-2;
+# a forward whose last 128 rows drop KV tile 0's p.v read 0.583 and 0.120.
+# The greedy token must be the reference's wherever its top-2 margin
+# exceeds twice the element bound.
+LOGITS_ATOL_RMS = 2.0 ** -3
+LOGITS_RTOL = 2.0 ** -5
 
 # The data-parallel gang phase: two rank threads share the card, each on
 # half the main path's batch, with 4 MiB buckets (the port's default).
@@ -404,6 +446,34 @@ MESH_DEVICES = 4
 # the repository's build/ directory (two generations, ~3 GB), deleted at
 # the end.
 CKPT_DIR = "build/chip_smoke_checkpoints"
+
+# Phase 9, serving: (a) the GPU probe in a child process of this script
+# (``PROBE_GPUS``), which must leave CUDA uninitialized there; (b) phase
+# 3's GPT-2-small weights through Checkpoint.from_torch / to_torch under
+# SERVE_DIR (deleted at the end); (c) TorchPredictor.from_checkpoint on
+# them behind the port's @batch (SERVE_MAX_BATCH, power-of-two buckets,
+# SERVE_WAIT_S), SERVE_CLIENTS client threads sending SERVE_REQUESTS
+# requests of max_seq token ids drawn from SERVE_SEED, client c waiting
+# c * SERVE_STAGGER_S before each so that arrivals spread past the wait and
+# batches come in sizes the buckets pad, every batch reaching the card
+# through one iter_device_batches stream; (d) DEVICE_BATCHES batches of
+# DEVICE_BATCH_ROWS rows (token ids and an f32 block of DEVICE_BATCH_COLS
+# columns a token) through iter_device_batches under a consumer running
+# the forward, each held to its host source, and a profile, taken in a
+# child process (``PROFILE_DEVICE_BATCHES``), of the copies
+SERVE_DIR = "build/chip_smoke_serving"
+SERVE_MAX_BATCH = 16
+SERVE_WAIT_S = 0.005
+SERVE_CLIENTS = 8
+SERVE_STAGGER_S = 0.002
+SERVE_REQUESTS = 64
+SERVE_SEED = 9
+DEVICE_BATCHES = 64
+DEVICE_BATCH_ROWS = 8
+DEVICE_BATCH_COLS = 256
+PROFILED_DEVICE_BATCHES = 6
+PROBE_GPUS = "--probe-gpus"
+PROFILE_DEVICE_BATCHES = "--profile-device-batches"
 
 REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:29",
             "flash_bwd_dq": "ray_tpu/ops/flash_attention.py:160",
@@ -2971,6 +3041,403 @@ def collectives(torch, card: str):
         fail(f"collectives: {'; '.join(bad)}")
 
 
+def probe_gpus() -> dict:
+    """Phase 9a's child process: the probe's records, and whether this
+    process initialized CUDA (it must not have)."""
+    import torch
+
+    from ray_tpu_torch._private import gpu_probe
+
+    return {"chips": gpu_probe.probe_chips(),
+            "devices": gpu_probe.probe_devices(),
+            "resources": gpu_probe.detect_resources(),
+            "topology": gpu_probe.detect_gpu_topology(),
+            "cuda_initialized": torch.cuda.is_initialized()}
+
+
+def _child(flag: str, env=None) -> dict:
+    """The last line of ``python chip_smoke.py <flag>``, as JSON; the
+    child's output is printed when it has none."""
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                           capture_output=True, text=True, timeout=GANG_JOIN_S,
+                           env={**os.environ, **(env or {})})
+    try:
+        return json.loads(child.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        print(child.stdout[-2000:] + child.stderr[-4000:], flush=True)
+        fail(f"the child process {flag} printed no result "
+             f"(exit {child.returncode})")
+
+
+def check_probe(torch, card: str) -> None:
+    """Phase 9a: the probe in a child process (no CUDA context there),
+    against what torch reads here; the in-process gauges after phase 8."""
+    from ray_tpu_torch._private import gpu_probe
+    from ray_tpu_torch._private import telemetry as tm
+
+    got = _child(PROBE_GPUS, {"RAY_TPU_TORCH_DETECT_GPUS": "1"})
+    chips, devices = got["chips"] or {}, got["devices"] or []
+    print(f"serve probe: {card}: probe_chips {json.dumps(chips)}", flush=True)
+    for d in devices:
+        print(f"serve probe: {card}: device {json.dumps(d)}", flush=True)
+    print(f"serve probe: detect_resources {json.dumps(got['resources'])}; "
+          f"detect_gpu_topology {json.dumps(got['topology'])}; CUDA "
+          f"initialized in the probing process: {got['cuda_initialized']}",
+          flush=True)
+    bad = []
+    if got["cuda_initialized"]:
+        bad.append("the probe initialized CUDA in its process")
+    if chips.get("chips") != torch.cuda.device_count() \
+            or len(devices) != torch.cuda.device_count():
+        bad.append(f"probe counts {chips.get('chips')} / {len(devices)} "
+                   f"cards, torch {torch.cuda.device_count()}")
+    for d in devices:
+        total = torch.cuda.mem_get_info(d["id"])[1]
+        # nvidia-smi reports whole MiB
+        if abs(d["memory_bytes_limit"] - total) >= 1 << 20:
+            bad.append(f"device {d['id']}: memory_bytes_limit "
+                       f"{d['memory_bytes_limit']} against torch's {total}")
+        print(f"serve probe: device {d['id']}: memory_bytes_limit "
+              f"{d['memory_bytes_limit']}, torch.cuda.mem_get_info total "
+              f"{total}", flush=True)
+    if got["resources"].get("GPU") != 1.0:
+        bad.append(f"detect_resources GPU {got['resources'].get('GPU')}")
+    n = gpu_probe.publish_local_device_gauges()
+    rows = tm.snapshot().get("ray_tpu_torch_device_memory_bytes", [])
+    stats = {r["tags"]["stat"]: r["value"] for r in rows
+             if r["tags"]["device"] == "0"}
+    print(f"serve probe: {card}: publish_local_device_gauges here: {n} "
+          f"device(s), device 0 {stats}", flush=True)
+    if set(stats) != {"in_use", "limit"}:
+        bad.append(f"local gauges published {sorted(stats)}")
+    if bad:
+        fail(f"probe: {'; '.join(bad)}")
+
+
+def serve_model(torch):
+    """GPT-2-small as ``gpt2_small()`` ships it (bf16 compute, remat on),
+    and phase 3's weights (seed 0)."""
+    from ray_tpu_torch.models import gpt2
+
+    cfg = gpt2.gpt2_small()
+    params = gpt2.init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    return cfg, params
+
+
+def check_checkpoint(torch, params, card: str):
+    """Phase 9b: the weights through Checkpoint.from_torch / to_torch,
+    every leaf back bit for bit. Returns the checkpoint."""
+    from ray_tpu_torch._private.tree import tree_leaves
+    from ray_tpu_torch.air.checkpoint import TORCH_STATE, Checkpoint
+
+    path = os.path.join(SERVE_DIR, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = Checkpoint.from_torch({"params": params}, path=path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.to_torch("cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, TORCH_STATE, f))
+                 for f in os.listdir(os.path.join(path, TORCH_STATE)))
+    a, b = tree_leaves(params), tree_leaves(back["params"])
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and y.device.type == "cuda"
+        and torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+    print(f"serve checkpoint: {card}: from_torch of {len(a)} leaves, "
+          f"{nbytes} bytes, write {write_s * 1e3:.1f} ms, to_torch('cuda') "
+          f"{read_s * 1e3:.1f} ms (the file read warm), every leaf "
+          f"{'bit-equal' if same else 'NOT bit-equal'}", flush=True)
+    if not same:
+        fail("checkpoint: a leaf came back with other bits")
+    return ckpt
+
+
+def serve(torch, fa, cfg, ckpt, card: str):
+    """Phase 9c: TorchPredictor behind @batch, SERVE_CLIENTS client threads
+    sending SERVE_REQUESTS requests; every answer held to the request run
+    alone through reference attention. Returns the launch counts of the
+    traffic's batch calls."""
+    import numpy as np
+
+    from ray_tpu_torch._private import telemetry as tm
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import batch
+    from ray_tpu_torch.serve.batching import default_bucket_sizes
+    from ray_tpu_torch.train.predictor import TorchPredictor
+
+    def last_token(p, tokens):
+        logits = gpt2.next_token_logits(p, tokens, cfg)
+        return logits, logits.argmax(-1)
+
+    class Model:
+        def __init__(self):
+            self.predictor = TorchPredictor.from_checkpoint(
+                ckpt, apply_fn=last_token)
+            self.calls = []  # padded batch sizes, one a batch call
+            # one device-batch stream for every batch call: the batcher
+            # runs one call at a time, each putting its stacked requests
+            # and taking them back on the card
+            self.host = queue.Queue()
+            self.device = iter_device_batches(self.stacked())
+
+        def stacked(self):
+            while (requests := self.host.get()) is not None:
+                yield requests
+
+        @batch(max_batch_size=SERVE_MAX_BATCH, batch_wait_timeout_s=SERVE_WAIT_S)
+        def predict(self, requests: list):
+            self.host.put(np.stack(requests))
+            logits, top = self.predictor.predict(next(self.device))
+            self.calls.append(len(requests))
+            return list(zip(logits, top))
+
+    model = Model()
+    fn = "predict"
+    batcher = model.predict._serve_batcher
+    buckets = default_bucket_sizes(SERVE_MAX_BATCH)
+    requests = np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (SERVE_REQUESTS, cfg.max_seq), dtype=np.int64)
+
+    def misses():
+        return sum(r["value"] for r in tm.snapshot().get(
+            "ray_tpu_torch_serve_batch_signature_total", [])
+            if r["tags"] == {"fn": fn, "result": "miss"})
+
+    # warm-up: one batch call of each bucket, through the batcher's
+    # classified call as its loop makes it
+    for b in buckets:
+        batcher._fn(list(requests[:b]))
+    warm_misses = misses()
+    first = {r["tags"]["fn"]: r for r in tm.snapshot().get(
+        "ray_tpu_torch_serve_batch_first_call_seconds", [])}.get(fn)
+    model.calls.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    answers, latency = [None] * SERVE_REQUESTS, [None] * SERVE_REQUESTS
+    start = threading.Barrier(SERVE_CLIENTS)
+
+    def client(c):
+        start.wait()
+        for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+            time.sleep(c * SERVE_STAGGER_S)
+            t0 = time.perf_counter()
+            answers[i] = model.predict(requests[i])
+            latency[i] = time.perf_counter() - t0
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(GANG_JOIN_S)
+    wall = time.perf_counter() - t0
+    model.host.put(None)
+    model.device.close()
+    launches = dict(fa.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(t.is_alive() for t in threads) or any(a is None for a in answers):
+        fail("serve: a client got no answer")
+    calls = list(model.calls)
+    bad = []
+    for name, n in launches.items():
+        expected = cfg.n_layer * len(calls) if name == "flash_fwd" else 0
+        print(f"serve: {name} launched {n} times (expected {expected})")
+        if n != expected:
+            bad.append(f"{name} launched {n} times, expected {expected}")
+    pads = sum(calls) - SERVE_REQUESTS
+    if pads <= 0:
+        bad.append(f"no batch call was padded ({calls}): the traffic never "
+                   f"ran the pad slots")
+    if misses() != warm_misses or warm_misses != len(buckets):
+        bad.append(f"signature misses {misses()} after the traffic, "
+                   f"{warm_misses} after warm-up of {len(buckets)} buckets")
+
+    # each request alone through the plain path: reference attention
+    ref_cfg = dataclasses.replace(cfg, attention="reference")
+    worst_el, worst_norm, checked, flips = 0.0, 0.0, 0, 0
+    with torch.inference_mode():
+        for i, (logits, top) in enumerate(answers):
+            ref = gpt2.next_token_logits(
+                model.predictor.params,
+                torch.from_numpy(requests[i:i + 1]).cuda(), ref_cfg)[0]
+            got = torch.from_numpy(logits).cuda()
+            rms = ref.pow(2).mean().sqrt()
+            err = (got - ref).abs()
+            worst_el = max(worst_el, float(err.max() / rms))
+            worst_norm = max(worst_norm,
+                             float((got - ref).norm() / ref.norm()))
+            top2 = ref.topk(2).values
+            if float(top2[0] - top2[1]) > 2 * LOGITS_ATOL_RMS * float(rms):
+                checked += 1
+                flips += int(int(top) != int(ref.argmax()))
+    print(f"serve: {card}: {SERVE_REQUESTS} answers against each request "
+          f"alone with reference attention: worst |l - r| / rms(r) "
+          f"{worst_el:.3e} (limit {LOGITS_ATOL_RMS:.3e}), worst "
+          f"||l - r|| / ||r|| {worst_norm:.3e} (limit {LOGITS_RTOL:.3e}); "
+          f"greedy token checked on {checked} with a margin past twice the "
+          f"bound, {flips} differ", flush=True)
+    if worst_el > LOGITS_ATOL_RMS or worst_norm > LOGITS_RTOL:
+        bad.append("an answer's logits are outside the forward limits")
+    if flips:
+        bad.append(f"{flips} greedy tokens differ where the margin is clear")
+
+    lat = sorted(latency)
+    by_bucket = {b: calls.count(b) for b in buckets if calls.count(b)}
+    print(f"serve: {card}: GPT-2-small (12 layers, d 768, 12 heads of 64, "
+          f"vocab {cfg.vocab_size}, S {cfg.max_seq}, bf16) behind @batch "
+          f"(max {SERVE_MAX_BATCH}, buckets {list(buckets)}, wait "
+          f"{SERVE_WAIT_S * 1e3:.0f} ms), {SERVE_CLIENTS} clients, "
+          f"{SERVE_REQUESTS} requests in {wall:.3f} s: "
+          f"{SERVE_REQUESTS / wall:.1f} requests/s, "
+          f"{SERVE_REQUESTS * cfg.max_seq / wall:.0f} tokens/s, latency p50 "
+          f"{float(np.percentile(lat, 50)) * 1e3:.1f} ms p99 "
+          f"{float(np.percentile(lat, 99)) * 1e3:.1f} ms; {len(calls)} batch "
+          f"calls by bucket {by_bucket}; pad waste {pads} of {sum(calls)} "
+          f"slots; peak memory {peak_gib:.2f} GiB; signature misses "
+          f"{warm_misses:.0f} (warm-up), {misses():.0f} (after); first "
+          f"calls {first['sum'] if first else 0:.3f} s in all, longest "
+          f"{first['max'] if first else 0:.3f} s", flush=True)
+    if bad:
+        fail(f"serve: {'; '.join(bad)}")
+    return launches
+
+
+def device_batch_source(cfg):
+    """Phase 9d's host batches: token ids and an f32 block, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    shape = (DEVICE_BATCH_ROWS, cfg.max_seq)
+    return [{"tokens": rng.integers(0, cfg.vocab_size, shape),
+             "block": rng.random(shape + (DEVICE_BATCH_COLS,),
+                                 dtype=np.float32)}
+            for _ in range(DEVICE_BATCHES)]
+
+
+def device_batches(torch, cfg, params, card: str) -> None:
+    """Phase 9d: DEVICE_BATCHES batches through iter_device_batches under a
+    consumer running the forward; each batch as the consumer's stream saw
+    it, after its forward (a copy taken on that stream), equal to its host
+    source bit for bit, checked two batches later; and the copies in a
+    child process's profile pinned and on another stream than the
+    forward's."""
+    from ray_tpu_torch.data import iter_device_batches
+    from ray_tpu_torch.models import gpt2
+
+    host = device_batch_source(cfg)
+    seen, bad = [], []
+
+    def check(k):
+        for key, t in seen[k].items():
+            if not torch.equal(t.cpu(), torch.from_numpy(host[k][key])):
+                bad.append(f"batch {k} {key}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for k, b in enumerate(iter_device_batches(host)):
+            gpt2.next_token_logits(params, b["tokens"], cfg)
+            # what the consumer's stream reads after the forward; the batch
+            # itself is dropped here, as a consumer drops it
+            seen.append({key: t.clone() for key, t in b.items()})
+            del b
+            if k >= 2:
+                check(k - 2)
+                seen[k - 2] = None
+        for k in range(len(host) - 2, len(host)):
+            check(k)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for a in host[0].values())
+    print(f"serve device batches: {card}: {len(host)} batches of {nbytes} "
+          f"bytes under GPT-2-small's forward at batch {DEVICE_BATCH_ROWS} "
+          f"in {dt:.3f} s ({dt / len(host) * 1e3:.1f} ms a batch): "
+          f"{'every batch bit-equal to its source' if not bad else bad}",
+          flush=True)
+    if bad:
+        fail(f"device batches: {bad[:4]} differ from the host")
+
+    got = _child(PROFILE_DEVICE_BATCHES)
+    copies = got["copies"]
+    ours = [c for c in copies if c["bytes"] in got["batch_bytes"]]
+    others = [c for c in copies if c not in ours]
+    print(f"serve device batches: profile of {PROFILED_DEVICE_BATCHES} "
+          f"batches: {len(ours)} host-to-card copies of the batches ("
+          + ", ".join(sorted({f"{c['name']} on stream {c['stream']}"
+                              for c in ours}))
+          + f"); forward kernels on streams {got['forward_streams']}; other "
+          f"host-to-card copies {others[:4] or 'none'}", flush=True)
+    if len(ours) != PROFILED_DEVICE_BATCHES * len(got["batch_bytes"]):
+        bad.append(f"{len(ours)} batch copies in the profile")
+    if not got["forward_streams"]:
+        bad.append("no forward kernel in the profile")
+    for c in ours:
+        if "Pinned" not in c["name"] or c["stream"] in got["forward_streams"]:
+            bad.append(f"copy {c}")
+    if bad:
+        fail(f"device batches: {bad[:4]}: a batch copy was not pinned or "
+             f"ran on the forward's stream")
+
+
+def profile_device_batches(torch) -> dict:
+    """Phase 9d's child process: a profile of PROFILED_DEVICE_BATCHES
+    batches through iter_device_batches under the forward; its host-to-card
+    copies (name, stream, bytes) and the forward kernels' streams."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.data import iter_device_batches
+
+    from ray_tpu_torch.models import gpt2
+
+    cfg, params = serve_model(torch)
+    host = device_batch_source(cfg)[:PROFILED_DEVICE_BATCHES]
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in iter_device_batches(host):
+            gpt2.next_token_logits(params, b["tokens"], cfg)
+        torch.cuda.synchronize()
+    path = os.path.join(SERVE_DIR, "device_batches_trace.json")
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    copies = [{"name": e["name"], "stream": e["args"].get("stream"),
+               "bytes": e["args"].get("bytes")} for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    forward = sorted({e["args"].get("stream") for e in events
+                      if e.get("cat") == "kernel"
+                      and "flash_fwd" in e["name"]})
+    return {"copies": copies, "forward_streams": forward,
+            "batch_bytes": sorted({a.nbytes for a in host[0].values()})}
+
+
+def serving(torch, card: str) -> dict:
+    """Phase 9: the probe, the checkpoint, serving and device batches.
+    Returns the launch counts of 9c's traffic."""
+    import shutil
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    check_probe(torch, card)
+    cfg, params = serve_model(torch)
+    try:
+        ckpt = check_checkpoint(torch, params, card)
+        launches = serve(torch, fa, cfg, ckpt, card)
+        device_batches(torch, cfg, params, card)
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -2978,6 +3445,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tpu_torch.ops import flash_attention as fa
 
+    if sys.argv[1:] == [PROBE_GPUS]:  # phase 9a's child, before any CUDA call
+        print(json.dumps(probe_gpus()))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
@@ -2985,6 +3455,9 @@ def main() -> int:
 
     if sys.argv[1:] == [PROFILE_COLLECTIVES]:  # phase 8's child process
         print(json.dumps({"device_events": profile_collectives(torch)}))
+        return 0
+    if sys.argv[1:] == [PROFILE_DEVICE_BATCHES]:  # phase 9d's child process
+        print(json.dumps(profile_device_batches(torch)))
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3001,6 +3474,7 @@ def main() -> int:
     pipeline_launches.update(expert_parallel(torch, fa, card))
     entry_launches = mesh_entry(torch, fa, card)
     collectives(torch, card)
+    serve_launches = serving(torch, card)
 
     kernels = []
     # each kernel's count on the path that runs it: the main path for the
@@ -3036,6 +3510,7 @@ def main() -> int:
                         "entry_launches": {
                             run: counts[counter] for run, counts
                             in entry_launches.items()},
+                        "serve_launches": serve_launches[counter],
                         **results[name], **extra})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -2,7 +2,9 @@
 entries of ``ray_tpu/_private/config.py`` (``:116-134``), same defaults:
 the bucketed DDP switch and bucket size, the DDP mode that
 ``train.ddp.sync_gradients`` reads when its ``mode`` is None, and the
-sharded checkpoint's root, async write and fsync switches.
+sharded checkpoint's root, async write and fsync switches; and of its
+device-probe entries (``:31``, ``:189``): the GPU probe's timeout and the device
+gauge poller's interval.
 
 Each entry is overridable as ``RAY_TPU_TORCH_<NAME>``, read at call time,
 so a test or an operator can set it after import. The port keeps its own
@@ -33,6 +35,11 @@ _CONFIG_DEFS: Dict[str, Any] = {
     "checkpoint_dir": "",
     "checkpoint_async": True,
     "checkpoint_fsync": True,
+    # The GPU probe (_private/gpu_probe.py): the timeout of its
+    # subprocess, and the device gauge poller's interval (0 = one probe
+    # at start, the safe default; > 0 = a probe every that many seconds).
+    "gpu_probe_timeout_s": 60.0,
+    "device_gauge_poll_s": 0.0,
 }
 
 
@@ -41,6 +48,8 @@ def _parse(env: str, default: Any):
         return env.lower() in ("1", "true", "yes")
     if isinstance(default, int):
         return int(env)
+    if isinstance(default, float):
+        return float(env)
     return env
 
 

@@ -264,6 +264,21 @@ def forward(params, tokens, cfg: GPT2Config, layout=None
     layout = rank_layout(layout)[0]
     if layout is not None:
         return _forward_on_layout(params, tokens, cfg, layout)
+    x, aux = _blocks_forward(params, tokens, cfg)
+    return unembed(params, x, cfg), aux
+
+
+def next_token_logits(params, tokens, cfg: GPT2Config) -> torch.Tensor:
+    """tokens [B, S] -> the last position's logits [B, V] f32: ``forward``'s
+    ``[:, -1]``, with the vocab projection of that position alone (what a
+    server answers; the whole ``[B, S, V]`` is S times the bytes)."""
+    x, _ = _blocks_forward(params, tokens, cfg)
+    return unembed(params, x[:, -1:], cfg)[:, 0]
+
+
+def _blocks_forward(params, tokens, cfg: GPT2Config):
+    """The embedding and the blocks on one device: (x [B, S, D], the MoE
+    aux loss over n_layer)."""
     impl = _resolve_attention(cfg, tokens.device)
     x = embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -280,8 +295,7 @@ def forward(params, tokens, cfg: GPT2Config, layout=None
             x, a = _block_apply(block, x, cfg, impl)
         if a is not None:
             aux = aux + a
-    logits = unembed(params, x, cfg)
-    return logits, aux / cfg.n_layer
+    return x, aux / cfg.n_layer
 
 
 def _forward_on_layout(params, tokens, cfg: GPT2Config, layout):

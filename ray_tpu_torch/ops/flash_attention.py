@@ -493,7 +493,8 @@ def flash_attention(
         scale = 1.0 / (D ** 0.5)
 
     def to_bh(x):
-        return x.transpose(1, 2).reshape(B * H, S, D)
+        # at B 1 the reshape is a view with the heads' stride, not a copy
+        return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
 
     o = _FlashAttention.apply(to_bh(q), to_bh(k), to_bh(v), float(scale),
                               bool(causal))

@@ -2,7 +2,7 @@
 """One of chip_smoke.py's multi-rank phases alone, with its gates and
 its timings, from the checkout at ROOT (this repository by default):
 
-    python scripts/phase.py --phase 6f|7|8 [ROOT] [--runs NAME,NAME]
+    python scripts/phase.py --phase 6f|7|8|9 [ROOT] [--runs NAME,NAME]
 
 ``6f`` is the expert-parallel phase (6f-6h: GPT-2-small-MoE at dp 2 x
 ep 2, ep 2 x tp 2 and sp 2 x ep 2 on rank threads, ROOT's
@@ -10,7 +10,9 @@ ep 2, ep 2 x tp 2 and sp 2 x ep 2 on rank threads, ROOT's
 (7a-7c: GPT-2-small and GPT-2-small-MoE through create_mesh, Mesh.join,
 make_train_state and make_train_step on four rank threads, remat on,
 ROOT's ``mesh_entry`` over its ``MESH_RUNS``); ``8`` is the collective
-backends' phase (ROOT's ``collectives``, which has no runs). It builds
+backends' phase (ROOT's ``collectives``, which has no runs); ``9`` is the
+serving phase (ROOT's ``serving``: the GPU probe, the checkpoint,
+GPT-2-small behind the batcher and device batches; no runs). It builds
 the kernels of
 ROOT's package, prints the card's name and power limit, runs the runs
 named by ``--runs`` (all of them by default) and exits 1 if one of its
@@ -27,7 +29,8 @@ import sys
 # phase -> (chip_smoke's table of runs, the function that runs them)
 PHASES = {"6f": ("EP_RUNS", "expert_parallel"),
           "7": ("MESH_RUNS", "mesh_entry"),
-          "8": (None, "collectives")}
+          "8": (None, "collectives"),
+          "9": (None, "serving")}
 
 
 def main() -> int:
